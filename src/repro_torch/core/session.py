@@ -1,0 +1,439 @@
+"""Stateful session API: open/run/stream/step on device-resident books.
+
+    eng = Engine("cuda-kinetic")                 # device="cuda" by default
+    with eng.open(spec) as sess:
+        for batch in sess.stream(10_000):        # one StepBatch per chunk
+            consume(batch)
+        obs = sess.step(actions)                 # gym-style RL hook
+
+  * :class:`Engine` opens sessions on an
+    :class:`~repro_torch.core.params.EnsembleSpec` or a ``MarketConfig``
+    (coerced to a homogeneous spec) and caches one :class:`ChunkRunner` per
+    (static shape, chunk length), so any scenario mixture of a shape reuses
+    one runner.
+  * A runner advances ``n <= chunk`` steps from an absolute step cursor.
+    The RNG and the scenario overlays key on the absolute step, so any
+    chunking of S steps equals one S-step run, bit for bit.
+  * The per-market params are packed once per session into two device
+    tensors (:class:`~repro_torch.core.params.PackedParams`).
+  * :meth:`Session.step` injects one external order per market at the
+    chunk's first step; ``actions=None`` equals a one-step :meth:`run`.
+  * :meth:`Session.snapshot` / :meth:`Session.restore` round-trip books,
+    cursor, params and ``stats_only`` accumulators exactly.
+
+The horizon ``num_steps`` is the default run length; ``run()``/``stream()``
+with no argument raise once the cursor has reached it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core import params as params_mod
+from repro_torch.core.config import MarketConfig
+from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.core.params import EnsembleSpec, MarketParams, PackedParams
+from repro_torch.core.result import SimResult, to_host
+from repro_torch.core.stats import MarketStats, init_stats
+from repro_torch.core.step import MarketState, initial_state
+
+#: Default chunk length (steps per kernel launch) for streaming runs.
+DEFAULT_CHUNK = 64
+
+# backend name -> factory(spec, chunk, device, **backend_opts) -> ChunkRunner
+_FACTORIES: Dict[str, Callable[..., "ChunkRunner"]] = {}
+# backend name -> reason string for backends that failed to register or build
+_FAILED: Dict[str, str] = {}
+
+
+class StepBatch(NamedTuple):
+    """A contiguous slice of per-step outputs streamed from a session."""
+
+    price: Any   # float32[M, n] clearing price (last price when no cross)
+    volume: Any  # float32[M, n] transacted volume
+    mid: Any     # float32[M, n] pre-clearing mid used for agent decisions
+
+    @property
+    def num_steps(self) -> int:
+        return int(self.price.shape[-1])
+
+    def to_numpy(self) -> "StepBatch":
+        return StepBatch(*(to_host(x) for x in self))
+
+    @staticmethod
+    def concatenate(batches) -> "StepBatch":
+        if len(batches) == 1:
+            return batches[0]
+        return StepBatch(*(torch.cat(parts, dim=-1) for parts in zip(*batches)))
+
+
+class ExternalOrders(NamedTuple):
+    """One external limit order per market: ``side_buy`` bool, ``price`` an
+    integer tick on ``[0, L)``, ``qty`` lots ``>= 0``; each broadcastable
+    to ``[M]``."""
+
+    side_buy: Any
+    price: Any
+    qty: Any
+
+
+class ChunkRunner:
+    """Backend adapter: a fixed-chunk executor on one device.
+
+    A runner is shared by every session opened with the same static shape;
+    all per-session state, the packed params included, lives in
+    :class:`Session`.
+    """
+
+    chunk: int = 1
+    stats_only: bool = False
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+
+    def init_state(self, spec: EnsembleSpec) -> MarketState:
+        return initial_state(spec, self.device)
+
+    def to_device(self, state: MarketState) -> MarketState:
+        return MarketState(*(torch.as_tensor(to_host(x), dtype=torch.float32)
+                             .to(self.device) for x in state))
+
+    def params_to_device(self, params: MarketParams) -> PackedParams:
+        """Pack the per-market params into the two device tensors."""
+        return params_mod.pack_params(params, self.device)
+
+    def init_stats(self, spec: EnsembleSpec) -> Optional[MarketStats]:
+        return init_stats(spec.num_markets, self.device) \
+            if self.stats_only else None
+
+    def stats_to_device(self, stats: MarketStats) -> MarketStats:
+        return MarketStats(*(torch.as_tensor(to_host(x), dtype=torch.float32)
+                             .to(self.device) for x in stats))
+
+    def run(self, state: MarketState, params: PackedParams, step0: int,
+            n: int, ext: Optional[Tuple[Any, Any]],
+            stats: Optional[MarketStats] = None,
+            ) -> Tuple[MarketState, StepBatch, Optional[MarketStats]]:
+        """Advance ``n <= self.chunk`` steps from absolute step ``step0``.
+
+        ``ext`` is an optional ``(ext_buy, ext_ask)`` float32[M, L] pair
+        injected at the first step. Returns the new state, a
+        :class:`StepBatch` with exactly ``n`` columns (zero columns in
+        ``stats_only`` mode), and the carried stats (``None`` otherwise).
+        """
+        raise NotImplementedError
+
+
+def register_backend(name: str):
+    """Register a factory ``f(spec, chunk, device, **opts) -> ChunkRunner``."""
+    def deco(fn):
+        _FACTORIES[name] = fn
+        _FAILED.pop(name, None)
+        return fn
+    return deco
+
+
+def record_failure(name: str, reason: str) -> None:
+    """Record why ``name`` cannot run (reported by backend_available)."""
+    _FAILED[name] = reason
+
+
+def _ensure_builtin() -> None:
+    if "cuda-kinetic" in _FACTORIES or "cuda-kinetic" in _FAILED:
+        return
+    try:
+        from repro_torch.kernels import ops  # noqa: F401 (registers)
+    except ImportError as exc:
+        record_failure("cuda-kinetic", f"{type(exc).__name__}: {exc}")
+
+
+def backends() -> "list[str]":
+    _ensure_builtin()
+    return sorted(_FACTORIES)
+
+
+def backend_available(name: str) -> Union[bool, str]:
+    """True if ``name`` is registered and nothing failed, the recorded
+    failure reason if its import or kernel build failed, False if
+    unknown."""
+    _ensure_builtin()
+    if name in _FAILED:
+        return _FAILED[name]
+    return name in _FACTORIES
+
+
+def _unknown_backend_error(name: str) -> KeyError:
+    if name in _FAILED:
+        return KeyError(f"backend {name!r} failed: {_FAILED[name]}")
+    return KeyError(f"unknown backend {name!r}; have {sorted(_FACTORIES)}")
+
+
+def run_runner_to_result(runner: ChunkRunner, spec) -> SimResult:
+    """One-session run over ``spec.num_steps`` on a bare runner."""
+    if runner.stats_only:
+        raise ValueError(
+            "stats_only is a Session-API mode: open a session and read "
+            "Session.stats instead of using the one-shot simulate() wrappers")
+    spec = EnsembleSpec.coerce(spec)
+    state = runner.init_state(spec)
+    params = runner.params_to_device(spec.params)
+    batches, t = [], 0
+    while t < spec.num_steps:
+        n = min(runner.chunk, spec.num_steps - t)
+        state, batch, _ = runner.run(state, params, t, n, None)
+        batches.append(batch)
+        t += n
+    batch = StepBatch.concatenate(batches) if batches else _empty_batch(
+        spec.num_markets, runner.device)
+    return SimResult(bid=state.bid, ask=state.ask,
+                     last_price=state.last_price, prev_mid=state.prev_mid,
+                     price_path=batch.price, volume_path=batch.volume)
+
+
+def _empty_batch(num_markets: int, device) -> StepBatch:
+    empty = torch.zeros((num_markets, 0), dtype=torch.float32, device=device)
+    return StepBatch(empty, empty, empty)
+
+
+class Engine:
+    """Runner cache + session factory for one backend on one device.
+
+    ``device`` defaults to ``"cuda"`` and raises when no card is present;
+    pass ``device="cpu"`` for the plain PyTorch versions. ``backend_opts``
+    (``scan=``, ``stats_only=``) fold into every runner the engine builds.
+    """
+
+    def __init__(self, backend: str = "cuda-kinetic", *,
+                 device=DEFAULT_DEVICE, chunk_size: Optional[int] = None,
+                 **backend_opts: Any):
+        _ensure_builtin()
+        if backend not in _FACTORIES:
+            raise _unknown_backend_error(backend)
+        self.backend = backend
+        self.device = resolve_device(device)
+        self.chunk_size = chunk_size
+        self.backend_opts = dict(backend_opts)
+        self._runners: Dict[Tuple[Any, ...], ChunkRunner] = {}
+
+    def _runner(self, spec, chunk: int) -> ChunkRunner:
+        spec = EnsembleSpec.coerce(spec)
+        key = spec.static_key() + (chunk,)
+        runner = self._runners.get(key)
+        if runner is None:
+            runner = _FACTORIES[self.backend](spec, chunk, self.device,
+                                              **self.backend_opts)
+            self._runners[key] = runner
+        return runner
+
+    def open(self, spec: Union[EnsembleSpec, MarketConfig], *,
+             chunk_size: Optional[int] = None) -> "Session":
+        """Open a live session with device-resident books."""
+        spec = EnsembleSpec.coerce(spec)
+        chunk = chunk_size or self.chunk_size \
+            or min(DEFAULT_CHUNK, spec.num_steps)
+        return Session(self, spec, self._runner(spec, max(1, chunk)))
+
+
+class Session:
+    """A live simulation: device-resident books + an absolute step cursor.
+
+    All advancement APIs (:meth:`run`, :meth:`stream`, :meth:`step`) move
+    the same cursor and interleave freely.
+    """
+
+    def __init__(self, engine: Engine, spec: EnsembleSpec,
+                 runner: ChunkRunner):
+        self._engine = engine
+        self.spec = spec
+        self._runner = runner
+        self._step_runner: Optional[ChunkRunner] = None
+        self._state = runner.init_state(spec)
+        self._params = runner.params_to_device(spec.params)
+        self._stats = runner.init_stats(spec)
+        self._t = 0
+        self._closed = False
+        self._active_streams = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self._runner.device
+
+    def __enter__(self) -> "Session":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
+        """Release the device-resident state (runners stay cached)."""
+        self._state = self._params = self._stats = None
+        self._closed = True
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise RuntimeError("session is closed")
+
+    @property
+    def state(self) -> MarketState:
+        self._check_open()
+        return self._state
+
+    @property
+    def step_count(self) -> int:
+        return self._t
+
+    @property
+    def stats(self) -> Optional[MarketStats]:
+        """Host copy of the running statistics (``stats_only``; else None)."""
+        self._check_open()
+        return None if self._stats is None else self._stats.to_numpy()
+
+    def _resolve_steps(self, n_steps: Optional[int]) -> int:
+        if n_steps is not None:
+            n = int(n_steps)
+            if n < 0:
+                raise ValueError(f"n_steps must be >= 0, got {n}")
+            return n
+        remaining = self.spec.num_steps - self._t
+        if remaining <= 0:
+            raise ValueError(
+                f"session cursor is at step {self._t} with no steps "
+                f"remaining of the horizon num_steps={self.spec.num_steps}: "
+                "run()/stream() with no argument run the remaining horizon; "
+                "pass an explicit n_steps to advance past it")
+        return remaining
+
+    def stream(self, n_steps: Optional[int] = None) -> Iterator[StepBatch]:
+        """Advance ``n_steps`` (default: the rest of the horizon), yielding
+        one :class:`StepBatch` per chunk."""
+        self._check_open()
+        return self._stream(self._resolve_steps(n_steps))
+
+    def _dispatch(self, runner: ChunkRunner, n: int, ext) -> StepBatch:
+        self._state, batch, self._stats = runner.run(
+            self._state, self._params, self._t, n, ext, self._stats)
+        self._t += n
+        return batch
+
+    def _stream(self, remaining: int) -> Iterator[StepBatch]:
+        self._active_streams += 1
+        try:
+            while remaining > 0:
+                n = min(self._runner.chunk, remaining)
+                yield self._dispatch(self._runner, n, None)
+                remaining -= n
+        finally:
+            self._active_streams -= 1
+
+    def run(self, n_steps: Optional[int] = None) -> StepBatch:
+        """Advance ``n_steps`` and return the concatenated batch."""
+        self._check_open()
+        batches = list(self._stream(self._resolve_steps(n_steps)))
+        if not batches:
+            return _empty_batch(self.spec.num_markets, self.device)
+        return StepBatch.concatenate(batches)
+
+    def step(self, actions: Optional[Any] = None) -> StepBatch:
+        """Advance exactly one step, optionally injecting one external order
+        per market (an :class:`ExternalOrders`, a triple or a mapping)."""
+        self._check_open()
+        if self._step_runner is None:
+            self._step_runner = self._engine._runner(self.spec, 1)
+        return self._dispatch(self._step_runner, 1, self._build_ext(actions))
+
+    def _build_ext(self, actions: Any):
+        if actions is None:
+            return None
+        from repro_torch.env import actions as actions_mod
+
+        orders = actions_mod.validate_actions(
+            actions, self.spec.num_markets, self.spec.num_levels)
+        return actions_mod.lower_actions(
+            orders, self.spec.num_markets, self.spec.num_levels, self.device)
+
+    def to_result(self, batch: StepBatch) -> SimResult:
+        """Terminal :class:`SimResult` from the books plus a batch."""
+        self._check_open()
+        if self._runner.stats_only:
+            raise ValueError("stats_only sessions have no path outputs: read "
+                             "Session.stats instead")
+        s = self._state
+        return SimResult(bid=s.bid, ask=s.ask, last_price=s.last_price,
+                         prev_mid=s.prev_mid, price_path=batch.price,
+                         volume_path=batch.volume)
+
+    def run_to_result(self, n_steps: Optional[int] = None) -> SimResult:
+        return self.to_result(self.run(n_steps))
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Exact host-side capture: books, cursor, params, stats."""
+        self._check_open()
+        snap: Dict[str, Any] = {f: to_host(v) for f, v in
+                                zip(MarketState._fields, self._state)}
+        snap["t"] = self._t
+        snap["seed"] = self.spec.seed
+        snap["num_agents"] = self.spec.num_agents
+        snap["num_steps"] = self.spec.num_steps
+        snap["scenarios"] = [[name, len(list(group))] for name, group
+                             in itertools.groupby(self.spec.scenarios)]
+        snap["params"] = dict(zip(MarketParams._fields,
+                                  self._params.to_numpy()))
+        snap["init"] = {"quote_qty": np.asarray(self.spec.initial_quote_qty),
+                        "spread": np.asarray(self.spec.initial_spread)}
+        if self._stats is not None:
+            snap["stats"] = dict(zip(MarketStats._fields,
+                                     self._stats.to_numpy()))
+        return snap
+
+    def restore(self, snap: Dict[str, Any]) -> None:
+        """Restore from :meth:`snapshot`; a failed restore leaves the
+        session untouched."""
+        self._check_open()
+        if self._active_streams:
+            raise RuntimeError("restore() during an active stream(): exhaust "
+                               "or close() the iterator first")
+        for field, have in (("seed", self.spec.seed),
+                            ("num_agents", self.spec.num_agents)):
+            got = snap.get(field)
+            if got is not None and int(got) != have:
+                raise ValueError(
+                    f"snapshot was taken under {field}={int(got)} but this "
+                    f"session runs {field}={have}")
+        M, L = self.spec.num_markets, self.spec.num_levels
+        for name, want in (("bid", (M, L)), ("ask", (M, L)),
+                           ("last_price", (M, 1)), ("prev_mid", (M, 1))):
+            shape = tuple(np.shape(snap[name]))
+            if shape != want:
+                raise ValueError(f"snapshot field {name!r} has shape {shape} "
+                                 f"but this session expects {want}")
+        new_state = self._runner.to_device(
+            MarketState(*(snap[f] for f in MarketState._fields)))
+        new_spec, new_params = self.spec, self._params
+        if snap.get("params") is not None:
+            host = params_mod.params_from_dict(snap["params"], M, L)
+            labels = snap.get("scenarios")
+            if labels is not None:
+                labels = tuple(itertools.chain.from_iterable(
+                    (name,) * int(count) for name, count in labels))
+            init = snap.get("init")
+            extra = {} if init is None else {
+                "initial_quote_qty": np.asarray(init["quote_qty"], np.float32),
+                "initial_spread": np.asarray(init["spread"], np.int32)}
+            new_spec = dataclasses.replace(
+                self.spec, params=host,
+                num_steps=int(snap.get("num_steps", self.spec.num_steps)),
+                scenarios=labels if labels is not None
+                else ("<restored>",) * M, **extra)
+            new_params = self._runner.params_to_device(host)
+        new_stats = self._stats
+        if self._runner.stats_only:
+            stats = snap.get("stats")
+            new_stats = (self._runner.stats_to_device(
+                MarketStats(*(stats[f] for f in MarketStats._fields)))
+                if stats is not None else self._runner.init_stats(new_spec))
+        self._state, self._t = new_state, int(snap["t"])
+        self.spec, self._params, self._stats = new_spec, new_params, new_stats
