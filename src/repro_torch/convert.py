@@ -14,15 +14,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
-from repro_torch.core.params import EnsembleSpec, MarketParams, params_from_dict
+from repro_torch.core.params import EnsembleSpec, params_from_dict
 from repro_torch.core.step import MarketState
 
 
-def params_from_numpy(values: Dict[str, Any], num_markets: int,
-                      num_levels: int) -> MarketParams:
-    """Host :class:`MarketParams` from ``{field: array}`` (missing fields
-    take their inert values)."""
-    return params_from_dict(values, num_markets, num_levels)
+#: Host :class:`MarketParams` from ``{field: array}`` (missing fields take
+#: their inert values).
+params_from_numpy = params_from_dict
 
 
 def state_from_numpy(bid, ask, last_price, prev_mid,

@@ -18,6 +18,8 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
+
 # Agent strategy classes.
 NOISE = 0
 MOMENTUM = 1
@@ -168,8 +170,9 @@ class MarketConfig:
         counts[NOISE] = self.num_agents - sum(counts.values())
         return counts
 
-    def initial_books(self, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(bid, ask) float32[M, L] opening books."""
+    def initial_books(self, device=DEFAULT_DEVICE
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(bid, ask) float32[M, L] opening books on ``device``."""
         M = self.num_markets
         return seed_books(
             self.num_levels,
@@ -180,13 +183,15 @@ class MarketConfig:
 
 def assign_agent_types(num_agents: int, num_makers, num_momentum,
                        num_fundamentalists, num_whales=0, num_hft=0,
-                       num_informed=0, num_arbitrageurs=0, device=None):
+                       num_informed=0, num_arbitrageurs=0,
+                       device=DEFAULT_DEVICE):
     """int32 strategy-class lattice broadcastable to [M, A].
 
     Makers first, then momentum, fundamentalists, whales, HFTs, informed
     traders, arbitrageurs, then noise, by agent index. Counts are Python
     ints (one row) or ``[M, 1]`` int32 columns (one row per market).
     """
+    device = resolve_device(device)
     a = torch.arange(num_agents, dtype=torch.int32, device=device)[None, :]
     blocks = ((MAKER, num_makers), (MOMENTUM, num_momentum),
               (FUNDAMENTALIST, num_fundamentalists), (WHALE, num_whales),
@@ -205,10 +210,12 @@ def assign_agent_types(num_agents: int, num_makers, num_momentum,
     return out
 
 
-def seed_books(num_levels: int, quote_qty, spread, device=None) -> Tuple:
+def seed_books(num_levels: int, quote_qty, spread,
+               device=DEFAULT_DEVICE) -> Tuple:
     """(bid, ask) float32[M, L] opening books: quotes of per-market depth
     ``quote_qty`` (f32[M]) straddling L/2 at ``ceil(spread / 2)`` ticks."""
     L = num_levels
+    device = resolve_device(device)
     spread = torch.as_tensor(spread, dtype=torch.int32).to(device)
     q = torch.as_tensor(quote_qty, dtype=torch.float32).to(device)[:, None]
     half = spread // 2 + spread % 2

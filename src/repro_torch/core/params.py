@@ -30,6 +30,7 @@ from repro_torch.core.config import (
     scenario_config,
     seed_books,
 )
+from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 
 
 class MarketParams(NamedTuple):
@@ -157,13 +158,15 @@ def params_from_config(cfg: MarketConfig, num_markets: int = None,
         for f in MarketParams._fields})
 
 
-def scalar_params(cfg: MarketConfig, device=None) -> MarketParams:
+def scalar_params(cfg: MarketConfig, device=DEFAULT_DEVICE) -> MarketParams:
     """Broadcastable ``[1, 1]`` torch columns for scalar-config callers."""
+    device = resolve_device(device)
     host = params_from_config(cfg, num_markets=1)
     return MarketParams(*(torch.as_tensor(x).to(device) for x in host))
 
 
-def agent_types(params: MarketParams, num_agents: int, device=None):
+def agent_types(params: MarketParams, num_agents: int,
+                device=DEFAULT_DEVICE):
     """Per-market strategy-class lattice: int32 broadcastable to [M, A]."""
     return assign_agent_types(num_agents, params.num_makers,
                               params.num_momentum, params.num_fundamentalists,
@@ -256,8 +259,9 @@ class EnsembleSpec:
     def mid0(self) -> float:
         return float(self.num_levels // 2)
 
-    def initial_books(self, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(bid, ask) float32[M, L] per-market opening books."""
+    def initial_books(self, device=DEFAULT_DEVICE
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(bid, ask) float32[M, L] per-market opening books on ``device``."""
         return seed_books(self.num_levels,
                           np.asarray(self.initial_quote_qty, np.float32),
                           np.asarray(self.initial_spread, np.int32),

@@ -12,6 +12,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.result import to_host
 
 
@@ -29,8 +30,10 @@ class MarketStats(NamedTuple):
         return MarketStats(*(to_host(x) for x in self))
 
 
-def init_stats(num_markets: int, device=None) -> MarketStats:
+def init_stats(num_markets: int, device=DEFAULT_DEVICE) -> MarketStats:
     """Fresh accumulators (distinct buffers) for ``num_markets`` markets."""
+    device = resolve_device(device)
+
     def full(v):
         return torch.full((num_markets, 1), v, dtype=torch.float32,
                           device=device)

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core import agents, auction
 from repro_torch.core import params as params_mod
+from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.params import MarketParams
 
 
@@ -29,8 +30,10 @@ class StepOutput(NamedTuple):
     mid: torch.Tensor     # float32[M, 1] mid price used for decisions
 
 
-def initial_state(cfg, device=None) -> MarketState:
-    """Opening state for a ``MarketConfig`` or ``EnsembleSpec``."""
+def initial_state(cfg, device=DEFAULT_DEVICE) -> MarketState:
+    """Opening state for a ``MarketConfig`` or ``EnsembleSpec`` on
+    ``device``."""
+    device = resolve_device(device)
     bid, ask = cfg.initial_books(device)
     m0 = torch.full((cfg.num_markets, 1), cfg.mid0, dtype=torch.float32,
                     device=device)

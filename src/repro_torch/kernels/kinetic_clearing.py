@@ -190,13 +190,16 @@ def _launch(bid, ask, last, pmid, step0, n_valid, ext_buy, ext_ask, *, cfg,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    rc = lib.kc_kinetic_clearing_chunk(
-        ptr(market_ids), ptr(bid), ptr(ask), ptr(last), ptr(pmid),
-        ptr(ext_buy), ptr(ext_ask), ptr(peer_mid), ptr(floats), ptr(ints),
-        ptr(stats_in), ptr(out_bid), ptr(out_ask), ptr(out_last),
-        ptr(out_pmid), *(ptr(p) for p in paths), ptr(stats_out), M,
-        cfg.num_agents, L, chunk, step0, n_valid, int(cfg.seed) & 0xFFFFFFFF,
-        torch.cuda.current_stream(bid.device).cuda_stream)
+    # The <<<>>> launch goes to the current device: make it the tensors'.
+    with torch.cuda.device(bid.device):
+        rc = lib.kc_kinetic_clearing_chunk(
+            ptr(market_ids), ptr(bid), ptr(ask), ptr(last), ptr(pmid),
+            ptr(ext_buy), ptr(ext_ask), ptr(peer_mid), ptr(floats), ptr(ints),
+            ptr(stats_in), ptr(out_bid), ptr(out_ask), ptr(out_last),
+            ptr(out_pmid), *(ptr(p) for p in paths), ptr(stats_out), M,
+            cfg.num_agents, L, chunk, step0, n_valid,
+            int(cfg.seed) & 0xFFFFFFFF,
+            torch.cuda.current_stream(bid.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"kinetic_clearing_chunk launch failed: CUDA error "
                            f"{rc} ({lib.kc_error_string(rc).decode()})")
@@ -251,13 +254,18 @@ OPS_PER_AGENT_STEP = 7 * 8 + 7 * 2 + 5 * 3 + 7 + 15 + 8 + 1
 #: Operations per level-step outside the scans: shock (3), quote and sum
 #: reductions (4), totals (2-4), match and argmax (2), allocation (8).
 OPS_PER_LEVEL_STEP = 21
+#: 32-bit integer multiplies among the agent operations: two per lowbias32
+#: round and two for the global agent id. Hopper issues them at half the
+#: FP32 lane rate, so each takes a second issue slot.
+IMULS_PER_AGENT_STEP = 7 * 2 + 2
 
 
 def op_count(num_markets: int, num_agents: int, num_levels: int,
              steps: int) -> int:
-    """Arithmetic operations of one call that runs ``steps`` steps."""
+    """FP32-lane issue slots of one call that runs ``steps`` steps: one per
+    operation, two per 32-bit integer multiply."""
     scan = 2 * (num_levels.bit_length() - 1)  # two log-depth scans
-    per_step = (num_agents * OPS_PER_AGENT_STEP
+    per_step = (num_agents * (OPS_PER_AGENT_STEP + IMULS_PER_AGENT_STEP)
                 + num_levels * (OPS_PER_LEVEL_STEP + scan))
     return num_markets * steps * per_step
 

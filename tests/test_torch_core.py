@@ -96,7 +96,7 @@ def test_agent_types_match():
 
     got = params_mod.agent_types(
         params_mod.pack_params(tspec.params, "cpu").columns(),
-        tspec.num_agents)
+        tspec.num_agents, "cpu")
     _eq(got, np.broadcast_to(j_types(jspec.params, jspec.num_agents, np),
                              (jspec.num_markets, jspec.num_agents)))
     assert set(np.unique(got.numpy())) == set(range(8))
@@ -144,7 +144,7 @@ def test_shock_and_scatter_binning_match():
 
 def test_stats_accumulate_matches():
     r = np.random.default_rng(3)
-    js, ts = j_stats.init_stats(5, np), stats.init_stats(5)
+    js, ts = j_stats.init_stats(5, np), stats.init_stats(5, "cpu")
     for _ in range(7):
         mid = r.integers(0, 128, (5, 1)).astype(np.float32) / np.float32(2)
         vol = r.integers(0, 50, (5, 1)).astype(np.float32)

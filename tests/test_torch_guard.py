@@ -55,6 +55,36 @@ def test_engine_without_a_card_raises():
         Engine("cuda-kinetic", device="cuda:0")
 
 
+def _constructors():
+    from repro_torch.core import params, stats, step
+    from repro_torch.core.config import MarketConfig
+    from repro_torch.core.params import EnsembleSpec
+
+    cfg = MarketConfig(num_markets=2, num_agents=4, num_levels=8, num_steps=2)
+    spec = EnsembleSpec.homogeneous(cfg)
+    cols = params.pack_params(spec.params, "cpu").columns()
+    return {
+        "initial_state": lambda: step.initial_state(spec),
+        "init_stats": lambda: stats.init_stats(2),
+        "spec.initial_books": spec.initial_books,
+        "cfg.initial_books": cfg.initial_books,
+        "scalar_params": lambda: params.scalar_params(cfg),
+        "agent_types": lambda: params.agent_types(cols, 4),
+    }
+
+
+@pytest.mark.parametrize("name", ["initial_state", "init_stats",
+                                  "spec.initial_books", "cfg.initial_books",
+                                  "scalar_params", "agent_types"])
+def test_constructors_default_to_the_card(name):
+    """Every tensor constructor defaults to ``cuda``: with no card it raises
+    instead of building CPU tensors the wrapper would then run plainly."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        _constructors()[name]()
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
@@ -70,7 +100,7 @@ def test_chip_smoke_alone_fails(tmp_path):
     lone = tmp_path / "chip_smoke.py"
     lone.write_text((ROOT / "chip_smoke.py").read_text())
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run([sys.executable, str(lone), "--phases", "build"],
+    proc = subprocess.run([sys.executable, str(lone)],
                           capture_output=True, text=True, timeout=120,
                           cwd=tmp_path, env=env)
     assert proc.returncode != 0

@@ -166,7 +166,9 @@ def test_wrapper_rejects_bad_operands(bad):
 
 def test_bound_counts():
     ops = kc.op_count(8192, 256, 128, 64)
-    assert ops == 8192 * 64 * (256 * kc.OPS_PER_AGENT_STEP
+    # An integer multiply takes two FP32-lane issue slots.
+    per_agent = kc.OPS_PER_AGENT_STEP + kc.IMULS_PER_AGENT_STEP
+    assert ops == 8192 * 64 * (256 * per_agent
                                + 128 * (kc.OPS_PER_LEVEL_STEP + 14))
     nbytes = kc.byte_count(8192, 128, 64, ext=False, stats_only=False)
     # books in/out dominate: 4 * M * L floats, plus three [M, 64] paths
