@@ -1,27 +1,44 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one GPU and check it.
+"""Drive the PyTorch/CUDA port's paths on one GPU and check them.
 
     python3 chip_smoke.py        # needs one CUDA card; takes no arguments
 
 Every run drives every phase at full width. Phases, each printing one JSON
 line:
 
-  build    build the CUDA kernels from ``src/repro_torch/kernels/csrc``.
+  build    build the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
+           ``nvcc`` per source, all started together.
   kernel   ``kinetic_clearing_chunk`` (CUDA) == its plain PyTorch version,
            field by field, at the paper's width A=256, L=128 on a
            heterogeneous ensemble populating all eight archetypes: a chunk
            holding the shock step, a partial tail, external orders,
            ``stats_only``, and ``scan="hillis-steele"``.
   edges    the same check at L=1024, A=300 and at L=8, A=5.
-  session  ``Engine("cuda-kinetic").open(spec).run(500)`` in chunks of 64 ==
-           a one-shot plain run on the card; ``stats_only`` stats == the
-           plain accumulation; one kernel launch per chunk.
-  timing   CUDA-event times of the kernel and the plain version at M=8192,
-           A=256, L=128, chunk 64, against the kernel's bound.
+  naive    ``naive_clearing_chunk`` (one launch per step) == its plain
+           version over the five cases of ``kernel``.
+  legacy   the legacy one-shot ``kinetic_clearing`` and ``naive_clearing``
+           == ``ref.simulate_reference`` on the card at M=1024, A=256,
+           L=128, S=64 (baseline, arbitrageur, flash-crash, informed) and
+           at the L=1024 and L=8 edges.
+  session  ``Engine(b).open(spec).run(500)`` in chunks of 64 for the four
+           backends: ``cuda-kinetic`` (the main path) == a plain run over
+           the same chunks, one launch per chunk; ``cuda-naive`` (one launch
+           per step), ``torch-scan`` and ``torch-per-step`` == the
+           ``cuda-kinetic`` run; ``stats_only`` stats likewise.
+  timing   CUDA-event times of the chunk kernels and their plain version at
+           M=8192, A=256, L=128, chunk 64, against the bound.
+  legacy_path  the legacy entries at M=8192, A=256, L=128, S=64: one call
+           each with the counts at 0, then times against the bound.
+  fixed_workload  the paper's Table IV shape (M=8192, A=256, L=128, S=500)
+           as warm ``Session.run(500)`` of each backend: time, agent-events/s,
+           peak memory and the ratio to ``cuda-kinetic``; then the two
+           chunk kernels alone at M=8192, A=32, L=1024 (books beyond L2).
 
-The second-to-last line lists every kernel with its launches on the main
-path; the last line is the device record. Any mismatch or exception exits
-non-zero before those lines. Imports nothing of JAX or of the JAX package.
+Each path is driven with every launch count at 0 just before it and read
+just after. The second-to-last line lists every kernel with its launches on
+its path; the last line is the device record. Any mismatch or exception
+exits non-zero before those lines. Imports nothing of JAX or of the JAX
+package.
 """
 from __future__ import annotations
 
@@ -35,12 +52,18 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 MARKETS_PER_BLOCK = 1024  # of each of the 11 blocks of the full-width spec
+# The paper's Table IV shape (benchmarks/common.py at FULL_SCALE): M, A, L.
+TABLE_IV = (8192, 256, 128)
+LEGACY_MARKETS = 1024     # markets of the legacy phase's wide configs
+# Few agents and many levels: 2·M·L·4 = 67 MB of books, beyond the 50 MB L2.
+PERSISTENCE = (8192, 32, 1024)
 # H100 SXM data sheet: 67 TFLOP/s in f32 counts an FMA as two operations.
 # One instruction per FP32 lane per clock (132 SMs x 128 lanes x 1.98 GHz)
 # is half that; kc.op_count counts issue slots at this rate.
 PEAK_LANE_OPS = 67e12 / 2
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 SEED = 20260611
+CARD = ("cuda", 0)        # the one card every phase runs on
 
 
 class Mismatch(AssertionError):
@@ -131,13 +154,56 @@ def opening(spec, device):
     return tuple(initial_state(spec, device))
 
 
+def chunk_entries(entry: str):
+    """(kernel wrapper, plain version) of a chunk entry."""
+    from repro_torch.kernels import kinetic_clearing as kc
+    from repro_torch.kernels import naive_clearing as nc
+
+    if entry == "kinetic":
+        return kc.kinetic_clearing_chunk, kc.kinetic_clearing_chunk_plain
+    return nc.naive_clearing_chunk, nc.naive_clearing_chunk_plain
+
+
+def counters():
+    """Every kernel wrapper of the port, by the name the kernels line uses."""
+    from repro_torch.kernels import kinetic_clearing as kc
+    from repro_torch.kernels import naive_clearing as nc
+
+    return {"kinetic_clearing_chunk": kc.kinetic_clearing_chunk,
+            "naive_clearing_chunk": nc.naive_clearing_chunk,
+            "kinetic_clearing": kc.kinetic_clearing,
+            "naive_clearing": nc.naive_clearing}
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def expect_counts(label: str, want) -> dict:
+    """Read the counts after a path and check them: ``want`` names the
+    kernels the path must launch (and how often); every other kernel must
+    not have launched."""
+    got = read_counts()
+    for name, n in got.items():
+        if n != want.get(name, 0):
+            raise Mismatch(f"{label}: {name} launched {n} times, expected "
+                           f"{want.get(name, 0)}")
+    return got
+
+
 def kernel_vs_plain(label, spec, device, *, step0, n_valid, chunk,
-                    ext=False, stats_only=False, scan="cumsum", state=None):
+                    ext=False, stats_only=False, scan="cumsum", state=None,
+                    entry="kinetic"):
     import torch
     from repro_torch.core import params as params_mod
     from repro_torch.core.stats import init_stats
-    from repro_torch.kernels import kinetic_clearing as kc
 
+    kernel, plain = chunk_entries(entry)
     M, L = spec.num_markets, spec.num_levels
     state = opening(spec, device) if state is None else state
     params = params_mod.pack_params(spec.params, device)
@@ -151,9 +217,8 @@ def kernel_vs_plain(label, spec, device, *, step0, n_valid, chunk,
     kw = dict(cfg=spec, chunk=chunk, scan=scan, params=params,
               stats=init_stats(M, device) if stats_only else None,
               stats_only=stats_only)
-    got = kc.kinetic_clearing_chunk(*state, step0, n_valid, eb, ea, **kw)
-    want = kc.kinetic_clearing_chunk_plain(*state, step0, n_valid, eb, ea,
-                                           **kw)
+    got = kernel(*state, step0, n_valid, eb, ea, **kw)
+    want = plain(*state, step0, n_valid, eb, ea, **kw)
     torch.cuda.synchronize()
     err = compare(label, outputs(got, n_valid), outputs(want, n_valid))
     vol = float(want[4].sum_volume.sum()) if stats_only else \
@@ -165,30 +230,34 @@ def phase_build():
     import time
     from repro_torch.kernels import _build
     from repro_torch.kernels import kinetic_clearing as kc
+    from repro_torch.kernels import naive_clearing as nc
 
     t0 = time.perf_counter()
-    _build.build(["kinetic_clearing"])
+    _build.build(["kinetic_clearing", "naive_clearing"])
     kc._load_library()
+    nc._load_library()
     emit("build", ok=True, seconds=time.perf_counter() - t0,
          flags=" ".join(_build.NVCC_FLAGS))
 
 
-def phase_kernel(device, B):
+CHUNK_CASES = (
+    ("shock_chunk", dict(step0=224, n_valid=64, chunk=64)),
+    ("partial_tail", dict(step0=448, n_valid=52, chunk=64)),
+    ("ext_orders", dict(step0=0, n_valid=64, chunk=64, ext=True)),
+    ("stats_only", dict(step0=224, n_valid=64, chunk=64, stats_only=True)),
+    ("hillis_steele", dict(step0=224, n_valid=64, chunk=64,
+                           scan="hillis-steele")),
+)
+
+
+def phase_kernel(device, B, entry="kinetic"):
     spec = full_width_spec(B)
-    errs = {}
-    cases = (
-        ("shock_chunk", dict(step0=224, n_valid=64, chunk=64)),
-        ("partial_tail", dict(step0=448, n_valid=52, chunk=64)),
-        ("ext_orders", dict(step0=0, n_valid=64, chunk=64, ext=True)),
-        ("stats_only", dict(step0=224, n_valid=64, chunk=64,
-                            stats_only=True)),
-        ("hillis_steele", dict(step0=224, n_valid=64, chunk=64,
-                               scan="hillis-steele")),
-    )
-    volumes = {}
-    for label, kw in cases:
-        errs[label], volumes[label] = kernel_vs_plain(label, spec, device, **kw)
-    emit("kernel", ok=True, markets=spec.num_markets, agents=256, levels=128,
+    errs, volumes = {}, {}
+    for label, kw in CHUNK_CASES:
+        errs[label], volumes[label] = kernel_vs_plain(
+            f"{entry} {label}", spec, device, entry=entry, **kw)
+    emit("kernel" if entry == "kinetic" else entry, ok=True,
+         markets=spec.num_markets, agents=256, levels=128,
          cases=list(errs), max_abs_err=max(errs.values()),
          traded_volume=volumes)
     return max(errs.values())
@@ -211,33 +280,95 @@ def phase_edges(device):
     return max(errs)
 
 
+def legacy_configs():
+    """(label, MarketConfig) of the legacy phase: the paper's width with an
+    arbitrageur config (the peer is the own mid at every step), flash-crash
+    and informed configs (every broadcast params column matters), and the
+    L=1024 and L=8 edges."""
+    from repro_torch.core.config import MarketConfig, scenario_config
+
+    wide = dict(num_markets=LEGACY_MARKETS, num_agents=256, num_levels=128,
+                num_steps=64, seed=SEED)
+    arb = dict(alpha_arbitrageur=0.2, arb_kappa=0.5)
+    return [
+        ("baseline", MarketConfig(**wide)),
+        ("arbitrageur", MarketConfig(**wide, **arb)),
+        ("flash-crash", scenario_config("flash-crash", **wide)),
+        ("informed", scenario_config("informed", **wide)),
+        ("edge L=1024", MarketConfig(num_markets=8, num_agents=300,
+                                     num_levels=1024, num_steps=20,
+                                     seed=SEED + 1, **arb)),
+        ("edge L=8", MarketConfig(num_markets=16, num_agents=5,
+                                  num_levels=8, num_steps=20, seed=SEED + 2,
+                                  **arb)),
+    ]
+
+
+def phase_legacy(device):
+    """Kernels 3 and 4 against the oracle on the card."""
+    import torch
+    from repro_torch.kernels import kinetic_clearing as kc
+    from repro_torch.kernels import naive_clearing as nc
+    from repro_torch.kernels import ref
+
+    errs, volumes = [], {}
+    for label, cfg in legacy_configs():
+        want = list(ref.simulate_reference(cfg, device=device))
+        state = opening(cfg, device)
+        for fn, per_call in ((kc.kinetic_clearing, 1),
+                             (nc.naive_clearing, cfg.num_steps)):
+            before = fn.launches
+            got = list(fn(*state, cfg=cfg))
+            torch.cuda.synchronize()
+            if fn.launches - before != per_call:
+                raise Mismatch(f"legacy {label}: {fn.__name__} launched "
+                               f"{fn.launches - before} times, expected "
+                               f"{per_call}")
+            errs.append(compare(f"legacy {label} {fn.__name__}", got, want))
+        volumes[label] = float(want[5].sum())
+    emit("legacy", ok=True, configs=list(volumes), max_abs_err=max(errs),
+         traded_volume=volumes)
+    return max(errs)
+
+
+def drive_session(backend, spec, device, chunk, **opts):
+    """Open a session, run the horizon, return the flat outputs: books,
+    then the three paths or the six stats."""
+    import torch
+    from repro_torch.core.session import Engine
+
+    with Engine(backend, device=device, **opts).open(
+            spec, chunk_size=chunk) as sess:
+        batch = sess.run(spec.num_steps)
+        out = list(sess.state)
+        out += list(sess._stats) if sess._stats is not None else list(batch)
+        torch.cuda.synchronize()
+    return out
+
+
 def phase_session(device, B):
-    """The main path: Engine("cuda-kinetic").open(spec).run(500)."""
+    """The session paths: cuda-kinetic (the main path), cuda-naive,
+    torch-scan and torch-per-step, each driven with the counts at 0."""
     import torch
     from repro_torch.core import params as params_mod
-    from repro_torch.core.session import Engine
     from repro_torch.core.stats import init_stats
     from repro_torch.kernels import kinetic_clearing as kc
 
     spec = full_width_spec(B)
     S, chunk = spec.num_steps, 64
     n_chunks = -(-S // chunk)
-
-    def drive(**opts):
-        kc.kinetic_clearing_chunk.launches = 0
-        with Engine("cuda-kinetic", device=device, **opts).open(
-                spec, chunk_size=chunk) as sess:
-            batch = sess.run(S)
-            out = list(sess.state) + list(batch) + list(sess._stats or ())
-            torch.cuda.synchronize()
-        launches = kc.kinetic_clearing_chunk.launches
-        if launches != n_chunks:
-            raise Mismatch(f"session launched the kernel {launches} times, "
-                           f"expected {n_chunks} (one per chunk)")
-        return out, launches
-
-    got, launches = drive()                     # the main path
-    got_stats, _ = drive(stats_only=True)
+    expected = {"cuda-kinetic": {"kinetic_clearing_chunk": n_chunks},
+                "cuda-naive": {"naive_clearing_chunk": S},
+                "torch-scan": {}, "torch-per-step": {}}
+    runs, launches = {}, {}
+    for backend, want in expected.items():
+        for stats_only in (False, True):
+            reset_counts()
+            runs[backend, stats_only] = drive_session(
+                backend, spec, device, chunk, stats_only=stats_only)
+            counts = expect_counts(f"session {backend}", want)
+            if not stats_only:
+                launches[backend] = counts
 
     # The plain version driven over the same 64-step chunks: arbitrageurs
     # see their peer's mid frozen at each chunk entry (as on every backend
@@ -262,10 +393,18 @@ def phase_session(device, B):
             return list(state) + list(stats)
         return list(state) + [torch.cat(p, dim=1) for p in zip(*paths)]
 
-    err = compare("session paths", got, plain_run(False))
-    # A stats_only batch has zero-width paths: drop them before comparing.
-    err = max(err, compare("session stats", got_stats[:4] + got_stats[7:],
-                           plain_run(True)))
+    errs = {"cuda-kinetic": max(
+        compare("session paths", runs["cuda-kinetic", False],
+                plain_run(False)),
+        compare("session stats", runs["cuda-kinetic", True],
+                plain_run(True)))}
+    for backend in ("cuda-naive", "torch-scan", "torch-per-step"):
+        errs[backend] = max(
+            compare(f"session {backend} paths", runs[backend, False],
+                    runs["cuda-kinetic", False]),
+            compare(f"session {backend} stats", runs[backend, True],
+                    runs["cuda-kinetic", True]))
+    got = runs["cuda-kinetic", False]
     price, volume, mid = got[4:]
     finite = all(bool(torch.isfinite(x).all()) for x in got)
     on_grid = bool(((price >= 0) & (price <= spec.num_levels - 1)
@@ -274,9 +413,16 @@ def phase_session(device, B):
         raise Mismatch(f"session output malformed: finite={finite} "
                        f"on_grid={on_grid} shape={tuple(price.shape)}")
     emit("session", ok=True, markets=spec.num_markets, steps=S, chunk=chunk,
-         launches=launches, chunks_per_run=n_chunks,
-         total_volume=float(volume.sum()), max_abs_err=err)
-    return launches, err
+         launches={b: {k: n for k, n in c.items() if n}
+                   for b, c in launches.items()},
+         chunks_per_run=n_chunks, total_volume=float(volume.sum()),
+         max_abs_err=errs)
+    return ({"kinetic_clearing_chunk":
+             launches["cuda-kinetic"]["kinetic_clearing_chunk"],
+             "naive_clearing_chunk":
+             launches["cuda-naive"]["naive_clearing_chunk"]},
+            {"kinetic_clearing_chunk": errs["cuda-kinetic"],
+             "naive_clearing_chunk": errs["cuda-naive"]})
 
 
 def _time(fn, reps: int) -> float:
@@ -293,43 +439,195 @@ def _time(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def phase_timing(device):
-    from repro_torch.core import params as params_mod
+def bound(ops: int, nbytes: int) -> dict:
+    """The least time for ``ops`` issue slots and ``nbytes`` bytes."""
+    ops_ms, bytes_ms = ops / PEAK_LANE_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(ops=ops, bytes=nbytes, bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def homogeneous(M, A, L, S):
     from repro_torch.core.config import MarketConfig
     from repro_torch.core.params import EnsembleSpec
-    from repro_torch.kernels import kinetic_clearing as kc
 
-    M, A, L, chunk = 8192, 256, 128, 64
-    spec = EnsembleSpec.homogeneous(MarketConfig(
-        num_markets=M, num_agents=A, num_levels=L, num_steps=500, seed=SEED))
+    return EnsembleSpec.homogeneous(MarketConfig(
+        num_markets=M, num_agents=A, num_levels=L, num_steps=S, seed=SEED))
+
+
+def phase_timing(device):
+    from repro_torch.core import params as params_mod
+    from repro_torch.kernels import kinetic_clearing as kc
+    from repro_torch.kernels import naive_clearing as nc
+
+    (M, A, L), chunk = TABLE_IV, 64
+    spec = homogeneous(M, A, L, 500)
     state = opening(spec, device)
     params = params_mod.pack_params(spec.params, device)
+    kw = dict(cfg=spec, chunk=chunk, params=params)
 
     def kernel():
-        kc.kinetic_clearing_chunk(*state, 0, chunk, cfg=spec, chunk=chunk,
-                                  params=params)
+        kc.kinetic_clearing_chunk(*state, 0, chunk, **kw)
+
+    def naive():
+        nc.naive_clearing_chunk(*state, 0, chunk, **kw)
 
     def plain():
-        kc.kinetic_clearing_chunk_plain(*state, 0, chunk, cfg=spec,
-                                        chunk=chunk, params=params)
+        kc.kinetic_clearing_chunk_plain(*state, 0, chunk, **kw)
 
-    # In turns (plain, kernel, kernel, plain) inside one call.
+    # In turns (plain, kernel, naive, naive, kernel, plain) in one call.
     plain_ms = [_time(plain, 2)]
-    kernel_ms = [_time(kernel, 20), _time(kernel, 20)]
+    kernel_ms, naive_ms = [_time(kernel, 20)], []
+    naive_ms += [_time(naive, 20), _time(naive, 20)]
+    kernel_ms.append(_time(kernel, 20))
     plain_ms.append(_time(plain, 2))
     ms, pms = statistics.median(kernel_ms), statistics.median(plain_ms)
-    ops = kc.op_count(M, A, L, chunk)
-    nbytes = kc.byte_count(M, L, chunk, ext=False, stats_only=False)
-    ops_ms, bytes_ms = ops / PEAK_LANE_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    nms = statistics.median(naive_ms)
+    # Both kernels compute the same function: one bound serves both.
+    b = bound(kc.op_count(M, A, L, chunk),
+              kc.byte_count(M, L, chunk, ext=False, stats_only=False))
+    naive_bytes = nc.byte_count(M, L, chunk, ext=False, stats_only=False)
     timing = dict(markets=M, agents=A, levels=L, chunk=chunk, ms=ms,
-                  kernel_ms_runs=kernel_ms, plain_ms=pms,
-                  plain_ms_runs=plain_ms,
+                  kernel_ms_runs=kernel_ms, naive_ms=nms,
+                  naive_ms_runs=naive_ms, naive_over_kernel=nms / ms,
+                  plain_ms=pms, plain_ms_runs=plain_ms,
                   agent_events_per_s=M * A * chunk / (ms * 1e-3),
-                  ops=ops, bytes=nbytes, bound_ms=max(ops_ms, bytes_ms),
-                  bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                  bound_share=max(ops_ms, bytes_ms) / ms)
+                  naive_design_bytes=naive_bytes,
+                  naive_design_bytes_ms=naive_bytes / PEAK_BYTES * 1e3,
+                  bound_share=b["bound_ms"] / ms,
+                  naive_bound_share=b["bound_ms"] / nms, **b)
     emit("timing", ok=True, **timing)
     return timing
+
+
+def phase_legacy_path(device):
+    """The legacy entries as a user calls them, at M=8192, A=256, L=128,
+    S=64: one call each with the counts at 0, checked against the plain
+    version, then timed against the bound."""
+    import torch
+    from repro_torch.core.config import MarketConfig
+    from repro_torch.kernels import kinetic_clearing as kc
+    from repro_torch.kernels import naive_clearing as nc
+
+    (M, A, L), S = TABLE_IV, 64
+    cfg = MarketConfig(num_markets=M, num_agents=A, num_levels=L,
+                       num_steps=S, seed=SEED)
+    state = opening(cfg, device)
+    reset_counts()
+    got_k = list(kc.kinetic_clearing(*state, cfg=cfg))
+    got_n = list(nc.naive_clearing(*state, cfg=cfg))
+    torch.cuda.synchronize()
+    counts = expect_counts("legacy path",
+                           {"kinetic_clearing": 1, "naive_clearing": S})
+    want = list(kc.kinetic_clearing_plain(*state, cfg=cfg))
+    errs = {"kinetic_clearing": compare("legacy path kinetic", got_k, want),
+            "naive_clearing": compare("legacy path naive", got_n, want)}
+
+    def kernel():
+        kc.kinetic_clearing(*state, cfg=cfg)
+
+    def naive():
+        nc.naive_clearing(*state, cfg=cfg)
+
+    def plain():
+        kc.kinetic_clearing_plain(*state, cfg=cfg)
+
+    plain_ms = [_time(plain, 2)]
+    kernel_ms, naive_ms = [_time(kernel, 10)], []
+    naive_ms += [_time(naive, 10), _time(naive, 10)]
+    kernel_ms.append(_time(kernel, 10))
+    plain_ms.append(_time(plain, 2))
+    b = bound(kc.op_count(M, A, L, S), kc.legacy_byte_count(M, L, S))
+    out = dict(markets=M, agents=A, levels=L, steps=S,
+               launches={k: counts[k] for k in errs}, max_abs_err=errs,
+               kinetic_ms=statistics.median(kernel_ms),
+               kinetic_ms_runs=kernel_ms,
+               naive_ms=statistics.median(naive_ms), naive_ms_runs=naive_ms,
+               plain_ms=statistics.median(plain_ms), plain_ms_runs=plain_ms,
+               **b)
+    emit("legacy_path", ok=True, **out)
+    return out
+
+
+def phase_fixed_workload(device):
+    """The paper's Table IV shape through warm sessions of every backend,
+    then the two chunk kernels alone where the books outgrow L2."""
+    import time
+
+    import torch
+    from repro_torch.core import params as params_mod
+    from repro_torch.core.session import Engine
+    from repro_torch.kernels import kinetic_clearing as kc
+    from repro_torch.kernels import naive_clearing as nc
+
+    (M, A, L), S = TABLE_IV, 500
+    spec = homogeneous(M, A, L, S)
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    rows = {}
+    # The eager baselines take seconds a run: one warm-up and two runs.
+    for backend, runs in (("cuda-kinetic", 5), ("cuda-naive", 5),
+                          ("torch-scan", 2), ("torch-per-step", 2)):
+        eng = Engine(backend, device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        ms, wall = [], []
+        for k in range(runs + 1):  # the first run warms the runner up
+            with eng.open(spec) as sess:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                start.record()
+                sess.run(S)
+                stop.record()
+                torch.cuda.synchronize()
+                if k:
+                    wall.append((time.perf_counter() - t0) * 1e3)
+                    ms.append(start.elapsed_time(stop))
+        rows[backend] = dict(
+            ms=statistics.median(ms), ms_runs=ms,
+            wall_ms=statistics.median(wall),
+            agent_events_per_s=M * A * S / (statistics.median(ms) * 1e-3),
+            peak_bytes=torch.cuda.max_memory_allocated(device))
+    base = rows["cuda-kinetic"]
+    for row in rows.values():
+        row["ratio_to_cuda_kinetic"] = row["ms"] / base["ms"]
+        row["peak_ratio_to_cuda_kinetic"] = \
+            row["peak_bytes"] / base["peak_bytes"]
+
+    # Persistence where it pays: few agents, 1024 levels, 67 MB of books.
+    (pM, pA, pL), chunk = PERSISTENCE, 64
+    pspec = homogeneous(pM, pA, pL, 500)
+    state = opening(pspec, device)
+    params = params_mod.pack_params(pspec.params, device)
+    kw = dict(cfg=pspec, chunk=chunk, params=params)
+    err = compare("persistence shape",
+                  outputs(kc.kinetic_clearing_chunk(*state, 0, chunk, **kw),
+                          chunk),
+                  outputs(nc.naive_clearing_chunk(*state, 0, chunk, **kw),
+                          chunk))
+
+    def kernel():
+        kc.kinetic_clearing_chunk(*state, 0, chunk, **kw)
+
+    def naive():
+        nc.naive_clearing_chunk(*state, 0, chunk, **kw)
+
+    kernel_ms, naive_ms = [_time(kernel, 10)], []
+    naive_ms += [_time(naive, 10), _time(naive, 10)]
+    kernel_ms.append(_time(kernel, 10))
+    naive_bytes = nc.byte_count(pM, pL, chunk, ext=False, stats_only=False)
+    persistence = dict(
+        markets=pM, agents=pA, levels=pL, chunk=chunk,
+        book_bytes=2 * pM * pL * 4, max_abs_err=err,
+        kinetic_ms=statistics.median(kernel_ms), kinetic_ms_runs=kernel_ms,
+        naive_ms=statistics.median(naive_ms), naive_ms_runs=naive_ms,
+        naive_over_kinetic=statistics.median(naive_ms)
+        / statistics.median(kernel_ms),
+        naive_design_bytes=naive_bytes,
+        naive_design_bytes_ms=naive_bytes / PEAK_BYTES * 1e3,
+        **bound(kc.op_count(pM, pA, pL, chunk),
+                kc.byte_count(pM, pL, chunk, ext=False, stats_only=False)))
+    emit("fixed_workload", ok=True, markets=M, agents=A, levels=L, steps=S,
+         backends=rows, persistence=persistence)
+    return rows, persistence
 
 
 def card_line() -> str:
@@ -344,6 +642,8 @@ def main() -> int:
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
         return 2
+    import time
+
     import torch
 
     if not torch.cuda.is_available():
@@ -351,24 +651,55 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 2
     from repro_torch.kernels import kinetic_clearing as kc
+    from repro_torch.kernels import naive_clearing as nc
 
-    device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    device = torch.device(*CARD)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    err = max(phase_kernel(device, MARKETS_PER_BLOCK), phase_edges(device))
-    launches, e = phase_session(device, MARKETS_PER_BLOCK)
-    err = max(err, e)
+    err_k = max(phase_kernel(device, MARKETS_PER_BLOCK), phase_edges(device))
+    err_n = phase_kernel(device, MARKETS_PER_BLOCK, entry="naive")
+    err_l = phase_legacy(device)
+    launches, session_errs = phase_session(device, MARKETS_PER_BLOCK)
     timing = phase_timing(device)
+    legacy = phase_legacy_path(device)
+    phase_fixed_workload(device)
+    launches.update(legacy["launches"])
+    errs = {"kinetic_clearing_chunk":
+            max(err_k, session_errs["kinetic_clearing_chunk"]),
+            "naive_clearing_chunk":
+            max(err_n, session_errs["naive_clearing_chunk"]),
+            "kinetic_clearing":
+            max(err_l, legacy["max_abs_err"]["kinetic_clearing"]),
+            "naive_clearing":
+            max(err_l, legacy["max_abs_err"]["naive_clearing"])}
+    times = {"kinetic_clearing_chunk": (timing["ms"], timing["plain_ms"],
+                                        timing),
+             "naive_clearing_chunk": (timing["naive_ms"], timing["plain_ms"],
+                                      timing),
+             "kinetic_clearing": (legacy["kinetic_ms"], legacy["plain_ms"],
+                                  legacy),
+             "naive_clearing": (legacy["naive_ms"], legacy["plain_ms"],
+                                legacy)}
+    sources = {"kinetic_clearing_chunk": (kc.SOURCE, kc.REPLACES),
+               "naive_clearing_chunk": (nc.SOURCE, nc.REPLACES),
+               "kinetic_clearing": (kc.SOURCE, kc.LEGACY_REPLACES),
+               "naive_clearing": (nc.SOURCE, nc.LEGACY_REPLACES)}
+    kernels = []
+    for name, (source, replaces) in sources.items():
+        if launches[name] <= 0:
+            raise Mismatch(f"{name} was not launched on its path")
+        ms, plain_ms, b = times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "library_ms": None})
+    emit("done", ok=True, seconds=time.perf_counter() - t0)
     print(card_line(), flush=True)  # the card's name and power limit
-    print(json.dumps({"kernels": [{
-        "name": "kinetic_clearing_chunk", "route": "cuda",
-        "source": kc.SOURCE, "replaces": kc.REPLACES,
-        "launches": launches, "max_abs_err": err,
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None}]}),
-        flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,8 +5,14 @@ The stateful front door is :mod:`repro_torch.core.session`
 ``simulate_scenario`` open a session, run ``num_steps`` steps and return the
 terminal :class:`SimResult`. Backends in this package:
 
-  * ``cuda-kinetic`` — the paper's engine: the persistent clearing kernel
-    (plain PyTorch version on ``device="cpu"``).
+  * ``cuda-kinetic`` — the paper's engine: the persistent clearing kernel,
+    one launch per chunk (plain PyTorch version on ``device="cpu"``).
+  * ``cuda-naive`` — the ablation: the per-step kernel, one launch per
+    step, the books through device memory between steps.
+  * ``torch-scan`` — framework baseline: eager PyTorch, one runner call
+    loops the chunk's steps.
+  * ``torch-per-step`` — framework baseline: one eager step per dispatch,
+    the step's outputs copied to the host every step.
 """
 from __future__ import annotations
 

@@ -27,6 +27,7 @@ with no argument raise once the cursor has reached it.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import itertools
 from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple, Union
 
@@ -142,13 +143,22 @@ def record_failure(name: str, reason: str) -> None:
     _FAILED[name] = reason
 
 
+#: The built-in backends, by the module whose import registers them.
+_BUILTIN = {
+    "repro_torch.kernels.ops": ("cuda-kinetic", "cuda-naive"),
+    "repro_torch.core.torch_backend": ("torch-scan", "torch-per-step"),
+}
+
+
 def _ensure_builtin() -> None:
-    if "cuda-kinetic" in _FACTORIES or "cuda-kinetic" in _FAILED:
-        return
-    try:
-        from repro_torch.kernels import ops  # noqa: F401 (registers)
-    except ImportError as exc:
-        record_failure("cuda-kinetic", f"{type(exc).__name__}: {exc}")
+    for module, names in _BUILTIN.items():
+        if all(n in _FACTORIES or n in _FAILED for n in names):
+            continue
+        try:
+            importlib.import_module(module)
+        except ImportError as exc:
+            for name in names:
+                record_failure(name, f"{type(exc).__name__}: {exc}")
 
 
 def backends() -> "list[str]":

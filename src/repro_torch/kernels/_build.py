@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at first
 use into ``_build/lib<name>-<hash>.so`` beside this module (a git-ignored
-directory), keyed by a hash of the source and the flags so an edit rebuilds.
-Nothing is built or imported when this module is imported.
+directory), keyed by a hash of the source, every shared ``csrc/*.cuh``
+header and the flags, so an edit to any of them rebuilds. Nothing is built
+or imported when this module is imported.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Mapping, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -42,9 +43,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """The library's path, keyed by the bytes of ``csrc/<name>.cu``, of
+    every ``csrc/*.cuh`` it may include, and of the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str]) -> List[Path]:
@@ -79,11 +84,48 @@ def build(names: Iterable[str]) -> List[Path]:
     return [library_path(n) for n in names]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+def load(name: str, entries: Mapping[str, Sequence] = ()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it if needed.
+
+    At first load the library's exported column order is checked against
+    :mod:`repro_torch.core.params`, and each C entry in ``entries`` gets its
+    ``argtypes`` (pointers and the stream as ``c_void_p``) and an ``int``
+    (``cudaError_t``) return.
+    """
     lib = _LOADED.get(name)
     if lib is None:
         path, = build([name])
         lib = ctypes.CDLL(str(path))
+        _check_columns(lib, name)
+        for fn, argtypes in dict(entries).items():
+            getattr(lib, fn).argtypes = list(argtypes)
+            getattr(lib, fn).restype = ctypes.c_int
         _LOADED[name] = lib
     return lib
+
+
+def _check_columns(lib: ctypes.CDLL, name: str) -> None:
+    from repro_torch.core.params import FLOAT_FIELDS, INT_FIELDS
+
+    for fn in ("kc_float_cols", "kc_int_cols", "kc_error_string"):
+        getattr(lib, fn).restype = ctypes.c_char_p
+    lib.kc_error_string.argtypes = [ctypes.c_int]
+    for fn, fields in (("kc_float_cols", FLOAT_FIELDS),
+                       ("kc_int_cols", INT_FIELDS)):
+        have = getattr(lib, fn)().decode()
+        if have != ",".join(fields):
+            raise RuntimeError(
+                f"{name}.cu column order {have!r} disagrees with "
+                f"repro_torch.core.params ({','.join(fields)!r})")
+
+
+def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} "
+                           f"({lib.kc_error_string(rc).decode()})")
+
+
+def ptr(t):
+    """A tensor's device address for a ``c_void_p`` argument (None: null)."""
+    return None if t is None else t.data_ptr()

@@ -1,4 +1,4 @@
-"""The persistent chunk clearing kernel: wrapper, CUDA launch, plain version.
+"""The persistent clearing kernels: wrappers, CUDA launches, plain versions.
 
 :func:`kinetic_clearing_chunk` advances every market up to ``chunk`` steps
 from absolute step ``step0``, keeping the books on chip (the CUDA kernel in
@@ -8,10 +8,16 @@ operands: the books, ``step0``/``n_valid`` (host ints), external orders added
 at local step 0, the chunk-frozen coupling column, the per-market params, and
 in ``stats_only`` mode the six carried :class:`MarketStats` columns.
 
-On CUDA tensors the wrapper launches the kernel (or raises); on CPU tensors
-it runs :func:`kinetic_clearing_chunk_plain`, a loop of ``simulate_step`` with
-the same gating, external-order injection and stats carry. It never moves
-work between devices.
+:func:`kinetic_clearing` is the legacy one-shot entry, the counterpart of
+``repro.kernels.kinetic_clearing.kinetic_clearing``: all ``cfg.num_steps``
+steps of a scalar ``MarketConfig`` in one launch, market ids equal to the
+rows, arbitrageurs coupled to their own market's previous mid at every step.
+
+On CUDA tensors a wrapper launches its kernel (or raises); on CPU tensors
+it runs its plain version (:func:`kinetic_clearing_chunk_plain`,
+:func:`kinetic_clearing_plain`), a loop of ``simulate_step`` with the same
+gating, external-order injection and stats carry. It never moves work
+between devices.
 """
 from __future__ import annotations
 
@@ -22,20 +28,28 @@ import torch
 
 from repro_torch.core import params as params_mod
 from repro_torch.core import stats as stats_mod
+from repro_torch.core.config import MarketConfig
 from repro_torch.core.params import (FLOAT_FIELDS, INT_FIELDS, EnsembleSpec,
                                      MarketParams, PackedParams)
 from repro_torch.core.step import (MarketState, resolve_peer_mids,
                                    simulate_step)
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
 #: Per-market parameter operands (11 float32 + 11 int32 columns).
 NUM_PARAM_OPERANDS = len(MarketParams._fields)
-#: The source of the CUDA kernel and the TPU kernel it replaces.
+#: The source of the CUDA kernels and the TPU kernels they replace.
 SOURCE = "src/repro_torch/kernels/csrc/kinetic_clearing.cu"
 REPLACES = "src/repro/kernels/kinetic_clearing.py:402"
+LEGACY_REPLACES = "src/repro/kernels/kinetic_clearing.py:459"
 
 _LIB_NAME = "kinetic_clearing"
-_c_ptr, _c_int = ctypes.c_void_p, ctypes.c_int
+_c_ptr, _c_int, _c_u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+#: C entries of the library and their argument types.
+_ENTRIES = {
+    "kc_kinetic_clearing_chunk": [_c_ptr] * 19 + [_c_int] * 6 + [_c_u32,
+                                                                 _c_ptr],
+    "kc_kinetic_clearing": [_c_ptr] * 12 + [_c_int] * 4 + [_c_u32, _c_ptr],
+}
 
 
 def resolve_params(cfg, num_markets: int,
@@ -52,23 +66,7 @@ def resolve_params(cfg, num_markets: int,
 
 
 def _load_library() -> ctypes.CDLL:
-    lib = _build.load(_LIB_NAME)
-    if not getattr(lib, "_kc_checked", False):
-        for fn in ("kc_float_cols", "kc_int_cols", "kc_error_string"):
-            getattr(lib, fn).restype = ctypes.c_char_p
-        lib.kc_error_string.argtypes = [_c_int]
-        for fn, fields in (("kc_float_cols", FLOAT_FIELDS),
-                           ("kc_int_cols", INT_FIELDS)):
-            have = getattr(lib, fn)().decode()
-            if have != ",".join(fields):
-                raise RuntimeError(
-                    f"{_LIB_NAME}.cu column order {have!r} disagrees with "
-                    f"repro_torch.core.params ({','.join(fields)!r})")
-        lib.kc_kinetic_clearing_chunk.argtypes = (
-            [_c_ptr] * 19 + [_c_int] * 6 + [ctypes.c_uint32, _c_ptr])
-        lib.kc_kinetic_clearing_chunk.restype = _c_int
-        lib._kc_checked = True
-    return lib
+    return _build.load(_LIB_NAME, _ENTRIES)
 
 
 def _expect(t, name: str, shape, dtype, device):
@@ -83,34 +81,15 @@ def _expect(t, name: str, shape, dtype, device):
                          f"{tuple(shape)}")
 
 
-def kinetic_clearing_chunk(
-        bid: torch.Tensor, ask: torch.Tensor, last: torch.Tensor,
-        pmid: torch.Tensor, step0: int, n_valid: int,
-        ext_buy: Optional[torch.Tensor] = None,
-        ext_ask: Optional[torch.Tensor] = None, *, cfg, chunk: int,
-        scan: str = "cumsum", market_ids: Optional[torch.Tensor] = None,
-        params: Union[PackedParams, MarketParams, None] = None,
-        peer_mid: Optional[torch.Tensor] = None,
-        stats: Optional[stats_mod.MarketStats] = None,
-        stats_only: bool = False) -> Tuple:
-    """Advance ``n_valid <= chunk`` steps from absolute step ``step0``.
-
-    ``cfg`` (an ``EnsembleSpec`` or ``MarketConfig``) supplies A, L and the
-    seed. ``market_ids`` (int32[M] or [M, 1], default ``arange(M)``) are the
-    rows' global ids. ``peer_mid`` defaults to the gather of the entry
-    ``pmid`` at ``coupling_peer``. ``scan`` selects the plain version's scan
-    (the kernel always runs its log-depth block scan; both give the same
-    bits for exact-integer books).
-
-    Returns ``(bid, ask, last, pmid, price_path, volume_path, mid_path)``
-    with ``[M, chunk]`` paths of which the first ``n_valid`` columns are
-    written, or ``(bid, ask, last, pmid, MarketStats)`` with ``stats_only``.
-    """
+def check_chunk_operands(
+        what: str, bid, ask, last, pmid, step0, n_valid, ext_buy, ext_ask, *,
+        cfg, chunk, scan, market_ids, params, peer_mid, stats, stats_only):
+    """Check a chunk call's operands and resolve its defaults; returns
+    ``(step0, n_valid, chunk, market_ids, params, peer_mid)``."""
     device = bid.device
     M, L = bid.shape
-    A = cfg.num_agents
     if M == 0:
-        raise ValueError("kinetic_clearing_chunk needs at least one market")
+        raise ValueError(f"{what} needs at least one market")
     if L < 4 or L > 1024 or L & (L - 1):
         raise ValueError(f"num_levels must be a power of two in [4, 1024], "
                          f"got {L}")
@@ -148,15 +127,46 @@ def kinetic_clearing_chunk(
                              "accumulators (see repro_torch.core.stats)")
         for name, t in zip(stats_mod.MarketStats._fields, stats):
             _expect(t, f"stats.{name}", (M, 1), f32, device)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return step0, n_valid, chunk, market_ids, params, peer_mid
 
+
+def kinetic_clearing_chunk(
+        bid: torch.Tensor, ask: torch.Tensor, last: torch.Tensor,
+        pmid: torch.Tensor, step0: int, n_valid: int,
+        ext_buy: Optional[torch.Tensor] = None,
+        ext_ask: Optional[torch.Tensor] = None, *, cfg, chunk: int,
+        scan: str = "cumsum", market_ids: Optional[torch.Tensor] = None,
+        params: Union[PackedParams, MarketParams, None] = None,
+        peer_mid: Optional[torch.Tensor] = None,
+        stats: Optional[stats_mod.MarketStats] = None,
+        stats_only: bool = False) -> Tuple:
+    """Advance ``n_valid <= chunk`` steps from absolute step ``step0``.
+
+    ``cfg`` (an ``EnsembleSpec`` or ``MarketConfig``) supplies A, L and the
+    seed. ``market_ids`` (int32[M] or [M, 1], default ``arange(M)``) are the
+    rows' global ids. ``peer_mid`` defaults to the gather of the entry
+    ``pmid`` at ``coupling_peer``. ``scan`` selects the plain version's scan
+    (the kernel always runs its log-depth block scan; both give the same
+    bits for exact-integer books).
+
+    Returns ``(bid, ask, last, pmid, price_path, volume_path, mid_path)``
+    with ``[M, chunk]`` paths of which the first ``n_valid`` columns are
+    written, or ``(bid, ask, last, pmid, MarketStats)`` with ``stats_only``.
+    """
+    step0, n_valid, chunk, market_ids, params, peer_mid = \
+        check_chunk_operands(
+            "kinetic_clearing_chunk", bid, ask, last, pmid, step0, n_valid,
+            ext_buy, ext_ask, cfg=cfg, chunk=chunk, scan=scan,
+            market_ids=market_ids, params=params, peer_mid=peer_mid,
+            stats=stats, stats_only=stats_only)
     args = (bid, ask, last, pmid, step0, n_valid, ext_buy, ext_ask)
     kw = dict(cfg=cfg, chunk=chunk, scan=scan, market_ids=market_ids,
               params=params, peer_mid=peer_mid, stats=stats,
               stats_only=stats_only)
-    if device.type == "cpu":
+    if bid.device.type == "cpu":
         return kinetic_clearing_chunk_plain(*args, **kw)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
     out = _launch(*args, **kw)
     kinetic_clearing_chunk.launches += 1
     return out
@@ -187,9 +197,7 @@ def _launch(bid, ask, last, pmid, step0, n_valid, ext_buy, ext_ask, *, cfg,
         paths = tuple(torch.empty((M, chunk), dtype=torch.float32,
                                   device=bid.device) for _ in range(3))
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    ptr = _build.ptr
     # The <<<>>> launch goes to the current device: make it the tensors'.
     with torch.cuda.device(bid.device):
         rc = lib.kc_kinetic_clearing_chunk(
@@ -200,9 +208,7 @@ def _launch(bid, ask, last, pmid, step0, n_valid, ext_buy, ext_ask, *, cfg,
             cfg.num_agents, L, chunk, step0, n_valid,
             int(cfg.seed) & 0xFFFFFFFF,
             torch.cuda.current_stream(bid.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"kinetic_clearing_chunk launch failed: CUDA error "
-                           f"{rc} ({lib.kc_error_string(rc).decode()})")
+    _build.check_launch(lib, rc, "kinetic_clearing_chunk")
     state = (out_bid, out_ask, out_last, out_pmid)
     if stats_only:
         return state + (stats_mod.MarketStats(
@@ -246,6 +252,84 @@ def kinetic_clearing_chunk_plain(
     return tuple(state) + tuple(paths)
 
 
+def check_legacy_operands(what: str, bid, ask, last, pmid, *, cfg,
+                          scan) -> None:
+    """Check a legacy one-shot call's operands."""
+    if not isinstance(cfg, MarketConfig):
+        raise TypeError(f"{what} takes a scalar MarketConfig, got "
+                        f"{type(cfg).__name__} (sessions take EnsembleSpecs)")
+    if bid.dim() != 2 or bid.shape[0] == 0:
+        raise ValueError(f"{what} needs bid of shape [M >= 1, L], got "
+                         f"{tuple(bid.shape)}")
+    M, L = bid.shape
+    if L != cfg.num_levels:
+        raise ValueError(f"books have {L} levels but cfg.num_levels is "
+                         f"{cfg.num_levels}")
+    if scan not in ("cumsum", "hillis-steele"):
+        raise ValueError(f"unknown scan {scan!r}")
+    for name, t, shape in (("bid", bid, (M, L)), ("ask", ask, (M, L)),
+                           ("last", last, (M, 1)), ("pmid", pmid, (M, 1))):
+        _expect(t, name, shape, torch.float32, bid.device)
+    if bid.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {bid.device}")
+
+
+def legacy_params(cfg: MarketConfig, device) -> PackedParams:
+    """The legacy entries' params operand: the one packed row of
+    ``params_from_config(cfg, 1)``, which every block reads (the values of
+    ``scalar_params(cfg)``, which the plain version broadcasts)."""
+    return params_mod.pack_params(params_mod.params_from_config(cfg, 1),
+                                  device)
+
+
+def kinetic_clearing(bid: torch.Tensor, ask: torch.Tensor,
+                     last: torch.Tensor, pmid: torch.Tensor, *,
+                     cfg: MarketConfig, scan: str = "cumsum") -> Tuple:
+    """Run all ``cfg.num_steps`` steps of a scalar ``MarketConfig`` in one
+    persistent launch (the legacy one-shot entry).
+
+    Market ids are the rows, and arbitrageurs see their own market's
+    previous mid at every step. There is no ``mb``: the CUDA grid has one
+    block per market, so the TPU entry's rule that the tile divide M does
+    not apply. Returns ``(bid, ask, last, pmid, price_path, volume_path)``
+    with ``[M, S]`` paths.
+    """
+    check_legacy_operands("kinetic_clearing", bid, ask, last, pmid, cfg=cfg,
+                          scan=scan)
+    if bid.device.type == "cpu":
+        return kinetic_clearing_plain(bid, ask, last, pmid, cfg=cfg, scan=scan)
+    lib = _load_library()
+    M, L = bid.shape
+    S = cfg.num_steps
+    state = [t.contiguous() for t in (bid, ask, last, pmid)]
+    params = legacy_params(cfg, bid.device)
+    out = [torch.empty_like(t) for t in state]
+    paths = [torch.empty((M, S), dtype=torch.float32, device=bid.device)
+             for _ in range(2)]
+    with torch.cuda.device(bid.device):
+        rc = lib.kc_kinetic_clearing(
+            *map(_build.ptr, state + [params.floats, params.ints] + out
+                 + paths), M, cfg.num_agents, L, S,
+            int(cfg.seed) & 0xFFFFFFFF,
+            torch.cuda.current_stream(bid.device).cuda_stream)
+    _build.check_launch(lib, rc, "kinetic_clearing")
+    kinetic_clearing.launches += 1
+    return tuple(out + paths)
+
+
+#: Kernel launches since the count was last reset (CPU calls never count).
+kinetic_clearing.launches = 0
+
+
+def kinetic_clearing_plain(bid, ask, last, pmid, *, cfg: MarketConfig,
+                           scan: str = "cumsum") -> Tuple:
+    """The plain PyTorch version: the oracle's loop
+    (:func:`repro_torch.kernels.ref.run_reference`) from the given books."""
+    state, prices, volumes = ref.run_reference(
+        cfg, MarketState(bid, ask, last, pmid), scan)
+    return tuple(state) + (prices, volumes)
+
+
 #: Operations per agent-step in the kernel's source: seven lowbias32 rounds
 #: (8 each), seven absorptions (2 each), five uniform conversions (3 each),
 #: the type select (7), the archetype and overlays (~15), round/clip/floor
@@ -281,3 +365,11 @@ def byte_count(num_markets: int, num_levels: int, chunk: int, *,
     out = 2 * 6 * M * 4 if stats_only else 3 * M * chunk * 4
     params = M * NUM_PARAM_OPERANDS * 4
     return books + scalars + ext_b + params + out
+
+
+def legacy_byte_count(num_markets: int, num_levels: int, steps: int) -> int:
+    """Bytes a legacy one-shot call must move: books and scalars in and
+    out, the one params row, and the two ``[M, S]`` paths."""
+    M, L = num_markets, num_levels
+    return (2 * 2 * M * L * 4 + 2 * 2 * M * 4 + NUM_PARAM_OPERANDS * 4
+            + 2 * M * steps * 4)

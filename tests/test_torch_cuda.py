@@ -1,4 +1,5 @@
-"""The CUDA kernel against its plain PyTorch version on the card.
+"""The CUDA kernels against their plain PyTorch versions on the card, and
+the kernel and framework backends against each other.
 
 Marked ``cuda``: they need an NVIDIA card and ``nvcc``, and skip without a
 card. On the card: ``PYTHONPATH=src python -m pytest -m cuda
@@ -14,6 +15,7 @@ from repro_torch.core.session import Engine
 from repro_torch.core.stats import init_stats
 from repro_torch.core.step import initial_state
 from repro_torch.kernels import kinetic_clearing as kc
+from repro_torch.kernels import naive_clearing as nc
 
 pytestmark = pytest.mark.cuda
 
@@ -75,3 +77,96 @@ def test_session_launches_once_per_chunk(cuda):
         want = s.run_to_result()
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+SHAPES = [(4, 256, 128), (2, 300, 1024), (8, 5, 8)]
+
+
+@pytest.mark.parametrize("M,A,L", SHAPES)
+@pytest.mark.parametrize("stats_only", [False, True])
+def test_naive_kernel_equals_plain(cuda, M, A, L, stats_only):
+    spec = _spec(M, A, L)
+    state = initial_state(spec, cuda)
+    params = params_mod.pack_params(spec.params, cuda)
+    gen = torch.Generator().manual_seed(L + 1)
+    ext = [(torch.randint(0, 3, (spec.num_markets, L), generator=gen)
+            .float().to(cuda)) for _ in range(2)]
+    kw = dict(cfg=spec, chunk=16, params=params, stats_only=stats_only,
+              stats=init_stats(spec.num_markets, cuda) if stats_only
+              else None)
+    before = nc.naive_clearing_chunk.launches
+    got = nc.naive_clearing_chunk(*state, 3, 12, *ext, **kw)
+    want = nc.naive_clearing_chunk_plain(*state, 3, 12, *ext, **kw)
+    torch.cuda.synchronize()
+    assert nc.naive_clearing_chunk.launches == before + 12
+    for g, w in zip(got[:4], want[:4]):
+        assert torch.equal(g, w)
+    rest = zip(got[4], want[4]) if stats_only else \
+        ((g[:, :12], w[:, :12]) for g, w in zip(got[4:], want[4:]))
+    for g, w in rest:
+        assert torch.equal(g, w)
+
+
+def test_naive_zero_steps_launch_nothing_and_copy(cuda):
+    spec = _spec(4, 16, 16)
+    state = initial_state(spec, cuda)
+    before = nc.naive_clearing_chunk.launches
+    out = nc.naive_clearing_chunk(*state, 0, 0, cfg=spec, chunk=4)
+    assert nc.naive_clearing_chunk.launches == before
+    for g, w in zip(out[:4], state):
+        assert torch.equal(g, w) and g.data_ptr() != w.data_ptr()
+
+
+def _legacy_cfg(M, A, L, S=20):
+    """Arbitrageurs (peer = own mid at every step), a shock and informed
+    agents, so a frozen peer or a wrong params column shows."""
+    return MarketConfig(num_markets=M, num_agents=A, num_levels=L,
+                        num_steps=S, seed=2**31 + L, alpha_arbitrageur=0.2,
+                        alpha_informed=0.1, alpha_whale=0.1, whale_period=3,
+                        shock_step=6, shock_intensity=0.5, shock_cancel=0.5)
+
+
+@pytest.mark.parametrize("M,A,L", SHAPES)
+@pytest.mark.parametrize("entry", ["kinetic", "naive"])
+def test_legacy_kernel_equals_plain(cuda, entry, M, A, L):
+    cfg = _legacy_cfg(M, A, L)
+    fn, plain = ((kc.kinetic_clearing, kc.kinetic_clearing_plain)
+                 if entry == "kinetic"
+                 else (nc.naive_clearing, nc.naive_clearing_plain))
+    state = initial_state(cfg, cuda)
+    before = fn.launches
+    got = fn(*state, cfg=cfg)
+    want = plain(*state, cfg=cfg)
+    torch.cuda.synchronize()
+    assert fn.launches == before + (1 if entry == "kinetic"
+                                    else cfg.num_steps)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_naive_session_launches_once_per_step(cuda):
+    spec = _spec(4, 64, 32, S=50)
+    nc.naive_clearing_chunk.launches = 0
+    with Engine("cuda-naive", device=cuda).open(spec, chunk_size=16) as s:
+        got = s.run_to_result()
+    assert nc.naive_clearing_chunk.launches == 50
+    with Engine("cuda-kinetic", device=cuda).open(spec, chunk_size=16) as s:
+        want = s.run_to_result()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("backend", ["torch-scan", "torch-per-step"])
+@pytest.mark.parametrize("stats_only", [False, True])
+def test_torch_backends_equal_cuda_kinetic(cuda, backend, stats_only):
+    spec = _spec(4, 64, 32, S=50)
+
+    def run(name):
+        with Engine(name, device=cuda, stats_only=stats_only).open(
+                spec, chunk_size=16) as s:
+            batch = s.run()
+            return list(s.state) + (list(s.stats) if stats_only
+                                    else list(batch))
+
+    for g, w in zip(run(backend), run("cuda-kinetic")):
+        assert (torch.as_tensor(g).cpu() == torch.as_tensor(w).cpu()).all()

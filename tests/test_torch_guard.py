@@ -17,7 +17,10 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 def test_import_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.core.engine, "
             "repro_torch.kernels.ops, repro_torch.convert, "
-            "repro_torch.env.actions, repro_torch.kernels.ref; "
+            "repro_torch.env.actions, repro_torch.kernels.ref, "
+            "repro_torch.kernels.naive_clearing, "
+            "repro_torch.core.torch_backend; "
+            "repro_torch.core.session.backends(); "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -126,3 +129,24 @@ def test_failed_build_is_reported_by_backend_available(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         ops.KineticChunkRunner(spec, 2, torch.device("cuda"))
     assert "nvcc failed" in session.backend_available("cuda-kinetic")
+
+
+def test_failed_naive_build_is_reported_by_backend_available(monkeypatch):
+    from repro_torch.core import session
+    from repro_torch.kernels import naive_clearing as nc
+    from repro_torch.kernels import ops
+
+    def broken():
+        raise RuntimeError("nvcc failed for naive_clearing.cu")
+
+    monkeypatch.setattr(nc, "_load_library", broken)
+    monkeypatch.setattr(session, "_FAILED", {})
+    from repro_torch.core.config import MarketConfig
+    from repro_torch.core.params import EnsembleSpec
+
+    spec = EnsembleSpec.homogeneous(MarketConfig(
+        num_markets=2, num_agents=4, num_levels=8, num_steps=2))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ops.NaiveChunkRunner(spec, 2, torch.device("cuda"))
+    assert "nvcc failed" in session.backend_available("cuda-naive")
+    assert session.backend_available("cuda-kinetic") is True

@@ -103,8 +103,18 @@ def test_chunks_compose_to_one_call():
         assert torch.equal(torch.cat([a[k], b[k]], dim=1), one[k])
 
 
-def test_column_order_shared_with_cuda_source():
-    src = (_build.CSRC / "kinetic_clearing.cu").read_text()
+def cuda_source(name):
+    """``csrc/<name>.cu`` with its local ``#include "..."`` headers inlined,
+    as nvcc reads it."""
+    def inline(text):
+        return re.sub(r'#include "([^"]+)"',
+                      lambda m: inline((_build.CSRC / m.group(1)).read_text()),
+                      text)
+
+    return inline((_build.CSRC / f"{name}.cu").read_text())
+
+
+def check_column_order(src):
 
     def define(name):
         joined = src.replace("\\\n", " ")  # fold continuation lines
@@ -120,6 +130,10 @@ def test_column_order_shared_with_cuda_source():
     ints = [n.lower() for k, n in enums if k == "I"]
     assert floats == [f for f in params_mod.FLOAT_FIELDS]
     assert ints == [f for f in params_mod.INT_FIELDS]
+
+
+def test_column_order_shared_with_cuda_source():
+    check_column_order(cuda_source("kinetic_clearing"))
 
 
 def test_build_flags_keep_ieee_rounding():
