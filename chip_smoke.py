@@ -7,19 +7,22 @@ Every run drives every phase at full width. Phases, each printing one JSON
 line:
 
   build    build the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
-           ``nvcc`` per source, all started together.
+           ``nvcc`` per source, all started together; each kernel's
+           registers and spills from ptxas (``-Xptxas -v``); any spill
+           fails.
   kernel   ``kinetic_clearing_chunk`` (CUDA) == its plain PyTorch version,
            field by field, at the paper's width A=256, L=128 on a
            heterogeneous ensemble populating all eight archetypes: a chunk
            holding the shock step, a partial tail, external orders,
            ``stats_only``, and ``scan="hillis-steele"``.
-  edges    the same check at L=1024, A=300 and at L=8, A=5.
+  edges    the same check at L=1024, A=300, at L=8, A=5 and at L=4, A=16,
+           the last two with 15 markets (a ragged last CTA).
   naive    ``naive_clearing_chunk`` (one launch per step) == its plain
            version over the five cases of ``kernel``.
   legacy   the legacy one-shot ``kinetic_clearing`` and ``naive_clearing``
            == ``ref.simulate_reference`` on the card at M=1024, A=256,
            L=128, S=64 (baseline, arbitrageur, flash-crash, informed) and
-           at the L=1024 and L=8 edges.
+           at the L=1024, L=8 and L=4 edges.
   session  ``Engine(b).open(spec).run(500)`` in chunks of 64 for the four
            backends: ``cuda-kinetic`` (the main path) == a plain run over
            the same chunks, one launch per chunk; ``cuda-naive`` (one launch
@@ -27,6 +30,10 @@ line:
            ``cuda-kinetic`` run; ``stats_only`` stats likewise.
   timing   CUDA-event times of the chunk kernels and their plain version at
            M=8192, A=256, L=128, chunk 64, against the bound.
+  agent_sweep  kernels 1 and 2 over the paper's agent sweep (L=128,
+           A in {16, 64, 256, 1024}, one 64-step chunk): each A held bit for
+           bit against the plain version at M=1024 (every archetype, a
+           shock, coupled peers), then timed at M=8192 against the bound.
   legacy_path  the legacy entries at M=8192, A=256, L=128, S=64: one call
            each with the counts at 0, then times against the bound.
   fixed_workload  the paper's Table IV shape (M=8192, A=256, L=128, S=500)
@@ -35,8 +42,12 @@ line:
            chunk kernels alone at M=8192, A=32, L=1024 (books beyond L2).
 
 Each path is driven with every launch count at 0 just before it and read
-just after. The second-to-last line lists every kernel with its launches on
-its path; the last line is the device record. Any mismatch or exception
+just after. The ``timing``, ``agent_sweep``, ``legacy_path`` and
+``fixed_workload`` lines give each timed shape's launch shape
+(``autotune.auto_tile``) and resident CTAs per SM
+(``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). The line before the
+last two lists every kernel with its launches on its path; the last line
+is the device record. Any mismatch or exception
 exits non-zero before those lines. Imports nothing of JAX or of the JAX
 package.
 """
@@ -59,7 +70,9 @@ LEGACY_MARKETS = 1024     # markets of the legacy phase's wide configs
 PERSISTENCE = (8192, 32, 1024)
 # H100 SXM data sheet: 67 TFLOP/s in f32 counts an FMA as two operations.
 # One instruction per FP32 lane per clock (132 SMs x 128 lanes x 1.98 GHz)
-# is half that; kc.op_count counts issue slots at this rate.
+# is half that. kc.op_count counts FP32-lane issue slots: each instruction
+# class weighted by 128 over its per-SM rate on compute capability 9.0
+# (FP32 x1, 32-bit integer x2, conversion x8, shuffle x4).
 PEAK_LANE_OPS = 67e12 / 2
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 SEED = 20260611
@@ -236,8 +249,18 @@ def phase_build():
     _build.build(["kinetic_clearing", "naive_clearing"])
     kc._load_library()
     nc._load_library()
+    ptxas = {**_build.ptxas_report("kinetic_clearing"),
+             **_build.ptxas_report("naive_clearing")}
+    kernels = ("kinetic_chunk_kernel<true>", "kinetic_chunk_kernel<false>",
+               "kinetic_legacy_kernel<true>", "kinetic_legacy_kernel<false>",
+               "naive_chunk_step_kernel", "naive_legacy_step_kernel")
+    for name in kernels:
+        got = ptxas.get(name, {})
+        if "registers" not in got or got.get("spill_stores", 1) or \
+                got.get("spill_loads", 1):
+            raise Mismatch(f"ptxas reports {name}: {got} (spills or missing)")
     emit("build", ok=True, seconds=time.perf_counter() - t0,
-         flags=" ".join(_build.NVCC_FLAGS))
+         flags=" ".join(_build.NVCC_FLAGS), ptxas=ptxas)
 
 
 CHUNK_CASES = (
@@ -265,7 +288,8 @@ def phase_kernel(device, B, entry="kinetic"):
 
 def phase_edges(device):
     errs = []
-    for M, A, L in ((8, 300, 1024), (16, 5, 8)):
+    shapes = ((8, 300, 1024), (3, 5, 8), (3, 16, 4))  # 5·M markets
+    for M, A, L in shapes:
         spec = small_spec(M, A, L, num_steps=20)
         for step0, n_valid in ((0, 12), (4, 9)):
             e, _ = kernel_vs_plain(f"edge L={L} A={A} step0={step0}", spec,
@@ -275,7 +299,7 @@ def phase_edges(device):
         e, _ = kernel_vs_plain(f"edge L={L} A={A} stats", spec, device,
                                step0=2, n_valid=12, chunk=12, stats_only=True)
         errs.append(e)
-    emit("edges", ok=True, shapes=[[8, 300, 1024], [16, 5, 8]],
+    emit("edges", ok=True, shapes=[list(x) for x in shapes],
          max_abs_err=max(errs))
     return max(errs)
 
@@ -284,7 +308,7 @@ def legacy_configs():
     """(label, MarketConfig) of the legacy phase: the paper's width with an
     arbitrageur config (the peer is the own mid at every step), flash-crash
     and informed configs (every broadcast params column matters), and the
-    L=1024 and L=8 edges."""
+    L=1024, L=8 and L=4 edges."""
     from repro_torch.core.config import MarketConfig, scenario_config
 
     wide = dict(num_markets=LEGACY_MARKETS, num_agents=256, num_levels=128,
@@ -300,6 +324,9 @@ def legacy_configs():
                                      seed=SEED + 1, **arb)),
         ("edge L=8", MarketConfig(num_markets=16, num_agents=5,
                                   num_levels=8, num_steps=20, seed=SEED + 2,
+                                  **arb)),
+        ("edge L=4", MarketConfig(num_markets=15, num_agents=16,
+                                  num_levels=4, num_steps=20, seed=SEED + 3,
                                   **arb)),
     ]
 
@@ -446,6 +473,28 @@ def bound(ops: int, nbytes: int) -> dict:
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
+def launch_facts(M, A, L) -> dict:
+    """The kernels' launch shape at (M, A, L) and each kernel's resident
+    CTAs per SM there."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import kinetic_clearing as kc
+    from repro_torch.kernels import naive_clearing as nc
+
+    shape = autotune.auto_tile(L, A)
+    return dict(
+        warps_per_market=shape.warps_per_market,
+        markets_per_cta=shape.markets_per_cta,
+        agents_in_registers=shape.agents_in_registers,
+        threads_per_cta=shape.threads_per_cta, grid=shape.grid(M),
+        smem_bytes={"persistent": shape.smem_bytes(True),
+                    "per_step": shape.smem_bytes(False)},
+        resident_ctas_per_sm={
+            "kinetic_clearing_chunk": kc.resident_ctas(False, shape),
+            "naive_clearing_chunk": nc.resident_ctas(False, shape),
+            "kinetic_clearing": kc.resident_ctas(True, shape),
+            "naive_clearing": nc.resident_ctas(True, shape)})
+
+
 def homogeneous(M, A, L, S):
     from repro_torch.core.config import MarketConfig
     from repro_torch.core.params import EnsembleSpec
@@ -483,7 +532,7 @@ def phase_timing(device):
     ms, pms = statistics.median(kernel_ms), statistics.median(plain_ms)
     nms = statistics.median(naive_ms)
     # Both kernels compute the same function: one bound serves both.
-    b = bound(kc.op_count(M, A, L, chunk),
+    b = bound(kc.op_count(M, A, L, chunk, kc.agent_mix(spec.params, A)),
               kc.byte_count(M, L, chunk, ext=False, stats_only=False))
     naive_bytes = nc.byte_count(M, L, chunk, ext=False, stats_only=False)
     timing = dict(markets=M, agents=A, levels=L, chunk=chunk, ms=ms,
@@ -494,9 +543,75 @@ def phase_timing(device):
                   naive_design_bytes=naive_bytes,
                   naive_design_bytes_ms=naive_bytes / PEAK_BYTES * 1e3,
                   bound_share=b["bound_ms"] / ms,
-                  naive_bound_share=b["bound_ms"] / nms, **b)
+                  naive_bound_share=b["bound_ms"] / nms,
+                  launch=launch_facts(M, A, L), **b)
     emit("timing", ok=True, **timing)
     return timing
+
+
+AGENT_SWEEP = (16, 64, 256, 1024)  # benchmarks/common.py at FULL_SCALE
+SWEEP_CHECK_MARKETS = 1024         # markets of the sweep's bitwise check
+
+
+def sweep_spec(M, A):
+    """Every archetype at L=128, a shock inside the first chunk and a ring
+    of arbitrageur peers."""
+    import numpy as np
+    from repro_torch.core.config import MarketConfig
+    from repro_torch.core.params import EnsembleSpec
+
+    spec = EnsembleSpec.homogeneous(MarketConfig(
+        num_markets=M, num_agents=A, num_levels=128, num_steps=500,
+        seed=SEED + A, alpha_fundamentalist=0.1, alpha_whale=0.05,
+        whale_period=3, alpha_hft=0.1, hft_threshold=0.1,
+        alpha_informed=0.05, shock_step=20, shock_intensity=0.5,
+        shock_cancel=0.5, alpha_arbitrageur=0.1))
+    return spec.with_values(coupling_peer=(np.arange(M) + 1) % M)
+
+
+def phase_agent_sweep(device):
+    """Kernels 1 and 2 over the paper's agent sweep at L=128: bit for bit
+    against the plain version at M=1024, then timed at M=8192 (the plain
+    version is not timed there)."""
+    from repro_torch.core import params as params_mod
+    from repro_torch.kernels import kinetic_clearing as kc
+    from repro_torch.kernels import naive_clearing as nc
+
+    M, L, chunk = TABLE_IV[0], 128, 64
+    errs, rows = [], []
+    for A in AGENT_SWEEP:
+        for entry in ("kinetic", "naive"):
+            e, _ = kernel_vs_plain(f"agent_sweep A={A} {entry}",
+                                   sweep_spec(SWEEP_CHECK_MARKETS, A),
+                                   device, step0=0,
+                                   n_valid=chunk, chunk=chunk, entry=entry)
+            errs.append(e)
+        spec = homogeneous(M, A, L, 500)
+        state = opening(spec, device)
+        kw = dict(cfg=spec, chunk=chunk,
+                  params=params_mod.pack_params(spec.params, device))
+
+        def kernel():
+            kc.kinetic_clearing_chunk(*state, 0, chunk, **kw)
+
+        def naive():
+            nc.naive_clearing_chunk(*state, 0, chunk, **kw)
+
+        kernel_ms, naive_ms = [_time(kernel, 10)], []
+        naive_ms += [_time(naive, 10), _time(naive, 10)]
+        kernel_ms.append(_time(kernel, 10))
+        ms, nms = statistics.median(kernel_ms), statistics.median(naive_ms)
+        b = bound(kc.op_count(M, A, L, chunk, kc.agent_mix(spec.params, A)),
+                  kc.byte_count(M, L, chunk, ext=False, stats_only=False))
+        rows.append(dict(agents=A, ms=ms, kernel_ms_runs=kernel_ms,
+                         naive_ms=nms, naive_ms_runs=naive_ms,
+                         naive_over_kernel=nms / ms,
+                         bound_share=b["bound_ms"] / ms,
+                         launch=launch_facts(M, A, L), **b))
+    emit("agent_sweep", ok=True, markets=M, levels=L, chunk=chunk,
+         checked_markets=SWEEP_CHECK_MARKETS, max_abs_err=max(errs),
+         rows=rows)
+    return max(errs)
 
 
 def phase_legacy_path(device):
@@ -504,6 +619,7 @@ def phase_legacy_path(device):
     S=64: one call each with the counts at 0, checked against the plain
     version, then timed against the bound."""
     import torch
+    from repro_torch.core import params as params_mod
     from repro_torch.core.config import MarketConfig
     from repro_torch.kernels import kinetic_clearing as kc
     from repro_torch.kernels import naive_clearing as nc
@@ -536,14 +652,15 @@ def phase_legacy_path(device):
     naive_ms += [_time(naive, 10), _time(naive, 10)]
     kernel_ms.append(_time(kernel, 10))
     plain_ms.append(_time(plain, 2))
-    b = bound(kc.op_count(M, A, L, S), kc.legacy_byte_count(M, L, S))
+    mix = kc.agent_mix(params_mod.params_from_config(cfg, M), A)
+    b = bound(kc.op_count(M, A, L, S, mix), kc.legacy_byte_count(M, L, S))
     out = dict(markets=M, agents=A, levels=L, steps=S,
                launches={k: counts[k] for k in errs}, max_abs_err=errs,
                kinetic_ms=statistics.median(kernel_ms),
                kinetic_ms_runs=kernel_ms,
                naive_ms=statistics.median(naive_ms), naive_ms_runs=naive_ms,
                plain_ms=statistics.median(plain_ms), plain_ms_runs=plain_ms,
-               **b)
+               launch=launch_facts(M, A, L), **b)
     emit("legacy_path", ok=True, **out)
     return out
 
@@ -623,10 +740,13 @@ def phase_fixed_workload(device):
         / statistics.median(kernel_ms),
         naive_design_bytes=naive_bytes,
         naive_design_bytes_ms=naive_bytes / PEAK_BYTES * 1e3,
-        **bound(kc.op_count(pM, pA, pL, chunk),
+        launch=launch_facts(pM, pA, pL),
+        **bound(kc.op_count(pM, pA, pL, chunk,
+                            kc.agent_mix(pspec.params, pA)),
                 kc.byte_count(pM, pL, chunk, ext=False, stats_only=False)))
     emit("fixed_workload", ok=True, markets=M, agents=A, levels=L, steps=S,
-         backends=rows, persistence=persistence)
+         launch=launch_facts(M, A, L), backends=rows,
+         persistence=persistence)
     return rows, persistence
 
 
@@ -663,13 +783,14 @@ def main() -> int:
     err_l = phase_legacy(device)
     launches, session_errs = phase_session(device, MARKETS_PER_BLOCK)
     timing = phase_timing(device)
+    err_s = phase_agent_sweep(device)
     legacy = phase_legacy_path(device)
     phase_fixed_workload(device)
     launches.update(legacy["launches"])
     errs = {"kinetic_clearing_chunk":
-            max(err_k, session_errs["kinetic_clearing_chunk"]),
+            max(err_k, err_s, session_errs["kinetic_clearing_chunk"]),
             "naive_clearing_chunk":
-            max(err_n, session_errs["naive_clearing_chunk"]),
+            max(err_n, err_s, session_errs["naive_clearing_chunk"]),
             "kinetic_clearing":
             max(err_l, legacy["max_abs_err"]["kinetic_clearing"]),
             "naive_clearing":

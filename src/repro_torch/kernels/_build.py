@@ -3,14 +3,17 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at first
 use into ``_build/lib<name>-<hash>.so`` beside this module (a git-ignored
 directory), keyed by a hash of the source, every shared ``csrc/*.cuh``
-header and the flags, so an edit to any of them rebuilds. Nothing is built
-or imported when this module is imported.
+header and the flags, so an edit to any of them rebuilds. ptxas reports
+each kernel's registers and spills (``-Xptxas -v``) into a ``.log`` beside
+the library, which :func:`ptxas_report` reads. Nothing is built or imported
+when this module is imported.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -24,7 +27,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 #: versions round every operation); no --use_fast_math, so division,
 #: floorf and rintf stay IEEE.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -59,6 +63,7 @@ def build(names: Iterable[str]) -> List[Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     jobs = []
+    names = list(names)
     for name in names:
         out = library_path(name)
         if out.exists():
@@ -74,6 +79,7 @@ def build(names: Iterable[str]) -> List[Path]:
     for name, out, tmp, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode == 0:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)  # atomic: concurrent builders race safely
         else:
             os.unlink(tmp)
@@ -82,6 +88,33 @@ def build(names: Iterable[str]) -> List[Path]:
     if failures:
         raise RuntimeError("\n".join(failures))
     return [library_path(n) for n in names]
+
+
+def ptxas_report(name: str) -> Dict[str, dict]:
+    """Registers and spill bytes of each kernel of a built library, from
+    ptxas's ``-v`` report, keyed by kernel name (a ``<true>``/``<false>``
+    suffix for the bool template argument)."""
+    report, kernel = {}, None
+    log = library_path(name).with_suffix(".log").read_text()
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
+        if m:
+            n, rest = int(m.group(1)), m.group(2)
+            kernel = rest[:n]
+            if rest[n:].startswith("ILb"):
+                kernel += ("<true>" if rest[n:].startswith("ILb1")
+                           else "<false>")
+            report[kernel] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and kernel:
+            report[kernel].update(spill_stores=int(m.group(1)),
+                                  spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            report[kernel]["registers"] = int(m.group(1))
+    return report
 
 
 def load(name: str, entries: Mapping[str, Sequence] = ()) -> ctypes.CDLL:

@@ -1,13 +1,24 @@
 // Device pieces shared by the port's four clearing kernels (sm_90a).
 //
-// One block clears one market; blockDim = max(32, L). Thread l < L owns
-// price level l; every thread takes agents a = tid, tid + blockDim, ...
-// market_step() runs one step of simulate_step (repro_torch.core.step) on
-// the block's books in shared memory: the scenario shock, best quotes and
-// the book imbalance, the agents' decisions on the counter hash, atomicAdd
-// binning, the two block scans, the tournament argmax and the residual
-// books. The kernels differ only in where the books live between steps
-// and in where a step's outputs go.
+// Layout: a *market team* of W warps (T = 32·W threads) clears one market,
+// and one CTA holds `markets_per_cta` teams. Thread t of a team owns the
+// LEVELS_PER_LANE = 4 contiguous levels [4t, 4t + 4) ∩ [0, L) and keeps
+// their bid/ask in registers for the whole call; agent a is handled by
+// thread a mod T, so a warp holds 32 consecutive agent ids (mostly one
+// archetype). The launch rule (repro_torch/kernels/autotune.py::auto_tile,
+// checked by check_shape below) takes W = max(1, L / 128): a market is one
+// warp up to L = 128 (four markets per CTA) and 2-8 warps beyond (one
+// market per CTA).
+//
+// market_step() runs one step of simulate_step (repro_torch.core.step):
+// the scenario shock, best quotes and the book imbalance, the agents'
+// decisions on the counter hash, integer atomicAdd binning into the team's
+// shared-memory bins, the two raking scans (a serial scan of the lane's
+// own levels, then a shuffle scan of the lane totals), the argmax and the
+// residual books. Quotes, sums, scans and the argmax are warp shuffles;
+// a one-warp team crosses no __syncthreads() at all (__syncwarp orders the
+// bins), and a several-warp team adds one barrier per reduction (four a
+// step) to combine the warp totals with a second shuffle tree.
 //
 // Bitwise contract with the plain PyTorch version:
 //   * built with -fmad=false and without --use_fast_math, so a*b+c rounds
@@ -15,7 +26,9 @@
 //   * the imbalance division is __fdiv_rn; the half-to-even round is rintf;
 //     floors are floorf; the hash is uint32_t arithmetic;
 //   * every sum (bins, book sums, scans) is an integer-valued float far below
-//     2^24, so atomics and any reduction order give the same bits.
+//     2^24, so atomics and any reduction order give the same bits. Every
+//     agent quantity is an integer (1 + floor(u·q_max), or the
+//     integer-valued whale_size), so the bins add ints and convert once.
 //
 // Each .cu that includes this header is built into its own shared library,
 // so the extern "C" helpers at the end are defined once per library.
@@ -54,6 +67,22 @@ enum AgentType {
 #define FULL_MASK 0xFFFFFFFFu
 #define NUM_STATS 6
 #define SEED_GOLDEN 0x9E3779B9u
+#define K_GID 0x85EBCA6Bu
+#define K_STEP 0xC2B2AE35u
+#define K_CHAN 0x27D4EB2Fu
+
+// The launch rule's constants; repro_torch/kernels/autotune.py repeats them.
+#define LEVELS_PER_LANE 4
+#define LEVELS_PER_WARP (32 * LEVELS_PER_LANE)
+#define MAX_TEAM_WARPS 8
+#define REG_AGENTS 8          // agent slots a thread holds in registers
+#define MAX_CTA_THREADS 256
+#define MAX_DYNAMIC_SMEM (232448 - 1024)  // 227 KB less the static scratch
+
+// The bins' element type. Every quantity is an integer below 2^24, so int
+// bins give the float bins' bits, and the shared-memory int atomicAdd is a
+// native ATOMS.ADD where the float one is a compare-and-swap loop.
+typedef int bin_t;
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 16;
@@ -64,55 +93,22 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x;
 }
 
-// uniform32 for one channel, given the shared prefix
-// mix32(mix32((seed ^ GOLDEN) + gid * K_GID) + step * K_STEP).
-__device__ __forceinline__ float channel_uniform(uint32_t prefix, uint32_t ch) {
-  const uint32_t bits = mix32(prefix + ch * 0x27D4EB2Fu);
-  return __uint2float_rn(bits >> 8) * 5.9604644775390625e-08f;  // 2^-24
+// The step-invariant first round mix32((seed ^ GOLDEN) + gid * K_GID).
+__device__ __forceinline__ uint32_t agent_key(uint32_t seed_g,
+                                              uint32_t market, int A, int a) {
+  return mix32(seed_g + (market * (uint32_t)A + (uint32_t)a) * K_GID);
 }
 
-// Block-wide max(bb), min(ba), sum(sb), sum(sa); every thread gets the result.
-__device__ __forceinline__ void block_quotes(int& bb, int& ba, float& sb,
-                                             float& sa, int* ri, float* rf) {
-  for (int o = 16; o > 0; o >>= 1) {
-    bb = max(bb, __shfl_xor_sync(FULL_MASK, bb, o));
-    ba = min(ba, __shfl_xor_sync(FULL_MASK, ba, o));
-    sb += __shfl_xor_sync(FULL_MASK, sb, o);
-    sa += __shfl_xor_sync(FULL_MASK, sa, o);
-  }
-  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    ri[warp] = bb; ri[32 + warp] = ba; rf[warp] = sb; rf[32 + warp] = sa;
-  }
-  __syncthreads();
-  bb = ri[0]; ba = ri[32]; sb = rf[0]; sa = rf[32];
-  for (int w = 1; w < nw; ++w) {
-    bb = max(bb, ri[w]); ba = min(ba, ri[32 + w]);
-    sb += rf[w]; sa += rf[32 + w];
-  }
-  __syncthreads();
+// uniform32 for one channel, given the shared prefix
+// mix32(key + step * K_STEP).
+__device__ __forceinline__ float channel_uniform(uint32_t prefix, uint32_t ch) {
+  const uint32_t bits = mix32(prefix + ch * K_CHAN);
+  return __uint2float_rn(bits >> 8) * 5.9604644775390625e-08f;  // 2^-24
 }
 
 // Tournament argmax: the larger value wins, ties go to the lower tick.
 __device__ __forceinline__ bool beats(float v2, int i2, float v1, int i1) {
   return v2 > v1 || (v2 == v1 && i2 < i1);
-}
-
-__device__ __forceinline__ void block_argmax(float& v, int& idx, float* rv,
-                                             int* ri) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(FULL_MASK, v, o);
-    const int oi = __shfl_xor_sync(FULL_MASK, idx, o);
-    if (beats(ov, oi, v, idx)) { v = ov; idx = oi; }
-  }
-  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  if ((threadIdx.x & 31) == 0) { rv[warp] = v; ri[warp] = idx; }
-  __syncthreads();
-  v = rv[0]; idx = ri[0];
-  for (int w = 1; w < nw; ++w) {
-    if (beats(rv[w], ri[w], v, idx)) { v = rv[w]; idx = ri[w]; }
-  }
-  __syncthreads();
 }
 
 // One market's scenario params, read from one packed row.
@@ -151,180 +147,450 @@ __device__ __forceinline__ MarketRow load_row(const float* fp, const int* ip) {
   return p;
 }
 
-// The block's shared-memory working set: 6·L floats (dynamic) plus the
-// reduction scratch.
-struct BookSmem {
-  float* bid;   // resting bids
-  float* ask;   // resting asks
-  float* tb;    // incoming buy bins, then total buy
-  float* ta;    // incoming sell bins, then total ask
-  float* dc;    // cumulative demand (suffix scan)
-  float* sc;    // cumulative supply (prefix scan)
-  int* red_i;   // [64]
-  float* red_f; // [64]
-};
-
-__device__ __forceinline__ BookSmem book_smem(float* smem, int L, int* red_i,
-                                              float* red_f) {
-  return BookSmem{smem, smem + L, smem + 2 * L, smem + 3 * L, smem + 4 * L,
-                  smem + 5 * L, red_i, red_f};
+__device__ __forceinline__ int agent_type(int a, const MarketRow& p) {
+  return a < p.up_maker ? MAKER
+       : a < p.up_momentum ? MOMENTUM
+       : a < p.up_fund ? FUNDAMENTALIST
+       : a < p.up_whale ? WHALE
+       : a < p.up_hft ? HFT
+       : a < p.up_informed ? INFORMED
+       : a < p.up_arb ? ARBITRAGEUR : NOISE;
 }
 
-// One step of simulate_step for the block's market at absolute `step`.
-// `peer` is the arbitrageurs' peer mid; `eb`/`ea` are the market's external
-// order rows (null: none). Advances `last` and `pmid` and leaves the step's
-// mid and cleared volume in every thread. The caller synchronises before it
-// touches the books again.
-__device__ __forceinline__ void market_step(
-    const BookSmem& b, const MarketRow& p, const float* eb, const float* ea,
-    float peer, uint32_t market, uint32_t seed_g, int step, int A, int L,
-    float& last, float& pmid, float& mid_out, float& volume_out) {
-  const int tid = threadIdx.x;
-  const int T = blockDim.x;
-  const bool owns_level = tid < L;
-  const float top = (float)(L - 1);
+// ---------------------------------------------------------------------------
+// The market team.
 
-  // 1. Scenario shock: withdraw a fraction of every resting bid level.
-  if (owns_level && step == p.shock_step) {
-    const float v = b.bid[tid];
-    b.bid[tid] = v - floorf(v * p.shock_cancel);
+struct Team {
+  int W;     // warps per market
+  int T;     // threads per market (32·W)
+  int t;     // thread within the team
+  int lane;  // lane within the warp
+  int warp;  // warp within the team
+  int slot;  // team within the CTA
+};
+
+__device__ __forceinline__ Team make_team(int W) {
+  Team tm;
+  tm.W = W;
+  tm.T = 32 * W;
+  tm.t = (int)threadIdx.x % tm.T;
+  tm.lane = (int)threadIdx.x & 31;
+  tm.warp = tm.t >> 5;
+  tm.slot = (int)threadIdx.x / tm.T;
+  return tm;
+}
+
+// A team of several warps is the whole CTA (the launch rule gives it one
+// market per CTA), so its barrier is __syncthreads().
+__device__ __forceinline__ void team_sync(const Team& tm) {
+  if (tm.W == 1) __syncwarp(); else __syncthreads();
+}
+
+// Warp totals of a several-warp team, one slot per warp and reduction.
+struct TeamScratch {
+  int bb[MAX_TEAM_WARPS], ba[MAX_TEAM_WARPS], idx[MAX_TEAM_WARPS];
+  float sb[MAX_TEAM_WARPS], sa[MAX_TEAM_WARPS];
+  float demand[MAX_TEAM_WARPS], supply[MAX_TEAM_WARPS], vol[MAX_TEAM_WARPS];
+};
+
+extern __shared__ int kc_smem[];  // the teams' bins (and hoisted agents)
+__shared__ TeamScratch kc_scratch;
+
+// max(bb), min(ba), sum(sb), sum(sa) over the team; every thread gets them.
+__device__ __forceinline__ void quotes_reduce(int& bb, int& ba, float& sb,
+                                              float& sa) {
+  for (int o = 16; o > 0; o >>= 1) {
+    bb = max(bb, __shfl_xor_sync(FULL_MASK, bb, o));
+    ba = min(ba, __shfl_xor_sync(FULL_MASK, ba, o));
+    sb += __shfl_xor_sync(FULL_MASK, sb, o);
+    sa += __shfl_xor_sync(FULL_MASK, sa, o);
+  }
+}
+
+__device__ __forceinline__ void team_quotes(const Team& tm, int L, int& bb,
+                                            int& ba, float& sb, float& sa) {
+  quotes_reduce(bb, ba, sb, sa);
+  if (tm.W == 1) return;
+  TeamScratch& s = kc_scratch;
+  if (tm.lane == 0) {
+    s.bb[tm.warp] = bb; s.ba[tm.warp] = ba;
+    s.sb[tm.warp] = sb; s.sa[tm.warp] = sa;
   }
   __syncthreads();
+  const bool has = tm.lane < tm.W;
+  bb = has ? s.bb[tm.lane] : -1;
+  ba = has ? s.ba[tm.lane] : L;
+  sb = has ? s.sb[tm.lane] : 0.f;
+  sa = has ? s.sa[tm.lane] : 0.f;
+  quotes_reduce(bb, ba, sb, sa);
+}
+
+// Inclusive suffix (of `sfx`) and prefix (of `pfx`) sums over the lanes.
+__device__ __forceinline__ void lane_scans(int lane, float& sfx, float& pfx) {
+  for (int o = 1; o < 32; o <<= 1) {
+    const float d = __shfl_down_sync(FULL_MASK, sfx, o);
+    const float u = __shfl_up_sync(FULL_MASK, pfx, o);
+    if (lane + o < 32) sfx += d;
+    if (lane >= o) pfx += u;
+  }
+}
+
+// The raking scans' offsets: `after` = the buy totals of every later thread
+// of the team, `before` = the sell totals of every earlier one, given the
+// thread's own totals lb, la.
+__device__ __forceinline__ void team_scan_offsets(const Team& tm, float lb,
+                                                  float la, float& after,
+                                                  float& before) {
+  float sfx = lb, pfx = la;
+  lane_scans(tm.lane, sfx, pfx);
+  after = sfx - lb;   // exact: integers below 2^24
+  before = pfx - la;
+  if (tm.W == 1) return;
+  TeamScratch& s = kc_scratch;
+  const float wb = __shfl_sync(FULL_MASK, sfx, 0);
+  const float wa = __shfl_sync(FULL_MASK, pfx, 31);
+  if (tm.lane == 0) { s.demand[tm.warp] = wb; s.supply[tm.warp] = wa; }
+  __syncthreads();
+  const bool has = tm.lane < tm.W;
+  float xb = has ? s.demand[tm.lane] : 0.f;
+  float xa = has ? s.supply[tm.lane] : 0.f;
+  lane_scans(tm.lane, xb, xa);
+  // Lane w + 1 holds the later warps' demand (0 past the last warp); lane
+  // w - 1 the earlier warps' supply.
+  after += __shfl_sync(FULL_MASK, xb, tm.warp + 1);
+  const float bx = __shfl_sync(FULL_MASK, xa, max(tm.warp - 1, 0));
+  before += tm.warp > 0 ? bx : 0.f;
+}
+
+__device__ __forceinline__ void argmax_reduce(float& v, int& idx) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(FULL_MASK, v, o);
+    const int oi = __shfl_xor_sync(FULL_MASK, idx, o);
+    if (beats(ov, oi, v, idx)) { v = ov; idx = oi; }
+  }
+}
+
+__device__ __forceinline__ void team_argmax(const Team& tm, int L, float& v,
+                                            int& idx) {
+  argmax_reduce(v, idx);
+  if (tm.W == 1) return;
+  TeamScratch& s = kc_scratch;
+  if (tm.lane == 0) { s.vol[tm.warp] = v; s.idx[tm.warp] = idx; }
+  __syncthreads();
+  const bool has = tm.lane < tm.W;
+  v = has ? s.vol[tm.lane] : -1.f;
+  idx = has ? s.idx[tm.lane] : L;
+  argmax_reduce(v, idx);
+}
+
+// ---------------------------------------------------------------------------
+// Where an agent's step-invariant key and type come from. Each policy hands
+// f(a, key, type) every agent a ≡ t (mod T) below A.
+
+// Computed once per call, held in registers: slot k is agent t + k·T.
+struct RegAgents {
+  static constexpr bool kSmem = false;
+  uint32_t key[REG_AGENTS];
+  uint32_t types;  // 4 bits per slot
+
+  __device__ __forceinline__ void init(const Team& tm, const MarketRow& p,
+                                       uint32_t seed_g, uint32_t market,
+                                       int A, int*) {
+    types = 0u;
+#pragma unroll
+    for (int k = 0; k < REG_AGENTS; ++k) {
+      const int a = tm.t + k * tm.T;
+      key[k] = a < A ? agent_key(seed_g, market, A, a) : 0u;
+      types |= (uint32_t)agent_type(a, p) << (4 * k);
+    }
+  }
+
+  template <class F>
+  __device__ __forceinline__ void each(const Team& tm, int A, F&& f) const {
+#pragma unroll
+    for (int k = 0; k < REG_AGENTS; ++k) {
+      const int a = tm.t + k * tm.T;
+      if (a < A) f(a, key[k], (int)((types >> (4 * k)) & 15u));
+    }
+  }
+};
+
+// Computed once per call, held in the team's shared memory after its bins
+// (A keys, then A type bytes). Each thread reads back only what it wrote.
+struct SmemAgents {
+  static constexpr bool kSmem = true;
+  uint32_t* key;
+  uint8_t* type;
+
+  __device__ __forceinline__ void init(const Team& tm, const MarketRow& p,
+                                       uint32_t seed_g, uint32_t market,
+                                       int A, int* area) {
+    key = reinterpret_cast<uint32_t*>(area);
+    type = reinterpret_cast<uint8_t*>(area + A);
+    for (int a = tm.t; a < A; a += tm.T) {
+      key[a] = agent_key(seed_g, market, A, a);
+      type[a] = (uint8_t)agent_type(a, p);
+    }
+  }
+
+  template <class F>
+  __device__ __forceinline__ void each(const Team& tm, int A, F&& f) const {
+    for (int a = tm.t; a < A; a += tm.T) f(a, key[a], (int)type[a]);
+  }
+};
+
+// Recomputed at every step (the per-step kernels keep nothing).
+struct FreshAgents {
+  static constexpr bool kSmem = false;
+  const MarketRow* p;
+  uint32_t seed_g, market;
+
+  __device__ __forceinline__ void init(const Team&, const MarketRow& row,
+                                       uint32_t seed, uint32_t mkt, int,
+                                       int*) {
+    p = &row; seed_g = seed; market = mkt;
+  }
+
+  template <class F>
+  __device__ __forceinline__ void each(const Team& tm, int A, F&& f) const {
+    for (int a = tm.t; a < A; a += tm.T)
+      f(a, agent_key(seed_g, market, A, a), agent_type(a, *p));
+  }
+};
+
+// 32-bit words of one team's dynamic shared memory: buy and sell bins, then
+// (SmemAgents only) A keys and A type bytes.
+static inline __host__ __device__ int team_smem_words(int L, int A,
+                                                      bool agents_in_smem) {
+  return 2 * L + (agents_in_smem ? A + (A + 3) / 4 : 0);
+}
+
+// 0 when (W, MPC, reg) is a launch shape the kernels can run for (L, A),
+// else cudaErrorInvalidValue. `hoist`: the kernel keeps agents per call.
+static inline int check_shape(int L, int A, int W, int MPC, int reg,
+                              bool hoist, size_t* smem) {
+  const bool pow2 = L >= 4 && L <= 1024 && (L & (L - 1)) == 0;
+  const bool w_ok = W == 1 || W == 2 || W == 4 || W == 8;
+  if (!pow2 || A < 1 || !w_ok || W * LEVELS_PER_WARP < L || MPC < 1 ||
+      (W > 1 && MPC != 1) || 32 * W * MPC > MAX_CTA_THREADS ||
+      (reg && A > REG_AGENTS * 32 * W)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  *smem = (size_t)MPC * 4 * team_smem_words(L, A, hoist && !reg);
+  return *smem <= MAX_DYNAMIC_SMEM ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory.
+template <class K>
+static inline int allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <class K>
+static inline int resident_ctas(K kernel, int threads, size_t smem,
+                                int* ctas) {
+  int err = allow_smem(kernel, smem);
+  if (err == 0) {
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        ctas, kernel, threads, smem);
+  }
+  return err;
+}
+
+// ---------------------------------------------------------------------------
+// One step.
+
+// A thread's four levels: resting books between steps, totals within one.
+struct Book {
+  float bid[LEVELS_PER_LANE], ask[LEVELS_PER_LANE];
+};
+
+// One agent's order at this step: returns its quantity (0: none) and sets
+// `bin` (buy bins [0, L), sell bins [L, 2L)).
+__device__ __forceinline__ int agent_order(
+    const MarketRow& p, int a, uint32_t key, int type, int step, float mid,
+    float pmid, float imb, float peer, int L, int& bin) {
+  const float top = (float)(L - 1);
+  const uint32_t prefix = mix32(key + (uint32_t)step * K_STEP);
+  const float u_side = channel_uniform(prefix, 0);
+  const float u_price = channel_uniform(prefix, 1);
+  const float u_mkt = channel_uniform(prefix, 2);
+  const float u_qty = channel_uniform(prefix, 3);
+  const float u_shock = channel_uniform(prefix, 4);
+
+  const bool coin = u_side < 0.5f;
+  const float jitter = u_price * 2.0f - 1.0f;
+  bool side;
+  float price_f;
+  switch (type) {
+    case MOMENTUM: {
+      const float ret = mid - pmid;
+      side = ret != 0.f ? ret > 0.f : coin;
+      price_f = mid + (side ? 1.0f : -1.0f);
+      break;
+    }
+    case MAKER:
+      side = ((a + step) % 2) == 0;
+      price_f = side ? mid - p.maker_half : mid + p.maker_half;
+      break;
+    case FUNDAMENTALIST: {
+      const float dev = p.fundamental - mid;
+      side = dev != 0.f ? dev > 0.f : coin;
+      price_f = mid + dev * p.fund_kappa + jitter;
+      break;
+    }
+    case WHALE:
+      side = coin;
+      price_f = side ? top : 0.f;
+      break;
+    case HFT:
+      side = fabsf(imb) > p.hft_threshold ? imb > 0.f : coin;
+      price_f = mid + (side ? 1.0f : -1.0f);
+      break;
+    case INFORMED: {
+      const bool window = p.shock_step >= 0 &&
+                          step >= p.shock_step - p.informed_horizon &&
+                          step < p.shock_step;
+      side = !window && coin;
+      price_f = window ? 0.f : mid + jitter;
+      break;
+    }
+    case ARBITRAGEUR: {
+      const float gap = peer - mid;
+      side = gap != 0.f ? gap > 0.f : coin;
+      price_f = mid + gap * p.arb_kappa + jitter;
+      break;
+    }
+    default:  // NOISE
+      side = coin;
+      price_f = mid + jitter * p.noise_delta;
+      break;
+  }
+  if (type != MAKER) {
+    if (u_mkt < p.p_marketable) price_f = side ? top : 0.f;
+    if (step == p.shock_step && u_shock < p.shock_intensity) {
+      side = false;
+      price_f = 0.f;
+    }
+  }
+  const int price = (int)fminf(fmaxf(rintf(price_f), 0.f), top);
+  float qty = 1.0f + floorf(u_qty * p.q_max);
+  if (type == WHALE) qty = (step % p.whale_period) == 0 ? p.whale_size : 0.f;
+  bin = side ? price : L + price;
+  return (int)qty;
+}
+
+// One step of simulate_step for the team's market at absolute `step`, on
+// the books in `bk` and the team's `bins` (zero on entry and on return).
+// `peer` is the arbitrageurs' peer mid; `eb`/`ea` are the market's external
+// order rows (null: none). Advances `last` and `pmid` and leaves the step's
+// mid and cleared volume in every thread of the team.
+template <class Agents>
+__device__ __forceinline__ void market_step(
+    const Team& tm, Book& bk, bin_t* bins, const MarketRow& p,
+    const Agents& agents, const float* eb, const float* ea, float peer,
+    int step, int A, int L, float& last, float& pmid, float& mid_out,
+    float& volume_out) {
+  const int lv0 = tm.t * LEVELS_PER_LANE;
+
+  // 1. Scenario shock: withdraw a fraction of every resting bid level.
+  if (step == p.shock_step) {
+#pragma unroll
+    for (int j = 0; j < LEVELS_PER_LANE; ++j) {
+      const float v = bk.bid[j];
+      if (lv0 + j < L) bk.bid[j] = v - floorf(v * p.shock_cancel);
+    }
+  }
 
   // 2-4. Best quotes, book sums, imbalance.
   int bb = -1, ba = L;
   float sb = 0.f, sa = 0.f;
-  if (owns_level) {
-    sb = b.bid[tid];
-    sa = b.ask[tid];
-    if (sb > 0.f) bb = tid;
-    if (sa > 0.f) ba = tid;
+#pragma unroll
+  for (int j = 0; j < LEVELS_PER_LANE; ++j) {
+    if (lv0 + j < L) {
+      sb += bk.bid[j];
+      sa += bk.ask[j];
+      if (bk.bid[j] > 0.f) bb = lv0 + j;
+      if (bk.ask[j] > 0.f && ba == L) ba = lv0 + j;
+    }
   }
-  block_quotes(bb, ba, sb, sa, b.red_i, b.red_f);
+  team_quotes(tm, L, bb, ba, sb, sa);
   const float mid = (bb >= 0 && ba < L) ? (float)(bb + ba) * 0.5f : last;
   const float depth = sb + sa;
   const float imb = depth > 0.f ? __fdiv_rn(sb - sa, depth) : 0.f;
 
-  if (owns_level) { b.tb[tid] = 0.f; b.ta[tid] = 0.f; }
-  __syncthreads();
+  // 5. Agents: draw, decide on the own archetype, bin with atomicAdd. The
+  // warp sees its lanes' bin resets first; a several-warp team saw the
+  // other warps' at the reductions' barriers.
+  __syncwarp();
+  agents.each(tm, A, [&](int a, uint32_t key, int type) {
+    int bin;
+    const int q = agent_order(p, a, key, type, step, mid, pmid, imb, peer, L,
+                              bin);
+    if (q != 0) atomicAdd(&bins[bin], (bin_t)q);
+  });
+  team_sync(tm);
 
-  // 5. Agents: draw, decide on the own archetype, bin with atomicAdd.
-  const uint32_t ustep = (uint32_t)step;
-  for (int a = tid; a < A; a += T) {
-    const uint32_t gid = market * (uint32_t)A + (uint32_t)a;
-    const uint32_t prefix =
-        mix32(mix32(seed_g + gid * 0x85EBCA6Bu) + ustep * 0xC2B2AE35u);
-    const float u_side = channel_uniform(prefix, 0);
-    const float u_price = channel_uniform(prefix, 1);
-    const float u_mkt = channel_uniform(prefix, 2);
-    const float u_qty = channel_uniform(prefix, 3);
-    const float u_shock = channel_uniform(prefix, 4);
-
-    const int type = a < p.up_maker ? MAKER
-                   : a < p.up_momentum ? MOMENTUM
-                   : a < p.up_fund ? FUNDAMENTALIST
-                   : a < p.up_whale ? WHALE
-                   : a < p.up_hft ? HFT
-                   : a < p.up_informed ? INFORMED
-                   : a < p.up_arb ? ARBITRAGEUR : NOISE;
-    const bool coin = u_side < 0.5f;
-    const float jitter = u_price * 2.0f - 1.0f;
-    bool side;
-    float price_f;
-    switch (type) {
-      case MOMENTUM: {
-        const float ret = mid - pmid;
-        side = ret != 0.f ? ret > 0.f : coin;
-        price_f = mid + (side ? 1.0f : -1.0f);
-        break;
-      }
-      case MAKER:
-        side = ((a + step) % 2) == 0;
-        price_f = side ? mid - p.maker_half : mid + p.maker_half;
-        break;
-      case FUNDAMENTALIST: {
-        const float dev = p.fundamental - mid;
-        side = dev != 0.f ? dev > 0.f : coin;
-        price_f = mid + dev * p.fund_kappa + jitter;
-        break;
-      }
-      case WHALE:
-        side = coin;
-        price_f = side ? top : 0.f;
-        break;
-      case HFT:
-        side = fabsf(imb) > p.hft_threshold ? imb > 0.f : coin;
-        price_f = mid + (side ? 1.0f : -1.0f);
-        break;
-      case INFORMED: {
-        const bool window = p.shock_step >= 0 &&
-                            step >= p.shock_step - p.informed_horizon &&
-                            step < p.shock_step;
-        side = !window && coin;
-        price_f = window ? 0.f : mid + jitter;
-        break;
-      }
-      case ARBITRAGEUR: {
-        const float gap = peer - mid;
-        side = gap != 0.f ? gap > 0.f : coin;
-        price_f = mid + gap * p.arb_kappa + jitter;
-        break;
-      }
-      default:  // NOISE
-        side = coin;
-        price_f = mid + jitter * p.noise_delta;
-        break;
+  // 6. Totals over resting + incoming flow (+ external orders), in place;
+  // the bins are reset for the next step.
+  float lb = 0.f, la = 0.f;
+#pragma unroll
+  for (int j = 0; j < LEVELS_PER_LANE; ++j) {
+    const int lv = lv0 + j;
+    if (lv < L) {
+      float tb = bk.bid[j] + (float)bins[lv];
+      float ta = bk.ask[j] + (float)bins[L + lv];
+      if (eb != nullptr) tb += eb[lv];
+      if (ea != nullptr) ta += ea[lv];
+      bins[lv] = (bin_t)0;
+      bins[L + lv] = (bin_t)0;
+      bk.bid[j] = tb;
+      bk.ask[j] = ta;
+      lb += tb;
+      la += ta;
     }
-    if (type != MAKER) {
-      if (u_mkt < p.p_marketable) price_f = side ? top : 0.f;
-      if (step == p.shock_step && u_shock < p.shock_intensity) {
-        side = false;
-        price_f = 0.f;
-      }
-    }
-    const int price = (int)fminf(fmaxf(rintf(price_f), 0.f), top);
-    float qty = 1.0f + floorf(u_qty * p.q_max);
-    if (type == WHALE) qty = (step % p.whale_period) == 0 ? p.whale_size : 0.f;
-    if (qty != 0.f) atomicAdd(side ? &b.tb[price] : &b.ta[price], qty);
   }
-  __syncthreads();
 
-  // 6. Totals over resting + incoming flow (+ external orders).
-  if (owns_level) {
-    float tb = b.bid[tid] + b.tb[tid];
-    float ta = b.ask[tid] + b.ta[tid];
-    if (eb != nullptr) tb += eb[tid];
-    if (ea != nullptr) ta += ea[tid];
-    b.tb[tid] = tb; b.ta[tid] = ta;
-    b.dc[tid] = tb; b.sc[tid] = ta;
+  // 7. Raking scans: cumulative demand (suffix) and supply (prefix).
+  float after, before;
+  team_scan_offsets(tm, lb, la, after, before);
+  float dc[LEVELS_PER_LANE], sc[LEVELS_PER_LANE];
+#pragma unroll
+  for (int j = LEVELS_PER_LANE - 1; j >= 0; --j) {
+    after += bk.bid[j];
+    dc[j] = after;
   }
-  __syncthreads();
-
-  // 7. Hillis–Steele scans: suffix (demand) and prefix (supply).
-  for (int off = 1; off < L; off <<= 1) {
-    float d = 0.f, c = 0.f;
-    if (owns_level) {
-      d = b.dc[tid] + (tid + off < L ? b.dc[tid + off] : 0.f);
-      c = b.sc[tid] + (tid >= off ? b.sc[tid - off] : 0.f);
-    }
-    __syncthreads();
-    if (owns_level) { b.dc[tid] = d; b.sc[tid] = c; }
-    __syncthreads();
+#pragma unroll
+  for (int j = 0; j < LEVELS_PER_LANE; ++j) {
+    before += bk.ask[j];
+    sc[j] = before;
   }
 
   // 8. Executable volume and the clearing tick.
   float volume = -1.f;
   int p_star = L;
-  if (owns_level) { volume = fminf(b.dc[tid], b.sc[tid]); p_star = tid; }
-  block_argmax(volume, p_star, b.red_f, b.red_i);
+#pragma unroll
+  for (int j = 0; j < LEVELS_PER_LANE; ++j) {
+    const float v = fminf(dc[j], sc[j]);
+    if (lv0 + j < L && beats(v, lv0 + j, volume, p_star)) {
+      volume = v;
+      p_star = lv0 + j;
+    }
+  }
+  team_argmax(tm, L, volume, p_star);
 
   // 9. Priority allocation and the residual books.
-  if (owns_level) {
-    const float tb = b.tb[tid], ta = b.ta[tid];
-    const float traded_b = fminf(tb, fmaxf(0.f, volume - (b.dc[tid] - tb)));
-    const float traded_s = fminf(ta, fmaxf(0.f, volume - (b.sc[tid] - ta)));
-    b.bid[tid] = tb - traded_b;
-    b.ask[tid] = ta - traded_s;
+#pragma unroll
+  for (int j = 0; j < LEVELS_PER_LANE; ++j) {
+    if (lv0 + j < L) {
+      const float tb = bk.bid[j], ta = bk.ask[j];
+      const float traded_b = fminf(tb, fmaxf(0.f, volume - (dc[j] - tb)));
+      const float traded_s = fminf(ta, fmaxf(0.f, volume - (sc[j] - ta)));
+      bk.bid[j] = tb - traded_b;
+      bk.ask[j] = ta - traded_s;
+    }
   }
   last = volume > 0.f ? (float)p_star : last;
   pmid = mid;
@@ -343,29 +609,196 @@ __device__ __forceinline__ void stats_update(float* st, float mid,
   st[5] = st[5] + volume;
 }
 
-__device__ __forceinline__ void load_books(const BookSmem& b,
-                                           const float* bid_in,
-                                           const float* ask_in, size_t row,
-                                           int L) {
-  if ((int)threadIdx.x < L) {
-    b.bid[threadIdx.x] = bid_in[row + threadIdx.x];
-    b.ask[threadIdx.x] = ask_in[row + threadIdx.x];
+// ---------------------------------------------------------------------------
+// The kernels' operands and bodies.
+
+// Operands of every clearing kernel. A chunk call fills all of them; the
+// legacy one-shot entries leave market_ids, ext_*, peer_mid, stats_* and
+// mid_path null and read one params row (params_stride 0).
+struct ChunkArgs {
+  const int* market_ids;  // null: the row is the market id
+  const float* bid;
+  const float* ask;
+  const float* last;
+  const float* pmid;
+  const float* ext_buy;   // null: no external orders
+  const float* ext_ask;
+  const float* peer_mid;  // null: the market's own previous mid, each step
+  const float* fparams;
+  const int* iparams;
+  int params_stride;      // 1: a row per market; 0: one row for all
+  const float* stats_in;  // non-null exactly in stats_only mode
+  float* bid_out;
+  float* ask_out;
+  float* last_out;
+  float* pmid_out;
+  float* price_path;      // [M, chunk]
+  float* volume_path;
+  float* mid_path;        // null: not written
+  float* stats_out;
+  int M, A, L, chunk, step0, n_valid;
+  uint32_t seed;
+  int warps_per_market, markets_per_cta;
+};
+
+// What a team reads at entry: its market's row, id and books.
+struct MarketIn {
+  int m;          // the row
+  size_t row;     // m · L
+  MarketRow p;
+  uint32_t market;
+};
+
+__device__ __forceinline__ MarketIn market_in(const ChunkArgs& g, int m) {
+  MarketIn in;
+  in.m = m;
+  in.row = (size_t)m * g.L;
+  const size_t r = (size_t)m * g.params_stride;
+  in.p = load_row(g.fparams + r * NUM_FLOAT_COLS,
+                  g.iparams + r * NUM_INT_COLS);
+  in.market = g.market_ids != nullptr ? (uint32_t)g.market_ids[m]
+                                      : (uint32_t)m;
+  return in;
+}
+
+__device__ __forceinline__ void load_book(const Team& tm, Book& bk,
+                                          const float* bid, const float* ask,
+                                          int L) {
+#pragma unroll
+  for (int j = 0; j < LEVELS_PER_LANE; ++j) {
+    const int lv = tm.t * LEVELS_PER_LANE + j;
+    bk.bid[j] = lv < L ? bid[lv] : 0.f;
+    bk.ask[j] = lv < L ? ask[lv] : 0.f;
   }
 }
 
-__device__ __forceinline__ void store_books(const BookSmem& b, float* bid_out,
-                                            float* ask_out, size_t row,
-                                            int L) {
-  if ((int)threadIdx.x < L) {
-    bid_out[row + threadIdx.x] = b.bid[threadIdx.x];
-    ask_out[row + threadIdx.x] = b.ask[threadIdx.x];
+__device__ __forceinline__ void store_book(const Team& tm, const Book& bk,
+                                           float* bid, float* ask, int L) {
+#pragma unroll
+  for (int j = 0; j < LEVELS_PER_LANE; ++j) {
+    const int lv = tm.t * LEVELS_PER_LANE + j;
+    if (lv < L) { bid[lv] = bk.bid[j]; ask[lv] = bk.ask[j]; }
   }
 }
 
-// Launch shape shared by every kernel: one block per market.
-static inline int block_threads(int L) { return L < 32 ? 32 : L; }
-static inline size_t book_smem_bytes(int L) {
-  return 6 * (size_t)L * sizeof(float);
+__device__ __forceinline__ void zero_bins(const Team& tm, bin_t* bins,
+                                          int L) {
+  for (int k = tm.t; k < 2 * L; k += tm.T) bins[k] = (bin_t)0;
+}
+
+// The persistent body (kernels 1 and 3): up to `chunk` steps with the books
+// in registers, the step-invariant agent keys and types computed once, and
+// the per-step outputs buffered in warp 0 (lane s mod 32 holds step s) and
+// written 32 steps at a time.
+template <class Agents>
+__device__ __forceinline__ void persistent_market(const ChunkArgs& g) {
+  const Team tm = make_team(g.warps_per_market);
+  const int m = (int)blockIdx.x * g.markets_per_cta + tm.slot;
+  // The ragged last CTA: a team past M leaves. Teams share a CTA only when
+  // each is one warp, and those never cross __syncthreads().
+  if (m >= g.M) return;
+  const int L = g.L, A = g.A;
+  int* area = kc_smem + tm.slot * team_smem_words(L, A, Agents::kSmem);
+  bin_t* bins = reinterpret_cast<bin_t*>(area);
+  const MarketIn in = market_in(g, m);
+  Book bk;
+  load_book(tm, bk, g.bid + in.row, g.ask + in.row, L);
+  zero_bins(tm, bins, L);
+  Agents agents;
+  agents.init(tm, in.p, g.seed ^ SEED_GOLDEN, in.market, A, area + 2 * L);
+  float last = g.last[m];
+  float pmid = g.pmid[m];
+  const float peer0 = g.peer_mid != nullptr ? g.peer_mid[m] : 0.f;
+  const bool stats = g.stats_in != nullptr;
+  float st[NUM_STATS];
+  if (stats) {
+    for (int k = 0; k < NUM_STATS; ++k) st[k] = g.stats_in[(size_t)m * NUM_STATS + k];
+  }
+  float kp = 0.f, kv = 0.f, km = 0.f;  // the buffered path entries
+
+  for (int s = 0; s < g.n_valid; ++s) {
+    const bool first = s == 0;
+    // The chunk's peer is frozen at entry; the legacy one is the own mid.
+    const float peer = g.peer_mid != nullptr ? peer0 : pmid;
+    float mid, volume;
+    market_step(tm, bk, bins, in.p, agents,
+                first && g.ext_buy != nullptr ? g.ext_buy + in.row : nullptr,
+                first && g.ext_ask != nullptr ? g.ext_ask + in.row : nullptr,
+                peer, g.step0 + s, A, L, last, pmid, mid, volume);
+    if (stats) {
+      stats_update(st, mid, volume);
+      continue;
+    }
+    const int lane_s = s & 31;
+    if (tm.lane == lane_s) { kp = last; kv = volume; km = mid; }
+    if ((lane_s == 31 || s == g.n_valid - 1) && tm.warp == 0 &&
+        tm.lane <= lane_s) {
+      const size_t o = (size_t)m * g.chunk + (s - lane_s) + tm.lane;
+      g.price_path[o] = kp;
+      g.volume_path[o] = kv;
+      if (g.mid_path != nullptr) g.mid_path[o] = km;
+    }
+  }
+
+  store_book(tm, bk, g.bid_out + in.row, g.ask_out + in.row, L);
+  if (tm.t == 0) {
+    g.last_out[m] = last;
+    g.pmid_out[m] = pmid;
+    if (stats) {
+      for (int k = 0; k < NUM_STATS; ++k) g.stats_out[(size_t)m * NUM_STATS + k] = st[k];
+    }
+  }
+}
+
+// The per-step body (kernels 2 and 4): step step0 + s from the state in
+// device memory back to device memory. Nothing persists, so the agents'
+// keys and types are recomputed here at every launch.
+__device__ __forceinline__ void one_step_market(const ChunkArgs& g, int s) {
+  const Team tm = make_team(g.warps_per_market);
+  const int m = (int)blockIdx.x * g.markets_per_cta + tm.slot;
+  if (m >= g.M) return;  // the ragged last CTA, as above
+  const int L = g.L, A = g.A;
+  bin_t* bins = reinterpret_cast<bin_t*>(
+      kc_smem + tm.slot * team_smem_words(L, A, false));
+  const MarketIn in = market_in(g, m);
+  Book bk;
+  load_book(tm, bk, g.bid + in.row, g.ask + in.row, L);
+  zero_bins(tm, bins, L);
+  FreshAgents agents;
+  agents.init(tm, in.p, g.seed ^ SEED_GOLDEN, in.market, A, nullptr);
+  float last = g.last[m];
+  float pmid = g.pmid[m];
+  const float peer = g.peer_mid != nullptr ? g.peer_mid[m] : pmid;
+  float mid, volume;
+  market_step(tm, bk, bins, in.p, agents,
+              g.ext_buy != nullptr ? g.ext_buy + in.row : nullptr,
+              g.ext_ask != nullptr ? g.ext_ask + in.row : nullptr, peer,
+              g.step0 + s, A, L, last, pmid, mid, volume);
+
+  store_book(tm, bk, g.bid_out + in.row, g.ask_out + in.row, L);
+  if (tm.t == 0) {
+    g.last_out[m] = last;
+    g.pmid_out[m] = pmid;
+    if (g.stats_in != nullptr) {
+      float st[NUM_STATS];
+      for (int k = 0; k < NUM_STATS; ++k) st[k] = g.stats_in[(size_t)m * NUM_STATS + k];
+      stats_update(st, mid, volume);
+      for (int k = 0; k < NUM_STATS; ++k) g.stats_out[(size_t)m * NUM_STATS + k] = st[k];
+    } else {
+      const size_t o = (size_t)m * g.chunk + s;
+      g.price_path[o] = last;
+      g.volume_path[o] = volume;
+      if (g.mid_path != nullptr) g.mid_path[o] = mid;
+    }
+  }
+}
+
+// The launch of `g`'s shape: grid, CTA threads.
+static inline dim3 grid_of(const ChunkArgs& g) {
+  return dim3((unsigned)((g.M + g.markets_per_cta - 1) / g.markets_per_cta));
+}
+static inline dim3 cta_of(const ChunkArgs& g) {
+  return dim3((unsigned)(32 * g.warps_per_market * g.markets_per_cta));
 }
 
 extern "C" {

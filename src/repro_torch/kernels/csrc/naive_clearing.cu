@@ -7,13 +7,17 @@
 // naive_legacy_step_kernel replaces repro/kernels/naive_clearing.py::
 // _step_kernel_body (pallas_call in the legacy one-shot naive_clearing).
 //
-// Both compute exactly one step of simulate_step per launch with the same
-// device step as the persistent kernels (kinetic_step.cuh), but nothing
+// Both compute exactly one step of simulate_step per launch with the
+// persistent kernels' device step and launch layout (kinetic_step.cuh: a
+// team of W warps per market, four levels a thread in registers, integer
+// bins in shared memory, shuffle reductions and raking scans), but nothing
 // persists: each launch loads the market's books, scalars, params row (and
-// in stats_only mode its six running stats) from device memory into shared
-// memory, runs one step and writes everything back. That is the point of
-// the ablation: every piece of state crosses device memory between steps,
-// and a chunk of n steps costs n launches.
+// in stats_only mode its six running stats) from device memory, recomputes
+// every agent's (seed, gid) hash round and type, runs one step and writes
+// everything back. That is the point of the ablation: the two designs
+// differ in persistence alone, so every piece of state crossing device
+// memory and every per-call computation redone each step is what giving up
+// persistence costs, and a chunk of n steps costs n launches.
 //
 // The C entries loop the launches themselves on the caller's stream,
 // ping-ponging between two state buffers, and check cudaGetLastError()
@@ -31,90 +35,14 @@
 
 #include "kinetic_step.cuh"
 
-__global__ void naive_chunk_step_kernel(
-    const int* __restrict__ market_ids, const float* __restrict__ bid_in,
-    const float* __restrict__ ask_in, const float* __restrict__ last_in,
-    const float* __restrict__ pmid_in, const float* __restrict__ ext_buy,
-    const float* __restrict__ ext_ask, const float* __restrict__ peer_mid,
-    const float* __restrict__ fparams, const int* __restrict__ iparams,
-    const float* __restrict__ stats_in, float* __restrict__ bid_out,
-    float* __restrict__ ask_out, float* __restrict__ last_out,
-    float* __restrict__ pmid_out, float* __restrict__ price_path,
-    float* __restrict__ volume_path, float* __restrict__ mid_path,
-    float* __restrict__ stats_out, int A, int L, int chunk, int s, int step,
-    uint32_t seed) {
-  extern __shared__ float smem[];
-  __shared__ int red_i[64];
-  __shared__ float red_f[64];
-  const BookSmem b = book_smem(smem, L, red_i, red_f);
-
-  const int m = blockIdx.x;
-  const size_t row = (size_t)m * L;
-  load_books(b, bid_in, ask_in, row, L);
-  float last = last_in[m];
-  float pmid = pmid_in[m];
-  const MarketRow p = load_row(fparams + (size_t)m * NUM_FLOAT_COLS,
-                               iparams + (size_t)m * NUM_INT_COLS);
-  __syncthreads();
-
-  float mid, volume;
-  market_step(b, p, ext_buy != nullptr ? ext_buy + row : nullptr,
-              ext_ask != nullptr ? ext_ask + row : nullptr, peer_mid[m],
-              (uint32_t)market_ids[m], seed ^ SEED_GOLDEN, step, A, L, last,
-              pmid, mid, volume);
-
-  store_books(b, bid_out, ask_out, row, L);
-  if (threadIdx.x == 0) {
-    last_out[m] = last;
-    pmid_out[m] = pmid;
-    if (stats_in != nullptr) {
-      float st[NUM_STATS];
-      for (int k = 0; k < NUM_STATS; ++k) st[k] = stats_in[(size_t)m * NUM_STATS + k];
-      stats_update(st, mid, volume);
-      for (int k = 0; k < NUM_STATS; ++k) stats_out[(size_t)m * NUM_STATS + k] = st[k];
-    } else {
-      const size_t o = (size_t)m * chunk + s;
-      price_path[o] = last;
-      volume_path[o] = volume;
-      mid_path[o] = mid;
-    }
-  }
+// One body for both, as in kinetic_clearing.cu: the legacy contract lives in
+// the ChunkArgs kc_naive_clearing fills, never in the kernel.
+__global__ void naive_chunk_step_kernel(ChunkArgs g, int s) {
+  one_step_market(g, s);
 }
 
-__global__ void naive_legacy_step_kernel(
-    const float* __restrict__ bid_in, const float* __restrict__ ask_in,
-    const float* __restrict__ last_in, const float* __restrict__ pmid_in,
-    const float* __restrict__ fparams, const int* __restrict__ iparams,
-    float* __restrict__ bid_out, float* __restrict__ ask_out,
-    float* __restrict__ last_out, float* __restrict__ pmid_out,
-    float* __restrict__ price_path, float* __restrict__ volume_path, int A,
-    int L, int S, int s, uint32_t seed) {
-  extern __shared__ float smem[];
-  __shared__ int red_i[64];
-  __shared__ float red_f[64];
-  const BookSmem b = book_smem(smem, L, red_i, red_f);
-
-  const int m = blockIdx.x;
-  const size_t row = (size_t)m * L;
-  load_books(b, bid_in, ask_in, row, L);
-  float last = last_in[m];
-  float pmid = pmid_in[m];
-  const MarketRow p = load_row(fparams, iparams);  // one row for every block
-  __syncthreads();
-
-  float mid, volume;
-  // The peer is the market's own previous mid (simulate_step, peer_mid=None).
-  market_step(b, p, nullptr, nullptr, pmid, (uint32_t)m, seed ^ SEED_GOLDEN,
-              s, A, L, last, pmid, mid, volume);
-
-  store_books(b, bid_out, ask_out, row, L);
-  if (threadIdx.x == 0) {
-    last_out[m] = last;
-    pmid_out[m] = pmid;
-    const size_t o = (size_t)m * S + s;
-    price_path[o] = last;
-    volume_path[o] = volume;
-  }
+__global__ void naive_legacy_step_kernel(ChunkArgs g, int s) {
+  one_step_market(g, s);
 }
 
 // One market state in device memory: books [M, L], scalars [M, 1] and,
@@ -145,12 +73,42 @@ static inline StateBufs as_input(const OutBufs& o) {
   return StateBufs{o.bid, o.ask, o.last, o.pmid, o.stats};
 }
 
+// n launches of `kernel`, steps g.step0 .. g.step0 + n - 1, from `src` into
+// `out` through `tmp`; external orders go to the first launch only.
+template <class K>
+static int launch_steps(K kernel, ChunkArgs g, StateBufs src,
+                        const OutBufs& out, const OutBufs& tmp, int n,
+                        void* stream) {
+  size_t smem;
+  int err = check_shape(g.L, g.A, g.warps_per_market, g.markets_per_cta, 0,
+                        false, &smem);
+  if (err == 0) err = allow_smem(kernel, smem);
+  if (err != 0) return err;
+  const float* ext_buy = g.ext_buy;
+  const float* ext_ask = g.ext_ask;
+  for (int s = 0; s < n; ++s) {
+    const OutBufs dst = pick(s, n, out, tmp);
+    g.bid = src.bid; g.ask = src.ask; g.last = src.last; g.pmid = src.pmid;
+    g.stats_in = src.stats;
+    g.bid_out = dst.bid; g.ask_out = dst.ask; g.last_out = dst.last;
+    g.pmid_out = dst.pmid; g.stats_out = dst.stats;
+    g.ext_buy = s == 0 ? ext_buy : nullptr;
+    g.ext_ask = s == 0 ? ext_ask : nullptr;
+    kernel<<<grid_of(g), cta_of(g), smem, (cudaStream_t)stream>>>(g, s);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    src = as_input(dst);
+  }
+  return 0;
+}
+
 extern "C" {
 
 // Launches naive_chunk_step_kernel n_valid times on `stream`, steps step0
 // .. step0 + n_valid - 1; the final state lands in the *_out buffers and
 // the *_tmp buffers are scratch of the same shapes. External orders go to
-// the first launch only. Returns the first non-zero cudaGetLastError().
+// the first launch only. Returns the first non-zero cudaGetLastError() (or
+// cudaErrorInvalidValue for a launch shape check_shape refuses).
 // stats_in/stats_out/stats_tmp are non-null exactly in stats_only mode,
 // where the three paths are null. n_valid must be >= 1.
 int kc_naive_clearing_chunk(
@@ -162,24 +120,18 @@ int kc_naive_clearing_chunk(
     float* bid_tmp, float* ask_tmp, float* last_tmp, float* pmid_tmp,
     float* stats_tmp, float* price_path, float* volume_path,
     float* mid_path, int M, int A, int L, int chunk, int step0, int n_valid,
-    uint32_t seed, void* stream) {
+    int warps_per_market, int markets_per_cta, uint32_t seed, void* stream) {
+  const ChunkArgs g{market_ids, bid, ask, last, pmid, ext_buy, ext_ask,
+                    peer_mid, fparams, iparams, 1, stats_in, nullptr,
+                    nullptr, nullptr, nullptr, price_path, volume_path,
+                    mid_path, nullptr, M, A, L, chunk, step0, n_valid, seed,
+                    warps_per_market, markets_per_cta};
   const OutBufs out{bid_out, ask_out, last_out, pmid_out, stats_out};
   const OutBufs tmp{bid_tmp, ask_tmp, last_tmp, pmid_tmp, stats_tmp};
-  StateBufs src{bid, ask, last, pmid, stats_in};
-  for (int s = 0; s < n_valid; ++s) {
-    const OutBufs dst = pick(s, n_valid, out, tmp);
-    naive_chunk_step_kernel<<<M, block_threads(L), book_smem_bytes(L),
-                              (cudaStream_t)stream>>>(
-        market_ids, src.bid, src.ask, src.last, src.pmid,
-        s == 0 ? ext_buy : nullptr, s == 0 ? ext_ask : nullptr, peer_mid,
-        fparams, iparams, src.stats, dst.bid, dst.ask, dst.last, dst.pmid,
-        price_path, volume_path, mid_path, dst.stats, A, L, chunk, s,
-        step0 + s, seed);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    src = as_input(dst);
-  }
-  return 0;
+  const int err = launch_steps(naive_chunk_step_kernel, g,
+                               StateBufs{bid, ask, last, pmid, stats_in},
+                               out, tmp, n_valid, stream);
+  return err != 0 ? err : (int)cudaGetLastError();
 }
 
 // Launches naive_legacy_step_kernel S times (steps 0 .. S-1, paths
@@ -190,22 +142,35 @@ int kc_naive_clearing(
     const float* fparams, const int* iparams, float* bid_out, float* ask_out,
     float* last_out, float* pmid_out, float* bid_tmp, float* ask_tmp,
     float* last_tmp, float* pmid_tmp, float* price_path, float* volume_path,
-    int M, int A, int L, int S, uint32_t seed, void* stream) {
+    int M, int A, int L, int S, int warps_per_market, int markets_per_cta,
+    uint32_t seed, void* stream) {
+  const ChunkArgs g{nullptr, bid, ask, last, pmid, nullptr, nullptr,
+                    nullptr, fparams, iparams, 0, nullptr, nullptr, nullptr,
+                    nullptr, nullptr, price_path, volume_path, nullptr,
+                    nullptr, M, A, L, S, 0, S, seed, warps_per_market,
+                    markets_per_cta};
   const OutBufs out{bid_out, ask_out, last_out, pmid_out, nullptr};
   const OutBufs tmp{bid_tmp, ask_tmp, last_tmp, pmid_tmp, nullptr};
-  StateBufs src{bid, ask, last, pmid, nullptr};
-  for (int s = 0; s < S; ++s) {
-    const OutBufs dst = pick(s, S, out, tmp);
-    naive_legacy_step_kernel<<<M, block_threads(L), book_smem_bytes(L),
-                               (cudaStream_t)stream>>>(
-        src.bid, src.ask, src.last, src.pmid, fparams, iparams, dst.bid,
-        dst.ask, dst.last, dst.pmid, price_path, volume_path, A, L, S, s,
-        seed);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    src = as_input(dst);
-  }
-  return 0;
+  const int err = launch_steps(naive_legacy_step_kernel, g,
+                               StateBufs{bid, ask, last, pmid, nullptr},
+                               out, tmp, S, stream);
+  return err != 0 ? err : (int)cudaGetLastError();
+}
+
+// Resident CTAs per SM of the chunk step kernel (legacy = 0) or the legacy
+// step kernel (legacy = 1) at a launch shape, into *ctas; returns the CUDA
+// error of the query, else cudaGetLastError().
+int kc_occupancy(int legacy, int A, int L, int warps_per_market,
+                 int markets_per_cta, int* ctas) {
+  size_t smem;
+  const int bad = check_shape(L, A, warps_per_market, markets_per_cta, 0,
+                              false, &smem);
+  if (bad != 0) return bad;
+  const int threads = 32 * warps_per_market * markets_per_cta;
+  const int err =
+      legacy ? resident_ctas(naive_legacy_step_kernel, threads, smem, ctas)
+             : resident_ctas(naive_chunk_step_kernel, threads, smem, ctas);
+  return err != 0 ? err : (int)cudaGetLastError();
 }
 
 }  // extern "C"

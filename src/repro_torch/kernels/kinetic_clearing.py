@@ -2,7 +2,8 @@
 
 :func:`kinetic_clearing_chunk` advances every market up to ``chunk`` steps
 from absolute step ``step0``, keeping the books on chip (the CUDA kernel in
-``csrc/kinetic_clearing.cu``, one block per market). It is the counterpart of
+``csrc/kinetic_clearing.cu``, launched in the shape of
+:func:`repro_torch.kernels.autotune.auto_tile`). It is the counterpart of
 ``repro.kernels.kinetic_clearing.kinetic_clearing_chunk`` and takes the same
 operands: the books, ``step0``/``n_valid`` (host ints), external orders added
 at local step 0, the chunk-frozen coupling column, the per-market params, and
@@ -22,18 +23,22 @@ between devices.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple, Union
+import functools
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core import params as params_mod
 from repro_torch.core import stats as stats_mod
-from repro_torch.core.config import MarketConfig
+from repro_torch.core.config import (ARBITRAGEUR, FUNDAMENTALIST, HFT,
+                                     INFORMED, MAKER, MOMENTUM, NOISE, WHALE,
+                                     MarketConfig)
 from repro_torch.core.params import (FLOAT_FIELDS, INT_FIELDS, EnsembleSpec,
                                      MarketParams, PackedParams)
 from repro_torch.core.step import (MarketState, resolve_peer_mids,
                                    simulate_step)
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, autotune, ref
 
 #: Per-market parameter operands (11 float32 + 11 int32 columns).
 NUM_PARAM_OPERANDS = len(MarketParams._fields)
@@ -46,9 +51,10 @@ _LIB_NAME = "kinetic_clearing"
 _c_ptr, _c_int, _c_u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 #: C entries of the library and their argument types.
 _ENTRIES = {
-    "kc_kinetic_clearing_chunk": [_c_ptr] * 19 + [_c_int] * 6 + [_c_u32,
+    "kc_kinetic_clearing_chunk": [_c_ptr] * 19 + [_c_int] * 9 + [_c_u32,
                                                                  _c_ptr],
-    "kc_kinetic_clearing": [_c_ptr] * 12 + [_c_int] * 4 + [_c_u32, _c_ptr],
+    "kc_kinetic_clearing": [_c_ptr] * 12 + [_c_int] * 7 + [_c_u32, _c_ptr],
+    "kc_occupancy": [_c_int] * 6 + [_c_ptr],
 }
 
 
@@ -67,6 +73,17 @@ def resolve_params(cfg, num_markets: int,
 
 def _load_library() -> ctypes.CDLL:
     return _build.load(_LIB_NAME, _ENTRIES)
+
+
+def resident_ctas(legacy: bool, shape: autotune.TileChoice) -> int:
+    """CTAs of the chunk (or legacy) kernel resident on one SM at
+    ``shape`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    out = ctypes.c_int(0)
+    _build.check_launch(
+        _load_library(), _load_library().kc_occupancy(
+            int(legacy), shape.num_agents, shape.num_levels,
+            *shape.as_c_args(), ctypes.byref(out)), "kc_occupancy")
+    return out.value
 
 
 def _expect(t, name: str, shape, dtype, device):
@@ -148,8 +165,9 @@ def kinetic_clearing_chunk(
     seed. ``market_ids`` (int32[M] or [M, 1], default ``arange(M)``) are the
     rows' global ids. ``peer_mid`` defaults to the gather of the entry
     ``pmid`` at ``coupling_peer``. ``scan`` selects the plain version's scan
-    (the kernel always runs its log-depth block scan; both give the same
-    bits for exact-integer books).
+    (the kernel always runs its raking scan; all give the same bits for
+    exact-integer books). The launch shape is
+    ``autotune.auto_tile(L, A)``.
 
     Returns ``(bid, ask, last, pmid, price_path, volume_path, mid_path)``
     with ``[M, chunk]`` paths of which the first ``n_valid`` columns are
@@ -178,9 +196,10 @@ kinetic_clearing_chunk.launches = 0
 
 def _launch(bid, ask, last, pmid, step0, n_valid, ext_buy, ext_ask, *, cfg,
             chunk, scan, market_ids, params, peer_mid, stats, stats_only):
-    del scan  # the kernel's block scan serves both modes (same bits)
+    del scan  # the kernel's raking scan serves both modes (same bits)
     lib = _load_library()
     M, L = bid.shape
+    shape = autotune.auto_tile(L, cfg.num_agents)
     c = [t.contiguous() for t in (bid, ask, last, pmid, market_ids, peer_mid)]
     bid, ask, last, pmid, market_ids, peer_mid = c
     ext_buy = None if ext_buy is None else ext_buy.contiguous()
@@ -205,7 +224,7 @@ def _launch(bid, ask, last, pmid, step0, n_valid, ext_buy, ext_ask, *, cfg,
             ptr(ext_buy), ptr(ext_ask), ptr(peer_mid), ptr(floats), ptr(ints),
             ptr(stats_in), ptr(out_bid), ptr(out_ask), ptr(out_last),
             ptr(out_pmid), *(ptr(p) for p in paths), ptr(stats_out), M,
-            cfg.num_agents, L, chunk, step0, n_valid,
+            cfg.num_agents, L, chunk, step0, n_valid, *shape.as_c_args(),
             int(cfg.seed) & 0xFFFFFFFF,
             torch.cuda.current_stream(bid.device).cuda_stream)
     _build.check_launch(lib, rc, "kinetic_clearing_chunk")
@@ -274,10 +293,15 @@ def check_legacy_operands(what: str, bid, ask, last, pmid, *, cfg,
         raise ValueError(f"unsupported device {bid.device}")
 
 
-def legacy_params(cfg: MarketConfig, device) -> PackedParams:
+@functools.lru_cache(maxsize=32)
+def legacy_params(cfg: MarketConfig, device: torch.device) -> PackedParams:
     """The legacy entries' params operand: the one packed row of
-    ``params_from_config(cfg, 1)``, which every block reads (the values of
-    ``scalar_params(cfg)``, which the plain version broadcasts)."""
+    ``params_from_config(cfg, 1)``, which every team reads (the values of
+    ``scalar_params(cfg)``, which the plain version broadcasts).
+
+    Cached per config and device: packing copies a host row to the card,
+    and a copy from pageable memory waits for the stream, which would stall
+    every call behind the previous kernel."""
     return params_mod.pack_params(params_mod.params_from_config(cfg, 1),
                                   device)
 
@@ -289,18 +313,30 @@ def kinetic_clearing(bid: torch.Tensor, ask: torch.Tensor,
     persistent launch (the legacy one-shot entry).
 
     Market ids are the rows, and arbitrageurs see their own market's
-    previous mid at every step. There is no ``mb``: the CUDA grid has one
-    block per market, so the TPU entry's rule that the tile divide M does
-    not apply. Returns ``(bid, ask, last, pmid, price_path, volume_path)``
-    with ``[M, S]`` paths.
+    previous mid at every step. There is no ``mb``: the launch shape is
+    ``autotune.auto_tile(L, A)``, and a ragged last CTA is masked, so the
+    TPU entry's rule that the tile divide M does not apply. Returns
+    ``(bid, ask, last, pmid, price_path, volume_path)`` with ``[M, S]``
+    paths.
     """
     check_legacy_operands("kinetic_clearing", bid, ask, last, pmid, cfg=cfg,
                           scan=scan)
     if bid.device.type == "cpu":
         return kinetic_clearing_plain(bid, ask, last, pmid, cfg=cfg, scan=scan)
+    out = _launch_legacy(bid, ask, last, pmid, cfg)
+    kinetic_clearing.launches += 1
+    return out
+
+
+#: Kernel launches since the count was last reset (CPU calls never count).
+kinetic_clearing.launches = 0
+
+
+def _launch_legacy(bid, ask, last, pmid, cfg):
     lib = _load_library()
     M, L = bid.shape
     S = cfg.num_steps
+    shape = autotune.auto_tile(L, cfg.num_agents)
     state = [t.contiguous() for t in (bid, ask, last, pmid)]
     params = legacy_params(cfg, bid.device)
     out = [torch.empty_like(t) for t in state]
@@ -309,16 +345,11 @@ def kinetic_clearing(bid: torch.Tensor, ask: torch.Tensor,
     with torch.cuda.device(bid.device):
         rc = lib.kc_kinetic_clearing(
             *map(_build.ptr, state + [params.floats, params.ints] + out
-                 + paths), M, cfg.num_agents, L, S,
+                 + paths), M, cfg.num_agents, L, S, *shape.as_c_args(),
             int(cfg.seed) & 0xFFFFFFFF,
             torch.cuda.current_stream(bid.device).cuda_stream)
     _build.check_launch(lib, rc, "kinetic_clearing")
-    kinetic_clearing.launches += 1
     return tuple(out + paths)
-
-
-#: Kernel launches since the count was last reset (CPU calls never count).
-kinetic_clearing.launches = 0
 
 
 def kinetic_clearing_plain(bid, ask, last, pmid, *, cfg: MarketConfig,
@@ -330,28 +361,102 @@ def kinetic_clearing_plain(bid, ask, last, pmid, *, cfg: MarketConfig,
     return tuple(state) + (prices, volumes)
 
 
-#: Operations per agent-step in the kernel's source: seven lowbias32 rounds
-#: (8 each), seven absorptions (2 each), five uniform conversions (3 each),
-#: the type select (7), the archetype and overlays (~15), round/clip/floor
-#: and quantity (~8), one shared-memory atomicAdd.
-OPS_PER_AGENT_STEP = 7 * 8 + 7 * 2 + 5 * 3 + 7 + 15 + 8 + 1
-#: Operations per level-step outside the scans: shock (3), quote and sum
-#: reductions (4), totals (2-4), match and argmax (2), allocation (8).
-OPS_PER_LEVEL_STEP = 21
-#: 32-bit integer multiplies among the agent operations: two per lowbias32
-#: round and two for the global agent id. Hopper issues them at half the
-#: FP32 lane rate, so each takes a second issue slot.
-IMULS_PER_AGENT_STEP = 7 * 2 + 2
+#: Issue-slot weight of each instruction class on compute capability 9.0:
+#: 128 over the class's results per SM per clock in the arithmetic
+#: instruction throughput table of the CUDA C++ Programming Guide (FP32 add
+#: and multiply 128; 32-bit integer add, shift, logic, compare and multiply
+#: 64; type conversions 16; warp shuffles 32).
+PIPE_WEIGHTS = {"fp32": 1, "int32": 2, "conversion": 8, "shuffle": 4}
 
 
-def op_count(num_markets: int, num_agents: int, num_levels: int,
-             steps: int) -> int:
-    """FP32-lane issue slots of one call that runs ``steps`` steps: one per
-    operation, two per 32-bit integer multiply."""
-    scan = 2 * (num_levels.bit_length() - 1)  # two log-depth scans
-    per_step = (num_agents * (OPS_PER_AGENT_STEP + IMULS_PER_AGENT_STEP)
-                + num_levels * (OPS_PER_LEVEL_STEP + scan))
-    return num_markets * steps * per_step
+class OpMix(NamedTuple):
+    """Instructions of a unit of work, by class (see ``PIPE_WEIGHTS``)."""
+
+    fp32: int = 0
+    int32: int = 0
+    conversion: int = 0
+    shuffle: int = 0
+
+    @property
+    def slots(self) -> int:
+        """FP32-lane issue slots: each class weighted by its rate."""
+        return sum(n * PIPE_WEIGHTS[k] for k, n in zip(self._fields, self))
+
+
+# The counts below are read from the reference's definition of one step
+# (repro/core/rng.py:47-75 kinetic_hash32/uniform32, agents.py decide,
+# step.py binning, auction.py best_quotes/clear), whatever implements it.
+#: One agent at one step, besides its hash channels. Integer: the step
+#: round (the add and lowbias32's 3 shifts, 3 xors, 2 multiplies: 9), the
+#: archetype's side and price selects (3), the marketable and panic
+#: overlays' selects (2), the whale cadence select, the bin address and the
+#: bin add (3). FP32: the coin, the jitter (2), the archetype's price (2)
+#: and side test, the marketable and panic compares (2), the clip (2), the
+#: quantity's multiply and add (2). Conversions: the round, the floor, the
+#: float→int cast.
+AGENT_STEP = OpMix(fp32=12, int32=17, conversion=3)
+#: One uniform draw: the channel round (add, lowbias32, the >> 8: 10
+#: integer), the uint→float conversion and the 2^-24 scaling.
+CHANNEL = OpMix(fp32=1, int32=10, conversion=1)
+#: Channels each archetype's decision reads (agents.py): noise side, price,
+#: marketable, quantity; momentum marketable, quantity; HFT its side coin
+#: (read whenever |imbalance| <= hft_threshold, the usual case, so always
+#: counted), marketable, quantity; a maker its quantity; a fundamentalist
+#: and an arbitrageur price, marketable, quantity; a whale its side (its
+#: price is already an edge, its quantity whale_size); an informed agent,
+#: outside its pre-shock window, all four of a noise agent. Not counted: the
+#: coin a momentum, fundamentalist or arbitrageur agent reads only at a zero
+#: signal (an unmoved mid, the mid at the fundamental, the peer's mid at the
+#: own), and the panic draw read only at the shock step; with those
+#: archetypes in the mix the count is below the work.
+CHANNELS_READ = {NOISE: 4, MOMENTUM: 2, MAKER: 1, FUNDAMENTALIST: 3, WHALE: 1,
+                 HFT: 3, INFORMED: 4, ARBITRAGEUR: 3}
+#: One agent once per call: the step-invariant (seed, gid) round (the
+#: global id's multiply and add, the key's multiply and add, lowbias32: 12)
+#: and the type from the seven block bounds (7 compares, 7 selects).
+AGENT_CALL = OpMix(int32=26)
+#: One level at one step: the best-quote tests and book sums (4 FP32, 4
+#: integer selects and max/min), the totals (2), one add for each of the two
+#: scans (2), the match's min and the argmax compare (2) and select (1
+#: integer), the allocation (two sides of subtract, subtract, max, min) and
+#: the residual books (10). The shock (one step of a call) is left out.
+LEVEL_STEP = OpMix(fp32=20, int32=5)
+#: One market at one step: the mid (an int→float conversion, an add, a
+#: multiply), the imbalance (a subtract, an add and an IEEE division: a
+#: reciprocal at the conversion rate and about eight FP32 refinement and
+#: fix-up steps) and the step's three selects.
+MARKET_STEP = OpMix(fp32=11, int32=3, conversion=2)
+
+
+def agent_mix(params: MarketParams, num_agents: int) -> Dict[int, int]:
+    """Agents of each archetype summed over the markets of ``params``
+    (host columns of ``[M, 1]``)."""
+    counts = {t: int(np.asarray(getattr(params, f)).sum())
+              for t, f in ((MAKER, "num_makers"), (MOMENTUM, "num_momentum"),
+                           (FUNDAMENTALIST, "num_fundamentalists"),
+                           (WHALE, "num_whales"), (HFT, "num_hft"),
+                           (INFORMED, "num_informed"),
+                           (ARBITRAGEUR, "num_arbitrageurs"))}
+    M = int(np.asarray(params.num_makers).shape[0])
+    counts[NOISE] = M * num_agents - sum(counts.values())
+    return counts
+
+
+def op_count(num_markets: int, num_agents: int, num_levels: int, steps: int,
+             mix: Mapping[int, int]) -> int:
+    """FP32-lane issue slots of one call that runs ``steps`` steps: the
+    function's instructions by class (``AGENT_STEP`` and the ``CHANNEL``
+    draws its archetype reads per agent-step, ``LEVEL_STEP`` and
+    ``MARKET_STEP`` per step, ``AGENT_CALL`` once), each weighted by its
+    rate (``PIPE_WEIGHTS``). ``mix`` (:func:`agent_mix`) gives the agents of
+    each archetype over all markets."""
+    if sum(mix.values()) != num_markets * num_agents:
+        raise ValueError("mix must count num_markets * num_agents agents")
+    agent_steps = sum(n * (AGENT_STEP.slots + CHANNELS_READ[t] * CHANNEL.slots)
+                      for t, n in mix.items())
+    per_step = (agent_steps + num_markets * (
+        num_levels * LEVEL_STEP.slots + MARKET_STEP.slots))
+    return steps * per_step + num_markets * num_agents * AGENT_CALL.slots
 
 
 def byte_count(num_markets: int, num_levels: int, chunk: int, *,

@@ -3,7 +3,8 @@ launches, plain versions.
 
 :func:`naive_clearing_chunk` takes the operands and returns the outputs of
 :func:`repro_torch.kernels.kinetic_clearing.kinetic_clearing_chunk`, but
-launches one single-step kernel per step (``csrc/naive_clearing.cu``), so
+launches one single-step kernel per step (``csrc/naive_clearing.cu``, the
+persistent kernels' device step and launch shape), so
 the books, scalars and stats cross device memory between steps. It is the
 counterpart of ``repro.kernels.naive_clearing.naive_clearing_chunk`` and
 serves the ``cuda-naive`` session backend. :func:`naive_clearing` is the
@@ -25,7 +26,7 @@ import torch
 from repro_torch.core import stats as stats_mod
 from repro_torch.core.config import MarketConfig
 from repro_torch.core.params import MarketParams, PackedParams
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 from repro_torch.kernels import kinetic_clearing as kc
 
 #: The source of the CUDA kernels and the TPU kernels they replace.
@@ -37,9 +38,10 @@ _LIB_NAME = "naive_clearing"
 _c_ptr, _c_int, _c_u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 #: C entries of the library and their argument types.
 _ENTRIES = {
-    "kc_naive_clearing_chunk": [_c_ptr] * 24 + [_c_int] * 6 + [_c_u32,
+    "kc_naive_clearing_chunk": [_c_ptr] * 24 + [_c_int] * 8 + [_c_u32,
                                                                _c_ptr],
-    "kc_naive_clearing": [_c_ptr] * 16 + [_c_int] * 4 + [_c_u32, _c_ptr],
+    "kc_naive_clearing": [_c_ptr] * 16 + [_c_int] * 6 + [_c_u32, _c_ptr],
+    "kc_occupancy": [_c_int] * 5 + [_c_ptr],
 }
 
 #: The plain versions: the same function as the persistent entries'.
@@ -49,6 +51,17 @@ naive_clearing_plain = kc.kinetic_clearing_plain
 
 def _load_library() -> ctypes.CDLL:
     return _build.load(_LIB_NAME, _ENTRIES)
+
+
+def resident_ctas(legacy: bool, shape: autotune.TileChoice) -> int:
+    """CTAs of the chunk (or legacy) step kernel resident on one SM at
+    ``shape`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    out = ctypes.c_int(0)
+    _build.check_launch(
+        _load_library(), _load_library().kc_occupancy(
+            int(legacy), shape.num_agents, shape.num_levels,
+            *shape.as_c_args()[:2], ctypes.byref(out)), "kc_occupancy")
+    return out.value
 
 
 def naive_clearing_chunk(
@@ -112,6 +125,7 @@ def _launch_chunk(state, stats_in, ext_buy, ext_ask, step0, n_valid, *, cfg,
     lib = _load_library()
     bid = state[0]
     M, L = bid.shape
+    shape = autotune.auto_tile(L, cfg.num_agents)
     ext_buy = None if ext_buy is None else ext_buy.contiguous()
     ext_ask = None if ext_ask is None else ext_ask.contiguous()
     floats, ints = params.floats.contiguous(), params.ints.contiguous()
@@ -133,7 +147,7 @@ def _launch_chunk(state, stats_in, ext_buy, ext_ask, step0, n_valid, *, cfg,
             ptr(peer_mid), ptr(floats), ptr(ints), ptr(stats_in),
             *map(ptr, out), ptr(stats_out), *map(ptr, tmp), ptr(stats_tmp),
             *map(ptr, paths), M, cfg.num_agents, L, chunk, step0, n_valid,
-            int(cfg.seed) & 0xFFFFFFFF,
+            *shape.as_c_args()[:2], int(cfg.seed) & 0xFFFFFFFF,
             torch.cuda.current_stream(bid.device).cuda_stream)
     _build.check_launch(lib, rc, "naive_clearing_chunk")
     return out, stats_out, paths
@@ -146,8 +160,8 @@ def naive_clearing(bid: torch.Tensor, ask: torch.Tensor, last: torch.Tensor,
     launch per step (the legacy one-shot entry of the ablation).
 
     Market ids are the rows, and arbitrageurs see their own market's
-    previous mid at every step. There is no ``mb``: the CUDA grid has one
-    block per market. Returns ``(bid, ask, last, pmid, price_path,
+    previous mid at every step. There is no ``mb``: the launch shape is
+    ``autotune.auto_tile(L, A)``. Returns ``(bid, ask, last, pmid, price_path,
     volume_path)`` with ``[M, S]`` paths.
     """
     kc.check_legacy_operands("naive_clearing", bid, ask, last, pmid,
@@ -161,24 +175,34 @@ def naive_clearing(bid: torch.Tensor, ask: torch.Tensor, last: torch.Tensor,
              for _ in range(2)]
     if S == 0:
         return tuple(t.clone() for t in state) + tuple(paths)
+    out = _launch_legacy(state, paths, cfg)
+    naive_clearing.launches += S
+    return out
+
+
+#: Kernel launches since the count was last reset, one per step (CPU calls
+#: never count).
+naive_clearing.launches = 0
+
+
+def _launch_legacy(state, paths, cfg):
+    bid = state[0]
+    M, L = bid.shape
+    S = cfg.num_steps
     lib = _load_library()
+    shape = autotune.auto_tile(L, cfg.num_agents)
     params = kc.legacy_params(cfg, bid.device)
     out = [torch.empty_like(t) for t in state]
     tmp = [torch.empty_like(t) for t in state]
     with torch.cuda.device(bid.device):
         rc = lib.kc_naive_clearing(
             *map(_build.ptr, state + [params.floats, params.ints] + out + tmp
-                 + paths), M, cfg.num_agents, L, S,
+                 + paths), M, cfg.num_agents, L, S, *shape.as_c_args()[:2],
             int(cfg.seed) & 0xFFFFFFFF,
             torch.cuda.current_stream(bid.device).cuda_stream)
     _build.check_launch(lib, rc, "naive_clearing")
-    naive_clearing.launches += S
     return tuple(out + paths)
 
-
-#: Kernel launches since the count was last reset, one per step (CPU calls
-#: never count).
-naive_clearing.launches = 0
 
 #: Operations per step are the persistent kernels' (the same device step);
 #: only where the state lives differs.

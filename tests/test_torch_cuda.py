@@ -14,10 +14,18 @@ from repro_torch.core.params import EnsembleSpec
 from repro_torch.core.session import Engine
 from repro_torch.core.stats import init_stats
 from repro_torch.core.step import initial_state
+from repro_torch.kernels import autotune
 from repro_torch.kernels import kinetic_clearing as kc
 from repro_torch.kernels import naive_clearing as nc
 
 pytestmark = pytest.mark.cuda
+
+#: (M, A, L): the paper's width, the edges, and every team shape of the
+#: launch rule (one warp at L <= 128, 2 and 8 warps beyond; agents in
+#: registers and in shared memory) with M = 3, so that the 15 markets of
+#: `_spec` and the 3 of `_legacy_cfg` leave the last CTA ragged.
+SHAPES = [(4, 256, 128), (2, 300, 1024), (8, 5, 8)] + [
+    (3, A, L) for L in (4, 32, 128, 256, 1024) for A in (16, 1024)]
 
 
 @pytest.fixture
@@ -42,8 +50,7 @@ def _spec(M, A, L, S=40):
     return spec.with_values(coupling_peer=[(m + 1) % n for m in range(n)])
 
 
-@pytest.mark.parametrize("M,A,L", [(4, 256, 128), (2, 300, 1024),
-                                   (8, 5, 8)])
+@pytest.mark.parametrize("M,A,L", SHAPES)
 @pytest.mark.parametrize("stats_only", [False, True])
 def test_kernel_equals_plain(cuda, M, A, L, stats_only):
     spec = _spec(M, A, L)
@@ -66,6 +73,17 @@ def test_kernel_equals_plain(cuda, M, A, L, stats_only):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("L", [4, 128, 1024])
+@pytest.mark.parametrize("A", [16, 1024, 4096])
+def test_launch_rule_shapes_are_resident(cuda, A, L):
+    """Every kernel takes the rule's shape: its C entry accepts it and at
+    least one CTA of it fits on an SM."""
+    shape = autotune.auto_tile(L, A)
+    for module in (kc, nc):
+        for legacy in (False, True):
+            assert module.resident_ctas(legacy, shape) >= 1
+
+
 def test_session_launches_once_per_chunk(cuda):
     spec = _spec(4, 64, 32, S=50)
     kc.kinetic_clearing_chunk.launches = 0
@@ -77,9 +95,6 @@ def test_session_launches_once_per_chunk(cuda):
         want = s.run_to_result()
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
-
-
-SHAPES = [(4, 256, 128), (2, 300, 1024), (8, 5, 8)]
 
 
 @pytest.mark.parametrize("M,A,L", SHAPES)

@@ -19,6 +19,7 @@ from repro.kernels.kinetic_clearing import \
 from repro_torch import convert
 from repro_torch.core import params as params_mod
 from repro_torch.core import stats
+from repro_torch.core.config import MAKER, NOISE, MarketConfig
 from repro_torch.core.step import initial_state
 from repro_torch.kernels import _build
 from repro_torch.kernels import kinetic_clearing as kc
@@ -179,11 +180,33 @@ def test_wrapper_rejects_bad_operands(bad):
 
 
 def test_bound_counts():
-    ops = kc.op_count(8192, 256, 128, 64)
-    # An integer multiply takes two FP32-lane issue slots.
-    per_agent = kc.OPS_PER_AGENT_STEP + kc.IMULS_PER_AGENT_STEP
-    assert ops == 8192 * 64 * (256 * per_agent
-                               + 128 * (kc.OPS_PER_LEVEL_STEP + 14))
+    """The bound counts the function's instructions by class, each weighted
+    by 128 over its per-SM rate on compute capability 9.0."""
+    assert kc.PIPE_WEIGHTS == {"fp32": 1, "int32": 2, "conversion": 8,
+                               "shuffle": 4}
+    assert kc.OpMix(fp32=3, int32=2, conversion=1, shuffle=1).slots == \
+        3 + 4 + 8 + 4
+    cfg = MarketConfig(num_markets=8192, num_agents=256, num_levels=128,
+                       num_steps=64)
+    mix = kc.agent_mix(params_mod.params_from_config(cfg), 256)
+    assert sum(mix.values()) == 8192 * 256
+    assert mix[MAKER] == 8192 * cfg.num_makers and mix[MAKER] > 0
+    ops = kc.op_count(8192, 256, 128, 64, mix)
+    # Each agent pays for the hash channels its archetype reads; the
+    # step-invariant (seed, gid) round and type count once per call.
+    channels = sum(n * kc.CHANNELS_READ[t] for t, n in mix.items())
+    assert ops == (64 * (8192 * 256 * kc.AGENT_STEP.slots
+                         + channels * kc.CHANNEL.slots
+                         + 8192 * (128 * kc.LEVEL_STEP.slots
+                                   + kc.MARKET_STEP.slots))
+                   + 8192 * 256 * kc.AGENT_CALL.slots)
+    # A channel is mostly integer work at half the FP32 rate plus a
+    # conversion at an eighth of it.
+    assert kc.CHANNEL.slots == 1 + 2 * 10 + 8
+    assert max(kc.CHANNELS_READ.values()) == 4
+    assert kc.op_count(8192, 256, 128, 1, mix) < ops / 40
+    with pytest.raises(ValueError):
+        kc.op_count(8192, 256, 128, 64, {NOISE: 1})
     nbytes = kc.byte_count(8192, 128, 64, ext=False, stats_only=False)
     # books in/out dominate: 4 * M * L floats, plus three [M, 64] paths
     assert 4 * 8192 * 128 * 4 < nbytes < 2 * 4 * 8192 * 128 * 4

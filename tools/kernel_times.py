@@ -1,0 +1,128 @@
+#!/usr/bin/env python3
+"""Time the port's four clearing kernels on one CUDA card, for the
+``repro_torch`` of a given source tree.
+
+    python3 tools/kernel_times.py [--src DIR] [--label X]
+
+``--src`` (default: this checkout's ``src``) selects the tree, so two
+commits, or a commit and a variant of it, can be compared in one call on
+one card: unpack the other tree (``git archive``) into a git-ignored
+directory and run the script for each tree in turns (parent, change,
+change, parent).
+
+Shapes (homogeneous baseline markets from the opening books, one call of 64
+steps each, CUDA events over several calls after a warm-up):
+
+  * kernels 1 and 2 (``kinetic_clearing_chunk``, ``naive_clearing_chunk``)
+    at M=8192, L=128 and the paper's agent sweep A in {16, 64, 256, 1024},
+    and at M=8192, A=32, L=1024;
+  * kernels 3 and 4 (``kinetic_clearing``, ``naive_clearing``) at M=8192,
+    A=256, L=128, S=64.
+
+Prints one JSON line per shape, then the card's name and power limit.
+Imports nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+SWEEP = [(8192, A, 128) for A in (16, 64, 256, 1024)] + [(8192, 32, 1024)]
+LEGACY = (8192, 256, 128)
+STEPS = 64
+SEED = 20260611
+
+
+def time_ms(fn, reps: int) -> float:
+    import torch
+
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    fn()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
+                                         / "src"))
+    ap.add_argument("--label", default="")
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.src).resolve()))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.core import params as params_mod
+    from repro_torch.core.config import MarketConfig
+    from repro_torch.core.params import EnsembleSpec
+    from repro_torch.core.step import initial_state
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import kinetic_clearing as kc
+    from repro_torch.kernels import naive_clearing as nc
+
+    device = torch.device("cuda", 0)
+    base = dict(label=args.label, src=args.src)
+    kc._load_library()
+    nc._load_library()
+    if hasattr(_build, "ptxas_report"):  # registers and spills, where kept
+        print(json.dumps(dict(base, ptxas={
+            **_build.ptxas_report(kc._LIB_NAME),
+            **_build.ptxas_report(nc._LIB_NAME)})),
+            flush=True)
+
+    for M, A, L in SWEEP:
+        spec = EnsembleSpec.homogeneous(MarketConfig(
+            num_markets=M, num_agents=A, num_levels=L, num_steps=500,
+            seed=SEED))
+        state = tuple(initial_state(spec, device))
+        params = params_mod.pack_params(spec.params, device)
+        kw = dict(cfg=spec, chunk=STEPS, params=params)
+        one = kc.kinetic_clearing_chunk(*state, 0, STEPS, **kw)
+        two = nc.naive_clearing_chunk(*state, 0, STEPS, **kw)
+        same = all(bool(torch.equal(a, b)) for a, b in zip(one, two))
+        k1 = [time_ms(lambda: kc.kinetic_clearing_chunk(
+            *state, 0, STEPS, **kw), 10)]
+        k2 = [time_ms(lambda: nc.naive_clearing_chunk(
+            *state, 0, STEPS, **kw), 10) for _ in range(2)]
+        k1.append(time_ms(lambda: kc.kinetic_clearing_chunk(
+            *state, 0, STEPS, **kw), 10))
+        print(json.dumps(dict(
+            base, markets=M, agents=A, levels=L, steps=STEPS,
+            kernel1_ms=statistics.median(k1), kernel1_ms_runs=k1,
+            kernel2_ms=statistics.median(k2), kernel2_ms_runs=k2,
+            kernel2_over_kernel1=statistics.median(k2)
+            / statistics.median(k1), kernels_agree=same)), flush=True)
+
+    M, A, L = LEGACY
+    cfg = MarketConfig(num_markets=M, num_agents=A, num_levels=L,
+                       num_steps=STEPS, seed=SEED)
+    state = tuple(initial_state(cfg, device))
+    k3 = [time_ms(lambda: kc.kinetic_clearing(*state, cfg=cfg), 10)]
+    k4 = [time_ms(lambda: nc.naive_clearing(*state, cfg=cfg), 10)
+          for _ in range(2)]
+    k3.append(time_ms(lambda: kc.kinetic_clearing(*state, cfg=cfg), 10))
+    print(json.dumps(dict(
+        base, markets=M, agents=A, levels=L, steps=STEPS,
+        kernel3_ms=statistics.median(k3), kernel3_ms_runs=k3,
+        kernel4_ms=statistics.median(k4), kernel4_ms_runs=k4)), flush=True)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
