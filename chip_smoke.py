@@ -40,6 +40,23 @@ line:
            as warm ``Session.run(500)`` of each backend: time, agent-events/s,
            peak memory and the ratio to ``cuda-kinetic``; then the two
            chunk kernels alone at M=8192, A=32, L=1024 (books beyond L2).
+  serve    the serving gateway (``repro_torch.serve.Gateway``) over an
+           8192-slot template at A=256, L=128, chunk 64: 256 clients
+           round-robin over the nine presets, 8 more at chunk 6 (after the
+           checkpoint at chunk 4), 8 detached at chunk 10, one
+           ``DeviceLoss`` after chunk 10 (restore at chunk 8, the detach
+           replayed from the journal), 16 chunks, in a child process that
+           then kills itself
+           (SIGKILL); a second child restarts over the same ``ckpt_dir``
+           and streams 4 chunks. Every frame equals the frame at the same
+           (slot, step) of the same schedule through a ``torch-scan``
+           gateway on the card (no kernel); ``traces_delta`` is 0 and kernel
+           1 launches once per chunk dispatched (warm-ups and replays
+           included). A 4-chunk ``cuda-naive`` gateway with 32 clients
+           launches kernel 2 once per step and gives the same frames. Then
+           fault-free runs for served agent-events/s (against a bare
+           ``Session.run`` of the same 16 chunks), chunk latency at chunk 64
+           and 16, and the card's busy share.
 
 Each path is driven with every launch count at 0 just before it and read
 just after. The ``timing``, ``agent_sweep``, ``legacy_path`` and
@@ -54,9 +71,12 @@ package.
 from __future__ import annotations
 
 import json
+import os
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -77,6 +97,25 @@ PEAK_LANE_OPS = 67e12 / 2
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 SEED = 20260611
 CARD = ("cuda", 0)        # the one card every phase runs on
+# The serve phase: slots of the template, clients before the first chunk,
+# chunk length, chunks streamed before the crash and after the restart.
+SERVE_SHAPE = (8192, 256, 128)
+SERVE_CLIENTS = 256
+SERVE_CHUNK = 64
+SERVE_CHUNKS = 16
+RESTART_CHUNKS = 4
+# The lead client's frame counts that trigger the schedule's events. Frame
+# n arrives while chunk n+1 runs, so each event lands before chunk n+2: the
+# 8 late attaches at chunk 6 (after the checkpoint at chunk 4), the 8
+# detaches at chunk 10 and the DeviceLoss after chunk 10, which restores
+# the checkpoint at chunk 8 and replays the detach from the journal.
+LATE_AFTER, DETACH_AFTER, FAULT_AFTER = 4, 8, 9
+LATE_CLIENTS = DETACHED_CLIENTS = 8
+CHECKPOINT_EVERY = 4
+NAIVE_CLIENTS, NAIVE_CHUNKS = 32, 4
+LATENCY_CHUNK, LATENCY_CHUNKS = 16, 64
+PRESETS = ("baseline", "flash-crash", "high-vol", "low-vol", "whale", "hft",
+           "informed", "wide-book", "thin-book")
 
 
 class Mismatch(AssertionError):
@@ -750,6 +789,370 @@ def phase_fixed_workload(device):
     return rows, persistence
 
 
+# ---------------------------------------------------------------------------
+# serve: the gateway at full width
+# ---------------------------------------------------------------------------
+
+def serve_template():
+    from repro_torch.serve import parked_template
+
+    M, A, L = SERVE_SHAPE
+    return parked_template(slots=M, num_agents=A, num_levels=L,
+                           num_steps=4096, seed=SEED)
+
+
+def new_gateway(backend, device, chunks, ckpt_dir=None, chunk=None):
+    from repro_torch.serve import Gateway
+
+    return Gateway(serve_template(), backend=backend,
+                   chunk_size=chunk or SERVE_CHUNK,
+                   queue_maxsize=chunks + 8, ckpt_dir=ckpt_dir,
+                   checkpoint_every=CHECKPOINT_EVERY if ckpt_dir else 0,
+                   engine_opts={"device": str(device)})
+
+
+async def drain(cs):
+    out = []
+    while (frame := await cs.next_frame()) is not None:
+        out.append(frame)
+    return out
+
+
+async def serve_schedule(gw, chunks, *, clients=None, events=True):
+    """Open ``clients`` sessions round-robin over the presets before the
+    first chunk, then follow the lead client's frames: 8 late attaches, 8
+    detaches and one DeviceLoss at its LATE_AFTER-th, DETACH_AFTER-th and
+    FAULT_AFTER-th frame (with ``events``). Returns every client's frames,
+    the wall seconds from the first chunk (after the warm start; the
+    clients' admission included) to the last frame, and the steady period:
+    the mean seconds between the lead client's frames."""
+    import asyncio
+    import time
+
+    from repro_torch.ops import DeviceLoss
+
+    await gw.start(chunks=chunks)
+    t0 = time.perf_counter()
+    opened = [gw.open_session(PRESETS[i % len(PRESETS)], client=f"c{i}")
+              for i in range(clients or SERVE_CLIENTS)]
+    lead, seen, late, arrivals = opened[0], [], [], []
+    while (frame := await lead.next_frame()) is not None:
+        seen.append(frame)
+        arrivals.append(time.perf_counter())
+        if not events:
+            continue
+        if len(seen) == LATE_AFTER:
+            late = [gw.open_session(PRESETS[k % len(PRESETS)],
+                                    client=f"late{k}")
+                    for k in range(LATE_CLIENTS)]
+        elif len(seen) == DETACH_AFTER:
+            for cs in opened[-DETACHED_CLIENTS:]:
+                cs.close()
+        elif len(seen) == FAULT_AFTER:
+            gw.inject_fault(DeviceLoss(at_step=0))
+    rest = await asyncio.gather(*(drain(cs) for cs in opened[1:] + late))
+    wall = time.perf_counter() - t0
+    period = (arrivals[-1] - arrivals[0]) / max(1, len(arrivals) - 1)
+    return [seen] + list(rest), wall, period
+
+
+def frame_table(streams):
+    """{(slot, step0): float32[3, n] of mid, price, volume}."""
+    import numpy as np
+
+    return {(f.slot, f.step0): np.stack([f.mid, f.price, f.volume])
+            for frames in streams for f in frames}
+
+
+def save_table(path, table):
+    import numpy as np
+
+    keys = sorted(table)
+    np.savez(path, keys=np.asarray(keys, np.int64).reshape(-1, 2),
+             data=np.stack([table[k] for k in keys]))
+
+
+def load_table(path):
+    import numpy as np
+
+    with np.load(path) as z:
+        return {tuple(int(x) for x in k): d for k, d in zip(z["keys"],
+                                                             z["data"])}
+
+
+def compare_tables(label, got, want) -> None:
+    """``got`` must hold only keys of ``want``, each equal bit for bit."""
+    missing = set(got) - set(want)
+    if missing:
+        raise Mismatch(f"{label}: frames {sorted(missing)[:4]} have no "
+                       "reference frame")
+    for key, frame in got.items():
+        if frame.shape != want[key].shape or not (frame == want[key]).all():
+            raise Mismatch(f"{label}: frame (slot, step0)={key} differs "
+                           "from the torch-scan gateway's")
+
+
+def gateway_report(gw) -> dict:
+    """The gateway's own measurements (its metrics registry)."""
+    snap = gw.metrics.snapshot()
+    windows, timings = snap["windows"], snap["timings"]
+
+    def win(name):
+        w = windows.get(name)
+        return None if w is None else {k: w[k] for k in
+                                       ("count", "p50", "p99", "max")}
+
+    def agg(name):
+        t = timings.get(name)
+        return None if t is None else {k: t[k] for k in
+                                       ("count", "total", "max")}
+
+    return dict(
+        chunk_latency_seconds=win("chunk_latency_seconds"),
+        checkpoint_snapshot_seconds=win("checkpoint_snapshot_seconds"),
+        checkpoint_write_seconds=win("checkpoint_write_seconds"),
+        recovery_seconds=win("recovery_seconds"),
+        conversion_seconds=agg("conversion_seconds"),
+        swap_seconds=agg("swap_seconds"),
+        restore_seconds=agg("restore_seconds"),
+        chunks_dispatched=int(snap["counters"].get("chunks_total", 0)),
+        recoveries=int(snap["counters"].get("recoveries_total", 0)),
+        frames_published=int(snap["counters"].get("frames_published_total",
+                                                  0)),
+        frames_dropped=int(snap["counters"].get("frames_dropped_total", 0)),
+        traces_delta=gw.traces_delta, resumed_from=gw.resumed_from,
+        restart_errors=list(gw.restart_errors))
+
+
+def serve_child(phase: str, ckpt_dir: str, out_dir: str) -> int:
+    """One ``cuda-kinetic`` gateway process of the serve phase. ``crash``
+    streams the schedule, writes its frames and report, and kills itself
+    with SIGKILL (the checkpoint writer may be mid-commit); ``restart``
+    restarts over ``ckpt_dir`` and streams RESTART_CHUNKS chunks."""
+    import asyncio
+
+    import torch
+
+    device = torch.device(*CARD)
+
+    async def crash():
+        gw = new_gateway("cuda-kinetic", device, SERVE_CHUNKS, ckpt_dir)
+        streams, wall, period = await serve_schedule(gw, SERVE_CHUNKS)
+        return gw, streams, {"wall_s": wall, "period_s": period}
+
+    async def restart():
+        import time
+
+        t0 = time.perf_counter()
+        gw = new_gateway("cuda-kinetic", device, RESTART_CHUNKS, ckpt_dir)
+        await gw.start(chunks=RESTART_CHUNKS)
+        start_s = time.perf_counter() - t0   # restore, journal, warm-up
+        resumed = [gw.resume_session(slot, client=f"r{slot}")
+                   for slot in gw.scheduler.attached]
+        streams = await asyncio.gather(*(drain(cs) for cs in resumed))
+        await gw.stop()
+        return gw, streams, {"start_s": start_s}
+
+    reset_counts()
+    gw, streams, extra = asyncio.run(crash() if phase == "crash"
+                                     else restart())
+    torch.cuda.synchronize()
+    report = dict(gateway_report(gw), launches=read_counts(), **extra)
+    save_table(Path(out_dir) / f"{phase}.npz", frame_table(streams))
+    (Path(out_dir) / f"{phase}.json").write_text(json.dumps(report))
+    if phase == "crash":
+        os.kill(os.getpid(), signal.SIGKILL)
+    return 0
+
+
+def run_child(phase, ckpt_dir, out_dir):
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "serve-child", phase,
+         str(ckpt_dir), str(out_dir)], capture_output=True, text=True,
+        timeout=300)
+    want_rc = -signal.SIGKILL if phase == "crash" else 0
+    if proc.returncode != want_rc:
+        raise Mismatch(f"serve {phase} child exited {proc.returncode}, "
+                       f"expected {want_rc}:\n{proc.stderr[-4000:]}")
+    report = json.loads((Path(out_dir) / f"{phase}.json").read_text())
+    return report, load_table(Path(out_dir) / f"{phase}.npz")
+
+
+def check_child(label, report) -> int:
+    """traces_delta 0; kernel 1 once per chunk dispatched (a warm-up per
+    engine opened, replays included), kernel 2 and the legacy kernels
+    never. Returns the chunks dispatched."""
+    if report["traces_delta"] != 0:
+        raise Mismatch(f"{label}: traces_delta {report['traces_delta']}")
+    dispatched = report["chunks_dispatched"] + 1 + report["recoveries"]
+    want = {"kinetic_clearing_chunk": dispatched}
+    for name, n in report["launches"].items():
+        if n != want.get(name, 0):
+            raise Mismatch(f"{label}: {name} launched {n} times, expected "
+                           f"{want.get(name, 0)}")
+    return dispatched
+
+
+def serving_spec():
+    """The template with the schedule's first SERVE_CLIENTS clients."""
+    from repro_torch.core.config import scenario_config
+    from repro_torch.core.params import EnsembleSpec
+
+    tpl = serve_template()
+    M, A, L = SERVE_SHAPE
+    rows = EnsembleSpec.concatenate([EnsembleSpec.homogeneous(
+        scenario_config(PRESETS[i % len(PRESETS)], num_markets=1,
+                        num_agents=A, num_levels=L, num_steps=4096,
+                        seed=SEED)) for i in range(SERVE_CLIENTS)])
+    return tpl.replace_markets(list(range(SERVE_CLIENTS)), rows)
+
+
+def phase_serve(device):
+    """The serving gateway on the card: see the module docstring."""
+    import asyncio
+    import time
+
+    import torch
+    from repro_torch.core import params as params_mod
+    from repro_torch.core.session import Engine
+    from repro_torch.kernels import kinetic_clearing as kc
+
+    M, A, _ = SERVE_SHAPE
+    tmp = tempfile.TemporaryDirectory()
+    base = Path(tmp.name)
+
+    # The reference: the same schedule through torch-scan, one chunk past
+    # the restart's reach, launching no kernel.
+    reset_counts()
+    ref_gw = new_gateway("torch-scan", device, SERVE_CHUNKS + RESTART_CHUNKS,
+                         base / "ref")
+
+    async def reference():
+        streams, _, _ = await serve_schedule(ref_gw,
+                                             SERVE_CHUNKS + RESTART_CHUNKS)
+        await ref_gw.stop()
+        return streams
+
+    ref = frame_table(asyncio.run(reference()))
+    expect_counts("serve torch-scan", {})
+
+    # The crash and the restart, each a cuda-kinetic process of its own.
+    crash, crash_frames = run_child("crash", base / "ckpt", base)
+    restart, restart_frames = run_child("restart", base / "ckpt", base)
+    horizon = SERVE_CHUNKS * SERVE_CHUNK
+    resumed = restart["resumed_from"]
+    want_crash = {k for k in ref if k[1] < horizon}
+    want_restart = {k for k in ref
+                    if resumed <= k[1] < resumed + RESTART_CHUNKS
+                    * SERVE_CHUNK}
+    for label, frames, want in (("serve crash", crash_frames, want_crash),
+                                ("serve restart", restart_frames,
+                                 want_restart)):
+        if set(frames) != want:
+            raise Mismatch(f"{label}: {len(frames)} frames, the reference "
+                           f"has {len(want)} at those steps")
+        compare_tables(label, frames, ref)
+    dispatched = {"crash": check_child("serve crash", crash),
+                  "restart": check_child("serve restart", restart)}
+    if (crash["recoveries"] != 1 or resumed is None
+            or restart["restart_errors"]):
+        raise Mismatch(f"serve: recoveries {crash['recoveries']}, resumed "
+                       f"{resumed}, errors {restart['restart_errors']}")
+
+    # cuda-naive: kernel 2 once per step (warm-up included), same frames.
+    reset_counts()
+    naive_gw = new_gateway("cuda-naive", device, NAIVE_CHUNKS)
+
+    async def naive():
+        streams, _, _ = await serve_schedule(naive_gw, NAIVE_CHUNKS,
+                                             clients=NAIVE_CLIENTS,
+                                             events=False)
+        await naive_gw.stop()
+        return streams
+
+    naive_frames = frame_table(asyncio.run(naive()))
+    torch.cuda.synchronize()
+    naive_launches = expect_counts("serve cuda-naive", {
+        "naive_clearing_chunk": (NAIVE_CHUNKS + 1) * SERVE_CHUNK})
+    if len(naive_frames) != NAIVE_CLIENTS * NAIVE_CHUNKS:
+        raise Mismatch(f"serve cuda-naive: {len(naive_frames)} frames")
+    compare_tables("serve cuda-naive", naive_frames, ref)
+
+    # Fault-free cuda-kinetic: served agent-events/s and latency at chunk
+    # 64, then latency at chunk 16.
+    def fault_free(chunk, chunks):
+        reset_counts()
+        gw = new_gateway("cuda-kinetic", device, chunks, chunk=chunk)
+
+        async def go():
+            out = await serve_schedule(gw, chunks, events=False)
+            await gw.stop()
+            return out
+
+        streams, wall, period = asyncio.run(go())
+        torch.cuda.synchronize()
+        rep = gateway_report(gw)
+        expect_counts(f"serve fault-free chunk {chunk}",
+                      {"kinetic_clearing_chunk": chunks + 1})
+        if len(frame_table(streams)) != SERVE_CLIENTS * chunks:
+            raise Mismatch(f"serve fault-free chunk {chunk}: frames lost")
+        return dict(rep, wall_s=wall, period_s=period)
+
+    served = fault_free(SERVE_CHUNK, SERVE_CHUNKS)
+    latency = fault_free(LATENCY_CHUNK, LATENCY_CHUNKS)
+
+    # A bare Session.run of the same 16 chunks, and kernel 1's time at the
+    # serving mix (CUDA events), for the busy share.
+    spec = serving_spec()
+    eng = Engine("cuda-kinetic", device=device)
+    eng.warm(spec, include_step=False)
+    with eng.open(spec, chunk_size=SERVE_CHUNK) as sess:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.run(SERVE_CHUNKS * SERVE_CHUNK)
+        torch.cuda.synchronize()
+        bare_wall = time.perf_counter() - t0
+    state = opening(spec, device)
+    params = params_mod.pack_params(spec.params, device)
+    kernel_ms = {}
+    for chunk in (SERVE_CHUNK, LATENCY_CHUNK):
+        kw = dict(cfg=spec, chunk=chunk, params=params)
+        kernel_ms[chunk] = _time(
+            lambda: kc.kinetic_clearing_chunk(*state, 0, chunk, **kw), 10)
+    reset_counts()
+    steps = SERVE_CHUNKS * SERVE_CHUNK
+    out = dict(
+        slots=M, agents=A, levels=SERVE_SHAPE[2], chunk=SERVE_CHUNK,
+        clients=SERVE_CLIENTS, chunks=SERVE_CHUNKS,
+        frames_checked={"crash": len(crash_frames),
+                        "restart": len(restart_frames),
+                        "naive": len(naive_frames)},
+        reference_frames=len(ref), max_abs_err=0.0,
+        launches={"crash": crash["launches"], "restart": restart["launches"],
+                  "naive": naive_launches},
+        chunks_dispatched=dispatched, resumed_from=resumed,
+        crash=crash, restart=restart,
+        served_agent_events_per_s=M * A * steps / served["wall_s"],
+        steady_agent_events_per_s=M * A * SERVE_CHUNK / served["period_s"],
+        bare_session_agent_events_per_s=M * A * steps / bare_wall,
+        bare_session_wall_s=bare_wall,
+        kernel_ms={str(k): v for k, v in kernel_ms.items()},
+        device_busy_share=kernel_ms[SERVE_CHUNK] * 1e-3 * SERVE_CHUNKS
+        / served["wall_s"],
+        steady_device_busy_share=kernel_ms[SERVE_CHUNK] * 1e-3
+        / served["period_s"],
+        served=served,
+        latency_chunk=LATENCY_CHUNK, latency_chunks=LATENCY_CHUNKS,
+        latency=latency,
+        latency_device_busy_share=kernel_ms[LATENCY_CHUNK] * 1e-3
+        * LATENCY_CHUNKS / latency["wall_s"],
+        latency_steady_device_busy_share=kernel_ms[LATENCY_CHUNK] * 1e-3
+        / latency["period_s"])
+    emit("serve", ok=True, **out)
+    tmp.cleanup()
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -759,6 +1162,8 @@ def card_line() -> str:
 
 
 def main() -> int:
+    if len(sys.argv) == 5 and sys.argv[1] == "serve-child":
+        return serve_child(*sys.argv[2:])
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
         return 2
@@ -786,11 +1191,14 @@ def main() -> int:
     err_s = phase_agent_sweep(device)
     legacy = phase_legacy_path(device)
     phase_fixed_workload(device)
+    serve = phase_serve(device)
     launches.update(legacy["launches"])
     errs = {"kinetic_clearing_chunk":
-            max(err_k, err_s, session_errs["kinetic_clearing_chunk"]),
+            max(err_k, err_s, session_errs["kinetic_clearing_chunk"],
+                serve["max_abs_err"]),
             "naive_clearing_chunk":
-            max(err_n, err_s, session_errs["naive_clearing_chunk"]),
+            max(err_n, err_s, session_errs["naive_clearing_chunk"],
+                serve["max_abs_err"]),
             "kinetic_clearing":
             max(err_l, legacy["max_abs_err"]["kinetic_clearing"]),
             "naive_clearing":

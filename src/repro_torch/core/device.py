@@ -20,3 +20,12 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r} (cuda or cpu)")
     return dev
+
+
+def upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` (a CPU tensor) on ``device``. To the card it goes through pinned
+    memory without blocking, so the copy is queued on the current stream
+    behind the work already there instead of waiting for it."""
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

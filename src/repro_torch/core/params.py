@@ -9,7 +9,8 @@
     in the column order :data:`FLOAT_FIELDS` / :data:`INT_FIELDS`, which the
     CUDA kernel shares (see ``kernels/csrc/kinetic_clearing.cu``).
   * :class:`EnsembleSpec` — the builder API: ``homogeneous(cfg)``,
-    ``from_scenarios([...])``, ``concatenate``, ``with_values``.
+    ``from_scenarios([...])``, ``concatenate``, ``with_values``, and the
+    serving gateway's row splices ``replace_markets`` and ``parked``.
 
 Markets are row-independent and the RNG is a pure function of (seed, global
 market id, step, channel), so market ``m`` of a heterogeneous ensemble
@@ -66,6 +67,10 @@ class MarketParams(NamedTuple):
     def to_numpy(self) -> "MarketParams":
         return MarketParams(*(_host(x) for x in self))
 
+    @property
+    def num_markets(self) -> int:
+        return int(np.shape(self.shock_step)[0])
+
 
 #: Column order of the packed int32 ``[M, 11]`` operand (shared with the
 #: CUDA source, which checks it at load time).
@@ -121,6 +126,30 @@ def pack_params(params: MarketParams, device) -> PackedParams:
 
     return PackedParams(floats=stack(FLOAT_FIELDS, torch.float32),
                         ints=stack(INT_FIELDS, torch.int32))
+
+
+def replace_rows(params: MarketParams, slots, rows: MarketParams,
+                 ) -> MarketParams:
+    """Host row splice: ``params`` with markets ``slots`` replaced by the
+    rows of ``rows`` (a ``len(slots)``-market params). Shapes and dtypes are
+    unchanged, so every runner keyed on the shape is reused, and every other
+    row is carried over untouched."""
+    idx = np.asarray(slots, dtype=np.int64).reshape(-1)
+    M = params.num_markets
+    if idx.size != rows.num_markets:
+        raise ValueError(
+            f"replace_rows got {idx.size} slots but {rows.num_markets} "
+            "replacement rows")
+    if idx.size != np.unique(idx).size:
+        raise ValueError(f"slots must be unique, got {idx.tolist()}")
+    if ((idx < 0) | (idx >= M)).any():
+        raise ValueError(f"slots {idx.tolist()} out of range [0, {M})")
+    out = []
+    for f, leaf, src in zip(MarketParams._fields, params, rows):
+        leaf = np.array(_host(leaf), dtype=MarketParams.field_dtype(f))
+        leaf[idx] = np.asarray(_host(src), dtype=leaf.dtype)
+        out.append(leaf)
+    return MarketParams(*out)
 
 
 def params_from_dict(values: Dict[str, Any], num_markets: int,
@@ -270,6 +299,51 @@ class EnsembleSpec:
     def static_key(self) -> Tuple[Any, ...]:
         """Runner cache key: shapes and the RNG seed, never values."""
         return (self.num_markets, self.num_agents, self.num_levels, self.seed)
+
+    def replace_markets(self, slots, sub: "EnsembleSpec") -> "EnsembleSpec":
+        """New spec with markets ``slots`` replaced by the rows of ``sub``
+        (params, opening-book fields and labels). ``sub`` must agree on every
+        static field, so the result keeps this spec's :meth:`static_key`."""
+        for f in _STATIC_FIELDS:
+            if getattr(sub, f) != getattr(self, f):
+                raise ValueError(
+                    f"replace_markets rows must agree on static field {f!r}:"
+                    f" this spec has {getattr(self, f)}, the replacement has"
+                    f" {getattr(sub, f)}")
+        idx = np.asarray(slots, dtype=np.int64).reshape(-1)
+        scenarios = list(self.scenarios or ("?",) * self.num_markets)
+        quote = np.array(self.initial_quote_qty, np.float32)
+        spread = np.array(self.initial_spread, np.int32)
+        params = replace_rows(self.params, idx, sub.params)  # validates idx
+        quote[idx] = np.asarray(sub.initial_quote_qty, np.float32)
+        spread[idx] = np.asarray(sub.initial_spread, np.int32)
+        for k, slot in enumerate(idx):
+            scenarios[slot] = (sub.scenarios[k] if k < len(sub.scenarios)
+                               else "?")
+        return dataclasses.replace(
+            self, params=params, initial_quote_qty=quote,
+            initial_spread=spread, scenarios=tuple(scenarios))
+
+    @classmethod
+    def parked(cls, like: "EnsembleSpec", num_markets: int = None,
+               ) -> "EnsembleSpec":
+        """Inert rows agreeing with ``like`` on every static field: the
+        serving gateway's parked slots. A parked row keeps being simulated
+        (the shape is fixed), with no events, passive unit orders at the mid
+        and empty opening books."""
+        M = like.num_markets if num_markets is None else int(num_markets)
+        values = dict(INERT_PARAM_VALUES,
+                      fundamental=float(like.num_levels // 2))
+        return cls(
+            num_markets=M, num_agents=like.num_agents,
+            num_levels=like.num_levels, num_steps=like.num_steps,
+            seed=like.seed,
+            params=MarketParams(**{
+                f: np.full((M, 1), values[f], MarketParams.field_dtype(f))
+                for f in MarketParams._fields}),
+            initial_quote_qty=np.zeros(M, np.float32),
+            initial_spread=np.zeros(M, np.int32),
+            scenarios=("parked",) * M)
 
     def with_values(self, **fields: Any) -> "EnsembleSpec":
         """New spec with some :class:`MarketParams` leaves replaced (values

@@ -19,7 +19,17 @@
   * :meth:`Session.step` injects one external order per market at the
     chunk's first step; ``actions=None`` equals a one-step :meth:`run`.
   * :meth:`Session.snapshot` / :meth:`Session.restore` round-trip books,
-    cursor, params and ``stats_only`` accumulators exactly.
+    cursor, params and ``stats_only`` accumulators exactly, and
+    :meth:`Session.save_checkpoint` / :meth:`Session.restore_checkpoint`
+    carry them through a
+    :class:`~repro_torch.checkpoint.manager.CheckpointManager`.
+  * :meth:`Session.swap_markets` splices rows at a chunk boundary (the
+    serving gateway's attach and detach) on the device, building nothing.
+  * Every session carries a
+    :class:`~repro_torch.ops.metrics.MetricsRegistry` unless opened with
+    ``metrics=False``; ``Engine.trace_count`` counts the runners an engine
+    built and the kernel libraries they compiled or loaded, so a warm
+    engine that builds nothing more keeps it unchanged.
 
 The horizon ``num_steps`` is the default run length; ``run()``/``stream()``
 with no argument raise once the cursor has reached it.
@@ -29,14 +39,16 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import itertools
+import time
 from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import manager as ckpt
 from repro_torch.core import params as params_mod
 from repro_torch.core.config import MarketConfig
-from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.core.device import DEFAULT_DEVICE, resolve_device, upload
 from repro_torch.core.params import EnsembleSpec, MarketParams, PackedParams
 from repro_torch.core.result import SimResult, to_host
 from repro_torch.core.stats import MarketStats, init_stats
@@ -92,9 +104,20 @@ class ChunkRunner:
 
     chunk: int = 1
     stats_only: bool = False
+    #: True for the kernel backends: :meth:`Engine.warm` launches them once
+    #: before serving. The eager baselines have nothing to build or warm.
+    compiled: bool = False
 
     def __init__(self, device: torch.device) -> None:
         self.device = device
+        self._builds = 1          # this runner; kernel runners add libraries
+        self.launched = False     # set by the first run()
+
+    @property
+    def trace_count(self) -> int:
+        """This runner plus the kernel libraries compiled or loaded for it:
+        the port's count of what a JAX trace would be."""
+        return self._builds
 
     def init_state(self, spec: EnsembleSpec) -> MarketState:
         return initial_state(spec, self.device)
@@ -219,15 +242,26 @@ class Engine:
 
     def __init__(self, backend: str = "cuda-kinetic", *,
                  device=DEFAULT_DEVICE, chunk_size: Optional[int] = None,
-                 **backend_opts: Any):
+                 metrics: bool = True, **backend_opts: Any):
         _ensure_builtin()
         if backend not in _FACTORIES:
             raise _unknown_backend_error(backend)
         self.backend = backend
         self.device = resolve_device(device)
         self.chunk_size = chunk_size
+        self.metrics = bool(metrics)
         self.backend_opts = dict(backend_opts)
         self._runners: Dict[Tuple[Any, ...], ChunkRunner] = {}
+
+    @property
+    def trace_count(self) -> int:
+        """Runners built plus kernel libraries compiled or loaded for them
+        (the build detector: 0 more after :meth:`warm` while serving)."""
+        return sum(r.trace_count for r in self._runners.values())
+
+    def clear_cache(self) -> None:
+        """Drop every cached runner."""
+        self._runners.clear()
 
     def _runner(self, spec, chunk: int) -> ChunkRunner:
         spec = EnsembleSpec.coerce(spec)
@@ -240,12 +274,36 @@ class Engine:
         return runner
 
     def open(self, spec: Union[EnsembleSpec, MarketConfig], *,
-             chunk_size: Optional[int] = None) -> "Session":
-        """Open a live session with device-resident books."""
+             chunk_size: Optional[int] = None,
+             metrics: Optional[bool] = None) -> "Session":
+        """Open a live session with device-resident books. It carries a
+        :class:`~repro_torch.ops.metrics.MetricsRegistry` unless ``metrics``
+        (default: the engine's) is False."""
         spec = EnsembleSpec.coerce(spec)
         chunk = chunk_size or self.chunk_size \
             or min(DEFAULT_CHUNK, spec.num_steps)
-        return Session(self, spec, self._runner(spec, max(1, chunk)))
+        registry = None
+        if self.metrics if metrics is None else metrics:
+            from repro_torch.ops.metrics import MetricsRegistry
+
+            registry = MetricsRegistry()
+        return Session(self, spec, self._runner(spec, max(1, chunk)),
+                       metrics=registry)
+
+    def warm(self, specs, *, chunk_sizes=None, include_step: bool = True):
+        """Build and launch once every runner ``specs`` will need (see
+        :func:`repro_torch.ops.warmup.warm`); returns the readiness probe."""
+        from repro_torch.ops import warmup
+
+        return warmup.warm(self, specs, chunk_sizes=chunk_sizes,
+                           include_step=include_step)
+
+    def readiness(self):
+        """Which cached ``(static_key, chunk)`` runners are built and
+        launched (see :func:`repro_torch.ops.warmup.readiness`)."""
+        from repro_torch.ops import warmup
+
+        return warmup.readiness(self)
 
 
 class Session:
@@ -256,7 +314,7 @@ class Session:
     """
 
     def __init__(self, engine: Engine, spec: EnsembleSpec,
-                 runner: ChunkRunner):
+                 runner: ChunkRunner, metrics=None):
         self._engine = engine
         self.spec = spec
         self._runner = runner
@@ -267,6 +325,10 @@ class Session:
         self._t = 0
         self._closed = False
         self._active_streams = 0
+        self.metrics = metrics
+        if metrics is not None:
+            metrics.gauge("chunk", runner.chunk)
+            metrics.gauge("num_markets", spec.num_markets)
 
     @property
     def device(self) -> torch.device:
@@ -293,8 +355,20 @@ class Session:
         return self._state
 
     @property
+    def params(self) -> PackedParams:
+        """The device-resident packed per-market params."""
+        self._check_open()
+        return self._params
+
+    @property
     def step_count(self) -> int:
         return self._t
+
+    @property
+    def horizon(self) -> int:
+        """``spec.num_steps``: the default run length, and the bound every
+        scenario event is validated against."""
+        return self.spec.num_steps
 
     @property
     def stats(self) -> Optional[MarketStats]:
@@ -323,9 +397,24 @@ class Session:
         self._check_open()
         return self._stream(self._resolve_steps(n_steps))
 
-    def _dispatch(self, runner: ChunkRunner, n: int, ext) -> StepBatch:
+    def _dispatch(self, runner: ChunkRunner, n: int, ext,
+                  kind: str) -> StepBatch:
+        """One runner call, with host-side metrics sampled around it (a
+        dispatch wall time: nothing waits for the card here)."""
+        m = self.metrics
+        if m is not None:
+            builds0 = runner.trace_count
+            t0 = time.perf_counter()
         self._state, batch, self._stats = runner.run(
             self._state, self._params, self._t, n, ext, self._stats)
+        if m is not None:
+            m.observe(f"{kind}_seconds", time.perf_counter() - t0)
+            m.inc("steps_total", n)
+            if kind == "chunk":
+                m.inc("chunks_total")
+            built = runner.trace_count - builds0
+            if built:
+                m.inc("traces", built)
         self._t += n
         return batch
 
@@ -334,7 +423,7 @@ class Session:
         try:
             while remaining > 0:
                 n = min(self._runner.chunk, remaining)
-                yield self._dispatch(self._runner, n, None)
+                yield self._dispatch(self._runner, n, None, "chunk")
                 remaining -= n
         finally:
             self._active_streams -= 1
@@ -353,7 +442,8 @@ class Session:
         self._check_open()
         if self._step_runner is None:
             self._step_runner = self._engine._runner(self.spec, 1)
-        return self._dispatch(self._step_runner, 1, self._build_ext(actions))
+        return self._dispatch(self._step_runner, 1, self._build_ext(actions),
+                              "step")
 
     def _build_ext(self, actions: Any):
         if actions is None:
@@ -379,9 +469,58 @@ class Session:
     def run_to_result(self, n_steps: Optional[int] = None) -> SimResult:
         return self.to_result(self.run(n_steps))
 
-    def snapshot(self) -> Dict[str, Any]:
-        """Exact host-side capture: books, cursor, params, stats."""
+    # ---- slot mutation (the serving gateway's attach/detach) ----
+    def swap_markets(self, slots,
+                     sub: Union[EnsembleSpec, MarketConfig]) -> None:
+        """Replace markets ``slots`` with the rows of ``sub`` (a
+        ``len(slots)``-market spec or config) between chunks.
+
+        The rows' params are re-packed into the session's
+        :class:`PackedParams`, their books take ``sub``'s opening books and
+        their ``stats_only`` accumulators start afresh, all by
+        ``index_copy`` on the device: no runner is built and
+        no other row changes (rows are independent and the RNG keys on the
+        global market id). Detaching is the same call with
+        :meth:`EnsembleSpec.parked` rows. ``sub`` must agree on every static
+        field. Rejected during an active :meth:`stream`; a failed splice
+        leaves the session untouched.
+        """
         self._check_open()
+        if self._active_streams:
+            raise RuntimeError(
+                "swap_markets() during an active stream(): slot mutations "
+                "apply at chunk boundaries; exhaust or close() the iterator "
+                "first")
+        sub = EnsembleSpec.coerce(sub)
+        t0 = time.perf_counter()
+        new_spec = self.spec.replace_markets(slots, sub)  # validates slots
+        idx = np.asarray(slots, dtype=np.int64).reshape(-1)
+        rows = upload(torch.from_numpy(idx), self.device)
+
+        def splice(leaves, fresh):
+            return [leaf.index_copy(0, rows, upload(src, self.device))
+                    for leaf, src in zip(leaves, fresh)]
+
+        new_state = MarketState(*splice(self._state,
+                                        initial_state(sub, "cpu")))
+        new_stats = self._stats
+        if self._stats is not None:
+            new_stats = MarketStats(*splice(self._stats,
+                                            init_stats(idx.size, "cpu")))
+        packed = params_mod.pack_params(sub.params, "cpu")
+        new_params = PackedParams(*splice(self._params, packed))
+        self._state, self._stats = new_state, new_stats
+        self._params, self.spec = new_params, new_spec
+        if self.metrics is not None:
+            self.metrics.observe("swap_seconds", time.perf_counter() - t0)
+            self.metrics.inc("swaps_total", int(idx.size))
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Exact host-side capture: books, cursor, params, stats. The copy
+        from the card is synchronous, so the result is complete host
+        memory."""
+        self._check_open()
+        t0 = time.perf_counter()
         snap: Dict[str, Any] = {f: to_host(v) for f, v in
                                 zip(MarketState._fields, self._state)}
         snap["t"] = self._t
@@ -397,29 +536,49 @@ class Session:
         if self._stats is not None:
             snap["stats"] = dict(zip(MarketStats._fields,
                                      self._stats.to_numpy()))
+        if self.metrics is not None:
+            self.metrics.observe("snapshot_seconds", time.perf_counter() - t0)
+            self.metrics.inc("snapshots_total")
         return snap
 
     def restore(self, snap: Dict[str, Any]) -> None:
-        """Restore from :meth:`snapshot`; a failed restore leaves the
-        session untouched."""
+        """Restore from :meth:`snapshot` (or a JAX-package snapshot of the
+        same shape); a failed restore leaves the session untouched. Shape
+        and ``num_agents`` mismatches raise
+        :class:`~repro_torch.checkpoint.manager.CheckpointShapeError`."""
         self._check_open()
         if self._active_streams:
             raise RuntimeError("restore() during an active stream(): exhaust "
                                "or close() the iterator first")
-        for field, have in (("seed", self.spec.seed),
-                            ("num_agents", self.spec.num_agents)):
+        t_start = time.perf_counter()
+        for field, have, cls in (
+                ("seed", self.spec.seed, ValueError),
+                ("num_agents", self.spec.num_agents,
+                 ckpt.CheckpointShapeError)):
             got = snap.get(field)
             if got is not None and int(got) != have:
-                raise ValueError(
+                raise cls(
                     f"snapshot was taken under {field}={int(got)} but this "
                     f"session runs {field}={have}")
         M, L = self.spec.num_markets, self.spec.num_levels
-        for name, want in (("bid", (M, L)), ("ask", (M, L)),
-                           ("last_price", (M, 1)), ("prev_mid", (M, 1))):
+        for name, want, blame in (
+                ("bid", (M, L), "num_levels"), ("ask", (M, L), "num_levels"),
+                ("last_price", (M, 1), "num_markets"),
+                ("prev_mid", (M, 1), "num_markets")):
             shape = tuple(np.shape(snap[name]))
             if shape != want:
-                raise ValueError(f"snapshot field {name!r} has shape {shape} "
-                                 f"but this session expects {want}")
+                if len(shape) < 1 or shape[0] != M:
+                    blame = "num_markets"
+                raise ckpt.CheckpointShapeError(
+                    f"snapshot field {name!r} has shape {shape} but this "
+                    f"session expects {want}: mismatched {blame} (session "
+                    f"has num_markets={M}, num_levels={L})")
+        for pname, leaf in (snap.get("params") or {}).items():
+            if pname in MarketParams._fields and np.shape(leaf) != (M, 1):
+                raise ckpt.CheckpointShapeError(
+                    f"snapshot params leaf {pname!r} has shape "
+                    f"{tuple(np.shape(leaf))}, expected ({M}, 1): mismatched "
+                    f"num_markets (session has num_markets={M})")
         new_state = self._runner.to_device(
             MarketState(*(snap[f] for f in MarketState._fields)))
         new_spec, new_params = self.spec, self._params
@@ -447,3 +606,26 @@ class Session:
                 if stats is not None else self._runner.init_stats(new_spec))
         self._state, self._t = new_state, int(snap["t"])
         self.spec, self._params, self._stats = new_spec, new_params, new_stats
+        if self.metrics is not None:
+            self.metrics.observe("restore_seconds",
+                                 time.perf_counter() - t_start)
+            self.metrics.inc("restores_total")
+
+    def save_checkpoint(self, manager, step: Optional[int] = None,
+                        *, wait: bool = True) -> int:
+        """Persist the session through a ``CheckpointManager``; returns the
+        checkpoint step (default: the cursor). ``wait=False`` returns once
+        the host snapshot is handed to the manager's writer thread."""
+        step = self._t if step is None else int(step)
+        manager.save(step, ckpt.session_tree(self.snapshot()))
+        if wait:
+            manager.wait()
+        return step
+
+    def restore_checkpoint(self, manager, step: Optional[int] = None) -> int:
+        """Restore from a ``CheckpointManager``; returns the restored step."""
+        tree = manager.restore(step)
+        if tree is None:
+            raise FileNotFoundError(f"no checkpoint found in {manager.dir}")
+        self.restore(ckpt.snapshot_from_tree(tree))
+        return self._t

@@ -31,6 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fPIC")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+#: Libraries compiled or loaded by :func:`load` in this process (cache
+#: misses): runners add the ones loaded for them to their ``trace_count``.
+_LOADS = [0]
 
 
 def nvcc_path() -> str:
@@ -134,7 +137,20 @@ def load(name: str, entries: Mapping[str, Sequence] = ()) -> ctypes.CDLL:
             getattr(lib, fn).argtypes = list(argtypes)
             getattr(lib, fn).restype = ctypes.c_int
         _LOADED[name] = lib
+        _LOADS[0] += 1
     return lib
+
+
+def load_count() -> int:
+    """Libraries compiled or loaded by :func:`load` so far."""
+    return _LOADS[0]
+
+
+def forget() -> None:
+    """Drop the loaded libraries, so the next :func:`load` of each goes
+    through the on-disk build again (a restart after a device fault;
+    nothing is recompiled while the source is unchanged)."""
+    _LOADED.clear()
 
 
 def _check_columns(lib: ctypes.CDLL, name: str) -> None:

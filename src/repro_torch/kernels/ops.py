@@ -24,6 +24,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.params import EnsembleSpec
 from repro_torch.core.result import SimResult
 from repro_torch.core.step import MarketState
+from repro_torch.kernels import _build
 from repro_torch.kernels import kinetic_clearing as kc
 from repro_torch.kernels import naive_clearing as nc
 
@@ -33,6 +34,8 @@ NAIVE_BACKEND = "cuda-naive"
 
 class ClearingChunkRunner(session.ChunkRunner):
     """One ``chunk_fn`` call per chunk of up to ``chunk`` steps."""
+
+    compiled = True
 
     def __init__(self, chunk_fn: Callable, backend: str,
                  load_library: Callable, spec: EnsembleSpec, chunk: int,
@@ -48,22 +51,27 @@ class ClearingChunkRunner(session.ChunkRunner):
         self._chunk_fn = chunk_fn
         if device.type == "cuda":
             # Build (or load) the kernel now, and record why it failed.
+            loads = _build.load_count()
             try:
                 load_library()
             except (OSError, RuntimeError) as exc:
                 session.record_failure(backend, f"{type(exc).__name__}: {exc}")
                 raise
+            self._builds += _build.load_count() - loads
         self._market_ids = torch.arange(spec.num_markets, dtype=torch.int32,
                                         device=device)
 
     def run(self, state: MarketState, params, step0: int, n: int, ext,
             stats=None) -> Tuple[MarketState, session.StepBatch, Any]:
         eb, ea = (None, None) if ext is None else ext
+        loads = _build.load_count()
         out = self._chunk_fn(
             state.bid, state.ask, state.last_price, state.prev_mid, step0, n,
             eb, ea, cfg=self.spec, chunk=self.chunk, scan=self.scan,
             market_ids=self._market_ids, params=params, stats=stats,
             stats_only=self.stats_only)
+        self._builds += _build.load_count() - loads
+        self.launched = True
         new_state = MarketState(*out[:4])
         if self.stats_only:
             return new_state, session._empty_batch(

@@ -19,7 +19,9 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.kernels.ops, repro_torch.convert, "
             "repro_torch.env.actions, repro_torch.kernels.ref, "
             "repro_torch.kernels.naive_clearing, "
-            "repro_torch.core.torch_backend; "
+            "repro_torch.core.torch_backend, repro_torch.serve, "
+            "repro_torch.serve.transport, repro_torch.ops, "
+            "repro_torch.ops.chaos, repro_torch.checkpoint; "
             "repro_torch.core.session.backends(); "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
@@ -28,6 +30,13 @@ def test_import_loads_neither_jax_nor_repro():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_import_scan_covers_every_subpackage():
+    scanned = {p.relative_to(ROOT / "src" / "repro_torch").parts[0]
+               for p in PORT_FILES if "repro_torch" in p.parts}
+    for sub in ("core", "kernels", "env", "serve", "ops", "checkpoint"):
+        assert sub in scanned, sub
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -56,6 +65,26 @@ def test_engine_without_a_card_raises():
         Engine("cuda-kinetic")
     with pytest.raises(RuntimeError, match="cuda"):
         Engine("cuda-kinetic", device="cuda:0")
+
+
+def test_gateway_and_warm_without_a_card_raise():
+    """The serving entry points default to the card too: a gateway and a
+    warm start with no card raise instead of serving from the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.core.config import MarketConfig
+    from repro_torch.core.session import Engine
+    from repro_torch.serve import Gateway, parked_template
+
+    tpl = parked_template(slots=2, num_agents=4, num_levels=8, num_steps=8)
+    for backend in ("cuda-kinetic", "torch-scan"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            Gateway(tpl, backend=backend)
+        with pytest.raises(RuntimeError, match="cuda"):
+            Engine(backend).warm(MarketConfig(num_markets=2, num_agents=4,
+                                              num_levels=8, num_steps=8))
+    with pytest.raises(RuntimeError, match="cuda"):
+        Gateway(tpl, engine_opts={"device": "cuda"})
 
 
 def _constructors():
