@@ -28,6 +28,24 @@ line:
            the same chunks, one launch per chunk; ``cuda-naive`` (one launch
            per step), ``torch-scan`` and ``torch-per-step`` == the
            ``cuda-kinetic`` run; ``stats_only`` stats likewise.
+  parity   the paper's parity matrix (section IV-B) as
+           ``tests/test_parity_matrix.py`` builds it: 9 presets x 4 mixtures
+           x 3 shapes = 108 configurations. For each, ``cuda-kinetic``
+           (kernel 1), ``cuda-naive`` (kernel 2) and ``torch-scan`` on the
+           card equal the host ``numpy`` reference field by field, and the
+           ``cuda-kinetic`` statistics (mean clearing price, volume per
+           market, trade count, volatility) are within 0.1% of it. Prints
+           the configurations held and the mismatches; any mismatch fails.
+  scenario the scenario tier on kernel 1: ``validate_pinned`` on the four
+           pinned mixtures (M=64, A=256, L=128, S=500, stats cross-check)
+           on ``cuda-kinetic`` and ``torch-scan``, every report passing
+           with equal facts; then ``EnsembleSpec.product`` of the baseline
+           preset (A=256, L=128, S=500, 10% arbitrageurs) over 4 momentum
+           shares x 2 marketable shares x 1024 markets, ring-coupled over
+           all 8192, through ``Engine.open(...).run(500)`` in chunks of 64:
+           ``cuda-kinetic`` (8 launches a run) == ``torch-scan``, paths and
+           ``stats_only`` stats, then ``validate_spec`` on it (its
+           statistics cross-check must pass; the facts are printed).
   timing   CUDA-event times of the chunk kernels and their plain version at
            M=8192, A=256, L=128, chunk 64, against the bound.
   agent_sweep  kernels 1 and 2 over the paper's agent sweep (L=128,
@@ -59,7 +77,7 @@ line:
            and 16, and the card's busy share.
 
 Each path is driven with every launch count at 0 just before it and read
-just after. The ``timing``, ``agent_sweep``, ``legacy_path`` and
+just after; the ``kernels`` line's launches are the ``session`` phase's. The ``timing``, ``agent_sweep``, ``legacy_path`` and
 ``fixed_workload`` lines give each timed shape's launch shape
 (``autotune.auto_tile``) and resident CTAs per SM
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). The line before the
@@ -116,6 +134,41 @@ NAIVE_CLIENTS, NAIVE_CHUNKS = 32, 4
 LATENCY_CHUNK, LATENCY_CHUNKS = 16, 64
 PRESETS = ("baseline", "flash-crash", "high-vol", "low-vol", "whale", "hft",
            "informed", "wide-book", "thin-book")
+# The paper's parity matrix (section IV-B) as tests/test_parity_matrix.py
+# builds it: the 9 presets (in registry order) x 4 archetype mixtures x 3
+# shapes (M, A, L, S), each case seeded with its index in the matrix.
+PARITY_MIXTURES = {
+    "paper": dict(alpha_maker=0.15, alpha_momentum=0.15,
+                  alpha_fundamentalist=0.0),
+    "fundamental": dict(alpha_maker=0.10, alpha_momentum=0.10,
+                        alpha_fundamentalist=0.30),
+    "mom-heavy": dict(alpha_maker=0.10, alpha_momentum=0.50,
+                      alpha_fundamentalist=0.05),
+    "noise-only": dict(alpha_maker=0.0, alpha_momentum=0.0,
+                       alpha_fundamentalist=0.0),
+}
+PARITY_SHAPES = [(4, 16, 16, 6), (8, 32, 32, 10), (5, 48, 64, 12)]
+PARITY_MATRIX = [(sc, mix, shape) for sc in sorted(PRESETS)
+                 for mix in PARITY_MIXTURES for shape in PARITY_SHAPES]
+# Its tier-1 subset: the smallest shape, every preset and mixture.
+PARITY_TIER1 = [(sc, mix, PARITY_SHAPES[0]) for sc, mix in (
+    ("baseline", "paper"), ("baseline", "noise-only"),
+    ("flash-crash", "fundamental"), ("flash-crash", "paper"),
+    ("high-vol", "mom-heavy"), ("low-vol", "fundamental"),
+    ("thin-book", "mom-heavy"), ("wide-book", "noise-only"),
+    ("whale", "paper"), ("hft", "fundamental"), ("informed", "noise-only"))]
+# Claim 2: these statistics within 0.1% of the host reference.
+PARITY_STATS = ("mean_clearing_price", "volume_per_market", "trade_count",
+                "volatility")
+PARITY_TOL = 1e-3
+# The scenario phase: the pinned mixtures' steps, and the full-width coupled
+# sweep (the paper's Table IV width): (A, L, S), markets per configuration
+# and the sweep, 8 configurations x 1024 = 8192 ring-coupled markets.
+PINNED_STEPS = 500
+PRODUCT_SHAPE = (256, 128, 500)
+PRODUCT_MARKETS_PER_CONFIG = 1024
+PRODUCT_SWEEP = {"alpha_momentum": (0.15, 0.3, 0.5, 0.7),
+                 "p_marketable": (0.1, 0.2)}
 
 
 class Mismatch(AssertionError):
@@ -489,6 +542,201 @@ def phase_session(device, B):
              launches["cuda-naive"]["naive_clearing_chunk"]},
             {"kinetic_clearing_chunk": errs["cuda-kinetic"],
              "naive_clearing_chunk": errs["cuda-naive"]})
+
+
+def parity_config(case):
+    """The MarketConfig of one parity case."""
+    from repro_torch.core.config import scenario_config
+
+    sc, mix, (M, A, L, S) = case
+    return scenario_config(sc, num_markets=M, num_agents=A, num_levels=L,
+                           num_steps=S, seed=PARITY_MATRIX.index(case),
+                           **PARITY_MIXTURES[mix])
+
+
+def parity_faults(results, reference) -> list:
+    """Claim 1 (every card result equals the host ``numpy`` reference,
+    field by field) and claim 2 (the ``cuda-kinetic`` statistics within
+    0.1% of the reference's, NaN matching NaN) for one configuration;
+    returns what failed."""
+    import math
+
+    faults = []
+    for backend, got in results.items():
+        for field, g, w in zip(got._fields, got, reference):
+            if g.shape != w.shape or g.dtype != w.dtype or \
+                    not (g == w).all():
+                faults.append(f"{backend} {field}")
+    for stat in PARITY_STATS:
+        got = getattr(results["cuda-kinetic"], stat)()
+        want = getattr(reference, stat)()
+        if math.isnan(want) or math.isnan(got):
+            ok = math.isnan(want) and math.isnan(got)
+        else:
+            ok = abs(got - want) / max(abs(want), 1e-9) <= PARITY_TOL
+        if not ok:
+            faults.append(f"{stat} {got} vs {want}")
+    return faults
+
+
+def phase_parity(device):
+    """The paper's parity matrix on the card: for each of the 108
+    configurations, kernels 1 and 2 (``cuda-kinetic``, ``cuda-naive``) and
+    ``torch-scan`` on the card equal the host ``numpy`` reference field by
+    field (so each other too), and the statistics are within 0.1%."""
+    import time
+
+    from repro_torch.core import engine
+
+    t0 = time.perf_counter()
+    card = ("cuda-kinetic", "cuda-naive", "torch-scan")
+    reset_counts()
+    results = {case: {b: engine.simulate(parity_config(case), backend=b,
+                                         device=device).to_numpy()
+                      for b in card}
+               for case in PARITY_MATRIX}
+    steps = [case[2][3] for case in PARITY_MATRIX]
+    counts = expect_counts("parity", {
+        "kinetic_clearing_chunk": len(steps),  # S <= 64: one chunk a run
+        "naive_clearing_chunk": sum(steps)})
+    card_s = time.perf_counter() - t0
+    mismatches, worst = {}, 0.0
+    for case, got in results.items():
+        cfg = parity_config(case)
+        want = engine.simulate(cfg, backend="numpy", device="cpu").to_numpy()
+        faults = parity_faults(got, want)
+        if faults:
+            mismatches["/".join(map(str, case))] = faults
+        worst = max(worst, max(float(abs(g - w).max()) if g.size else 0.0
+                               for g, w in zip(got["cuda-kinetic"], want)))
+    emit("parity", ok=not mismatches, configurations=len(PARITY_MATRIX),
+         held=len(PARITY_MATRIX) - len(mismatches),
+         mismatches=len(mismatches), first=dict(list(mismatches.items())[:4]),
+         launches={k: n for k, n in counts.items() if n},
+         card_seconds=card_s, seconds=time.perf_counter() - t0,
+         max_abs_err=worst)
+    if mismatches:
+        raise Mismatch(f"parity: {len(mismatches)} of {len(PARITY_MATRIX)} "
+                       "configurations differ")
+    return counts, worst
+
+
+def same_facts(label, got, want) -> None:
+    """``==`` on every fact and check of two validation reports (NaN
+    matching NaN)."""
+    import math
+
+    if set(got.facts) != set(want.facts):
+        raise Mismatch(f"{label}: facts {sorted(got.facts)} vs "
+                       f"{sorted(want.facts)}")
+    for k, w in want.facts.items():
+        g = got.facts[k]
+        if not (g == w or (math.isnan(g) and math.isnan(w))):
+            raise Mismatch(f"{label}: fact {k} {g!r} vs {w!r}")
+    if [c.passed for c in got.checks] != [c.passed for c in want.checks]:
+        raise Mismatch(f"{label}: checks differ")
+
+
+def timed_session(backend, spec, device, **opts):
+    """``drive_session`` with the kernel counts at 0 just before it; returns
+    the outputs, the counts and the seconds of the open and run(S) (the
+    card synchronised)."""
+    import time
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out = drive_session(backend, spec, device, 64, **opts)
+    return out, read_counts(), time.perf_counter() - t0
+
+
+def phase_scenario(device):
+    """The scenario tier on kernel 1: (a) the four pinned mixtures through
+    ``validate_pinned`` on ``cuda-kinetic`` and on ``torch-scan``, every
+    report passing with equal facts; (b) the Table IV-width coupled product
+    sweep (8192 ring-coupled markets) through ``cuda-kinetic``, bit for bit
+    against ``torch-scan`` (paths and ``stats_only`` stats), then
+    ``validate_spec`` on it."""
+    import time
+
+    from repro_torch.core.config import scenario_config
+    from repro_torch.core.params import EnsembleSpec
+    from repro_torch.scenario import (CouplingSpec, coupled_ensemble,
+                                      validate_pinned, validate_spec)
+
+    out = {}
+    # (a) The pinned mixtures (M=64, A=256, L=128, seed 1).
+    n_chunks = -(-PINNED_STEPS // 64)
+    reports, seconds = {}, {}
+    for backend, want in (("cuda-kinetic", {
+            "kinetic_clearing_chunk": 4 * 3 * n_chunks}),
+            ("torch-scan", {})):
+        reset_counts()
+        t0 = time.perf_counter()
+        reports[backend] = validate_pinned(backend, num_steps=PINNED_STEPS,
+                                           stats_check=True, device=device)
+        seconds[backend] = time.perf_counter() - t0
+        expect_counts(f"scenario pinned {backend}", want)
+    for name, rep in reports["cuda-kinetic"].items():
+        for backend in reports:
+            if not reports[backend][name].passed:
+                raise Mismatch(f"scenario: pinned {name} fails on {backend}:"
+                               f"\n{reports[backend][name].summary()}")
+        same_facts(f"scenario pinned {name}", rep,
+                   reports["torch-scan"][name])
+    out["pinned"] = {name: {"passed": rep.passed, "facts": rep.facts}
+                     for name, rep in reports["cuda-kinetic"].items()}
+    out["pinned_seconds"] = seconds
+
+    # (b) The coupled product sweep at the paper's Table IV width.
+    A, L, S = PRODUCT_SHAPE
+    base = scenario_config("baseline", num_agents=A, num_levels=L,
+                           num_steps=S, alpha_arbitrageur=0.1, seed=SEED)
+    spec = EnsembleSpec.product(base, PRODUCT_SWEEP,
+                                markets_per_config=PRODUCT_MARKETS_PER_CONFIG)
+    spec = coupled_ensemble(spec, CouplingSpec.ring(spec.num_markets))
+    n_chunks = -(-S // 64)
+    runs, secs, launches = {}, {}, {}
+    for backend, want in (("cuda-kinetic",
+                           {"kinetic_clearing_chunk": n_chunks}),
+                          ("torch-scan", {})):
+        for stats_only in (False, True):
+            runs[backend, stats_only], counts, secs[backend, stats_only] = \
+                timed_session(backend, spec, device, stats_only=stats_only)
+            for name, n in counts.items():
+                if n != want.get(name, 0):
+                    raise Mismatch(f"scenario product {backend}: {name} "
+                                   f"launched {n} times, expected "
+                                   f"{want.get(name, 0)}")
+            if backend == "cuda-kinetic":
+                launches[stats_only] = counts["kinetic_clearing_chunk"]
+    err = max(compare(f"scenario product {'stats' if so else 'paths'}",
+                      runs["cuda-kinetic", so], runs["torch-scan", so])
+              for so in (False, True))
+    reset_counts()
+    report = validate_spec(spec, "cuda-kinetic", scenario="table-iv-sweep",
+                           stats_check=True, device=device)
+    validate_launches = expect_counts(
+        "scenario validate_spec", {"kinetic_clearing_chunk": 3 * n_chunks})
+    stats_checks = [c for c in report.checks if c.name.startswith("stats_")]
+    if not all(c.passed for c in stats_checks):
+        raise Mismatch(f"scenario: stats cross-check fails\n"
+                       f"{report.summary()}")
+    print(report.summary(), flush=True)
+    out["product"] = dict(
+        markets=spec.num_markets, agents=A, levels=L, steps=S, chunk=64,
+        sweep={k: list(v) for k, v in PRODUCT_SWEEP.items()},
+        markets_per_config=PRODUCT_MARKETS_PER_CONFIG,
+        coupling=f"ring({spec.num_markets})",
+        seconds={f"{b}{' stats_only' if so else ''}": t
+                 for (b, so), t in secs.items()},
+        kernel1_launches_per_run={"paths": launches[False],
+                                  "stats_only": launches[True],
+                                  "validate_spec (3 runs)": validate_launches[
+                                      "kinetic_clearing_chunk"]},
+        total_volume=float(runs["cuda-kinetic", False][5].sum()),
+        max_abs_err=err, report=report.to_dict(), card=card_line())
+    emit("scenario", ok=True, **out)
+    return err
 
 
 def _time(fn, reps: int) -> float:
@@ -1187,6 +1435,8 @@ def main() -> int:
     err_n = phase_kernel(device, MARKETS_PER_BLOCK, entry="naive")
     err_l = phase_legacy(device)
     launches, session_errs = phase_session(device, MARKETS_PER_BLOCK)
+    _, err_p = phase_parity(device)
+    err_sc = phase_scenario(device)
     timing = phase_timing(device)
     err_s = phase_agent_sweep(device)
     legacy = phase_legacy_path(device)
@@ -1195,10 +1445,10 @@ def main() -> int:
     launches.update(legacy["launches"])
     errs = {"kinetic_clearing_chunk":
             max(err_k, err_s, session_errs["kinetic_clearing_chunk"],
-                serve["max_abs_err"]),
+                err_p, err_sc, serve["max_abs_err"]),
             "naive_clearing_chunk":
             max(err_n, err_s, session_errs["naive_clearing_chunk"],
-                serve["max_abs_err"]),
+                err_p, serve["max_abs_err"]),
             "kinetic_clearing":
             max(err_l, legacy["max_abs_err"]["kinetic_clearing"]),
             "naive_clearing":

@@ -5,6 +5,10 @@ ensemble spec (per-market params and opening books) and the market state.
 These functions take plain numpy arrays — for example
 ``EnsembleSpec.params.to_numpy()._asdict()`` and the books of a JAX-package
 session — and return the port's own objects, so a run can be replayed here.
+A coupling graph comes across as its peer map (:func:`coupling_from_numpy`).
+A snapshot or checkpoint needs no conversion: ``Session.restore`` takes the
+JAX package's snapshot dict as it is, its ``rng`` payload (the
+``numpy-pcg64`` generator state) included.
 """
 from __future__ import annotations
 
@@ -44,3 +48,12 @@ def spec_from_numpy(num_markets: int, num_agents: int, num_levels: int,
         initial_quote_qty=np.asarray(initial_quote_qty, np.float32).reshape(M),
         initial_spread=np.asarray(initial_spread, np.int32).reshape(M),
         scenarios=tuple(scenarios) if scenarios is not None else ("?",) * M)
+
+
+def coupling_from_numpy(peer):
+    """A :class:`~repro_torch.scenario.coupling.CouplingSpec` from a peer
+    map (``int32[M]``, ``-1`` for self), such as the JAX package's
+    ``CouplingSpec.peer``."""
+    from repro_torch.scenario.coupling import CouplingSpec
+
+    return CouplingSpec(np.asarray(peer, np.int32))

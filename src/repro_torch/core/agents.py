@@ -109,14 +109,19 @@ ARCHETYPES: Dict[int, Callable] = {
 
 
 def decide(cfg, params: MarketParams, mid, prev_mid, step: int, market_ids,
-           atype=None, seed=None, imbalance=None, peer_mid=None):
+           atype=None, seed=None, imbalance=None, peer_mid=None,
+           uniform_fn=None):
     """Vectorized agent decisions for one step.
 
     ``cfg`` supplies ``num_agents``, ``num_levels`` and the RNG ``seed``;
     ``params`` holds per-market ``[M, 1]`` torch columns; ``market_ids`` the
     int32[M, 1] global market indices of the RNG coordinate. ``imbalance``
     (``None`` → 0) feeds HFTs; ``peer_mid`` (``None`` → ``prev_mid``) feeds
-    arbitrageurs.
+    arbitrageurs. ``uniform_fn(gid, step, channel) -> float32[M, A]`` (on
+    ``gid``'s device) replaces the counter stream (the ``numpy-splitmix64`` and
+    ``numpy-pcg64`` reference backends); it is called once per channel in
+    the fixed order side, price, marketable, quantity, shock, and ``seed``
+    is then ignored. ``None`` keeps the counter stream the kernels draw.
 
     Returns side_buy bool[M, A], price int32[M, A], qty float32[M, A].
     """
@@ -126,9 +131,13 @@ def decide(cfg, params: MarketParams, mid, prev_mid, step: int, market_ids,
     step = int(step)
     agent_ids = torch.arange(A, dtype=torch.int32, device=device)[None, :]
     gid = market_ids.reshape(-1, 1).to(torch.int64) * A + agent_ids
-    u_side, u_price, u_mkt, u_qty, u_shock = (
-        rng.uniform32(seed, gid, step, ch)
-        for ch in (CH_SIDE, CH_PRICE, CH_MKT, CH_QTY, CH_SHOCK))
+    if uniform_fn is None:
+        def uniform_fn(gid, step, channel):
+            return rng.uniform32(seed, gid, step, channel)
+    # A list, not a generator: a stateful stream must be drawn in this order.
+    u_side, u_price, u_mkt, u_qty, u_shock = [
+        uniform_fn(gid, step, ch)
+        for ch in (CH_SIDE, CH_PRICE, CH_MKT, CH_QTY, CH_SHOCK)]
 
     if atype is None:
         atype = params_mod.agent_types(params, A, device)

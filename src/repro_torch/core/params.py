@@ -9,8 +9,9 @@
     in the column order :data:`FLOAT_FIELDS` / :data:`INT_FIELDS`, which the
     CUDA kernel shares (see ``kernels/csrc/kinetic_clearing.cu``).
   * :class:`EnsembleSpec` — the builder API: ``homogeneous(cfg)``,
-    ``from_scenarios([...])``, ``concatenate``, ``with_values``, and the
-    serving gateway's row splices ``replace_markets`` and ``parked``.
+    ``from_scenarios([...])``, ``product``, ``concatenate``,
+    ``with_values``, and the serving gateway's row splices
+    ``replace_markets`` and ``parked``.
 
 Markets are row-independent and the RNG is a pure function of (seed, global
 market id, step, channel), so market ``m`` of a heterogeneous ensemble
@@ -20,7 +21,8 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Any, Dict, NamedTuple, Sequence, Tuple, Union
+from typing import (Any, Dict, Iterable, NamedTuple, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -244,6 +246,26 @@ class EnsembleSpec:
         if not cfgs:
             raise ValueError("from_scenarios needs at least one block")
         return cls.concatenate([cls.homogeneous(c) for c in cfgs])
+
+    @classmethod
+    def product(cls, base: MarketConfig, sweep: Dict[str, Iterable[Any]],
+                markets_per_config: int = None) -> "EnsembleSpec":
+        """Cartesian parameter sweep as one ensemble.
+
+        ``sweep`` maps :class:`MarketConfig` field names to value lists;
+        every combination, in ``itertools.product`` order over the keys as
+        given, contributes ``markets_per_config`` (default
+        ``base.num_markets``) rows built with ``dataclasses.replace``.
+        """
+        if not sweep:
+            raise ValueError("product() needs a non-empty sweep")
+        M = base.num_markets if markets_per_config is None \
+            else int(markets_per_config)
+        names = list(sweep)
+        return cls.from_scenarios([
+            dataclasses.replace(base, num_markets=M,
+                                **dict(zip(names, combo)))
+            for combo in itertools.product(*(sweep[n] for n in names))])
 
     @classmethod
     def concatenate(cls, specs: Sequence["EnsembleSpec"]) -> "EnsembleSpec":

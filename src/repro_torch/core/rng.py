@@ -9,9 +9,14 @@ CUDA kernel (``kernels/csrc/kinetic_clearing.cu``), which computes it in
 PyTorch on the CPU has no ``>>`` on uint32, so the plain version holds each
 uint32 value in an int64 tensor and masks to 32 bits. Products are split
 into 16-bit halves of the constant so no intermediate leaves int64's range.
+
+SplitMix64 (the paper's generator) is kept in numpy uint64 for the
+``numpy-splitmix64`` reference backend: it wraps modulo 2**64, and torch's
+int64 right shift is signed.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -64,3 +69,45 @@ def uniform32(seed, gid, step, channel) -> torch.Tensor:
     """Uniform float32 in [0, 1) from the top 24 bits of the hash."""
     bits = kinetic_hash32(seed, gid, step, channel)
     return (bits >> 8).to(torch.float32) * (2.0 ** -24)
+
+
+# ---------------------------------------------------------------------------
+# SplitMix64 (paper Eq. 8-10), numpy uint64 only: the stream of the
+# ``numpy-splitmix64`` reference backend.
+# ---------------------------------------------------------------------------
+_SM64_1 = np.uint64(0xBF58476D1CE4E5B9)
+_SM64_2 = np.uint64(0x94D049BB133111EB)
+_SM64_G = np.uint64(0x9E3779B97F4A7C15)
+
+
+def splitmix64(coord: np.ndarray) -> np.ndarray:
+    """SplitMix64 finalizer of a uint64 counter coordinate (paper Eq. 8-10)."""
+    z = np.asarray(coord, dtype=np.uint64)
+    with np.errstate(over="ignore"):  # modular uint64 arithmetic by design
+        z = (z ^ (z >> np.uint64(30))) * _SM64_1
+        z = (z ^ (z >> np.uint64(27))) * _SM64_2
+        return z ^ (z >> np.uint64(31))
+
+
+def splitmix64_coord(seed, gid, step, channel) -> np.ndarray:
+    """Counter coordinate hash(gid, step, channel, seed) (paper Eq. 7)."""
+    gid = np.asarray(gid, dtype=np.uint64)
+    step = np.asarray(step, dtype=np.uint64)
+    channel = np.asarray(channel, dtype=np.uint64)
+    seed = np.asarray(seed, dtype=np.uint64)
+    with np.errstate(over="ignore"):  # modular uint64 arithmetic by design
+        coord = seed * _SM64_G + gid
+        coord = splitmix64(coord + step * _SM64_1)
+        coord = coord + channel * _SM64_2
+    return coord
+
+
+def splitmix64_uniform(seed, gid, step, channel) -> torch.Tensor:
+    """Uniform float32 in [0, 1) from SplitMix64 (top 24 bits), as a CPU
+    tensor. ``gid`` and ``step`` are taken modulo 2**32, as the JAX
+    package's uint32 coordinates are."""
+    gid = np.asarray(_u32(gid).cpu().numpy(), dtype=np.uint64)
+    step = np.uint64(int(step) & _MASK)
+    bits = splitmix64(splitmix64_coord(seed, gid, step, channel))
+    hi24 = (bits >> np.uint64(40)).astype(np.float32)
+    return torch.from_numpy(hi24 * np.float32(2.0 ** -24))

@@ -19,7 +19,8 @@
   * :meth:`Session.step` injects one external order per market at the
     chunk's first step; ``actions=None`` equals a one-step :meth:`run`.
   * :meth:`Session.snapshot` / :meth:`Session.restore` round-trip books,
-    cursor, params and ``stats_only`` accumulators exactly, and
+    cursor, params, ``stats_only`` accumulators and a stateful RNG's state
+    (``numpy-pcg64``) exactly, and
     :meth:`Session.save_checkpoint` / :meth:`Session.restore_checkpoint`
     carry them through a
     :class:`~repro_torch.checkpoint.manager.CheckpointManager`.
@@ -61,6 +62,8 @@ DEFAULT_CHUNK = 64
 _FACTORIES: Dict[str, Callable[..., "ChunkRunner"]] = {}
 # backend name -> reason string for backends that failed to register or build
 _FAILED: Dict[str, str] = {}
+# backends that run on the host only (the numpy reference family)
+_HOST_ONLY: set = set()
 
 
 class StepBatch(NamedTuple):
@@ -138,25 +141,42 @@ class ChunkRunner:
         return MarketStats(*(torch.as_tensor(to_host(x), dtype=torch.float32)
                              .to(self.device) for x in stats))
 
+    # ---- stateful-RNG hooks (identity for counter-based backends) ----
+    def init_aux(self, spec: EnsembleSpec) -> Any:
+        """A session's stateful RNG (``numpy-pcg64``), or None."""
+        return None
+
+    def aux_state(self, aux: Any) -> Any:
+        """JSON-serializable payload capturing ``aux``, or None."""
+        return None
+
+    def restore_aux(self, payload: Any) -> Any:
+        return None
+
     def run(self, state: MarketState, params: PackedParams, step0: int,
             n: int, ext: Optional[Tuple[Any, Any]],
-            stats: Optional[MarketStats] = None,
+            stats: Optional[MarketStats] = None, aux: Any = None,
             ) -> Tuple[MarketState, StepBatch, Optional[MarketStats]]:
         """Advance ``n <= self.chunk`` steps from absolute step ``step0``.
 
         ``ext`` is an optional ``(ext_buy, ext_ask)`` float32[M, L] pair
-        injected at the first step. Returns the new state, a
-        :class:`StepBatch` with exactly ``n`` columns (zero columns in
-        ``stats_only`` mode), and the carried stats (``None`` otherwise).
+        injected at the first step. ``aux`` is the session's stateful RNG
+        from :meth:`init_aux`, advanced in place (counter-based backends
+        ignore it). Returns the new state, a :class:`StepBatch` with exactly
+        ``n`` columns (zero columns in ``stats_only`` mode), and the carried
+        stats (``None`` otherwise).
         """
         raise NotImplementedError
 
 
-def register_backend(name: str):
-    """Register a factory ``f(spec, chunk, device, **opts) -> ChunkRunner``."""
+def register_backend(name: str, host_only: bool = False):
+    """Register a factory ``f(spec, chunk, device, **opts) -> ChunkRunner``;
+    a ``host_only`` backend accepts only ``device="cpu"``."""
     def deco(fn):
         _FACTORIES[name] = fn
         _FAILED.pop(name, None)
+        if host_only:
+            _HOST_ONLY.add(name)
         return fn
     return deco
 
@@ -170,6 +190,8 @@ def record_failure(name: str, reason: str) -> None:
 _BUILTIN = {
     "repro_torch.kernels.ops": ("cuda-kinetic", "cuda-naive"),
     "repro_torch.core.torch_backend": ("torch-scan", "torch-per-step"),
+    "repro_torch.core.numpy_backend": ("numpy", "numpy-splitmix64",
+                                       "numpy-pcg64"),
 }
 
 
@@ -214,10 +236,11 @@ def run_runner_to_result(runner: ChunkRunner, spec) -> SimResult:
     spec = EnsembleSpec.coerce(spec)
     state = runner.init_state(spec)
     params = runner.params_to_device(spec.params)
+    aux = runner.init_aux(spec)
     batches, t = [], 0
     while t < spec.num_steps:
         n = min(runner.chunk, spec.num_steps - t)
-        state, batch, _ = runner.run(state, params, t, n, None)
+        state, batch, _ = runner.run(state, params, t, n, None, aux=aux)
         batches.append(batch)
         t += n
     batch = StepBatch.concatenate(batches) if batches else _empty_batch(
@@ -236,8 +259,11 @@ class Engine:
     """Runner cache + session factory for one backend on one device.
 
     ``device`` defaults to ``"cuda"`` and raises when no card is present;
-    pass ``device="cpu"`` for the plain PyTorch versions. ``backend_opts``
-    (``scan=``, ``stats_only=``) fold into every runner the engine builds.
+    pass ``device="cpu"`` for the plain PyTorch versions. The ``numpy``
+    reference family runs on the host only and raises ``ValueError`` for
+    any other device. ``backend_opts`` (``scan=``, ``stats_only=``, and
+    ``clearing=`` for the numpy family) fold into every runner the engine
+    builds.
     """
 
     def __init__(self, backend: str = "cuda-kinetic", *,
@@ -246,6 +272,12 @@ class Engine:
         _ensure_builtin()
         if backend not in _FACTORIES:
             raise _unknown_backend_error(backend)
+        if backend in _HOST_ONLY and \
+                torch.device(DEFAULT_DEVICE if device is None
+                             else device).type != "cpu":
+            raise ValueError(
+                f"backend {backend!r} runs on the host only: pass "
+                f"device='cpu' (got device={str(device)!r})")
         self.backend = backend
         self.device = resolve_device(device)
         self.chunk_size = chunk_size
@@ -321,6 +353,7 @@ class Session:
         self._step_runner: Optional[ChunkRunner] = None
         self._state = runner.init_state(spec)
         self._params = runner.params_to_device(spec.params)
+        self._aux = runner.init_aux(spec)
         self._stats = runner.init_stats(spec)
         self._t = 0
         self._closed = False
@@ -342,7 +375,7 @@ class Session:
 
     def close(self) -> None:
         """Release the device-resident state (runners stay cached)."""
-        self._state = self._params = self._stats = None
+        self._state = self._params = self._stats = self._aux = None
         self._closed = True
 
     def _check_open(self) -> None:
@@ -406,7 +439,8 @@ class Session:
             builds0 = runner.trace_count
             t0 = time.perf_counter()
         self._state, batch, self._stats = runner.run(
-            self._state, self._params, self._t, n, ext, self._stats)
+            self._state, self._params, self._t, n, ext, self._stats,
+            aux=self._aux)
         if m is not None:
             m.observe(f"{kind}_seconds", time.perf_counter() - t0)
             m.inc("steps_total", n)
@@ -516,14 +550,16 @@ class Session:
             self.metrics.inc("swaps_total", int(idx.size))
 
     def snapshot(self) -> Dict[str, Any]:
-        """Exact host-side capture: books, cursor, params, stats. The copy
-        from the card is synchronous, so the result is complete host
+        """Exact host-side capture: books, cursor, params, stats and a
+        stateful RNG's state (``rng``, JSON, as in the JAX package). The
+        copy from the card is synchronous, so the result is complete host
         memory."""
         self._check_open()
         t0 = time.perf_counter()
         snap: Dict[str, Any] = {f: to_host(v) for f, v in
                                 zip(MarketState._fields, self._state)}
         snap["t"] = self._t
+        snap["rng"] = self._runner.aux_state(self._aux)
         snap["seed"] = self.spec.seed
         snap["num_agents"] = self.spec.num_agents
         snap["num_steps"] = self.spec.num_steps
@@ -598,6 +634,10 @@ class Session:
                 scenarios=labels if labels is not None
                 else ("<restored>",) * M, **extra)
             new_params = self._runner.params_to_device(host)
+        rng = snap.get("rng")
+        new_aux = (self._runner.restore_aux(rng) if rng is not None
+                   else self._runner.init_aux(new_spec)
+                   if self._aux is not None else None)
         new_stats = self._stats
         if self._runner.stats_only:
             stats = snap.get("stats")
@@ -606,6 +646,7 @@ class Session:
                 if stats is not None else self._runner.init_stats(new_spec))
         self._state, self._t = new_state, int(snap["t"])
         self.spec, self._params, self._stats = new_spec, new_params, new_stats
+        self._aux = new_aux
         if self.metrics is not None:
             self.metrics.observe("restore_seconds",
                                  time.perf_counter() - t_start)

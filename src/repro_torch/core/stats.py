@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
@@ -28,6 +29,20 @@ class MarketStats(NamedTuple):
 
     def to_numpy(self) -> "MarketStats":
         return MarketStats(*(to_host(x) for x in self))
+
+    # ---- derived moments (host copy; f64 division for the read-out) ----
+    def mean_mid(self) -> np.ndarray:
+        s = self.to_numpy()
+        with np.errstate(invalid="ignore", divide="ignore"):
+            return np.asarray(s.sum_mid, np.float64) / s.count
+
+    def var_mid(self) -> np.ndarray:
+        """Population variance of the mid (clamped at 0 against f32 noise)."""
+        s = self.to_numpy()
+        mean = self.mean_mid()
+        with np.errstate(invalid="ignore", divide="ignore"):
+            raw = np.asarray(s.sumsq_mid, np.float64) / s.count - mean ** 2
+        return np.maximum(raw, 0.0)
 
 
 def init_stats(num_markets: int, device=DEFAULT_DEVICE) -> MarketStats:

@@ -72,23 +72,10 @@ def resolve_peer_mids(prev_mid, coupling_peer, market_ids=None):
     return torch.gather(prev_mid, 0, resolved)
 
 
-def simulate_step(cfg, state: MarketState, step_idx: int, market_ids,
-                  scan: str = "cumsum", ext_buy=None, ext_ask=None,
-                  params: Optional[MarketParams] = None, atype=None,
-                  seed=None, peer_mid=None):
-    """Advance all markets one step. Returns (MarketState, StepOutput).
-
-    ``cfg`` supplies ``num_agents``, ``num_levels`` and ``seed``; ``params``
-    the per-market ``[M, 1]`` torch columns (derived from a scalar ``cfg``
-    when omitted). ``ext_buy``/``ext_ask`` (float32[M, L]) join the incoming
-    flow after binning. ``peer_mid`` is the chunk-frozen coupling column
-    (``None`` → ``state.prev_mid``).
-    """
-    device = state.bid.device
-    if params is None:
-        params = params_mod.scalar_params(cfg, device)
-    step_idx = int(step_idx)
-
+def quote_phase(params: MarketParams, state: MarketState, step_idx: int):
+    """The step's prelude, shared by both clearing mechanisms: the shock
+    overlay, then the mid and the resting-book imbalance the agents see.
+    Returns ``(resting_bid, mid, imbalance)``."""
     resting_bid = apply_scenario_shock(params, state.bid, step_idx)
     _, _, mid = auction.best_quotes(resting_bid, state.ask, state.last_price)
 
@@ -98,10 +85,32 @@ def simulate_step(cfg, state: MarketState, step_idx: int, market_ids,
     depth = sum_bid + sum_ask
     safe_depth = torch.where(depth > 0.0, depth, 1.0)
     imbalance = torch.where(depth > 0.0, (sum_bid - sum_ask) / safe_depth, 0.0)
+    return resting_bid, mid, imbalance
 
+
+def simulate_step(cfg, state: MarketState, step_idx: int, market_ids,
+                  scan: str = "cumsum", ext_buy=None, ext_ask=None,
+                  params: Optional[MarketParams] = None, atype=None,
+                  seed=None, peer_mid=None, uniform_fn=None):
+    """Advance all markets one step. Returns (MarketState, StepOutput).
+
+    ``cfg`` supplies ``num_agents``, ``num_levels`` and ``seed``; ``params``
+    the per-market ``[M, 1]`` torch columns (derived from a scalar ``cfg``
+    when omitted). ``ext_buy``/``ext_ask`` (float32[M, L]) join the incoming
+    flow after binning. ``peer_mid`` is the chunk-frozen coupling column
+    (``None`` → ``state.prev_mid``). ``uniform_fn`` replaces the counter
+    stream (see :func:`repro_torch.core.agents.decide`).
+    """
+    device = state.bid.device
+    if params is None:
+        params = params_mod.scalar_params(cfg, device)
+    step_idx = int(step_idx)
+
+    resting_bid, mid, imbalance = quote_phase(params, state, step_idx)
     side_buy, price, qty = agents.decide(
         cfg, params, mid, state.prev_mid, step_idx, market_ids, atype=atype,
-        seed=seed, imbalance=imbalance, peer_mid=peer_mid)
+        seed=seed, imbalance=imbalance, peer_mid=peer_mid,
+        uniform_fn=uniform_fn)
     buy, sell = bin_orders_scatter(side_buy, price, qty, cfg.num_levels)
 
     total_buy = resting_bid + buy

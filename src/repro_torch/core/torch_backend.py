@@ -18,7 +18,8 @@ fallback of the kernel backends.
 """
 from __future__ import annotations
 
-from typing import Any, Tuple
+import functools
+from typing import Any, Callable, Tuple
 
 import numpy as np
 import torch
@@ -53,8 +54,14 @@ class TorchChunkRunner(session.ChunkRunner):
         self._market_ids = torch.arange(spec.num_markets, dtype=torch.int32,
                                         device=device)[:, None]
 
+    def step_fn(self, aux) -> Callable:
+        """The step a chunk loops, ``f(cfg, state, step, market_ids,
+        **simulate_step keywords)``: the call-auction step here; the numpy
+        reference family swaps in its RNG stream and clearing mechanism."""
+        return functools.partial(simulate_step, scan=self.scan)
+
     def run(self, state: MarketState, params: PackedParams, step0: int,
-            n: int, ext, stats=None
+            n: int, ext, stats=None, aux=None
             ) -> Tuple[MarketState, session.StepBatch, Any]:
         eb, ea = (None, None) if ext is None else ext
         cols = params.columns()
@@ -64,12 +71,13 @@ class TorchChunkRunner(session.ChunkRunner):
                                        self.device)
         peer_mid = resolve_peer_mids(state.prev_mid, cols.coupling_peer)
         per_step = self.mode == "per-step"
+        step_fn = self.step_fn(aux)
         paths = ([], [], [])
         for k in range(n):
             first = k == 0
-            state, out = simulate_step(
+            state, out = step_fn(
                 self.spec, state, step0 + k, self._market_ids,
-                scan=self.scan, ext_buy=eb if first else None,
+                ext_buy=eb if first else None,
                 ext_ask=ea if first else None, params=cols, atype=atype,
                 peer_mid=peer_mid)
             if self.stats_only:

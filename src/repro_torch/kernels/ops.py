@@ -62,7 +62,8 @@ class ClearingChunkRunner(session.ChunkRunner):
                                         device=device)
 
     def run(self, state: MarketState, params, step0: int, n: int, ext,
-            stats=None) -> Tuple[MarketState, session.StepBatch, Any]:
+            stats=None, aux=None
+            ) -> Tuple[MarketState, session.StepBatch, Any]:
         eb, ea = (None, None) if ext is None else ext
         loads = _build.load_count()
         out = self._chunk_fn(

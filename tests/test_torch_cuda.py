@@ -8,6 +8,7 @@ tests/test_torch_cuda.py``.
 import pytest
 import torch
 
+import chip_smoke
 from repro_torch.core import params as params_mod
 from repro_torch.core.config import MarketConfig
 from repro_torch.core.params import EnsembleSpec
@@ -185,3 +186,50 @@ def test_torch_backends_equal_cuda_kinetic(cuda, backend, stats_only):
 
     for g, w in zip(run(backend), run("cuda-kinetic")):
         assert (torch.as_tensor(g).cpu() == torch.as_tensor(w).cpu()).all()
+
+
+@pytest.mark.parametrize("case", chip_smoke.PARITY_TIER1,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_parity_tier1_on_the_card(cuda, case):
+    """The parity subset: kernels 1 and 2 and ``torch-scan`` on the card
+    equal the host ``numpy`` reference, field by field; the statistics are
+    within 0.1% of it."""
+    from repro_torch.core import engine
+
+    cfg = chip_smoke.parity_config(case)
+    want = engine.simulate(cfg, backend="numpy", device="cpu").to_numpy()
+    got = {b: engine.simulate(cfg, backend=b, device=cuda).to_numpy()
+           for b in ("cuda-kinetic", "cuda-naive", "torch-scan")}
+    assert chip_smoke.parity_faults(got, want) == []
+
+
+def test_coupled_scenario_on_the_card_equals_the_host(cuda):
+    """``open_scenario`` on kernel 1, and a ring-coupled product sweep, equal
+    the host ``numpy`` reference over the same chunk boundaries."""
+    from repro_torch.core import engine
+    from repro_torch.scenario import CouplingSpec, coupled_ensemble
+
+    over = dict(num_markets=16, num_agents=64, num_levels=64, num_steps=40,
+                seed=5, alpha_arbitrageur=0.2)
+    kc.kinetic_clearing_chunk.launches = 0
+    with engine.open_scenario("flash-crash", device=cuda,
+                              config_overrides=over, chunk_size=16) as s:
+        got = s.run_to_result().to_numpy()
+    assert kc.kinetic_clearing_chunk.launches == 3
+    with engine.open_scenario("flash-crash", backend="numpy", device="cpu",
+                              config_overrides=over, chunk_size=16) as s:
+        want = s.run_to_result().to_numpy()
+    for g, w in zip(got, want):
+        assert (g == w).all()
+
+    base = MarketConfig(num_markets=4, num_agents=64, num_levels=64,
+                        num_steps=40, seed=6, alpha_arbitrageur=0.1)
+    spec = coupled_ensemble(EnsembleSpec.product(
+        base, {"alpha_momentum": (0.15, 0.5), "p_marketable": (0.1, 0.2)}),
+        CouplingSpec.ring(16))
+    runs = {}
+    for backend, device in (("cuda-kinetic", cuda), ("numpy", "cpu")):
+        with Engine(backend, device=device).open(spec, chunk_size=16) as s:
+            runs[backend] = s.run_to_result().to_numpy()
+    for g, w in zip(runs["cuda-kinetic"], runs["numpy"]):
+        assert (g == w).all()

@@ -21,7 +21,9 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.kernels.naive_clearing, "
             "repro_torch.core.torch_backend, repro_torch.serve, "
             "repro_torch.serve.transport, repro_torch.ops, "
-            "repro_torch.ops.chaos, repro_torch.checkpoint; "
+            "repro_torch.ops.chaos, repro_torch.checkpoint, "
+            "repro_torch.scenario, repro_torch.scenario.validate, "
+            "repro_torch.core.numpy_backend, repro_torch.core.sequential; "
             "repro_torch.core.session.backends(); "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
@@ -35,7 +37,8 @@ def test_import_loads_neither_jax_nor_repro():
 def test_the_import_scan_covers_every_subpackage():
     scanned = {p.relative_to(ROOT / "src" / "repro_torch").parts[0]
                for p in PORT_FILES if "repro_torch" in p.parts}
-    for sub in ("core", "kernels", "env", "serve", "ops", "checkpoint"):
+    for sub in ("core", "kernels", "env", "serve", "ops", "checkpoint",
+                "scenario"):
         assert sub in scanned, sub
 
 
@@ -65,6 +68,21 @@ def test_engine_without_a_card_raises():
         Engine("cuda-kinetic")
     with pytest.raises(RuntimeError, match="cuda"):
         Engine("cuda-kinetic", device="cuda:0")
+
+
+@pytest.mark.parametrize("backend", ["numpy", "numpy-splitmix64",
+                                     "numpy-pcg64"])
+def test_numpy_family_runs_on_the_host_only(backend):
+    """The CPU reference family takes only ``device="cpu"``; any other
+    device raises ``ValueError`` naming the backend, card or no card."""
+    from repro_torch.core.session import Engine
+
+    for device in ("cuda", "cuda:0", None, torch.device("cuda")):
+        with pytest.raises(ValueError, match=backend):
+            Engine(backend, device=device)
+    with pytest.raises(ValueError, match=backend):
+        Engine(backend)
+    assert Engine(backend, device="cpu").device.type == "cpu"
 
 
 def test_gateway_and_warm_without_a_card_raise():
