@@ -8,15 +8,20 @@ line:
 
   build    build the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
            ``nvcc`` per source, all started together; each kernel's
-           registers and spills from ptxas (``-Xptxas -v``); any spill
-           fails.
+           registers and spills from ptxas (``-Xptxas -v``), the persistent
+           kernels once per agent mode (``<0>`` shared, ``<1>`` registers,
+           ``<2>`` fresh); any spill fails.
   kernel   ``kinetic_clearing_chunk`` (CUDA) == its plain PyTorch version,
            field by field, at the paper's width A=256, L=128 on a
            heterogeneous ensemble populating all eight archetypes: a chunk
            holding the shock step, a partial tail, external orders,
            ``stats_only``, and ``scan="hillis-steele"``.
   edges    the same check at L=1024, A=300, at L=8, A=5 and at L=4, A=16,
-           the last two with 15 markets (a ragged last CTA).
+           the last two with 15 markets (a ragged last CTA); then kernels 1
+           and 3 in the fresh agent mode (populations past shared memory:
+           L=128, A=50,000 and L=1024, A=45,000, 10 markets, 6 steps)
+           against their plain versions, with each shape's ``TileChoice``
+           and times.
   naive    ``naive_clearing_chunk`` (one launch per step) == its plain
            version over the five cases of ``kernel``.
   legacy   the legacy one-shot ``kinetic_clearing`` and ``naive_clearing``
@@ -58,6 +63,23 @@ line:
            as warm ``Session.run(500)`` of each backend: time, agent-events/s,
            peak memory and the ratio to ``cuda-kinetic``; then the two
            chunk kernels alone at M=8192, A=32, L=1024 (books beyond L2).
+  env      the RL environment (``repro_torch.env``) at the Table IV width:
+           a zero-action rollout of 64 steps on ``cuda-kinetic`` (64
+           launches of kernel 1) == ``Session.run(64)`` (one launch), paths
+           and books; the scripted maker's closed loop for 64 steps with
+           composite observations (market, book window, portfolio, stats)
+           and a summed reward on ``cuda-kinetic``, ``cuda-naive`` and
+           ``torch-scan``, equal in obs, reward, done, fills, paths and
+           final state, kernel 1 (kernel 2) launched once per env step and
+           no runner built for a second env; auto-reset at horizon 16 over
+           40 steps, every episode replaying the first; a checkpoint at
+           step 24 restored into a fresh env, continuing as the straight
+           rollout; then 500 timed maker steps: steps/s, agent-events/s,
+           kernel 1 at ``chunk=1`` (its device time, CUDA events around
+           launches queued behind a sleep; and the wrapper's time a call
+           back to back), the card's busy share, the ratio to
+           ``Session.run(500)``, and a ``torch.profiler`` window of 50
+           steps (CUDA kernels and device time a step).
   serve    the serving gateway (``repro_torch.serve.Gateway``) over an
            8192-slot template at A=256, L=128, chunk 64: 256 clients
            round-robin over the nine presets, 8 more at chunk 6 (after the
@@ -169,6 +191,18 @@ PRODUCT_SHAPE = (256, 128, 500)
 PRODUCT_MARKETS_PER_CONFIG = 1024
 PRODUCT_SWEEP = {"alpha_momentum": (0.15, 0.3, 0.5, 0.7),
                  "p_marketable": (0.1, 0.2)}
+# The edges phase's fresh agent mode: (M per block of small_spec, A, L)
+# past shared memory at L=128 and L=1024, and the steps of each call.
+FRESH_SHAPES = ((2, 50000, 128), (2, 45000, 1024))
+FRESH_STEPS = 6
+# The env phase (at TABLE_IV): the checked rollouts' steps, the auto-reset
+# horizon and steps, the checkpoint step, and the timed maker rollout.
+ENV_STEPS = 64
+ENV_HORIZON, ENV_RESET_STEPS, ENV_CHECKPOINT = 16, 40, 24
+ENV_TIMED_STEPS = 500
+ENV_PROFILED_STEPS = 50
+# Clock cycles of the sleep that timed launches queue behind (about 0.1 s).
+QUEUE_SLEEP_CYCLES = 200_000_000
 
 
 class Mismatch(AssertionError):
@@ -333,7 +367,7 @@ def kernel_vs_plain(label, spec, device, *, step0, n_valid, chunk,
 
 def phase_build():
     import time
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, autotune
     from repro_torch.kernels import kinetic_clearing as kc
     from repro_torch.kernels import naive_clearing as nc
 
@@ -343,9 +377,10 @@ def phase_build():
     nc._load_library()
     ptxas = {**_build.ptxas_report("kinetic_clearing"),
              **_build.ptxas_report("naive_clearing")}
-    kernels = ("kinetic_chunk_kernel<true>", "kinetic_chunk_kernel<false>",
-               "kinetic_legacy_kernel<true>", "kinetic_legacy_kernel<false>",
-               "naive_chunk_step_kernel", "naive_legacy_step_kernel")
+    # The persistent kernels once per agent mode (<code>: AGENT_MODES).
+    kernels = tuple(f"kinetic_{k}_kernel<{code}>" for k in ("chunk", "legacy")
+                    for code in range(len(autotune.AGENT_MODES))) + (
+        "naive_chunk_step_kernel", "naive_legacy_step_kernel")
     for name in kernels:
         got = ptxas.get(name, {})
         if "registers" not in got or got.get("spill_stores", 1) or \
@@ -379,6 +414,15 @@ def phase_kernel(device, B, entry="kinetic"):
 
 
 def phase_edges(device):
+    """Kernel 1 at the launch rule's edges, then kernels 1 and 3 in the
+    fresh agent mode (populations past shared memory) against their plain
+    versions, bit for bit, with their times."""
+    import torch
+    from repro_torch.core import params as params_mod
+    from repro_torch.core.config import MarketConfig
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import kinetic_clearing as kc
+
     errs = []
     shapes = ((8, 300, 1024), (3, 5, 8), (3, 16, 4))  # 5·M markets
     for M, A, L in shapes:
@@ -391,7 +435,37 @@ def phase_edges(device):
         e, _ = kernel_vs_plain(f"edge L={L} A={A} stats", spec, device,
                                step0=2, n_valid=12, chunk=12, stats_only=True)
         errs.append(e)
-    emit("edges", ok=True, shapes=[list(x) for x in shapes],
+    fresh = []
+    for M, A, L in FRESH_SHAPES:
+        shape = autotune.auto_tile(L, A)
+        if shape.agents != "fresh":
+            raise Mismatch(f"L={L}, A={A} took {shape.agents}, not fresh")
+        spec = small_spec(M, A, L, num_steps=20)
+        e, _ = kernel_vs_plain(f"fresh L={L} A={A}", spec, device, step0=4,
+                               n_valid=FRESH_STEPS, chunk=FRESH_STEPS,
+                               ext=True)
+        cfg = MarketConfig(num_markets=spec.num_markets, num_agents=A,
+                           num_levels=L, num_steps=FRESH_STEPS, seed=SEED,
+                           alpha_arbitrageur=0.2, alpha_whale=0.1,
+                           whale_period=3)
+        state = opening(cfg, device)
+        got = list(kc.kinetic_clearing(*state, cfg=cfg))
+        want = list(kc.kinetic_clearing_plain(*state, cfg=cfg))
+        torch.cuda.synchronize()
+        e = max(e, compare(f"fresh legacy L={L} A={A}", got, want))
+        errs.append(e)
+        cstate = opening(spec, device)
+        kw = dict(cfg=spec, chunk=FRESH_STEPS,
+                  params=params_mod.pack_params(spec.params, device))
+        chunk_ms = _time(lambda: kc.kinetic_clearing_chunk(
+            *cstate, 0, FRESH_STEPS, **kw), 5)
+        legacy_ms = _time(lambda: kc.kinetic_clearing(*state, cfg=cfg), 5)
+        fresh.append(dict(markets=spec.num_markets, agents=A, levels=L,
+                          steps=FRESH_STEPS, tile=shape._asdict(),
+                          max_abs_err=e, chunk_ms=chunk_ms,
+                          legacy_ms=legacy_ms,
+                          launch=launch_facts(spec.num_markets, A, L)))
+    emit("edges", ok=True, shapes=[list(x) for x in shapes], fresh=fresh,
          max_abs_err=max(errs))
     return max(errs)
 
@@ -753,6 +827,66 @@ def _time(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def _queued_ms(fn, reps: int) -> float:
+    """Device time of one ``fn`` call: ``reps`` calls queued behind a
+    sleeping kernel, so the host's time between launches does not count.
+    Raises if the host did not finish queueing before the sleep ended."""
+    import time
+
+    import torch
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    fn()
+    torch.cuda.synchronize()
+    events[0].record()
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    events[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    queued_ms = (time.perf_counter() - t0) * 1e3
+    events[2].record()
+    torch.cuda.synchronize()
+    if queued_ms >= events[0].elapsed_time(events[1]):
+        raise Mismatch(f"queueing took {queued_ms} ms, longer than the "
+                       "sleep it hides behind")
+    return events[1].elapsed_time(events[2]) / reps
+
+
+def env_profile(env, policy, steps: int) -> dict:
+    """A ``torch.profiler`` window over ``steps`` env steps: CUDA kernels a
+    step, their device time a step and the card's busy share (None where
+    the profiler records no device activity)."""
+    import time
+
+    import torch
+    from repro_torch.env import rollout
+    from torch.profiler import ProfilerActivity, profile
+
+    state, _ = env.reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rollout(env, policy, steps, state=state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return dict(steps=steps, wall_s=wall, kernels_per_step=None,
+                    device_ms_per_step=None, busy_share=None)
+    device_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return dict(
+        steps=steps, wall_s=wall,
+        kernels_per_step=sum(e.count for e in kernels) / steps,
+        device_ms_per_step=device_us / 1e3 / steps,
+        busy_share=device_us * 1e-6 / wall,
+        top={e.key[:100]: e.self_device_time_total / 1e3 / steps
+             for e in top})
+
+
 def bound(ops: int, nbytes: int) -> dict:
     """The least time for ``ops`` issue slots and ``nbytes`` bytes."""
     ops_ms, bytes_ms = ops / PEAK_LANE_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -771,7 +905,7 @@ def launch_facts(M, A, L) -> dict:
     return dict(
         warps_per_market=shape.warps_per_market,
         markets_per_cta=shape.markets_per_cta,
-        agents_in_registers=shape.agents_in_registers,
+        agents=shape.agents,
         threads_per_cta=shape.threads_per_cta, grid=shape.grid(M),
         smem_bytes={"persistent": shape.smem_bytes(True),
                     "per_step": shape.smem_bytes(False)},
@@ -1035,6 +1169,247 @@ def phase_fixed_workload(device):
          launch=launch_facts(M, A, L), backends=rows,
          persistence=persistence)
     return rows, persistence
+
+
+# ---------------------------------------------------------------------------
+# env: the RL environment on kernel 1 at full width
+# ---------------------------------------------------------------------------
+
+def maker_policy(num_levels):
+    """The scripted maker (``repro.train.policies.make_market_maker``, which
+    cannot be imported here): one lot one tick inside the mid, alternating
+    sides."""
+    import torch
+    from repro_torch.core.session import ExternalOrders
+
+    def maker(obs, t):
+        mid = obs[:, 0]
+        buy = t % 2 == 0
+        tick = torch.clamp(torch.round(mid + (-1.0 if buy else 1.0))
+                           .to(torch.int32), 0, num_levels - 1)
+        return ExternalOrders(torch.full(mid.shape, buy, device=mid.device),
+                              tick, torch.ones_like(mid))
+    return maker
+
+
+def env_outputs(state, batch) -> list:
+    """A rollout's batch and final state, flat, for ``compare``."""
+    import torch
+
+    parts = list(batch[:8]) + list(state.market) + list(state.last_out) \
+        + list(state.portfolio) + list(state.stats or ())
+    return [p.float() if p.dtype == torch.bool else p for p in parts]
+
+
+def phase_env(device):
+    """``repro_torch.env`` at the Table IV width (the ``fixed_workload``
+    mix): a zero-action rollout == ``Session.run``; the maker's closed loop
+    on ``cuda-kinetic``, ``cuda-naive`` and ``torch-scan`` with composite
+    observations and rewards, equal, and again over ring-coupled markets
+    with arbitrageurs; auto-reset; a checkpoint restored into a fresh env;
+    one launch of kernel 1 per env step and no wait for the card inside
+    the loop; then timing."""
+    import tempfile
+    import time
+    import warnings
+
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import params as params_mod
+    from repro_torch.core.config import MarketConfig
+    from repro_torch.core.params import EnsembleSpec
+    from repro_torch.core.session import Engine
+    from repro_torch.env import (BookWindow, Composite, InventoryPenalty,
+                                 MarketFeatures, PnLReward,
+                                 PortfolioFeatures, SpreadCapture,
+                                 StatsFeatures, Sum, rollout)
+    from repro_torch.kernels import kinetic_clearing as kc
+    from repro_torch.scenario import CouplingSpec, coupled_ensemble
+
+    M, A, L = TABLE_IV
+    spec = homogeneous(M, A, L, ENV_TIMED_STEPS)
+    maker = maker_policy(L)
+    obs = Composite((MarketFeatures(), BookWindow(4), PortfolioFeatures(),
+                     StatsFeatures()))
+    reward = Sum((PnLReward(), SpreadCapture(), InventoryPenalty(0.01)))
+    eng = Engine("cuda-kinetic", device=device)
+    errs = []
+
+    # 1. Zero actions: ENV_STEPS launches == one Session.run launch.
+    reset_counts()
+    final, batch = rollout(eng.env(spec, auto_reset=False), None, ENV_STEPS)
+    torch.cuda.synchronize()
+    zero_counts = expect_counts("env zero-action rollout",
+                                {"kinetic_clearing_chunk": ENV_STEPS})
+    reset_counts()
+    with eng.open(spec, chunk_size=ENV_STEPS) as sess:
+        ref = sess.run(ENV_STEPS)
+        run_state = list(sess.state)
+    torch.cuda.synchronize()
+    expect_counts("env reference run", {"kinetic_clearing_chunk": 1})
+    errs.append(compare("env zero actions vs Session.run",
+                        list(batch[3:6]) + list(final.market),
+                        list(ref) + run_state))
+
+    # 2-3, 6. The maker's closed loop on three backends, composite obs and
+    # rewards; kernel 1 (kernel 2) launched once per env step.
+    builds = eng.trace_count
+    runs, counts = {}, {}
+    for backend, want in (
+            ("cuda-kinetic", {"kinetic_clearing_chunk": ENV_STEPS}),
+            ("cuda-naive", {"naive_clearing_chunk": ENV_STEPS}),
+            ("torch-scan", {})):
+        e = eng if backend == "cuda-kinetic" else Engine(backend,
+                                                         device=device)
+        env = e.env(spec, obs=obs, reward=reward)
+        reset_counts()
+        runs[backend] = rollout(env, maker, ENV_STEPS)
+        torch.cuda.synchronize()
+        counts[backend] = expect_counts(f"env maker {backend}", want)
+    if eng.trace_count != builds:
+        raise Mismatch(f"a second env of one shape built "
+                       f"{eng.trace_count - builds} more runners")
+    want = env_outputs(*runs["torch-scan"])
+    for backend in ("cuda-kinetic", "cuda-naive"):
+        errs.append(compare(f"env maker {backend} vs torch-scan",
+                            env_outputs(*runs[backend]), want))
+        if runs[backend][0].t != runs["torch-scan"][0].t:
+            raise Mismatch(f"env maker {backend}: cursor differs")
+    mbatch = runs["cuda-kinetic"][1]
+    fills = float(mbatch.fill_buy.sum() + mbatch.fill_ask.sum())
+    finite = bool(torch.isfinite(mbatch.obs).all()) and \
+        bool(torch.isfinite(mbatch.reward).all())
+    if not finite or fills <= 0 or tuple(mbatch.obs.shape) != (
+            ENV_STEPS, M, obs.size(spec)):
+        raise Mismatch(f"env maker output malformed: finite={finite} "
+                       f"fills={fills} obs={tuple(mbatch.obs.shape)}")
+
+    # The coupling freeze: ring-coupled markets with arbitrageurs read their
+    # peer's mid of the step before at every env step, on every backend.
+    cspec = coupled_ensemble(EnsembleSpec.homogeneous(MarketConfig(
+        num_markets=M, num_agents=A, num_levels=L, num_steps=ENV_TIMED_STEPS,
+        seed=SEED, alpha_arbitrageur=0.2, arb_kappa=0.5)),
+        CouplingSpec.ring(M))
+    coupled = {}
+    for backend, want in (
+            ("cuda-kinetic", {"kinetic_clearing_chunk": ENV_STEPS}),
+            ("cuda-naive", {"naive_clearing_chunk": ENV_STEPS}),
+            ("torch-scan", {})):
+        e = eng if backend == "cuda-kinetic" else Engine(backend,
+                                                         device=device)
+        reset_counts()
+        coupled[backend] = env_outputs(*rollout(e.env(cspec), maker,
+                                                ENV_STEPS))
+        torch.cuda.synchronize()
+        counts[f"coupled {backend}"] = expect_counts(
+            f"env coupled maker {backend}", want)
+    for backend in ("cuda-kinetic", "cuda-naive"):
+        errs.append(compare(f"env coupled maker {backend} vs torch-scan",
+                            coupled[backend], coupled["torch-scan"]))
+    _, uncoupled = rollout(eng.env(CouplingSpec.none(M).apply(cspec)), maker,
+                           ENV_STEPS)
+    if bool((uncoupled.price == coupled["cuda-kinetic"][3]).all()):
+        raise Mismatch("env coupled maker: the coupling was inert")
+
+    # 4. Auto-reset at ENV_HORIZON: every episode replays the first.
+    env = eng.env(spec, horizon=ENV_HORIZON)
+    _, rb = rollout(env, None, ENV_RESET_STEPS)
+    dones = [t for t, d in enumerate(rb.done.tolist()) if d]
+    if dones != list(range(ENV_HORIZON - 1, ENV_RESET_STEPS, ENV_HORIZON)):
+        raise Mismatch(f"env auto-reset: done at steps {dones}")
+    for k in range(ENV_HORIZON, ENV_RESET_STEPS, ENV_HORIZON):
+        n = min(ENV_HORIZON, ENV_RESET_STEPS - k)
+        errs.append(compare(
+            f"env episode from step {k}",
+            [p[:, k:k + n] for p in rb[3:6]], [p[:, :n] for p in rb[3:6]]))
+
+    # 5. A checkpoint at ENV_CHECKPOINT into a fresh env on a fresh engine.
+    env = eng.env(spec, obs=obs, reward=reward, horizon=ENV_HORIZON)
+    straight = rollout(env, maker, ENV_RESET_STEPS)
+    head, _ = rollout(env, maker, ENV_CHECKPOINT)
+    with tempfile.TemporaryDirectory() as tmp:
+        env.save_checkpoint(CheckpointManager(tmp, async_write=False), head,
+                            step=ENV_CHECKPOINT)
+        fresh = Engine("cuda-kinetic", device=device).env(
+            spec, obs=obs, reward=reward, horizon=ENV_HORIZON)
+        restored = fresh.restore_checkpoint(
+            CheckpointManager(tmp, async_write=False))
+    tail = rollout(fresh, maker, ENV_RESET_STEPS - ENV_CHECKPOINT,
+                   state=restored)
+    got, want = env_outputs(*tail), env_outputs(*straight)
+    cut = ENV_CHECKPOINT
+    want = [want[0][cut:], want[1][cut:], want[2][cut:]] + \
+        [p[:, cut:] for p in want[3:8]] + want[8:]
+    errs.append(compare("env checkpoint continuation", got, want))
+
+    # Nothing waits for the card inside the loop: the lines of the
+    # synchronizing calls torch reports over a maker rollout (its reset
+    # outside).
+    env = eng.env(spec)
+    state0, _ = env.reset()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            rollout(env, maker, ENV_STEPS, state=state0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # torch's one-time notice that the mode is a prototype is not a sync.
+    syncs = [f"{Path(w.filename).name}:{w.lineno}: {w.message}"
+             for w in caught if "synchroniz" in str(w.message).lower()
+             and "prototype" not in str(w.message)]
+    if syncs:
+        raise Mismatch(f"env rollout waited for the card: {syncs}")
+
+    # 7. Timing: the maker's closed loop against Session.run on the card.
+    rollout(env, maker, 8)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rollout(env, maker, ENV_TIMED_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    timed_counts = expect_counts("env timed rollout",
+                                 {"kinetic_clearing_chunk": ENV_TIMED_STEPS})
+    with eng.open(spec) as sess:  # a warm run, then the timed one
+        sess.run(ENV_TIMED_STEPS)
+    torch.cuda.synchronize()
+    with eng.open(spec) as sess:
+        t0 = time.perf_counter()
+        sess.run(ENV_TIMED_STEPS)
+        torch.cuda.synchronize()
+        run_wall = time.perf_counter() - t0
+    # Kernel 1 at chunk=1 on an env step's operands: its device time (the
+    # launches queued behind a sleep, the peer column given, so nothing
+    # else runs), and the wrapper's time a call back to back (host-bound).
+    state = opening(spec, device)
+    eb, ea = env._lower(maker(env.observe(env.reset()[0]), 0), False)
+    kw = dict(cfg=spec, chunk=1, peer_mid=state[3].clone(),
+              market_ids=torch.arange(M, dtype=torch.int32, device=device),
+              params=params_mod.pack_params(spec.params, device))
+
+    def kernel():
+        kc.kinetic_clearing_chunk(*state, 0, 1, eb, ea, **kw)
+
+    kernel_ms = _queued_ms(kernel, 50)
+    wrapper_ms = _time(kernel, 200)
+    steps_per_s = ENV_TIMED_STEPS / wall
+    timing = dict(
+        steps=ENV_TIMED_STEPS, wall_s=wall, steps_per_s=steps_per_s,
+        agent_events_per_s=M * A * steps_per_s,
+        kernel_ms_chunk1=kernel_ms, wrapper_ms_chunk1=wrapper_ms,
+        busy_share=kernel_ms * 1e-3 * ENV_TIMED_STEPS / wall,
+        session_run_wall_s=run_wall, over_session_run=wall / run_wall,
+        launches=timed_counts["kinetic_clearing_chunk"],
+        profile=env_profile(env, maker, ENV_PROFILED_STEPS))
+    emit("env", ok=True, markets=M, agents=A, levels=L,
+         launches={"zero_action_rollout": zero_counts["kinetic_clearing_chunk"],
+                   "maker": {b: {k: n for k, n in c.items() if n}
+                             for b, c in counts.items()}},
+         fills=fills, synchronizing_calls=syncs, max_abs_err=max(errs),
+         timing=timing)
+    return max(errs)
 
 
 # ---------------------------------------------------------------------------
@@ -1441,14 +1816,15 @@ def main() -> int:
     err_s = phase_agent_sweep(device)
     legacy = phase_legacy_path(device)
     phase_fixed_workload(device)
+    err_env = phase_env(device)
     serve = phase_serve(device)
     launches.update(legacy["launches"])
     errs = {"kinetic_clearing_chunk":
             max(err_k, err_s, session_errs["kinetic_clearing_chunk"],
-                err_p, err_sc, serve["max_abs_err"]),
+                err_p, err_sc, err_env, serve["max_abs_err"]),
             "naive_clearing_chunk":
             max(err_n, err_s, session_errs["naive_clearing_chunk"],
-                err_p, serve["max_abs_err"]),
+                err_p, err_env, serve["max_abs_err"]),
             "kinetic_clearing":
             max(err_l, legacy["max_abs_err"]["kinetic_clearing"]),
             "naive_clearing":

@@ -8,7 +8,9 @@ session — and return the port's own objects, so a run can be replayed here.
 A coupling graph comes across as its peer map (:func:`coupling_from_numpy`).
 A snapshot or checkpoint needs no conversion: ``Session.restore`` takes the
 JAX package's snapshot dict as it is, its ``rng`` payload (the
-``numpy-pcg64`` generator state) included.
+``numpy-pcg64`` generator state) included. ``MarketEnv.restore`` likewise
+takes the JAX package's env snapshot dict as it is, and
+``repro_torch.env.state_from_tree`` its env checkpoint tree.
 """
 from __future__ import annotations
 

@@ -100,12 +100,20 @@ def _arbitrageur(ctx: ArchetypeContext):
     return _toward(ctx.peer_mid - ctx.mid, ctx, ctx.params.arb_kappa)
 
 
-#: type_id -> fn(ctx) -> (side_buy, price_f), folded in id order.
+#: type_id -> fn(ctx) -> (side_buy, price_f), folded in id order. The
+#: kernels hard-code these eight, so there is no ``register_archetype``.
 ARCHETYPES: Dict[int, Callable] = {
     NOISE: _noise, MOMENTUM: _momentum, MAKER: _maker,
     FUNDAMENTALIST: _fundamentalist, WHALE: _whale, HFT: _hft,
     INFORMED: _informed, ARBITRAGEUR: _arbitrageur,
 }
+
+
+def archetype_names() -> Dict[int, str]:
+    """{type_id: name} of the archetypes, in id order."""
+    return {NOISE: "noise", MOMENTUM: "momentum", MAKER: "maker",
+            FUNDAMENTALIST: "fundamentalist", WHALE: "whale", HFT: "hft",
+            INFORMED: "informed", ARBITRAGEUR: "arbitrageur"}
 
 
 def decide(cfg, params: MarketParams, mid, prev_mid, step: int, market_ids,

@@ -160,6 +160,19 @@ class MarketConfig:
         """Resolved fundamental price (grid midpoint unless overridden)."""
         return self.mid0 if self.fundamental_price < 0 else self.fundamental_price
 
+    def mixture(self) -> Dict[int, float]:
+        """Static archetype weights {type_id: fraction}, summing to 1."""
+        noise = 1.0 - (self.alpha_maker + self.alpha_momentum
+                       + self.alpha_fundamentalist + self.alpha_whale
+                       + self.alpha_hft + self.alpha_informed
+                       + self.alpha_arbitrageur)
+        return {NOISE: noise, MOMENTUM: self.alpha_momentum,
+                MAKER: self.alpha_maker,
+                FUNDAMENTALIST: self.alpha_fundamentalist,
+                WHALE: self.alpha_whale, HFT: self.alpha_hft,
+                INFORMED: self.alpha_informed,
+                ARBITRAGEUR: self.alpha_arbitrageur}
+
     def archetype_counts(self) -> Dict[int, int]:
         """Resolved population {type_id: agent count} (sums to num_agents)."""
         counts = {MAKER: self.num_makers, MOMENTUM: self.num_momentum,
@@ -179,6 +192,10 @@ class MarketConfig:
             torch.full((M,), self.initial_quote_qty, dtype=torch.float32),
             torch.full((M,), self.initial_spread, dtype=torch.int32),
             device=device)
+
+    def events(self) -> int:
+        """Total agent events M·A·S (the paper's throughput denominator)."""
+        return self.num_markets * self.num_agents * self.num_steps
 
 
 def assign_agent_types(num_agents: int, num_makers, num_momentum,
@@ -252,6 +269,15 @@ SCENARIO_PRESETS: Dict[str, Callable[[int], dict]] = {
     "wide-book": lambda S: {"initial_quote_qty": 64.0, "initial_spread": 8},
     "thin-book": lambda S: {"initial_quote_qty": 1.0, "initial_spread": 2},
 }
+
+
+def register_scenario(name: str):
+    """Decorator: register ``fn(num_steps) -> field overrides`` as the
+    scenario preset ``name``."""
+    def deco(fn):
+        SCENARIO_PRESETS[name] = fn
+        return fn
+    return deco
 
 
 def scenario_names() -> Tuple[str, ...]:

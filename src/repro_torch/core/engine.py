@@ -16,7 +16,10 @@ terminal :class:`SimResult`. Backends in this package:
   * ``numpy``, ``numpy-splitmix64``, ``numpy-pcg64`` — the CPU reference
     family (``device="cpu"`` only), with ``clearing="sequential"``.
 
-:func:`open_scenario` opens a warm session on a scenario preset.
+:func:`open_scenario` opens a warm session on a scenario preset. The
+one-shot wrappers share warm engines keyed by ``(backend, device, sorted
+options)``, so repeated calls reuse their runners and loaded kernels;
+:func:`clear_compat_cache` releases them.
 """
 from __future__ import annotations
 
@@ -33,12 +36,30 @@ from repro_torch.core.session import (  # noqa: F401 (re-exported API)
 
 DEFAULT_BACKEND = "cuda-kinetic"
 
+# Warm engines shared by the wrappers, keyed by (backend, device, sorted
+# backend options).
+_COMPAT_ENGINES: Dict[Tuple[Any, ...], Engine] = {}
+
+
+def clear_compat_cache() -> None:
+    """Release the wrappers' warm engines and their runners (for
+    long-lived processes sweeping many distinct configurations)."""
+    _COMPAT_ENGINES.clear()
+
+
+def _compat_engine(backend: str, device, opts: Dict[str, Any]) -> Engine:
+    key = (backend, str(device)) + tuple(sorted(opts.items()))
+    eng = _COMPAT_ENGINES.get(key)
+    if eng is None:
+        eng = _COMPAT_ENGINES[key] = Engine(backend, device=device, **opts)
+    return eng
+
 
 def simulate(cfg, backend: str = DEFAULT_BACKEND, device="cuda",
              **backend_opts: Any) -> SimResult:
     """Open a session on ``cfg`` (a ``MarketConfig`` or ``EnsembleSpec``),
     run its ``num_steps`` steps, and return the terminal result."""
-    with Engine(backend, device=device, **backend_opts).open(cfg) as sess:
+    with _compat_engine(backend, device, backend_opts).open(cfg) as sess:
         return sess.run_to_result(cfg.num_steps)
 
 
@@ -61,4 +82,4 @@ def open_scenario(name: str, backend: str = DEFAULT_BACKEND, device="cuda",
                   **backend_opts: Any) -> Session:
     """Open a session on a scenario preset (the caller closes it)."""
     cfg = scenario_config(name, **(config_overrides or {}))
-    return Engine(backend, device=device, **backend_opts).open(cfg)
+    return _compat_engine(backend, device, backend_opts).open(cfg)

@@ -22,7 +22,12 @@ Three RNG modes:
 
 Two clearing mechanisms: ``parallel`` (the call auction) and
 ``sequential`` (order-by-order matching, :mod:`repro_torch.core.sequential`),
-a reference mechanism without external-order injection.
+a reference mechanism without external-order injection and without an env
+step core.
+
+The env step core takes a runtime seed in the ``kinetic`` and
+``splitmix64`` modes; ``pcg64`` draws from the session's generator and
+rejects one.
 
 The family runs on the host only: ``Engine("numpy", device="cpu")``; any
 other device raises. The kinetic and SplitMix64 streams are pure functions
@@ -64,6 +69,12 @@ class NumpyChunkRunner(TorchChunkRunner):
                          scan=scan, stats_only=stats_only)
         self.rng_mode = rng_mode
         self.clearing = clearing
+        self.env_runtime_seed = rng_mode != "pcg64"
+
+    def env_step_fn(self) -> Optional[Callable]:
+        if self.clearing == "sequential":
+            return None  # a reference mechanism: Session/simulate only
+        return super().env_step_fn()
 
     # ---- stateful RNG (PCG64 only) ----
     def init_aux(self, spec: EnsembleSpec) -> Optional[np.random.Generator]:
@@ -81,19 +92,20 @@ class NumpyChunkRunner(TorchChunkRunner):
         gen.bit_generator.state = payload
         return gen
 
-    def uniform_fn(self, aux) -> Optional[Callable]:
-        """The ``decide`` stream override of this mode (None: counter)."""
+    def uniform_fn(self, aux, seed=None) -> Optional[Callable]:
+        """The ``decide`` stream override of this mode (None: counter);
+        ``seed`` overrides the spec's SplitMix64 seed."""
         if self.rng_mode == "kinetic":
             return None
         if self.rng_mode == "splitmix64":
-            seed = self.spec.seed
+            seed = self.spec.seed if seed is None else seed
             return lambda gid, step, channel: rng.splitmix64_uniform(
                 seed, gid, step, channel)
         return lambda gid, step, channel: torch.from_numpy(
             aux.random(size=tuple(gid.shape), dtype=np.float32))
 
-    def step_fn(self, aux) -> Callable:
-        uniform_fn = self.uniform_fn(aux)
+    def step_fn(self, aux, seed=None) -> Callable:
+        uniform_fn = self.uniform_fn(aux, seed)
         if self.clearing == "parallel":
             return functools.partial(simulate_step, scan=self.scan,
                                      uniform_fn=uniform_fn)

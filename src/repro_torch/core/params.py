@@ -69,6 +69,16 @@ class MarketParams(NamedTuple):
     def to_numpy(self) -> "MarketParams":
         return MarketParams(*(_host(x) for x in self))
 
+    @classmethod
+    def zeros(cls, num_markets: int, device=DEFAULT_DEVICE) -> "MarketParams":
+        """Valid all-zero ``[M, 1]`` torch columns on ``device`` (timing
+        and padding operands)."""
+        device = resolve_device(device)
+        return cls(*(torch.zeros((num_markets, 1), device=device,
+                                 dtype=torch.int32 if f in INT_FIELDS
+                                 else torch.float32)
+                     for f in cls._fields))
+
     @property
     def num_markets(self) -> int:
         return int(np.shape(self.shock_step)[0])
@@ -309,6 +319,10 @@ class EnsembleSpec:
     @property
     def mid0(self) -> float:
         return float(self.num_levels // 2)
+
+    def events(self) -> int:
+        """Total agent events M·A·S (the paper's throughput denominator)."""
+        return self.num_markets * self.num_agents * self.num_steps
 
     def initial_books(self, device=DEFAULT_DEVICE
                       ) -> Tuple[torch.Tensor, torch.Tensor]:

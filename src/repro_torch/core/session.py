@@ -26,6 +26,9 @@
     :class:`~repro_torch.checkpoint.manager.CheckpointManager`.
   * :meth:`Session.swap_markets` splices rows at a chunk boundary (the
     serving gateway's attach and detach) on the device, building nothing.
+  * :meth:`Engine.env` opens the RL environment
+    (:class:`repro_torch.env.MarketEnv`) over the engine's one-step runner,
+    whose :meth:`ChunkRunner.env_step_fn` is its step core.
   * Every session carries a
     :class:`~repro_torch.ops.metrics.MetricsRegistry` unless opened with
     ``metrics=False``; ``Engine.trace_count`` counts the runners an engine
@@ -110,6 +113,10 @@ class ChunkRunner:
     #: True for the kernel backends: :meth:`Engine.warm` launches them once
     #: before serving. The eager baselines have nothing to build or warm.
     compiled: bool = False
+    #: True when the env step core takes a runtime RNG seed; False where
+    #: the seed is the kernel's launch argument from the spec (as Pallas
+    #: bakes it into its trace) or a stateful stream (PCG64).
+    env_runtime_seed: bool = False
 
     def __init__(self, device: torch.device) -> None:
         self.device = device
@@ -151,6 +158,19 @@ class ChunkRunner:
         return None
 
     def restore_aux(self, payload: Any) -> Any:
+        return None
+
+    def env_step_fn(self) -> Optional[Callable]:
+        """The per-step core of :class:`repro_torch.env.MarketEnv`, or None.
+
+        The callable has the signature ``fn(market, params, t, ext_buy,
+        ext_ask, seed, aux) -> (MarketState, StepOutput, aux)``: ``params``
+        the :class:`PackedParams`, ``t`` the absolute step (an int),
+        ``ext_buy``/``ext_ask`` float32[M, L] orders or None, ``seed`` a
+        runtime RNG seed or None, and ``aux`` the stateful RNG. The peer
+        column is resolved from ``market.prev_mid`` at every call. It runs
+        the step the runner's :meth:`run` runs, so the two cannot drift.
+        """
         return None
 
     def run(self, state: MarketState, params: PackedParams, step0: int,
@@ -204,6 +224,12 @@ def _ensure_builtin() -> None:
         except ImportError as exc:
             for name in names:
                 record_failure(name, f"{type(exc).__name__}: {exc}")
+
+
+def is_host_only(name: str) -> bool:
+    """True for a backend that runs on the host only (the numpy family)."""
+    _ensure_builtin()
+    return name in _HOST_ONLY
 
 
 def backends() -> "list[str]":
@@ -336,6 +362,15 @@ class Engine:
         from repro_torch.ops import warmup
 
         return warmup.readiness(self)
+
+    def env(self, spec: Union[EnsembleSpec, MarketConfig], **env_opts: Any):
+        """Open an RL environment (:class:`repro_torch.env.MarketEnv`) over
+        this engine's one-step runner, the one :meth:`Session.step` uses, so
+        envs of one shape share it and a warm engine builds nothing more.
+        ``env_opts``: ``obs=``, ``reward=``, ``horizon=``, ``auto_reset=``."""
+        from repro_torch.env.core import MarketEnv
+
+        return MarketEnv(spec, engine=self, **env_opts)
 
 
 class Session:
@@ -504,20 +539,20 @@ class Session:
         return self.to_result(self.run(n_steps))
 
     # ---- slot mutation (the serving gateway's attach/detach) ----
-    def swap_markets(self, slots,
-                     sub: Union[EnsembleSpec, MarketConfig]) -> None:
+    def swap_markets(self, slots, sub: Union[EnsembleSpec, MarketConfig],
+                     *, reset_books: bool = True) -> None:
         """Replace markets ``slots`` with the rows of ``sub`` (a
         ``len(slots)``-market spec or config) between chunks.
 
         The rows' params are re-packed into the session's
-        :class:`PackedParams`, their books take ``sub``'s opening books and
-        their ``stats_only`` accumulators start afresh, all by
-        ``index_copy`` on the device: no runner is built and
-        no other row changes (rows are independent and the RNG keys on the
-        global market id). Detaching is the same call with
-        :meth:`EnsembleSpec.parked` rows. ``sub`` must agree on every static
-        field. Rejected during an active :meth:`stream`; a failed splice
-        leaves the session untouched.
+        :class:`PackedParams`, their books take ``sub``'s opening books
+        (with ``reset_books``; else they keep their live books) and their
+        ``stats_only`` accumulators start afresh, all by ``index_copy`` on
+        the device: no runner is built and no other row changes (rows are
+        independent and the RNG keys on the global market id). Detaching is
+        the same call with :meth:`EnsembleSpec.parked` rows. ``sub`` must
+        agree on every static field. Rejected during an active
+        :meth:`stream`; a failed splice leaves the session untouched.
         """
         self._check_open()
         if self._active_streams:
@@ -535,8 +570,10 @@ class Session:
             return [leaf.index_copy(0, rows, upload(src, self.device))
                     for leaf, src in zip(leaves, fresh)]
 
-        new_state = MarketState(*splice(self._state,
-                                        initial_state(sub, "cpu")))
+        new_state = self._state
+        if reset_books:
+            new_state = MarketState(*splice(self._state,
+                                            initial_state(sub, "cpu")))
         new_stats = self._stats
         if self._stats is not None:
             new_stats = MarketStats(*splice(self._stats,

@@ -13,8 +13,9 @@ The counterparts of the JAX package's ``jax-scan`` and ``jax-per-step``
 Both freeze the coupling column once per chunk, inject external orders at
 the chunk's first step, and carry the ``stats_only`` accumulators. Orders
 are binned with ``scatter_add_`` (the one-hot binning of the JAX package
-is not ported). These are baselines a user picks by name; they are not a
-fallback of the kernel backends.
+is not ported). Their env step core (:meth:`TorchChunkRunner.env_step_fn`)
+is one call of the same step, with a runtime ``seed``. These are baselines
+a user picks by name; they are not a fallback of the kernel backends.
 """
 from __future__ import annotations
 
@@ -38,6 +39,8 @@ MODES = {"scan": "torch-scan", "per-step": "torch-per-step"}
 class TorchChunkRunner(session.ChunkRunner):
     """Eager chunk executor for the two framework regimes."""
 
+    env_runtime_seed = True
+
     def __init__(self, spec: EnsembleSpec, chunk: int, device: torch.device,
                  mode: str = "scan", scan: str = "cumsum",
                  stats_only: bool = False):
@@ -54,11 +57,28 @@ class TorchChunkRunner(session.ChunkRunner):
         self._market_ids = torch.arange(spec.num_markets, dtype=torch.int32,
                                         device=device)[:, None]
 
-    def step_fn(self, aux) -> Callable:
+    def step_fn(self, aux, seed=None) -> Callable:
         """The step a chunk loops, ``f(cfg, state, step, market_ids,
         **simulate_step keywords)``: the call-auction step here; the numpy
-        reference family swaps in its RNG stream and clearing mechanism."""
+        reference family swaps in its RNG stream (``seed`` overrides the
+        spec's) and clearing mechanism."""
         return functools.partial(simulate_step, scan=self.scan)
+
+    def env_step_fn(self) -> Callable:
+        """One :meth:`step_fn` call a step, with the runtime ``seed`` and
+        the peer column gathered from ``market.prev_mid``."""
+        def step_core(market, params, t, ext_buy, ext_ask, seed, aux):
+            cols = params.columns()
+            new_state, out = self.step_fn(aux, seed)(
+                self.spec, market, t, self._market_ids, ext_buy=ext_buy,
+                ext_ask=ext_ask, params=cols,
+                atype=params_mod.agent_types(cols, self.spec.num_agents,
+                                             self.device),
+                seed=seed, peer_mid=resolve_peer_mids(market.prev_mid,
+                                                      cols.coupling_peer))
+            return new_state, out, aux
+
+        return step_core
 
     def run(self, state: MarketState, params: PackedParams, step0: int,
             n: int, ext, stats=None, aux=None

@@ -1,10 +1,17 @@
-"""Action validation + lowering for :meth:`Session.step`.
+"""Action validation + lowering for :meth:`Session.step` and the RL env.
 
 One external limit order per market, an :class:`ExternalOrders` triple
 (``side_buy``, ``price``, ``qty``), is lowered onto the reserved
 ``ext_buy``/``ext_ask`` slot as two float32[M, L] quantity grids with one
-nonzero entry per market. Malformed actions raise ``ValueError`` here, at
-the API boundary.
+nonzero entry per market. Both RL front doors, :meth:`Session.step` and
+:meth:`repro_torch.env.MarketEnv.step`, share this module.
+
+Malformed actions raise ``ValueError`` here, at the API boundary. The value
+checks (prices on the grid and integral, quantities >= 0) read the
+operands on the host; a rollout on the card skips them, as the JAX
+package's traced rollouts do. :func:`lower_actions` sanitizes on the
+device instead: prices round half to even and clip to the grid,
+quantities clamp at 0, which leaves a valid action's bits as they are.
 """
 from __future__ import annotations
 
@@ -17,25 +24,29 @@ from repro_torch.core.result import to_host
 from repro_torch.core.session import ExternalOrders
 
 
-def _field(value: Any, name: str, num_markets: int) -> np.ndarray:
-    """Host copy of one action field, shape-checked: scalar, [M] or [M, 1]."""
-    arr = to_host(value)
-    shape = arr.shape
-    if arr.size not in (1, num_markets):
+def _field(value: Any, name: str, num_markets: int) -> Any:
+    """Shape-check one action field (scalar, [M] or [M, 1]) without
+    copying a tensor to the host."""
+    shape = tuple(value.shape) if isinstance(value, torch.Tensor) \
+        else np.shape(value)
+    size = int(np.prod(shape, dtype=np.int64)) if shape else 1
+    if size not in (1, num_markets):
         raise ValueError(
             f"actions.{name} must broadcast to [{num_markets}] (one order "
-            f"per market); got shape {shape} ({arr.size} entries) — market "
+            f"per market); got shape {shape} ({size} entries) — market "
             "mismatch")
-    if arr.ndim > 2 or (arr.ndim == 2 and shape[1] != 1):
+    if len(shape) > 2 or (len(shape) == 2 and shape[1] != 1):
         raise ValueError(f"actions.{name} must be a scalar, [{num_markets}] "
                          f"or [{num_markets}, 1] array; got shape {shape}")
-    return arr
+    return value
 
 
-def validate_actions(actions: Any, num_markets: int,
-                     num_levels: int) -> ExternalOrders:
-    """Normalize an action triple to host arrays and validate it: market
-    count, prices on the grid and integral, quantities >= 0."""
+def validate_actions(actions: Any, num_markets: int, num_levels: int,
+                     check_values: bool = True) -> ExternalOrders:
+    """Normalize an action triple and validate it: the market count and,
+    with ``check_values``, prices on the grid and integral and quantities
+    >= 0, on host copies (which it returns). Without ``check_values`` the
+    fields pass through as they are."""
     if isinstance(actions, dict):
         try:
             actions = ExternalOrders(actions["side_buy"], actions["price"],
@@ -57,6 +68,9 @@ def validate_actions(actions: Any, num_markets: int,
     side_buy = _field(actions.side_buy, "side_buy", num_markets)
     price = _field(actions.price, "price", num_markets)
     qty = _field(actions.qty, "qty", num_markets)
+    if not check_values:
+        return ExternalOrders(side_buy, price, qty)
+    side_buy, price, qty = to_host(side_buy), to_host(price), to_host(qty)
     if np.issubdtype(price.dtype, np.floating) and (price != np.floor(price)).any():
         raise ValueError("actions.price must be integer tick indices; got "
                          f"fractional values (e.g. {float(price.reshape(-1)[0])})")
@@ -68,27 +82,33 @@ def validate_actions(actions: Any, num_markets: int,
                          "mismatch")
     q = qty.astype(np.float32)
     if (q < 0).any():
-        raise ValueError(f"actions.qty must be >= 0 lots (0 is a no-op order);"
-                         f" got {np.unique(q[q < 0])[:8].tolist()}")
+        bad = np.unique(q[q < 0])[:8]
+        raise ValueError(
+            f"actions.qty must be >= 0 lots (0 is a no-op order); got "
+            f"negative quantit{'y' if bad.size == 1 else 'ies'} "
+            f"{bad.tolist()}")
     return ExternalOrders(side_buy, price, qty)
 
 
 def lower_actions(orders: ExternalOrders, num_markets: int, num_levels: int,
                   device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Lower a validated order triple to ``(ext_buy, ext_ask)``
-    float32[M, L] grids on ``device``."""
+    """Lower an order triple to ``(ext_buy, ext_ask)`` float32[M, L] grids
+    with torch ops on ``device`` (host arrays and scalars are taken as they
+    are, a tensor on the device is never copied to the host): round half to
+    even, clip the tick to [0, L) (a non-finite or out-of-range price
+    saturates, NaN to tick 0, as the JAX package's conversion does), clamp
+    the lots at 0, and one-hot by ``arange(L)``."""
     M, L = num_markets, num_levels
-    side = np.broadcast_to(np.asarray(orders.side_buy).astype(bool)
-                           .reshape(-1), (M,))
-    tick = np.broadcast_to(np.rint(np.asarray(orders.price)).astype(np.int64)
-                           .reshape(-1), (M,))
-    tick = np.clip(tick, 0, L - 1)
-    lots = np.broadcast_to(np.asarray(orders.qty, np.float32).reshape(-1), (M,))
-    lots = np.maximum(lots, np.float32(0.0))
-    ext_buy = np.zeros((M, L), np.float32)
-    ext_ask = np.zeros((M, L), np.float32)
-    rows = np.arange(M)
-    ext_buy[rows, tick] = np.where(side, lots, np.float32(0.0))
-    ext_ask[rows, tick] = np.where(side, np.float32(0.0), lots)
-    return (torch.from_numpy(ext_buy).to(device),
-            torch.from_numpy(ext_ask).to(device))
+
+    def column(x):
+        return torch.as_tensor(x, device=device).reshape(-1).expand(M)
+
+    side = column(orders.side_buy).to(torch.bool)[:, None]
+    price = column(orders.price)
+    if price.is_floating_point():
+        price = torch.nan_to_num(torch.round(price), nan=0.0)
+    tick = price.clamp(0, L - 1).to(torch.int64)[:, None]
+    lots = column(orders.qty).to(torch.float32).clamp_min(0.0)[:, None]
+    onehot = torch.arange(L, device=device)[None, :] == tick
+    return (torch.where(onehot & side, lots, 0.0),
+            torch.where(onehot & ~side, lots, 0.0))

@@ -95,8 +95,9 @@ def build(names: Iterable[str]) -> List[Path]:
 
 def ptxas_report(name: str) -> Dict[str, dict]:
     """Registers and spill bytes of each kernel of a built library, from
-    ptxas's ``-v`` report, keyed by kernel name (a ``<true>``/``<false>``
-    suffix for the bool template argument)."""
+    ptxas's ``-v`` report, keyed by kernel name (with a ``<N>`` suffix for
+    an int template argument, such as the persistent kernels' agent
+    mode)."""
     report, kernel = {}, None
     log = library_path(name).with_suffix(".log").read_text()
     for line in log.splitlines():
@@ -104,9 +105,9 @@ def ptxas_report(name: str) -> Dict[str, dict]:
         if m:
             n, rest = int(m.group(1)), m.group(2)
             kernel = rest[:n]
-            if rest[n:].startswith("ILb"):
-                kernel += ("<true>" if rest[n:].startswith("ILb1")
-                           else "<false>")
+            arg = re.match(r"ILi(\d+)E", rest[n:])
+            if arg:
+                kernel += f"<{arg.group(1)}>"
             report[kernel] = {}
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",

@@ -15,16 +15,17 @@ sublane tile (``csrc/kinetic_step.cuh``):
   * agent ``a`` is handled by thread ``a mod T``. The persistent kernels
     compute each agent's step-invariant hash round and type once per call
     and keep them in registers while a thread has at most ``REG_AGENTS``
-    agents, else in the team's shared memory after its bins.
+    agents (``agents="registers"``), else in the team's shared memory
+    after its bins (``"shared"``). A market whose keys and type bytes (5
+    bytes an agent) do not fit one CTA's shared memory beside the 8·L
+    bytes of bins, past 46,080 agents at L=128 (44,646 at L=1024), has
+    them recomputed at every step (``"fresh"``), as the per-step kernels
+    always do: its books still stay on chip for the chunk. So the rule
+    takes any population, as the JAX package's agent chunking does.
 
-The rule raises on a shape it cannot take. There is no sweep, no
-environment variable and no fallback: the wrapper passes the shape to the
-C entry, which checks it again. The constants repeat ``kinetic_step.cuh``.
-
-This is a limit of the port: one market's keys and type bytes must fit a
-CTA's shared memory, 5 bytes an agent beside the 8·L bytes of bins, so
-``auto_tile`` raises past 46,080 agents a market at L=128 (44,646 at
-L=1024), where the JAX package's agent chunking takes any population.
+The rule raises only outside its domain. There is no sweep, no environment
+variable and no fallback: the wrapper passes the shape to the C entry,
+which checks it again. The constants repeat ``kinetic_step.cuh``.
 """
 from __future__ import annotations
 
@@ -40,6 +41,9 @@ MAX_CTA_THREADS = 256
 #: Dynamic shared memory a CTA may take: the 227 KB a block can use on
 #: Hopper, less 1 KB for the static reduction scratch.
 MAX_DYNAMIC_SMEM = 232448 - 1024
+#: Where a persistent kernel keeps the agents' keys and types, in the order
+#: of the C side's ``AgentMode`` codes (``kinetic_step.cuh``).
+AGENT_MODES = ("shared", "registers", "fresh")
 
 
 class TileChoice(NamedTuple):
@@ -49,7 +53,7 @@ class TileChoice(NamedTuple):
     num_agents: int
     warps_per_market: int
     markets_per_cta: int
-    agents_in_registers: bool    # persistent kernels: else shared memory
+    agents: str    # persistent kernels: one of AGENT_MODES
 
     @property
     def threads_per_market(self) -> int:
@@ -65,16 +69,16 @@ class TileChoice(NamedTuple):
 
     def smem_bytes(self, hoisted: bool) -> int:
         """Dynamic shared memory per CTA: each team's int bins (2·L) and,
-        for a persistent kernel (``hoisted``) whose agents do not fit in
-        registers, A keys and A type bytes."""
+        for a persistent kernel (``hoisted``) in the ``"shared"`` mode, A
+        keys and A type bytes."""
         return self.markets_per_cta * team_smem_bytes(
             self.num_levels, self.num_agents,
-            hoisted and not self.agents_in_registers)
+            hoisted and self.agents == "shared")
 
     def as_c_args(self) -> Tuple[int, int, int]:
-        """``(warps_per_market, markets_per_cta, agents_in_registers)``."""
+        """``(warps_per_market, markets_per_cta, agent mode code)``."""
         return (self.warps_per_market, self.markets_per_cta,
-                int(self.agents_in_registers))
+                AGENT_MODES.index(self.agents))
 
 
 def team_smem_bytes(num_levels: int, num_agents: int,
@@ -88,8 +92,7 @@ def team_smem_bytes(num_levels: int, num_agents: int,
 
 def auto_tile(num_levels: int, num_agents: int) -> TileChoice:
     """The launch shape for ``num_levels`` (a power of two in [4, 1024]) and
-    ``num_agents`` (>= 1); raises ``ValueError`` outside that domain or
-    when one market's shared memory does not fit a CTA."""
+    ``num_agents`` (>= 1); raises ``ValueError`` outside that domain."""
     L, A = int(num_levels), int(num_agents)
     if L < 4 or L > 1024 or L & (L - 1):
         raise ValueError(f"num_levels must be a power of two in [4, 1024], "
@@ -97,13 +100,14 @@ def auto_tile(num_levels: int, num_agents: int) -> TileChoice:
     if A < 1:
         raise ValueError(f"num_agents must be >= 1, got {num_agents}")
     W = max(1, L // LEVELS_PER_WARP)
-    in_regs = A <= REG_AGENTS * 32 * W
-    per_market = team_smem_bytes(L, A, not in_regs)
+    if A <= REG_AGENTS * 32 * W:
+        agents = "registers"
+    elif team_smem_bytes(L, A, True) <= MAX_DYNAMIC_SMEM:
+        agents = "shared"
+    else:
+        agents = "fresh"
+    per_market = team_smem_bytes(L, A, agents == "shared")
     mpc = MARKETS_PER_CTA if W == 1 else 1
     while mpc > 1 and mpc * per_market > MAX_DYNAMIC_SMEM:
         mpc //= 2
-    if per_market > MAX_DYNAMIC_SMEM:
-        raise ValueError(
-            f"one market at L={L}, A={A} needs {per_market} bytes of shared "
-            f"memory, more than the {MAX_DYNAMIC_SMEM} a CTA can take")
-    return TileChoice(L, A, W, mpc, in_regs)
+    return TileChoice(L, A, W, mpc, agents)

@@ -19,7 +19,10 @@
 // the incoming bins in shared memory, so the books touch device memory only
 // at entry and exit. Each agent's step-invariant hash round and type are
 // computed once per call: in registers while a thread has at most 8 agents
-// (template REG), else in the team's shared memory.
+// (AGENTS_REGISTERS), else in the team's shared memory (AGENTS_SHARED);
+// a market whose A keys and type bytes do not fit one CTA's shared memory
+// recomputes them at every step (AGENTS_FRESH), as the per-step kernels
+// do, and keeps only its books and bins on chip.
 //
 // What bounds them on this card: operations, not bytes. Per step a market
 // moves nothing through device memory, while every agent draws the
@@ -39,17 +42,22 @@
 // peer column, no external orders, stats or mid path) is carried by the
 // ChunkArgs its C entry fills, never by the kernel. They stay two kernels
 // so each TPU kernel has its own name in the launch counts and ptxas report;
-// a change to one body is a change to both.
-template <bool REG>
-__global__ void kinetic_chunk_kernel(ChunkArgs g) {
-  if constexpr (REG) persistent_market<RegAgents>(g);
-  else persistent_market<SmemAgents>(g);
+// a change to one body is a change to both. AGENTS is an AgentMode.
+template <int AGENTS>
+__device__ __forceinline__ void persistent_body(const ChunkArgs& g) {
+  if constexpr (AGENTS == AGENTS_REGISTERS) persistent_market<RegAgents>(g);
+  else if constexpr (AGENTS == AGENTS_SHARED) persistent_market<SmemAgents>(g);
+  else persistent_market<FreshAgents>(g);
 }
 
-template <bool REG>
+template <int AGENTS>
+__global__ void kinetic_chunk_kernel(ChunkArgs g) {
+  persistent_body<AGENTS>(g);
+}
+
+template <int AGENTS>
 __global__ void kinetic_legacy_kernel(ChunkArgs g) {
-  if constexpr (REG) persistent_market<RegAgents>(g);
-  else persistent_market<SmemAgents>(g);
+  persistent_body<AGENTS>(g);
 }
 
 template <class K>
@@ -60,18 +68,35 @@ static int launch(K kernel, const ChunkArgs& g, size_t smem, void* stream) {
   return (int)cudaGetLastError();
 }
 
-static int launch_persistent(bool legacy, const ChunkArgs& g, int reg,
+template <int AGENTS>
+static int launch_mode(bool legacy, const ChunkArgs& g, size_t smem,
+                       void* stream) {
+  return legacy ? launch(kinetic_legacy_kernel<AGENTS>, g, smem, stream)
+                : launch(kinetic_chunk_kernel<AGENTS>, g, smem, stream);
+}
+
+static int launch_persistent(bool legacy, const ChunkArgs& g, int agents,
                              void* stream) {
   size_t smem;
   const int bad = check_shape(g.L, g.A, g.warps_per_market,
-                              g.markets_per_cta, reg, true, &smem);
+                              g.markets_per_cta, agents, &smem);
   if (bad != 0) return bad;
-  if (legacy) {
-    return reg ? launch(kinetic_legacy_kernel<true>, g, smem, stream)
-               : launch(kinetic_legacy_kernel<false>, g, smem, stream);
+  switch (agents) {
+    case AGENTS_REGISTERS:
+      return launch_mode<AGENTS_REGISTERS>(legacy, g, smem, stream);
+    case AGENTS_SHARED:
+      return launch_mode<AGENTS_SHARED>(legacy, g, smem, stream);
+    default:
+      return launch_mode<AGENTS_FRESH>(legacy, g, smem, stream);
   }
-  return reg ? launch(kinetic_chunk_kernel<true>, g, smem, stream)
-             : launch(kinetic_chunk_kernel<false>, g, smem, stream);
+}
+
+template <int AGENTS>
+static int occupancy_mode(bool legacy, int threads, size_t smem, int* ctas) {
+  return legacy ? resident_ctas(kinetic_legacy_kernel<AGENTS>, threads, smem,
+                                ctas)
+                : resident_ctas(kinetic_chunk_kernel<AGENTS>, threads, smem,
+                                ctas);
 }
 
 extern "C" {
@@ -88,14 +113,13 @@ int kc_kinetic_clearing_chunk(
     float* ask_out, float* last_out, float* pmid_out, float* price_path,
     float* volume_path, float* mid_path, float* stats_out, int M, int A,
     int L, int chunk, int step0, int n_valid, int warps_per_market,
-    int markets_per_cta, int agents_in_registers, uint32_t seed,
-    void* stream) {
+    int markets_per_cta, int agents, uint32_t seed, void* stream) {
   const ChunkArgs g{market_ids, bid, ask, last, pmid, ext_buy, ext_ask,
                     peer_mid, fparams, iparams, 1, stats_in, bid_out,
                     ask_out, last_out, pmid_out, price_path, volume_path,
                     mid_path, stats_out, M, A, L, chunk, step0, n_valid,
                     seed, warps_per_market, markets_per_cta};
-  const int err = launch_persistent(false, g, agents_in_registers, stream);
+  const int err = launch_persistent(false, g, agents, stream);
   return err != 0 ? err : (int)cudaGetLastError();
 }
 
@@ -106,13 +130,13 @@ int kc_kinetic_clearing(
     const float* fparams, const int* iparams, float* bid_out, float* ask_out,
     float* last_out, float* pmid_out, float* price_path, float* volume_path,
     int M, int A, int L, int S, int warps_per_market, int markets_per_cta,
-    int agents_in_registers, uint32_t seed, void* stream) {
+    int agents, uint32_t seed, void* stream) {
   const ChunkArgs g{nullptr, bid, ask, last, pmid, nullptr, nullptr,
                     nullptr, fparams, iparams, 0, nullptr, bid_out, ask_out,
                     last_out, pmid_out, price_path, volume_path, nullptr,
                     nullptr, M, A, L, S, 0, S, seed, warps_per_market,
                     markets_per_cta};
-  const int err = launch_persistent(true, g, agents_in_registers, stream);
+  const int err = launch_persistent(true, g, agents, stream);
   return err != 0 ? err : (int)cudaGetLastError();
 }
 
@@ -120,22 +144,23 @@ int kc_kinetic_clearing(
 // kernel (legacy = 1) at a launch shape, into *ctas; returns the CUDA error
 // of the query, else cudaGetLastError().
 int kc_occupancy(int legacy, int A, int L, int warps_per_market,
-                 int markets_per_cta, int agents_in_registers, int* ctas) {
+                 int markets_per_cta, int agents, int* ctas) {
   size_t smem;
   const int bad = check_shape(L, A, warps_per_market, markets_per_cta,
-                              agents_in_registers, true, &smem);
+                              agents, &smem);
   if (bad != 0) return bad;
   const int threads = 32 * warps_per_market * markets_per_cta;
-  const bool reg = agents_in_registers != 0;
-  const int err =
-      legacy ? (reg ? resident_ctas(kinetic_legacy_kernel<true>, threads,
-                                    smem, ctas)
-                    : resident_ctas(kinetic_legacy_kernel<false>, threads,
-                                    smem, ctas))
-             : (reg ? resident_ctas(kinetic_chunk_kernel<true>, threads,
-                                    smem, ctas)
-                    : resident_ctas(kinetic_chunk_kernel<false>, threads,
-                                    smem, ctas));
+  int err;
+  switch (agents) {
+    case AGENTS_REGISTERS:
+      err = occupancy_mode<AGENTS_REGISTERS>(legacy, threads, smem, ctas);
+      break;
+    case AGENTS_SHARED:
+      err = occupancy_mode<AGENTS_SHARED>(legacy, threads, smem, ctas);
+      break;
+    default:
+      err = occupancy_mode<AGENTS_FRESH>(legacy, threads, smem, ctas);
+  }
   return err != 0 ? err : (int)cudaGetLastError();
 }
 

@@ -339,7 +339,9 @@ struct SmemAgents {
   }
 };
 
-// Recomputed at every step (the per-step kernels keep nothing).
+// Recomputed at every step: the per-step kernels, which keep nothing, and
+// a persistent kernel whose market's keys and types fit neither registers
+// nor shared memory (the books still stay on chip across the chunk).
 struct FreshAgents {
   static constexpr bool kSmem = false;
   const MarketRow* p;
@@ -365,18 +367,25 @@ static inline __host__ __device__ int team_smem_words(int L, int A,
   return 2 * L + (agents_in_smem ? A + (A + 3) / 4 : 0);
 }
 
-// 0 when (W, MPC, reg) is a launch shape the kernels can run for (L, A),
-// else cudaErrorInvalidValue. `hoist`: the kernel keeps agents per call.
-static inline int check_shape(int L, int A, int W, int MPC, int reg,
-                              bool hoist, size_t* smem) {
+// Where a kernel keeps each agent's step-invariant key and type: the agent
+// mode of the launch shape (autotune.py AGENT_MODES, in this order). The
+// persistent kernels take any of the three; the per-step kernels keep
+// nothing across steps, so they always run AGENTS_FRESH.
+enum AgentMode { AGENTS_SHARED = 0, AGENTS_REGISTERS = 1, AGENTS_FRESH = 2 };
+
+// 0 when (W, MPC, agents) is a launch shape the kernels can run for (L, A),
+// else cudaErrorInvalidValue.
+static inline int check_shape(int L, int A, int W, int MPC, int agents,
+                              size_t* smem) {
   const bool pow2 = L >= 4 && L <= 1024 && (L & (L - 1)) == 0;
   const bool w_ok = W == 1 || W == 2 || W == 4 || W == 8;
   if (!pow2 || A < 1 || !w_ok || W * LEVELS_PER_WARP < L || MPC < 1 ||
       (W > 1 && MPC != 1) || 32 * W * MPC > MAX_CTA_THREADS ||
-      (reg && A > REG_AGENTS * 32 * W)) {
+      agents < AGENTS_SHARED || agents > AGENTS_FRESH ||
+      (agents == AGENTS_REGISTERS && A > REG_AGENTS * 32 * W)) {
     return (int)cudaErrorInvalidValue;
   }
-  *smem = (size_t)MPC * 4 * team_smem_words(L, A, hoist && !reg);
+  *smem = (size_t)MPC * 4 * team_smem_words(L, A, agents == AGENTS_SHARED);
   return *smem <= MAX_DYNAMIC_SMEM ? 0 : (int)cudaErrorInvalidValue;
 }
 

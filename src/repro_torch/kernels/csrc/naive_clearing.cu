@@ -80,8 +80,8 @@ static int launch_steps(K kernel, ChunkArgs g, StateBufs src,
                         const OutBufs& out, const OutBufs& tmp, int n,
                         void* stream) {
   size_t smem;
-  int err = check_shape(g.L, g.A, g.warps_per_market, g.markets_per_cta, 0,
-                        false, &smem);
+  int err = check_shape(g.L, g.A, g.warps_per_market, g.markets_per_cta,
+                        AGENTS_FRESH, &smem);
   if (err == 0) err = allow_smem(kernel, smem);
   if (err != 0) return err;
   const float* ext_buy = g.ext_buy;
@@ -163,8 +163,8 @@ int kc_naive_clearing(
 int kc_occupancy(int legacy, int A, int L, int warps_per_market,
                  int markets_per_cta, int* ctas) {
   size_t smem;
-  const int bad = check_shape(L, A, warps_per_market, markets_per_cta, 0,
-                              false, &smem);
+  const int bad = check_shape(L, A, warps_per_market, markets_per_cta,
+                              AGENTS_FRESH, &smem);
   if (bad != 0) return bad;
   const int threads = 32 * warps_per_market * markets_per_cta;
   const int err =

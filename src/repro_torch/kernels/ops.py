@@ -11,7 +11,9 @@ function with the operands of
 
 On the CPU both run the same plain PyTorch version. The coupling column is
 frozen at chunk entry inside the wrappers, as on every backend of the JAX
-package.
+package. The env step core (:meth:`ClearingChunkRunner.env_step_fn`) is one
+``run`` of one step on the engine's chunk-1 runner: one launch of kernel 1
+(or 2) per env step, its peer column resolved at every step.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from repro_torch.core import session
 from repro_torch.core.device import resolve_device
 from repro_torch.core.params import EnsembleSpec
 from repro_torch.core.result import SimResult
-from repro_torch.core.step import MarketState
+from repro_torch.core.step import MarketState, StepOutput
 from repro_torch.kernels import _build
 from repro_torch.kernels import kinetic_clearing as kc
 from repro_torch.kernels import naive_clearing as nc
@@ -80,6 +82,17 @@ class ClearingChunkRunner(session.ChunkRunner):
         pp, vp, mp = out[4:]
         return new_state, session.StepBatch(
             price=pp[:, :n], volume=vp[:, :n], mid=mp[:, :n]), None
+
+    def env_step_fn(self) -> Callable:
+        """One :meth:`run` of one step from ``t``, the env's orders as the
+        chunk's external orders (None: no operand at all, which adds
+        nothing). The seed is the spec's: the env rejects a runtime one."""
+        def step_core(market, params, t, ext_buy, ext_ask, seed, aux):
+            ext = None if ext_buy is None else (ext_buy, ext_ask)
+            state, batch, _ = self.run(market, params, t, 1, ext)
+            return state, StepOutput(*batch), aux
+
+        return step_core
 
 
 class KineticChunkRunner(ClearingChunkRunner):

@@ -152,3 +152,62 @@ def test_stats_accumulate_matches():
         ts = stats.accumulate(ts, _t(mid), _t(vol))
     for g, w in zip(ts, js):
         _eq(g, w)
+
+
+@pytest.mark.parametrize("name", ["baseline", "whale", "hft", "informed"])
+def test_config_mixture_and_events_match(name):
+    from repro.core.config import scenario_config as j_scenario_config
+    from repro_torch.core.config import scenario_config
+
+    over = dict(num_markets=6, num_agents=40, num_steps=30,
+                alpha_arbitrageur=0.1, alpha_fundamentalist=0.05)
+    cfg, jcfg = scenario_config(name, **over), j_scenario_config(name, **over)
+    assert cfg.mixture() == jcfg.mixture()
+    assert abs(sum(cfg.mixture().values()) - 1.0) < 1e-12
+    assert cfg.events() == jcfg.events() == 6 * 40 * 30
+    spec = params_mod.EnsembleSpec.from_scenarios(
+        ["baseline", name], num_markets=3, num_agents=40, num_steps=30)
+    jspec = JSpec.from_scenarios(["baseline", name], num_markets=3,
+                                 num_agents=40, num_steps=30)
+    assert spec.events() == jspec.events() == 6 * 40 * 30
+
+
+def test_archetype_names_match():
+    assert agents.archetype_names() == j_agents.archetype_names()
+
+
+def test_market_params_zeros_match():
+    from repro.core.params import MarketParams as JParams
+
+    got = params_mod.MarketParams.zeros(5, "cpu")
+    want = JParams.zeros(5, np)
+    for f in want._fields:
+        g, w = getattr(got, f).numpy(), np.asarray(getattr(want, f))
+        assert g.dtype == w.dtype and g.shape == w.shape == (5, 1), f
+        assert (g == w).all(), f
+
+
+def test_register_scenario_matches():
+    """A preset registered in both packages builds equal configs and
+    params, and joins ``scenario_names``."""
+    from repro.core import config as j_config
+    from repro_torch.core import config
+
+    def preset(num_steps):
+        return {"shock_step": num_steps // 3, "shock_intensity": 0.4,
+                "noise_delta": 12.0}
+
+    try:
+        config.register_scenario("test-third")(preset)
+        j_config.register_scenario("test-third")(preset)
+        assert "test-third" in config.scenario_names()
+        cfg = config.scenario_config("test-third", num_steps=30)
+        jcfg = j_config.scenario_config("test-third", num_steps=30)
+        assert cfg.shock_step == jcfg.shock_step == 10
+        got = params_mod.params_from_config(cfg)
+        want = JSpec.homogeneous(jcfg).params.to_numpy()
+        for f in want._fields:
+            _eq(getattr(got, f), getattr(want, f))
+    finally:
+        config.SCENARIO_PRESETS.pop("test-third", None)
+        j_config.SCENARIO_PRESETS.pop("test-third", None)

@@ -75,7 +75,7 @@ def test_kernel_equals_plain(cuda, M, A, L, stats_only):
 
 
 @pytest.mark.parametrize("L", [4, 128, 1024])
-@pytest.mark.parametrize("A", [16, 1024, 4096])
+@pytest.mark.parametrize("A", [16, 1024, 4096, 50000])
 def test_launch_rule_shapes_are_resident(cuda, A, L):
     """Every kernel takes the rule's shape: its C entry accepts it and at
     least one CTA of it fits on an SM."""
@@ -233,3 +233,75 @@ def test_coupled_scenario_on_the_card_equals_the_host(cuda):
             runs[backend] = s.run_to_result().to_numpy()
     for g, w in zip(runs["cuda-kinetic"], runs["numpy"]):
         assert (g == w).all()
+
+
+@pytest.mark.parametrize("A,L", [(50000, 128), (45000, 1024)])
+def test_fresh_agent_mode_equals_plain(cuda, A, L):
+    """Past shared memory the persistent kernels (1 and 3) recompute each
+    agent's key and type every step, and still equal their plain
+    versions bit for bit."""
+    assert autotune.auto_tile(L, A).agents == "fresh"
+    spec = _spec(2, A, L, S=8)
+    state = initial_state(spec, cuda)
+    kw = dict(cfg=spec, chunk=6,
+              params=params_mod.pack_params(spec.params, cuda))
+    got = kc.kinetic_clearing_chunk(*state, 1, 6, **kw)
+    want = kc.kinetic_clearing_chunk_plain(*state, 1, 6, **kw)
+    cfg = _legacy_cfg(3, A, L, S=8)
+    lstate = initial_state(cfg, cuda)
+    lgot = kc.kinetic_clearing(*lstate, cfg=cfg)
+    lwant = kc.kinetic_clearing_plain(*lstate, cfg=cfg)
+    torch.cuda.synchronize()
+    for g, w in zip(list(got) + list(lgot), list(want) + list(lwant)):
+        assert torch.equal(g, w)
+
+
+def _env_rollout(backend, device, spec, steps, obs=None):
+    from repro_torch.env import rollout
+
+    env = Engine(backend, device=device).env(spec, horizon=16, obs=obs)
+    return rollout(env, chip_smoke.maker_policy(spec.num_levels), steps)
+
+
+@pytest.mark.parametrize("backend,counter", [
+    ("cuda-kinetic", kc.kinetic_clearing_chunk),
+    ("cuda-naive", nc.naive_clearing_chunk)])
+def test_env_launches_once_per_step_and_equals_the_host(cuda, backend,
+                                                         counter):
+    """The env on a kernel backend launches its kernel once per env step,
+    and its maker rollout (across two auto-resets, composite observations)
+    equals ``torch-scan`` on the card and the plain version on the CPU."""
+    from repro_torch.env import (BookWindow, Composite, MarketFeatures,
+                                 PortfolioFeatures, StatsFeatures)
+
+    spec = _spec(3, 256, 128, S=40)
+    obs = Composite((MarketFeatures(), BookWindow(4), PortfolioFeatures(),
+                     StatsFeatures()))
+    counter.launches = 0
+    final, batch = _env_rollout(backend, cuda, spec, 40, obs)
+    torch.cuda.synchronize()
+    assert counter.launches == 40
+    want = [_env_rollout(b, d, spec, 40, obs)
+            for b, d in (("torch-scan", cuda), (backend, "cpu"))]
+    for _, ref in want:
+        for g, w in zip(batch.to_numpy()[:8], ref.to_numpy()[:8]):
+            assert (g == w).all()
+    assert batch.to_numpy().fill_buy.sum() > 0
+
+
+def test_env_zero_actions_equal_session_run_on_the_card(cuda):
+    """Without arbitrageurs (whose peer mid the env resolves every step and
+    a chunked run once a chunk), a zero-action rollout equals ``run``."""
+    from repro_torch.env import rollout
+
+    spec = _spec(4, 256, 128, S=40).with_values(
+        coupling_peer=-1, num_arbitrageurs=0)
+    eng = Engine("cuda-kinetic", device=cuda)
+    kc.kinetic_clearing_chunk.launches = 0
+    final, batch = rollout(eng.env(spec, auto_reset=False), None, 40)
+    assert kc.kinetic_clearing_chunk.launches == 40
+    with eng.open(spec) as sess:
+        ref = sess.run(40)
+        for g, w in zip(list(batch[3:6]) + list(final.market),
+                        list(ref) + list(sess.state)):
+            assert torch.equal(g, w)

@@ -17,7 +17,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 def test_import_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.core.engine, "
             "repro_torch.kernels.ops, repro_torch.convert, "
-            "repro_torch.env.actions, repro_torch.kernels.ref, "
+            "repro_torch.env.actions, repro_torch.env, "
+            "repro_torch.kernels.ref, "
             "repro_torch.kernels.naive_clearing, "
             "repro_torch.core.torch_backend, repro_torch.serve, "
             "repro_torch.serve.transport, repro_torch.ops, "

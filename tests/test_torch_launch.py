@@ -1,7 +1,8 @@
 """The launch rule of the port's clearing kernels
 (``repro_torch.kernels.autotune``): every shape it gives fits a Hopper CTA
-and covers every level and every agent of a market exactly once; it raises
-outside its domain; and its constants are the CUDA header's."""
+and covers every level and every agent of a market exactly once; it takes
+any population (past shared memory, in the fresh agent mode) and raises
+only outside its domain; and its constants are the CUDA header's."""
 import re
 
 import pytest
@@ -9,7 +10,7 @@ import pytest
 from repro_torch.kernels import _build, autotune
 
 LEVELS = [2 ** k for k in range(2, 11)]          # 4 .. 1024
-AGENTS = [1, 5, 16, 32, 300, 1024, 4096]
+AGENTS = [1, 5, 16, 32, 300, 1024, 4096, 50000]
 
 #: What one Hopper CTA can take (H100 SXM: 227 KB of shared memory, 1024
 #: threads).
@@ -64,7 +65,7 @@ def test_shape_covers_levels_and_agents_once(L, A):
         assert not levels or levels[-1] - levels[0] == len(levels) - 1
     # Agents: register slots k of RegAgents, else the strided loops of
     # SmemAgents (init and each) and FreshAgents.
-    if shape.agents_in_registers:
+    if shape.agents == "registers":
         agent = _header_map(r"const int a = (tm\.t \+ k \* tm\.T);", 2)
         mine = {t: [a for k in range(autotune.REG_AGENTS)
                     if (a := agent(t, T, k=k)) < A] for t in range(T)}
@@ -86,13 +87,14 @@ def test_the_paper_shapes(L, A):
     want_warps = max(1, L // 128)
     assert shape.warps_per_market == want_warps
     assert shape.markets_per_cta == (4 if want_warps == 1 else 1)
-    assert shape.agents_in_registers
+    assert shape.agents == "registers"
     assert shape.as_c_args() == (want_warps, shape.markets_per_cta, 1)
 
 
 def test_large_populations_move_to_shared_memory():
     shape = autotune.auto_tile(128, 1024)
-    assert not shape.agents_in_registers
+    assert shape.agents == "shared"
+    assert shape.as_c_args()[2] == 0
     assert shape.smem_bytes(True) > shape.smem_bytes(False) == \
         shape.markets_per_cta * 8 * 128
     # A population too large for four teams per CTA gets fewer.
@@ -102,22 +104,30 @@ def test_large_populations_move_to_shared_memory():
 
 
 @pytest.mark.parametrize("L,A", [(2, 16), (3, 16), (0, 16), (96, 16),
-                                 (2048, 16), (128, 0), (128, -1),
-                                 (1024, 10 ** 6)])
+                                 (2048, 16), (128, 0), (128, -1)])
 def test_rule_raises_outside_its_domain(L, A):
     with pytest.raises(ValueError):
         autotune.auto_tile(L, A)
 
 
-@pytest.mark.parametrize("L,ceiling", [(128, 46080), (1024, 44646)])
+@pytest.mark.parametrize("L,ceiling", [(128, 46080), (1024, 44646),
+                                       (1024, 10 ** 6 - 1)])
 def test_population_ceiling(L, ceiling):
-    """The largest population a market can have: its keys and type bytes
-    fill one CTA's shared memory (the limit the module docstring states)."""
+    """The shared-memory ceiling the module docstring states: up to it a
+    market's keys and type bytes fill at most one CTA's shared memory; one
+    agent more (and any population beyond) takes the fresh mode, which
+    keeps only the bins there and so fits four one-warp teams again."""
     shape = autotune.auto_tile(L, ceiling)
-    assert shape.markets_per_cta == 1
-    assert shape.smem_bytes(True) == autotune.MAX_DYNAMIC_SMEM
-    with pytest.raises(ValueError, match="shared memory"):
-        autotune.auto_tile(L, ceiling + 1)
+    if ceiling < 10 ** 5:
+        assert shape.agents == "shared"
+        assert shape.markets_per_cta == 1
+        assert shape.smem_bytes(True) == autotune.MAX_DYNAMIC_SMEM
+    beyond = autotune.auto_tile(L, ceiling + 1)
+    assert beyond.agents == "fresh"
+    assert beyond.as_c_args() == (max(1, L // 128), beyond.markets_per_cta, 2)
+    assert beyond.markets_per_cta == (4 if L <= 128 else 1)
+    assert beyond.smem_bytes(True) == beyond.smem_bytes(False) == \
+        beyond.markets_per_cta * 8 * L
 
 
 def test_constants_are_the_headers():
@@ -132,6 +142,10 @@ def test_constants_are_the_headers():
     assert eval(define("MAX_DYNAMIC_SMEM")) == autotune.MAX_DYNAMIC_SMEM
     # The C side's shared-memory formula is the Python one.
     assert "2 * L + (agents_in_smem ? A + (A + 3) / 4 : 0)" in HEADER
+    # The agent mode codes are the C enum's, in order.
+    assert ("enum AgentMode { AGENTS_SHARED = 0, AGENTS_REGISTERS = 1, "
+            "AGENTS_FRESH = 2 };") in HEADER
+    assert autotune.AGENT_MODES == ("shared", "registers", "fresh")
 
 
 def test_one_warp_teams_cross_no_cta_barrier():

@@ -159,3 +159,70 @@ def test_engine_simulate_wrappers():
     assert r.to_numpy().price_path.shape == (2, 4)
     assert backend_available("cuda-kinetic") is True
     assert backend_available("no-such-backend") is False
+
+
+@pytest.mark.parametrize("backend", ["numpy", "numpy-pcg64"])
+@pytest.mark.parametrize("reset_books", [True, False])
+@pytest.mark.parametrize("stats_only", [False, True])
+def test_swap_markets_matches_jax_package(backend, reset_books, stats_only):
+    """``swap_markets(slots, sub, reset_books=...)``: the params rows are
+    spliced and the rows' stats start afresh; the books take ``sub``'s
+    opening books only with ``reset_books``. The runs before and after
+    the splice equal the JAX package's."""
+    jspec = _jspec()
+    jsub = JSpec.from_scenarios(["whale", "thin-book"], num_markets=1,
+                                num_agents=24, num_levels=16, num_steps=14,
+                                seed=2**31 + 1)
+    js = JEngine(backend, stats_only=stats_only).open(jspec, chunk_size=4)
+    ts = Engine(backend, device="cpu", stats_only=stats_only).open(
+        _port(jspec), chunk_size=4)
+    sub = _port(jsub)
+    outs = []
+    for sess, s in ((js, jsub), (ts, sub)):
+        sess.run(5)
+        before = [np.array(np.asarray(x)) for x in sess.state]
+        sess.swap_markets([1, 6], s, reset_books=reset_books)
+        after = [np.asarray(x) for x in sess.state]
+        for b, a in zip(before, after):
+            rows = np.setdiff1d(np.arange(len(b)), [1, 6])
+            assert (b[rows] == a[rows]).all()
+            assert reset_books or (b == a).all()
+        batch = sess.run(6)
+        outs.append((list(sess.state), sess.stats, batch))
+    (jstate, jstats, jbatch), (tstate, tstats, tbatch) = outs
+    _same([x.numpy() for x in tstate], jstate)
+    if stats_only:
+        _same(tstats, jstats)
+    else:
+        _same(tbatch.to_numpy(), jbatch.to_numpy())
+    assert ts.spec.scenarios[1] == js.spec.scenarios[1] == "whale"
+
+
+def test_compat_engines_are_shared_and_cleared():
+    """``simulate``, ``simulate_scenario`` and ``open_scenario`` share warm
+    engines keyed by backend, device and options, as the JAX package's
+    wrappers do; ``clear_compat_cache`` releases them."""
+    from repro.core import engine as j_engine
+
+    cfg = MarketConfig(num_markets=3, num_agents=8, num_levels=8,
+                       num_steps=4, seed=1)
+    engine.clear_compat_cache()
+    first = engine.simulate(cfg, backend="torch-scan", device="cpu")
+    again = engine.simulate(cfg, backend="torch-scan", device="cpu")
+    (eng,) = engine._COMPAT_ENGINES.values()
+    assert eng.trace_count == 1  # one runner, built once for both calls
+    _same(again.to_numpy(), first.to_numpy())
+    _same(first.to_numpy(), j_engine.simulate(
+        JConfig(num_markets=3, num_agents=8, num_levels=8, num_steps=4,
+                seed=1), backend="numpy").to_numpy())
+    over = dict(num_markets=2, num_agents=8, num_levels=8, num_steps=4)
+    engine.simulate_scenario("flash-crash", backend="torch-scan",
+                             device="cpu", config_overrides=over)
+    with engine.open_scenario("flash-crash", backend="torch-scan",
+                              device="cpu", config_overrides=over) as sess:
+        sess.run()
+    assert len(engine._COMPAT_ENGINES) == 1
+    engine.simulate(cfg, backend="torch-scan", device="cpu", scan="cumsum")
+    assert len(engine._COMPAT_ENGINES) == 2  # other options, other engine
+    engine.clear_compat_cache()
+    assert not engine._COMPAT_ENGINES
