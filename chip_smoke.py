@@ -80,6 +80,22 @@ line:
            back to back), the card's busy share, the ratio to
            ``Session.run(500)``, and a ``torch.profiler`` window of 50
            steps (CUDA kernels and device time a step).
+  train    the PPO trainer (``repro_torch.train``) at the Table IV width
+           over 4096 ``flash-crash`` and 4096 ``high-vol`` markets (rollout
+           64, 2 epochs of 8 minibatches, hidden (32, 32)): 2 updates on
+           ``cuda-kinetic``, ``cuda-naive`` and ``torch-scan``, equal in
+           params, Adam state, key, metrics and final env state, kernel 1
+           (kernel 2) launched once per env step, nothing built, and no
+           synchronizing call inside ``train()`` on the kernel backends
+           (torch's sync debug mode set to error); 2 updates, a checkpoint
+           restored into a fresh trainer and 2 more == 4 straight updates;
+           the flagship gate at ``benchmarks/train_bench.py --full``'s
+           shape on ``torch-scan`` (the learned maker must beat the
+           scripted one on the held-out mixture); then 8 timed updates:
+           env (market-)steps/s, agent-events/s, the wall of rollout, GAE
+           and update, ``torch.profiler`` windows over one update and one
+           rollout (busy share, CUDA kernels a step), and the learned
+           against the scripted maker at full width (reported).
   serve    the serving gateway (``repro_torch.serve.Gateway``) over an
            8192-slot template at A=256, L=128, chunk 64: 256 clients
            round-robin over the nine presets, 8 more at chunk 6 (after the
@@ -99,7 +115,8 @@ line:
            and 16, and the card's busy share.
 
 Each path is driven with every launch count at 0 just before it and read
-just after; the ``kernels`` line's launches are the ``session`` phase's. The ``timing``, ``agent_sweep``, ``legacy_path`` and
+just after; the ``kernels`` line's launches are the ``session`` phase's
+(and the ``legacy_path`` phase's), plus the ``train`` phase's 2 updates. The ``timing``, ``agent_sweep``, ``legacy_path`` and
 ``fixed_workload`` lines give each timed shape's launch shape
 (``autotune.auto_tile``) and resident CTAs per SM
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). The line before the
@@ -201,6 +218,19 @@ ENV_STEPS = 64
 ENV_HORIZON, ENV_RESET_STEPS, ENV_CHECKPOINT = 16, 40, 24
 ENV_TIMED_STEPS = 500
 ENV_PROFILED_STEPS = 50
+# The train phase: benchmarks/train_bench.py's TRAIN_MIX at Table IV
+# width, TRAIN_BLOCK markets a scenario, the PPO config it trains with,
+# and the updates timed after one warm update.
+TRAIN_MIX, HELDOUT_MIX = ("flash-crash", "high-vol"), ("flash-crash",
+                                                       "baseline")
+TRAIN_BLOCK = 4096
+TRAIN_CONFIG = dict(rollout_len=64, num_envs=1, num_epochs=2,
+                    num_minibatches=8, hidden=(32, 32), lr=1e-3, seed=7)
+TRAIN_TIMED_UPDATES = 8
+# benchmarks/train_bench.py --full's defaults: markets a block, agents,
+# levels, rollout length (= num_steps), updates, seed-envs, seed.
+GATE = dict(markets=2, agents=16, levels=16, steps=16, updates=48,
+            num_envs=2, seed=7)
 # Clock cycles of the sleep that timed launches queue behind (about 0.1 s).
 QUEUE_SLEEP_CYCLES = 200_000_000
 
@@ -460,11 +490,23 @@ def phase_edges(device):
         chunk_ms = _time(lambda: kc.kinetic_clearing_chunk(
             *cstate, 0, FRESH_STEPS, **kw), 5)
         legacy_ms = _time(lambda: kc.kinetic_clearing(*state, cfg=cfg), 5)
-        fresh.append(dict(markets=spec.num_markets, agents=A, levels=L,
+        n = spec.num_markets
+        chunk_bound = bound(
+            kc.op_count(n, A, L, FRESH_STEPS, kc.agent_mix(spec.params, A)),
+            kc.byte_count(n, L, FRESH_STEPS, ext=False, stats_only=False))
+        legacy_bound = bound(
+            kc.op_count(n, A, L, FRESH_STEPS, kc.agent_mix(
+                params_mod.params_from_config(cfg, n), A)),
+            kc.legacy_byte_count(n, L, FRESH_STEPS))
+        fresh.append(dict(markets=n, agents=A, levels=L,
                           steps=FRESH_STEPS, tile=shape._asdict(),
                           max_abs_err=e, chunk_ms=chunk_ms,
-                          legacy_ms=legacy_ms,
-                          launch=launch_facts(spec.num_markets, A, L)))
+                          legacy_ms=legacy_ms, chunk_bound=chunk_bound,
+                          legacy_bound=legacy_bound,
+                          bound_share={
+                              "chunk": chunk_bound["bound_ms"] / chunk_ms,
+                              "legacy": legacy_bound["bound_ms"] / legacy_ms},
+                          launch=launch_facts(n, A, L)))
     emit("edges", ok=True, shapes=[list(x) for x in shapes], fresh=fresh,
          max_abs_err=max(errs))
     return max(errs)
@@ -853,34 +895,35 @@ def _queued_ms(fn, reps: int) -> float:
     return events[1].elapsed_time(events[2]) / reps
 
 
-def env_profile(env, policy, steps: int) -> dict:
-    """A ``torch.profiler`` window over ``steps`` env steps: CUDA kernels a
-    step, their device time a step and the card's busy share (None where
-    the profiler records no device activity)."""
+def profile_window(fn, steps: int) -> dict:
+    """A ``torch.profiler`` window over ``fn()``: its CUDA kernels (in all
+    and a step of ``steps``), their device time a step, the card's busy
+    share and the six kernels of most device time (None where the profiler
+    records no device activity)."""
     import time
 
     import torch
-    from repro_torch.env import rollout
     from torch.profiler import ProfilerActivity, profile
 
-    state, _ = env.reset()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rollout(env, policy, steps, state=state)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        return dict(steps=steps, wall_s=wall, kernels_per_step=None,
-                    device_ms_per_step=None, busy_share=None)
+        return dict(steps=steps, wall_s=wall, kernels=None,
+                    kernels_per_step=None, device_ms_per_step=None,
+                    busy_share=None)
     device_us = sum(e.self_device_time_total for e in kernels)
+    count = sum(e.count for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     return dict(
-        steps=steps, wall_s=wall,
-        kernels_per_step=sum(e.count for e in kernels) / steps,
+        steps=steps, wall_s=wall, kernels=count,
+        kernels_per_step=count / steps,
         device_ms_per_step=device_us / 1e3 / steps,
         busy_share=device_us * 1e-6 / wall,
         top={e.key[:100]: e.self_device_time_total / 1e3 / steps
@@ -1175,23 +1218,6 @@ def phase_fixed_workload(device):
 # env: the RL environment on kernel 1 at full width
 # ---------------------------------------------------------------------------
 
-def maker_policy(num_levels):
-    """The scripted maker (``repro.train.policies.make_market_maker``, which
-    cannot be imported here): one lot one tick inside the mid, alternating
-    sides."""
-    import torch
-    from repro_torch.core.session import ExternalOrders
-
-    def maker(obs, t):
-        mid = obs[:, 0]
-        buy = t % 2 == 0
-        tick = torch.clamp(torch.round(mid + (-1.0 if buy else 1.0))
-                           .to(torch.int32), 0, num_levels - 1)
-        return ExternalOrders(torch.full(mid.shape, buy, device=mid.device),
-                              tick, torch.ones_like(mid))
-    return maker
-
-
 def env_outputs(state, batch) -> list:
     """A rollout's batch and final state, flat, for ``compare``."""
     import torch
@@ -1225,10 +1251,11 @@ def phase_env(device):
                                  StatsFeatures, Sum, rollout)
     from repro_torch.kernels import kinetic_clearing as kc
     from repro_torch.scenario import CouplingSpec, coupled_ensemble
+    from repro_torch.train import make_market_maker
 
     M, A, L = TABLE_IV
     spec = homogeneous(M, A, L, ENV_TIMED_STEPS)
-    maker = maker_policy(L)
+    maker = make_market_maker(L)
     obs = Composite((MarketFeatures(), BookWindow(4), PortfolioFeatures(),
                      StatsFeatures()))
     reward = Sum((PnLReward(), SpreadCapture(), InventoryPenalty(0.01)))
@@ -1402,7 +1429,9 @@ def phase_env(device):
         busy_share=kernel_ms * 1e-3 * ENV_TIMED_STEPS / wall,
         session_run_wall_s=run_wall, over_session_run=wall / run_wall,
         launches=timed_counts["kinetic_clearing_chunk"],
-        profile=env_profile(env, maker, ENV_PROFILED_STEPS))
+        profile=profile_window(
+            lambda: rollout(env, maker, ENV_PROFILED_STEPS, state=state0),
+            ENV_PROFILED_STEPS))
     emit("env", ok=True, markets=M, agents=A, levels=L,
          launches={"zero_action_rollout": zero_counts["kinetic_clearing_chunk"],
                    "maker": {b: {k: n for k, n in c.items() if n}
@@ -1410,6 +1439,220 @@ def phase_env(device):
          fills=fills, synchronizing_calls=syncs, max_abs_err=max(errs),
          timing=timing)
     return max(errs)
+
+
+# ---------------------------------------------------------------------------
+# train: the PPO trainer on kernel 1 at full width
+# ---------------------------------------------------------------------------
+
+def train_spec(mix, markets, agents, levels, steps, seed):
+    """``benchmarks/train_bench.py``'s spec: ``markets`` a scenario."""
+    from repro_torch.core.params import EnsembleSpec
+
+    return EnsembleSpec.from_scenarios(
+        list(mix), num_markets=markets, num_agents=agents,
+        num_levels=levels, num_steps=steps, seed=seed)
+
+
+def train_outputs(ts, metrics) -> list:
+    """A trainer's params, Adam state, key, metrics and final env state,
+    flat, for ``compare``."""
+    import torch
+    from repro_torch.train.buffers import tree_leaves
+
+    env = ts.env_state
+    return tree_leaves(ts.params) + tree_leaves(ts.opt_state) + [
+        ts.key.to(torch.int64)] + [metrics[k] for k in sorted(metrics)] \
+        + list(env.market) + list(env.last_out) + list(env.portfolio)
+
+
+def flagship_gate(device) -> dict:
+    """``benchmarks/train_bench.py --full --require-win`` at its defaults on
+    ``torch-scan`` with 2 seed-envs: train 48 updates on the TRAIN_MIX,
+    then the greedy learned maker against the scripted maker on the
+    held-out mixture (spread-capture reward, mean a step and market)."""
+    from repro_torch.core.session import Engine
+    from repro_torch.env import (InventoryPenalty, MarketFeatures,
+                                 SpreadCapture, Sum, rollout)
+    from repro_torch.train import PPOConfig, fit, make_market_maker
+
+    g = GATE
+    shape = (g["markets"], g["agents"], g["levels"], g["steps"], g["seed"])
+    cfg = PPOConfig(rollout_len=g["steps"], num_updates=g["updates"],
+                    num_envs=g["num_envs"], num_epochs=2, num_minibatches=4,
+                    lr=1e-3, ent_coef=0.003, hidden=(32, 32),
+                    seed=g["seed"])
+    eng = Engine("torch-scan", device=device)
+    tr = eng.trainer(train_spec(TRAIN_MIX, *shape), cfg,
+                     reward=Sum((SpreadCapture(), InventoryPenalty(0.001))),
+                     obs=MarketFeatures())
+    out = fit(tr, total_updates=g["updates"],
+              updates_per_call=max(1, g["updates"] // 4))
+    held = eng.env(train_spec(HELDOUT_MIX, *shape), reward=SpreadCapture(),
+                   obs=MarketFeatures())
+    learned = float(tr.evaluate(out["ts"].params, env=held,
+                                n_steps=g["steps"]).reward.mean())
+    _, scripted = rollout(held, make_market_maker(g["levels"]), g["steps"])
+    rewards = out["history"]["reward"]
+    return dict(learned=learned, scripted=float(scripted.reward.mean()),
+                updates=out["updates"], seconds=out["seconds"],
+                reward_first=float(rewards[0]),
+                reward_last=float(rewards[-1]))
+
+
+def phase_train(device):
+    """``repro_torch.train`` at the Table IV width over the TRAIN_MIX: equal
+    trainers on three backends, no synchronizing call inside ``train()``,
+    one launch a step, a checkpointed resume equal to straight updates, the
+    flagship gate at the reference's bench shape, then timing."""
+    import tempfile
+    import time
+
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.session import Engine
+    from repro_torch.env import (InventoryPenalty, MarketFeatures,
+                                 SpreadCapture, Sum, rollout)
+    from repro_torch.train import (PPOConfig, TrainState, make_market_maker,
+                                   restore_train_checkpoint,
+                                   save_train_checkpoint)
+
+    _, A, L = TABLE_IV
+    T = TRAIN_CONFIG["rollout_len"]
+    spec = train_spec(TRAIN_MIX, TRAIN_BLOCK, A, L, T, TRAIN_CONFIG["seed"])
+    M = spec.num_markets
+    cfg = PPOConfig(**TRAIN_CONFIG)
+    reward = Sum((SpreadCapture(), InventoryPenalty(0.001)))
+
+    def trainer(eng):
+        return eng.trainer(spec, cfg, reward=reward, obs=MarketFeatures())
+
+    # 1. Equal trainers: 2 updates on each backend, kernel 1 (kernel 2)
+    # launched once per env step, nothing built, no synchronizing call.
+    errs, runs, counts = [], {}, {}
+    for backend, counter in (("cuda-kinetic", "kinetic_clearing_chunk"),
+                             ("cuda-naive", "naive_clearing_chunk"),
+                             ("torch-scan", None)):
+        eng = Engine(backend, device=device)
+        tr = trainer(eng)
+        ts = tr.init()
+        torch.cuda.synchronize()
+        builds = eng.trace_count
+        reset_counts()
+        if counter is not None:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            ts, metrics = tr.train(ts, 2)
+        except RuntimeError as exc:
+            if "synchroniz" not in str(exc):
+                raise
+            raise Mismatch(f"train on {backend} waited for the card: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        counts[backend] = expect_counts(
+            f"train {backend}", {counter: 2 * T} if counter else {})
+        if eng.trace_count != builds:
+            raise Mismatch(f"train {backend} built "
+                           f"{eng.trace_count - builds} runners")
+        runs[backend] = (eng, tr, ts, metrics)
+    want = train_outputs(*runs["torch-scan"][2:])
+    for backend in ("cuda-kinetic", "cuda-naive"):
+        errs.append(compare(f"train {backend} vs torch-scan",
+                            train_outputs(*runs[backend][2:]), want))
+    eng, tr, ts2, metrics = runs["cuda-kinetic"]
+    loss = metrics["loss"]
+    if tuple(loss.shape) != (2,) or not bool(torch.isfinite(
+            torch.stack(list(metrics.values()))).all()):
+        raise Mismatch(f"train metrics malformed: {metrics}")
+    builds = eng.trace_count
+
+    # 2. A checkpoint after 2 updates restored into a fresh trainer on a
+    # fresh engine: 2 more updates equal 4 straight ones.
+    ts4, m4 = tr.train(ts2, 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_train_checkpoint(CheckpointManager(tmp, async_write=False), tr,
+                              ts2)
+        fresh = trainer(Engine("cuda-kinetic", device=device))
+        restored = restore_train_checkpoint(CheckpointManager(tmp), fresh)
+    resumed, m_resumed = fresh.train(restored, 2)
+    errs.append(compare("train resume 2 + 2 vs 4",
+                        train_outputs(resumed, m_resumed),
+                        train_outputs(ts4, m4)))
+
+    # 3. The flagship gate at the reference's bench shape.
+    gate = flagship_gate(device)
+    if not gate["learned"] > gate["scripted"]:
+        raise Mismatch(f"the learned maker does not beat the scripted maker "
+                       f"at the bench shape: {gate}")
+
+    # 4. Timing at full width: a warm update, then TRAIN_TIMED_UPDATES.
+    ts, _ = tr.train(ts4, 1)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    ts, metrics = tr.train(ts, TRAIN_TIMED_UPDATES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    timed_counts = expect_counts("train timed", {
+        "kinetic_clearing_chunk": TRAIN_TIMED_UPDATES * T})
+    split = dict(rollout_s=0.0, gae_s=0.0, update_s=0.0)
+    for _ in range(TRAIN_TIMED_UPDATES):
+        t0 = time.perf_counter()
+        env_state, batch = tr.collect(ts)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        flat = tr.advantages(ts, batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        params, opt_state, _ = tr.optimize(ts, flat)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        ts = TrainState(params, opt_state, ts.key, env_state,
+                        ts.update_idx + 1)
+        split["rollout_s"] += t1 - t0
+        split["gae_s"] += t2 - t1
+        split["update_s"] += t3 - t2
+    profile = dict(update=profile_window(lambda: tr.train(ts, 1), T),
+                   rollout=profile_window(lambda: tr.collect(ts), T))
+    env_steps = TRAIN_TIMED_UPDATES * T * M
+    # The learned maker against the scripted one on the held-out mixture at
+    # full width (reported, not gated).
+    held = eng.env(train_spec(HELDOUT_MIX, TRAIN_BLOCK, A, L, T,
+                              TRAIN_CONFIG["seed"]),
+                   reward=SpreadCapture(), obs=MarketFeatures())
+    reset_counts()
+    learned = float(tr.evaluate(ts.params, env=held, n_steps=T)
+                    .reward.mean())
+    eval_counts = expect_counts("train evaluate",
+                                {"kinetic_clearing_chunk": T})
+    scripted = float(rollout(held, make_market_maker(L), T)[1].reward.mean())
+    if eng.trace_count != builds:
+        raise Mismatch(f"the trainer built {eng.trace_count - builds} "
+                       "runners after its first train()")
+    emit("train", ok=True, markets=M, agents=A, levels=L,
+         config=TRAIN_CONFIG, launches={
+             "train_2_updates": {b: {k: n for k, n in c.items() if n}
+                                 for b, c in counts.items()},
+             "timed": timed_counts["kinetic_clearing_chunk"],
+             "evaluate": eval_counts["kinetic_clearing_chunk"]},
+         sync_debug_mode={"cuda-kinetic": "error", "cuda-naive": "error"},
+         max_abs_err=max(errs), gate=gate,
+         timing=dict(
+             updates=TRAIN_TIMED_UPDATES, wall_s=wall,
+             env_steps_per_s=env_steps / wall,
+             agent_events_per_s=env_steps * A / wall,
+             s_per_update=wall / TRAIN_TIMED_UPDATES,
+             split_s_per_update={k: v / TRAIN_TIMED_UPDATES
+                                 for k, v in split.items()},
+             profile=profile),
+         full_width_eval=dict(learned=learned, scripted=scripted),
+         card=card_line())
+    return max(errs), {
+        "kinetic_clearing_chunk": counts["cuda-kinetic"][
+            "kinetic_clearing_chunk"],
+        "naive_clearing_chunk": counts["cuda-naive"][
+            "naive_clearing_chunk"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1817,14 +2060,17 @@ def main() -> int:
     legacy = phase_legacy_path(device)
     phase_fixed_workload(device)
     err_env = phase_env(device)
+    err_train, train_launches = phase_train(device)
     serve = phase_serve(device)
     launches.update(legacy["launches"])
+    for name, n in train_launches.items():
+        launches[name] += n
     errs = {"kinetic_clearing_chunk":
             max(err_k, err_s, session_errs["kinetic_clearing_chunk"],
-                err_p, err_sc, err_env, serve["max_abs_err"]),
+                err_p, err_sc, err_env, err_train, serve["max_abs_err"]),
             "naive_clearing_chunk":
             max(err_n, err_s, session_errs["naive_clearing_chunk"],
-                err_p, err_env, serve["max_abs_err"]),
+                err_p, err_env, err_train, serve["max_abs_err"]),
             "kinetic_clearing":
             max(err_l, legacy["max_abs_err"]["kinetic_clearing"]),
             "naive_clearing":

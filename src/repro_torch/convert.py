@@ -10,7 +10,13 @@ A snapshot or checkpoint needs no conversion: ``Session.restore`` takes the
 JAX package's snapshot dict as it is, its ``rng`` payload (the
 ``numpy-pcg64`` generator state) included. ``MarketEnv.restore`` likewise
 takes the JAX package's env snapshot dict as it is, and
-``repro_torch.env.state_from_tree`` its env checkpoint tree.
+``repro_torch.env.state_from_tree`` its env checkpoint tree. The learned
+actor-critic's weights come across as its params tree
+(:func:`actor_critic_from_numpy`, and back with
+:func:`actor_critic_to_numpy`); a trainer checkpoint needs no conversion:
+``repro_torch.train.restore_train_checkpoint`` takes the JAX package's tree
+as it is, its ``key`` leaf reinterpreted (so the draws after a
+cross-package restore differ).
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.core.params import EnsembleSpec, params_from_dict
+from repro_torch.core.result import to_host
 from repro_torch.core.step import MarketState
 
 
@@ -59,3 +66,23 @@ def coupling_from_numpy(peer):
     from repro_torch.scenario.coupling import CouplingSpec
 
     return CouplingSpec(np.asarray(peer, np.int32))
+
+
+def actor_critic_from_numpy(tree, device="cuda"):
+    """The port's actor-critic params (float32 tensors on ``device``) from
+    the JAX package's params tree as numpy arrays: ``{"torso": ((W, b),
+    ...), "pi": (W, b), "v": (W, b)}``, ``W`` of shape ``[n_in, n_out]`` in
+    both packages."""
+    from repro_torch.train.buffers import tree_map
+
+    dev = resolve_device(device)
+    return tree_map(lambda a: torch.from_numpy(
+        np.array(a, dtype=np.float32)).to(dev), tree)
+
+
+def actor_critic_to_numpy(params):
+    """Inverse of :func:`actor_critic_from_numpy`: the params tree as
+    float32 numpy arrays, which ``repro``'s ``apply_actor_critic`` takes."""
+    from repro_torch.train.buffers import tree_map
+
+    return tree_map(lambda t: np.array(to_host(t), dtype=np.float32), params)

@@ -372,6 +372,16 @@ class Engine:
 
         return MarketEnv(spec, engine=self, **env_opts)
 
+    def trainer(self, spec: Union[EnsembleSpec, MarketConfig], config=None,
+                **env_opts: Any):
+        """Open a PPO trainer over this engine (see
+        :mod:`repro_torch.train`): ``PPOTrainer(self.env(spec, **env_opts),
+        config)``, on the engine's device. Trainers over mixtures of the
+        same shape share the one-step runner."""
+        from repro_torch.train.ppo import PPOConfig, PPOTrainer
+
+        return PPOTrainer(self.env(spec, **env_opts), config or PPOConfig())
+
 
 class Session:
     """A live simulation: device-resident books + an absolute step cursor.

@@ -258,9 +258,10 @@ def test_fresh_agent_mode_equals_plain(cuda, A, L):
 
 def _env_rollout(backend, device, spec, steps, obs=None):
     from repro_torch.env import rollout
+    from repro_torch.train import make_market_maker
 
     env = Engine(backend, device=device).env(spec, horizon=16, obs=obs)
-    return rollout(env, chip_smoke.maker_policy(spec.num_levels), steps)
+    return rollout(env, make_market_maker(spec.num_levels), steps)
 
 
 @pytest.mark.parametrize("backend,counter", [
@@ -305,3 +306,40 @@ def test_env_zero_actions_equal_session_run_on_the_card(cuda):
         for g, w in zip(list(batch[3:6]) + list(final.market),
                         list(ref) + list(sess.state)):
             assert torch.equal(g, w)
+
+
+def _train(backend, device, updates=2):
+    """A small trainer (3 markets of each TRAIN_MIX scenario at A=256,
+    L=128) after ``updates`` updates of a 16-step rollout."""
+    from repro_torch.env import MarketFeatures, SpreadCapture
+    from repro_torch.train import PPOConfig
+
+    spec = chip_smoke.train_spec(chip_smoke.TRAIN_MIX, 3, 256, 128, 16, 7)
+    cfg = PPOConfig(rollout_len=16, num_epochs=2, num_minibatches=4,
+                    hidden=(16,), seed=7)
+    tr = Engine(backend, device=device).trainer(
+        spec, cfg, reward=SpreadCapture(), obs=MarketFeatures())
+    ts, metrics = tr.train(tr.init(), updates)
+    return tr, ts, metrics
+
+
+@pytest.mark.parametrize("backend,counter", [
+    ("cuda-kinetic", kc.kinetic_clearing_chunk),
+    ("cuda-naive", nc.naive_clearing_chunk)])
+def test_trainer_launches_once_per_env_step_and_equals_torch_scan(
+        cuda, backend, counter):
+    """A trainer on a kernel backend launches its kernel once per env step
+    of every rollout (and of a greedy evaluation), and trains bit for bit
+    as ``torch-scan`` on the card: params, Adam state, key, metrics and the
+    final env state."""
+    counter.launches = 0
+    tr, ts, metrics = _train(backend, cuda)
+    torch.cuda.synchronize()
+    assert counter.launches == 2 * 16
+    counter.launches = 0
+    tr.evaluate(ts.params, n_steps=5)
+    assert counter.launches == 5
+    _, want_ts, want_metrics = _train("torch-scan", cuda)
+    for g, w in zip(chip_smoke.train_outputs(ts, metrics),
+                    chip_smoke.train_outputs(want_ts, want_metrics)):
+        assert torch.equal(g, w)

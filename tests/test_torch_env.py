@@ -21,7 +21,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from repro.checkpoint.manager import CheckpointManager as JManager
 from repro.core.config import MarketConfig as JConfig
 from repro.core.config import scenario_names as j_scenario_names
@@ -52,6 +51,7 @@ from repro_torch.env import (BookWindow, Composite, InventoryPenalty,
 from repro_torch.kernels import kinetic_clearing as kc
 from repro_torch.kernels import naive_clearing as nc
 from repro_torch.scenario import CouplingSpec
+from repro_torch.train import make_market_maker as t_make_market_maker
 
 KW = dict(num_markets=4, num_agents=16, num_levels=16, num_steps=12, seed=3)
 CFG, JCFG = MarketConfig(**KW), JConfig(**KW)
@@ -110,9 +110,9 @@ def _fixed_actions(t, orders=ExternalOrders):
                   qty=np.full(M, 2.0 + (t % 2)))
 
 
-#: The scripted maker, in torch (``chip_smoke`` imports no ``repro``) and
-#: in ``repro.train.policies``.
-MAKER, J_MAKER = chip_smoke.maker_policy(L), make_market_maker(L)
+#: The scripted maker, in ``repro_torch.train.policies`` and in
+#: ``repro.train.policies``.
+MAKER, J_MAKER = t_make_market_maker(L), make_market_maker(L)
 OBS = Composite((MarketFeatures(), BookWindow(3), PortfolioFeatures(),
                  StatsFeatures()))
 J_OBS = JComposite((JMarketFeatures(), JBookWindow(3), JPortfolioFeatures(),

@@ -24,7 +24,8 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.serve.transport, repro_torch.ops, "
             "repro_torch.ops.chaos, repro_torch.checkpoint, "
             "repro_torch.scenario, repro_torch.scenario.validate, "
-            "repro_torch.core.numpy_backend, repro_torch.core.sequential; "
+            "repro_torch.core.numpy_backend, repro_torch.core.sequential, "
+            "repro_torch.train, repro_torch.train.loop; "
             "repro_torch.core.session.backends(); "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
@@ -39,7 +40,7 @@ def test_the_import_scan_covers_every_subpackage():
     scanned = {p.relative_to(ROOT / "src" / "repro_torch").parts[0]
                for p in PORT_FILES if "repro_torch" in p.parts}
     for sub in ("core", "kernels", "env", "serve", "ops", "checkpoint",
-                "scenario"):
+                "scenario", "train"):
         assert sub in scanned, sub
 
 
@@ -104,6 +105,35 @@ def test_gateway_and_warm_without_a_card_raise():
                                               num_levels=8, num_steps=8))
     with pytest.raises(RuntimeError, match="cuda"):
         Gateway(tpl, engine_opts={"device": "cuda"})
+
+
+def test_trainer_without_a_card_raises():
+    """The trainer's entry points default to the card too: with no card
+    ``Engine(...).trainer``, the param init and the param conversion raise
+    instead of training on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    import numpy as np
+
+    from repro_torch.convert import actor_critic_from_numpy
+    from repro_torch.core.config import MarketConfig
+    from repro_torch.core.session import Engine
+    from repro_torch.train import init_actor_critic
+
+    cfg = MarketConfig(num_markets=2, num_agents=4, num_levels=8, num_steps=8)
+    for backend in ("cuda-kinetic", "torch-scan"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            Engine(backend).trainer(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_actor_critic(0, 5, 7)
+    tree = {"torso": ((np.zeros((5, 4), np.float32),
+                       np.zeros(4, np.float32)),),
+            "pi": (np.zeros((4, 7), np.float32), np.zeros(7, np.float32)),
+            "v": (np.zeros((4, 1), np.float32), np.zeros(1, np.float32))}
+    with pytest.raises(RuntimeError, match="cuda"):
+        actor_critic_from_numpy(tree)
+    assert Engine("torch-scan", device="cpu").trainer(cfg).device.type \
+        == "cpu"
 
 
 def _constructors():
