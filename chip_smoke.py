@@ -113,10 +113,41 @@ line:
            fault-free runs for served agent-events/s (against a bare
            ``Session.run`` of the same 16 chunks), chunk latency at chunk 64
            and 16, and the card's busy share.
+  autotune every launch shape ``autotune.candidate_tiles`` gives the four
+           kernels (every (warps a market, markets a CTA, agent mode) the C
+           entries accept), each held bit for bit against one plain output
+           per shape at 264 markets (two waves of 132 SMs at one market a
+           CTA; cut from 8192): kernels 1 and 2 at Table IV, A=16 and
+           A=1024 (L=128) and A=32, L=1024 (chunk 64, every archetype, a
+           shock, ring peers), kernels 3 and 4 at Table IV (S=64); then
+           kernels 1 and 2's candidates timed at M=8192 against the bound
+           (the rule's tile first, the winner against it). Then
+           ``Engine(autotune="auto")`` sweeps once and a second open hits
+           the cache, ``run(500)`` at Table IV through the rule's tile and
+           the sweep's winner in turns (equal, timed), and ``AutotuneOOM``
+           through ``run_plan``: the restart's sweep falls back to the
+           rule's tile, the stream bitwise.
+  sharded  the market axis over meshes naming the one card twice and three
+           times (``MarketsMesh.of``): ``Session.run(500)`` at Table IV
+           (homogeneous; ring-coupled across all 8192 markets with every
+           archetype, paths and ``stats_only``), ``cuda-naive``, a snapshot
+           from 2 shards restored onto 1 and 3, 64 env steps and 2 trainer
+           updates equal the unsharded runs, with launches = shards x
+           chunks (x steps for kernel 2); ``DeviceLoss(devices_after=1)``
+           from 2 shards in ``run_plan`` and under a gateway of 8 clients,
+           bitwise; ``devices=2`` on one card raises the mesh's
+           ``ValueError``; the wall of ``run(500)`` on 1, 2 and 3 shards.
 
 Each path is driven with every launch count at 0 just before it and read
 just after; the ``kernels`` line's launches are the ``session`` phase's
-(and the ``legacy_path`` phase's), plus the ``train`` phase's 2 updates. The ``timing``, ``agent_sweep``, ``legacy_path`` and
+(and the ``legacy_path`` phase's), plus the ``train`` phase's 2 updates,
+the ``autotune`` phase's candidate checks and the ``sharded`` phase's
+paths. Every launch is counted where it is made, the runners' own tile
+sweeps included (a ``cuda-kinetic``/``cuda-naive`` runner opened on the
+card times each candidate once per key, ``autotune.TRIALS`` + 1 calls):
+each window expects its path's launches plus those its sweeps record, and
+a sweep that lost a candidate fails the run.
+The ``timing``, ``agent_sweep``, ``legacy_path`` and
 ``fixed_workload`` lines give each timed shape's launch shape
 (``autotune.auto_tile``) and resident CTAs per SM
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). The line before the
@@ -344,24 +375,66 @@ def counters():
             "naive_clearing": nc.naive_clearing}
 
 
+#: The tile sweeps already on record when the counts were last reset.
+_SWEEPS_SEEN: list = []
+
+
 def reset_counts() -> None:
+    from repro_torch.kernels import autotune
+
     for fn in counters().values():
         fn.launches = 0
+    _SWEEPS_SEEN[:] = autotune.sweep_reports()
 
 
 def read_counts():
     return {name: fn.launches for name, fn in counters().items()}
 
 
+def sweep_launches() -> dict:
+    """The launches of the runners' tile sweeps since the counts were
+    reset, by kernel: a runner opened on the card times each candidate
+    with 1 + ``autotune.TRIALS`` calls of its wrapper, each one launch of
+    kernel 1 or one a step of kernel 2 (the key's chunk)."""
+    from repro_torch.kernels import autotune
+
+    seen = {id(r) for r in _SWEEPS_SEEN}
+    out = {}
+    for rep in autotune.sweep_reports():
+        if id(rep) in seen:
+            continue
+        kernel = dict(rep.key[4:])["kernel"]
+        per_call = 1 if kernel == "kinetic_clearing_chunk" else rep.key[3]
+        out[kernel] = out.get(kernel, 0) + \
+            (1 + autotune.TRIALS) * per_call * len(rep.times)
+    return out
+
+
+def check_sweeps(label: str) -> None:
+    """A candidate the card refused in a runner's sweep is a kernel fault,
+    not a shape to drop: no sweep on record may hold a failure."""
+    from repro_torch.kernels import autotune
+
+    for rep in autotune.sweep_reports():
+        if rep.failures:
+            raise Mismatch(f"{label}: the tile sweep of {rep.key} lost "
+                           f"{len(rep.failures)} candidates: "
+                           f"{list(rep.failures)}")
+
+
 def expect_counts(label: str, want) -> dict:
     """Read the counts after a path and check them: ``want`` names the
-    kernels the path must launch (and how often); every other kernel must
-    not have launched."""
-    got = read_counts()
+    kernels the path must launch (and how often), to which the tile sweeps
+    of the runners it opened add theirs; every other kernel must not have
+    launched. Returns every launch counted, sweeps included."""
+    check_sweeps(label)
+    got, swept = read_counts(), sweep_launches()
     for name, n in got.items():
-        if n != want.get(name, 0):
+        need = want.get(name, 0) + swept.get(name, 0)
+        if n != need:
             raise Mismatch(f"{label}: {name} launched {n} times, expected "
-                           f"{want.get(name, 0)}")
+                           f"{want.get(name, 0)} on the path and "
+                           f"{swept.get(name, 0)} in tile sweeps")
     return got
 
 
@@ -1015,17 +1088,27 @@ def phase_timing(device):
 
 AGENT_SWEEP = (16, 64, 256, 1024)  # benchmarks/common.py at FULL_SCALE
 SWEEP_CHECK_MARKETS = 1024         # markets of the sweep's bitwise check
+#: The autotune phase's shapes (A, L), at M = TABLE_IV[0]: Table IV, the
+#: sweep's two far ends at L=128, and the persistence shape.
+AUTOTUNE_SHAPES = ((256, 128), (16, 128), (1024, 128), (32, 1024))
+#: Markets of its bitwise checks: two full waves of 132 SMs at one market
+#: a CTA (cut from 8192 so the plain version stays short).
+AUTOTUNE_CHECK_MARKETS = 264
+AUTOTUNE_REPS = 10
+#: The sharded phase's gateway: clients (one preset each) and chunks.
+SHARDED_CLIENTS = 8
+SHARDED_SERVE_CHUNKS = 12
 
 
-def sweep_spec(M, A):
-    """Every archetype at L=128, a shock inside the first chunk and a ring
-    of arbitrageur peers."""
+def sweep_spec(M, A, L=128):
+    """Every archetype at L levels, a shock inside the first chunk and a
+    ring of arbitrageur peers."""
     import numpy as np
     from repro_torch.core.config import MarketConfig
     from repro_torch.core.params import EnsembleSpec
 
     spec = EnsembleSpec.homogeneous(MarketConfig(
-        num_markets=M, num_agents=A, num_levels=128, num_steps=500,
+        num_markets=M, num_agents=A, num_levels=L, num_steps=500,
         seed=SEED + A, alpha_fundamentalist=0.1, alpha_whale=0.05,
         whale_period=3, alpha_hft=0.1, hft_threshold=0.1,
         alpha_informed=0.05, shock_step=20, shock_intensity=0.5,
@@ -1162,7 +1245,9 @@ def phase_fixed_workload(device):
                 if k:
                     wall.append((time.perf_counter() - t0) * 1e3)
                     ms.append(start.elapsed_time(stop))
+        tile = getattr(sess._runner, "tile", None)   # the sweep's winner
         rows[backend] = dict(
+            tile=None if tile is None else list(tile[2:]),
             ms=statistics.median(ms), ms_runs=ms,
             wall_ms=statistics.median(wall),
             agent_events_per_s=M * A * S / (statistics.median(ms) * 1e-3),
@@ -1212,6 +1297,379 @@ def phase_fixed_workload(device):
          launch=launch_facts(M, A, L), backends=rows,
          persistence=persistence)
     return rows, persistence
+
+
+# ---------------------------------------------------------------------------
+# autotune: every launch shape of the four kernels, and the timed sweep
+# ---------------------------------------------------------------------------
+
+def phase_autotune(device):
+    """Every candidate launch shape (``autotune.candidate_tiles``) of the
+    four kernels held bit for bit against one plain output per shape at
+    ``AUTOTUNE_CHECK_MARKETS`` markets, the chunk kernels' candidates timed
+    at full width against the bound; then the runner's sweep
+    (``Engine(autotune="auto")``: once, then a cache hit), ``run(500)``
+    through the rule's tile and the sweep's winner in turns, and
+    ``AutotuneOOM`` through ``run_plan``."""
+    import tempfile
+    import time
+
+    import torch
+    from repro_torch.core import params as params_mod
+    from repro_torch.core.config import MarketConfig
+    from repro_torch.core.session import Engine
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import kinetic_clearing as kc
+    from repro_torch.kernels import naive_clearing as nc
+    from repro_torch.ops import AutotuneOOM, FaultPlan, run_plan
+
+    M, chunk = TABLE_IV[0], 64
+    Mc = AUTOTUNE_CHECK_MARKETS
+    entries = (("kinetic_clearing_chunk", kc.kinetic_clearing_chunk, True),
+               ("naive_clearing_chunk", nc.naive_clearing_chunk, False))
+    errs = {name: 0.0 for name in counters()}
+    launches = {name: 0 for name in counters()}
+    candidates, shapes = {}, []
+    for A, L in AUTOTUNE_SHAPES:
+        # 1. Every candidate == one plain output, with the counts at 0.
+        spec = sweep_spec(Mc, A, L)
+        state = opening(spec, device)
+        kw = dict(cfg=spec, chunk=chunk,
+                  params=params_mod.pack_params(spec.params, device))
+        want = outputs(kc.kinetic_clearing_chunk_plain(*state, 0, chunk,
+                                                       **kw), chunk)
+        reset_counts()
+        for name, fn, hoisted in entries:
+            cands = autotune.candidate_tiles(L, A, hoisted=hoisted)
+            candidates[name, A, L] = cands
+            for c in cands:
+                label = f"autotune {name} A={A} L={L} {tuple(c[2:])}"
+                try:
+                    got = outputs(fn(*state, 0, chunk, tile=c, **kw), chunk)
+                except RuntimeError as exc:
+                    raise Mismatch(f"{label}: {exc}") from exc
+                errs[name] = max(errs[name], compare(label, got, want))
+        torch.cuda.synchronize()
+        counts = expect_counts(f"autotune A={A} L={L}", {
+            "kinetic_clearing_chunk": len(candidates[entries[0][0], A, L]),
+            "naive_clearing_chunk":
+            chunk * len(candidates[entries[1][0], A, L])})
+        for name, n in counts.items():
+            launches[name] += n
+
+        # 2. Each candidate timed at full width against the bound.
+        spec = homogeneous(M, A, L, 500)
+        state = opening(spec, device)
+        kw = dict(cfg=spec, chunk=chunk,
+                  params=params_mod.pack_params(spec.params, device))
+        b = bound(kc.op_count(M, A, L, chunk, kc.agent_mix(spec.params, A)),
+                  kc.byte_count(M, L, chunk, ext=False, stats_only=False))
+        for name, fn, hoisted in entries:
+            rows = []
+            for c in candidates[name, A, L]:
+                ms = _time(lambda: fn(*state, 0, chunk, tile=c, **kw),
+                           AUTOTUNE_REPS)
+                resident = (kc if hoisted else nc).resident_ctas(False, c)
+                rows.append(dict(
+                    tile=[c.warps_per_market, c.markets_per_cta, c.agents],
+                    ms=ms, bound_share=b["bound_ms"] / ms,
+                    resident_ctas_per_sm=resident,
+                    smem_bytes=c.smem_bytes(hoisted)))
+            rule, best = rows[0], min(rows, key=lambda r: r["ms"])
+            shapes.append(dict(
+                kernel=name, markets=M, agents=A, levels=L, chunk=chunk,
+                bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                rule=rule["tile"], rule_ms=rule["ms"], winner=best["tile"],
+                winner_ms=best["ms"], winner_over_rule=best["ms"]
+                / rule["ms"], candidates=rows))
+
+    # 3. Kernels 3 and 4: every candidate at the Table IV width.
+    _, A, L = TABLE_IV
+    cfg = MarketConfig(num_markets=Mc, num_agents=A, num_levels=L,
+                       num_steps=chunk, seed=SEED)
+    state = opening(cfg, device)
+    want = list(kc.kinetic_clearing_plain(*state, cfg=cfg))
+    reset_counts()
+    legacy = {}
+    for name, fn, hoisted in (("kinetic_clearing", kc.kinetic_clearing, True),
+                              ("naive_clearing", nc.naive_clearing, False)):
+        legacy[name] = autotune.candidate_tiles(L, A, hoisted=hoisted)
+        for c in legacy[name]:
+            label = f"autotune {name} {tuple(c[2:])}"
+            try:
+                got = list(fn(*state, cfg=cfg, tile=c))
+            except RuntimeError as exc:
+                raise Mismatch(f"{label}: {exc}") from exc
+            errs[name] = max(errs[name], compare(label, got, want))
+    torch.cuda.synchronize()
+    counts = expect_counts("autotune legacy", {
+        "kinetic_clearing": len(legacy["kinetic_clearing"]),
+        "naive_clearing": chunk * len(legacy["naive_clearing"])})
+    for name, n in counts.items():
+        launches[name] += n
+
+    # 4. The runner's sweep: once, then a cache hit; run(500) through the
+    # rule's tile and the winner, in turns; the same bits.
+    spec = homogeneous(M, A, L, 500)
+    check_sweeps("before the autotune phase's own sweep")
+    autotune.clear_tune_cache()
+    engines = {"winner": Engine("cuda-kinetic", device=device),
+               "rule": Engine("cuda-kinetic", device=device,
+                              autotune=False)}
+    t0 = time.perf_counter()
+    engines["winner"].open(spec).close()
+    sweep_s = time.perf_counter() - t0
+    with Engine("cuda-kinetic", device=device).open(spec) as again:
+        reports = autotune.sweep_reports()
+        if len(reports) != 1 or again._runner.tile != reports[0].winner:
+            raise Mismatch(f"the sweep ran {len(reports)} times for a key")
+    report = reports[0]
+    if report.fell_back:
+        raise Mismatch(f"the sweep fell back: {report.failures}")
+    ms = {"rule": [], "winner": []}
+    outs = {}
+    for label in ("rule", "winner") + ("rule", "winner", "winner",
+                                       "rule") * 2:
+        with engines[label].open(spec) as sess:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            batch = sess.run(500)
+            torch.cuda.synchronize()
+            ms[label].append((time.perf_counter() - start) * 1e3)
+            outs[label] = list(sess.state) + list(batch)
+    for label in ms:
+        ms[label] = ms[label][1:]     # the first run of each warms it up
+    err = compare("run(500) winner vs rule", outs["winner"], outs["rule"])
+    errs["kinetic_clearing_chunk"] = max(errs["kinetic_clearing_chunk"], err)
+
+    # 5. AutotuneOOM: the restart's sweep falls back, the stream is bitwise.
+    check_sweeps("autotune")      # the fault's own failures come next
+    oom_spec = homogeneous(M, A, L, 2 * chunk)
+    with Engine("cuda-kinetic", device=device,
+                chunk_size=chunk).open(oom_spec) as sess:
+        clean = [x.cpu() for x in sess.run(2 * chunk)]
+    with tempfile.TemporaryDirectory() as tmp:
+        rep = run_plan(FaultPlan([AutotuneOOM(at_step=chunk)],
+                                 checkpoint_every=chunk), oom_spec,
+                       backend="cuda-kinetic", ckpt_dir=tmp,
+                       chunk_size=chunk, engine_opts={"device": device})
+    oom = autotune.last_sweep_report()
+    if not (rep.replay_matched and oom.fell_back
+            and oom.winner == autotune.auto_tile(L, A)
+            and len(oom.failures) == len(oom.tried)):
+        raise Mismatch(f"AutotuneOOM: {rep.events} {oom}")
+    err = compare("AutotuneOOM stream",
+                  [torch.as_tensor(x) for x in rep.batch], clean)
+    autotune.clear_tune_cache()    # later phases sweep for themselves
+    emit("autotune", ok=True, checked_markets=Mc, steps=chunk,
+         candidates={f"{n} A={a} L={l}": len(c)
+                     for (n, a, l), c in candidates.items()},
+         legacy_candidates={n: len(c) for n, c in legacy.items()},
+         launches=launches, max_abs_err=errs, shapes=shapes,
+         sweep=dict(key=list(map(str, report.key)),
+                    winner=list(report.winner[2:]),
+                    rule=list(autotune.auto_tile(L, A)[2:]),
+                    candidates=len(report.tried),
+                    failures=list(report.failures), seconds=sweep_s,
+                    times_ms={"/".join(map(str, c[2:])): t * 1e3
+                              for c, t in report.times}),
+         run500_ms=ms, run500_rule_ms=statistics.median(ms["rule"]),
+         run500_winner_ms=statistics.median(ms["winner"]),
+         autotune_oom=dict(detail=rep.events[0].detail,
+                           failures=len(oom.failures), max_abs_err=err))
+    return errs, launches
+
+
+# ---------------------------------------------------------------------------
+# sharded: the market axis cut over a mesh that names the one card twice
+# ---------------------------------------------------------------------------
+
+def frames_equal(label, got, want) -> None:
+    """Every client's frames of two ``run_serve_plan`` reports, ``==``."""
+    if set(got.frames) != set(want.frames):
+        raise Mismatch(f"{label}: clients {sorted(got.frames)} vs "
+                       f"{sorted(want.frames)}")
+    for client, fs in want.frames.items():
+        gs = got.frames[client]
+        if len(gs) != len(fs):
+            raise Mismatch(f"{label}: {client} got {len(gs)} frames, "
+                           f"want {len(fs)}")
+        for f0, f1 in zip(fs, gs):
+            for field in ("mid", "price", "volume"):
+                a, b = getattr(f0, field), getattr(f1, field)
+                if f0.step0 != f1.step0 or not (a == b).all():
+                    raise Mismatch(f"{label}: {client} {field} differs at "
+                                   f"step {f0.step0}")
+
+
+def phase_sharded(device):
+    """``devices=``/``mesh=`` on the card: meshes naming ``cuda:0`` twice
+    and three times. Sharded ``Session.run(500)`` at the Table IV width
+    (homogeneous, and ring-coupled across every market with every
+    archetype, paths and ``stats_only``), ``cuda-naive``, a snapshot across
+    shard counts, 64 env steps and 2 trainer updates all equal the
+    unsharded runs; launches = shards x chunks (x steps for kernel 2);
+    ``DeviceLoss(devices_after=1)`` from two shards in ``run_plan`` and
+    under the gateway, bitwise; ``devices=2`` on one card raises; the wall
+    of a sharded ``run(500)`` against the unsharded one."""
+    import tempfile
+    import time
+
+    import torch
+    from repro_torch.core.session import Engine
+    from repro_torch.env import MarketFeatures, rollout
+    from repro_torch.launch import MarketsMesh, make_markets_mesh
+    from repro_torch.ops import (DeviceLoss, FaultPlan, run_plan,
+                                 run_serve_plan)
+    from repro_torch.train import PPOConfig, make_market_maker
+
+    (M, A, L), S, chunk = TABLE_IV, 500, 64
+    n_chunks = -(-S // chunk)
+    meshes = {1: None, 2: MarketsMesh.of([device] * 2),
+              3: MarketsMesh.of([device] * 3)}
+    errs = {"kinetic_clearing_chunk": 0.0, "naive_clearing_chunk": 0.0}
+    launches = {"kinetic_clearing_chunk": 0, "naive_clearing_chunk": 0}
+
+    def note(name, err):
+        errs[name] = max(errs[name], err)
+
+    def counted(label, want, fn):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for name, n in expect_counts(label, want).items():
+            if name in launches:
+                launches[name] += n
+        return out
+
+    # 1. Session.run(500): homogeneous and ring-coupled, paths and stats.
+    specs = {"table_iv": homogeneous(M, A, L, S), "ring": sweep_spec(M, A)}
+    for label, spec in specs.items():
+        for stats_only in (False, True) if label == "ring" else (False,):
+            base = drive_session("cuda-kinetic", spec, device, chunk,
+                                 stats_only=stats_only)
+            for n in (2, 3):
+                got = counted(
+                    f"sharded {label} {n}",
+                    {"kinetic_clearing_chunk": n * n_chunks},
+                    lambda: drive_session("cuda-kinetic", spec, device,
+                                          chunk, mesh=meshes[n],
+                                          stats_only=stats_only))
+                note("kinetic_clearing_chunk", compare(
+                    f"sharded {label} {n} shards stats={stats_only}", got,
+                    base))
+    ring = specs["ring"]
+    base = drive_session("cuda-kinetic", ring, device, chunk)
+    got = counted("sharded naive", {"naive_clearing_chunk": 2 * S},
+                  lambda: drive_session("cuda-naive", ring, device, chunk,
+                                        mesh=meshes[2]))
+    note("naive_clearing_chunk", compare("sharded naive", got, base))
+
+    # 2. A snapshot across shard counts: 2 shards for 256 steps, restored
+    # onto 1 and onto 3, continues the straight run.
+    with Engine("cuda-kinetic", device=device,
+                mesh=meshes[2]).open(ring) as sess:
+        sess.run(256)
+        snap = sess.snapshot()
+    for n in (1, 3):
+        with Engine("cuda-kinetic", device=device,
+                    mesh=meshes[n]).open(ring) as sess:
+            sess.restore(snap)
+            batch = sess.run(S - 256)
+            got = list(sess.state) + [x for x in batch]
+        want = base[:4] + [p[:, 256:] for p in base[4:]]
+        note("kinetic_clearing_chunk", compare(f"snapshot 2 -> {n}", got,
+                                               want))
+
+    # 3. 64 env steps of the scripted maker over the ring, on 2 shards.
+    maker = make_market_maker(L)
+    env1 = Engine("cuda-kinetic", device=device).env(ring)
+    env2 = Engine("cuda-kinetic", device=device, mesh=meshes[2]).env(ring)
+    want = env_outputs(*rollout(env1, maker, ENV_STEPS))
+    got = counted("sharded env",
+                  {"kinetic_clearing_chunk": 2 * ENV_STEPS},
+                  lambda: env_outputs(*rollout(env2, maker, ENV_STEPS)))
+    note("kinetic_clearing_chunk", compare("sharded env", got, want))
+
+    # 4. Two trainer updates on 2 shards.
+    T = TRAIN_CONFIG["rollout_len"]
+    tspec = train_spec(TRAIN_MIX, TRAIN_BLOCK, A, L, T, TRAIN_CONFIG["seed"])
+    cfg = PPOConfig(**TRAIN_CONFIG)
+    runs = {}
+    for n in (1, 2):
+        tr = Engine("cuda-kinetic", device=device, mesh=meshes[n]).trainer(
+            tspec, cfg, obs=MarketFeatures())
+        ts = tr.init()
+        runs[n] = counted(f"sharded train {n}",
+                          {"kinetic_clearing_chunk": 2 * T * n},
+                          lambda: train_outputs(*tr.train(ts, 2)))
+    note("kinetic_clearing_chunk", compare("sharded train", runs[2],
+                                           runs[1]))
+
+    # 5. DeviceLoss(devices_after=1) from 2 shards: run_plan and a gateway.
+    with tempfile.TemporaryDirectory() as tmp:
+        rep = run_plan(FaultPlan([DeviceLoss(at_step=2 * chunk,
+                                             devices_after=1)],
+                                 checkpoint_every=chunk), ring,
+                       backend="cuda-kinetic", ckpt_dir=tmp,
+                       chunk_size=chunk, n_steps=4 * chunk,
+                       engine_opts={"device": device, "mesh": meshes[2]})
+    if not rep.replay_matched or \
+            rep.events[0].detail != "rebuilt on devices=1":
+        raise Mismatch(f"sharded DeviceLoss: {rep.events}")
+    note("kinetic_clearing_chunk", compare(
+        "sharded DeviceLoss stream", [torch.as_tensor(x) for x in rep.batch],
+        [p[:, :4 * chunk].cpu() for p in base[4:]]))
+    serve_kw = dict(scenarios=list(PRESETS[:SHARDED_CLIENTS]),
+                    backend="cuda-kinetic", chunk_size=chunk,
+                    chunks=SHARDED_SERVE_CHUNKS, checkpoint_every=2,
+                    num_agents=A, num_levels=L, fault_after=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        clean = run_serve_plan(ckpt_dir=Path(tmp) / "clean",
+                               engine_opts={"device": device}, **serve_kw)
+        lost = run_serve_plan(ckpt_dir=Path(tmp) / "lost",
+                              engine_opts={"device": device,
+                                           "mesh": meshes[2]},
+                              fault=DeviceLoss(at_step=0, devices_after=1),
+                              **serve_kw)
+    if lost.reconnects != 1 or lost.traces_delta != 0:
+        raise Mismatch(f"sharded gateway: reconnects={lost.reconnects} "
+                       f"traces_delta={lost.traces_delta}")
+    frames_equal("sharded gateway DeviceLoss", lost, clean)
+
+    # 6. One card is one device: devices=2 raises the mesh's ValueError.
+    for make in (lambda: make_markets_mesh(2, device=device),
+                 lambda: Engine("cuda-kinetic", device=device, devices=2)
+                 .open(ring)):
+        try:
+            make()
+        except ValueError as exc:
+            refusal = str(exc)
+        else:
+            raise Mismatch("devices=2 on one card did not raise")
+
+    # 7. The wall of run(500) at Table IV on 1, 2 and 3 shards, in turns.
+    spec = specs["table_iv"]
+    engines = {n: Engine("cuda-kinetic", device=device, mesh=meshes[n])
+               for n in meshes}
+    wall = {n: [] for n in meshes}
+    for n in (1, 2, 3) + (1, 2, 3, 3, 2, 1) * 2:
+        with engines[n].open(spec) as sess:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess.run(S)
+            torch.cuda.synchronize()
+            wall[n].append((time.perf_counter() - t0) * 1e3)
+    wall = {n: w[1:] for n, w in wall.items()}   # the first run warms up
+    emit("sharded", ok=True, markets=M, agents=A, levels=L, steps=S,
+         chunk=chunk, launches=launches, max_abs_err=errs,
+         devices_2_refusal=refusal,
+         run500_wall_ms={str(n): statistics.median(w)
+                         for n, w in wall.items()},
+         run500_wall_ms_runs={str(n): w for n, w in wall.items()},
+         serve=dict(clients=SHARDED_CLIENTS, chunks=SHARDED_SERVE_CHUNKS,
+                    steps=lost.steps, recoveries=lost.recoveries))
+    return errs, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1823,7 +2281,9 @@ def serve_child(phase: str, ckpt_dir: str, out_dir: str) -> int:
     gw, streams, extra = asyncio.run(crash() if phase == "crash"
                                      else restart())
     torch.cuda.synchronize()
-    report = dict(gateway_report(gw), launches=read_counts(), **extra)
+    check_sweeps(f"serve {phase} child")
+    report = dict(gateway_report(gw), launches=read_counts(),
+                  swept=sweep_launches(), **extra)
     save_table(Path(out_dir) / f"{phase}.npz", frame_table(streams))
     (Path(out_dir) / f"{phase}.json").write_text(json.dumps(report))
     if phase == "crash":
@@ -1846,16 +2306,18 @@ def run_child(phase, ckpt_dir, out_dir):
 
 def check_child(label, report) -> int:
     """traces_delta 0; kernel 1 once per chunk dispatched (a warm-up per
-    engine opened, replays included), kernel 2 and the legacy kernels
-    never. Returns the chunks dispatched."""
+    engine opened, replays included) plus the child's tile sweeps, kernel
+    2 and the legacy kernels never. Returns the chunks dispatched."""
     if report["traces_delta"] != 0:
         raise Mismatch(f"{label}: traces_delta {report['traces_delta']}")
     dispatched = report["chunks_dispatched"] + 1 + report["recoveries"]
     want = {"kinetic_clearing_chunk": dispatched}
     for name, n in report["launches"].items():
-        if n != want.get(name, 0):
+        need = want.get(name, 0) + report["swept"].get(name, 0)
+        if n != need:
             raise Mismatch(f"{label}: {name} launched {n} times, expected "
-                           f"{want.get(name, 0)}")
+                           f"{want.get(name, 0)} on the path and "
+                           f"{report['swept'].get(name, 0)} in tile sweeps")
     return dispatched
 
 
@@ -2059,12 +2521,16 @@ def main() -> int:
     err_s = phase_agent_sweep(device)
     legacy = phase_legacy_path(device)
     phase_fixed_workload(device)
+    err_tune, tune_launches = phase_autotune(device)
+    err_shard, shard_launches = phase_sharded(device)
     err_env = phase_env(device)
     err_train, train_launches = phase_train(device)
     serve = phase_serve(device)
+    check_sweeps("the last phase")
     launches.update(legacy["launches"])
-    for name, n in train_launches.items():
-        launches[name] += n
+    for extra in (train_launches, tune_launches, shard_launches):
+        for name, n in extra.items():
+            launches[name] += n
     errs = {"kinetic_clearing_chunk":
             max(err_k, err_s, session_errs["kinetic_clearing_chunk"],
                 err_p, err_sc, err_env, err_train, serve["max_abs_err"]),
@@ -2075,6 +2541,9 @@ def main() -> int:
             max(err_l, legacy["max_abs_err"]["kinetic_clearing"]),
             "naive_clearing":
             max(err_l, legacy["max_abs_err"]["naive_clearing"])}
+    for extra in (err_tune, err_shard):
+        for name, e in extra.items():
+            errs[name] = max(errs[name], e)
     times = {"kinetic_clearing_chunk": (timing["ms"], timing["plain_ms"],
                                         timing),
              "naive_clearing_chunk": (timing["naive_ms"], timing["plain_ms"],

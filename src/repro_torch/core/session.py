@@ -407,6 +407,17 @@ class Session:
         if metrics is not None:
             metrics.gauge("chunk", runner.chunk)
             metrics.gauge("num_markets", spec.num_markets)
+            tile = getattr(runner, "tile", None)
+            if tile is not None:  # kernel runners: the launch shape
+                from repro_torch.kernels import autotune
+
+                metrics.gauge("tile_warps_per_market", tile.warps_per_market)
+                metrics.gauge("tile_markets_per_cta", tile.markets_per_cta)
+                metrics.gauge("tile_agents", tile.agents)
+                metrics.gauge("autotune_smem_bytes",
+                              autotune.estimate_smem_bytes(
+                                  tile, spec.num_levels, spec.num_agents,
+                                  runner.hoisted))
 
     @property
     def device(self) -> torch.device:

@@ -5,10 +5,10 @@
 // LEVELS_PER_LANE = 4 contiguous levels [4t, 4t + 4) ∩ [0, L) and keeps
 // their bid/ask in registers for the whole call; agent a is handled by
 // thread a mod T, so a warp holds 32 consecutive agent ids (mostly one
-// archetype). The launch rule (repro_torch/kernels/autotune.py::auto_tile,
-// checked by check_shape below) takes W = max(1, L / 128): a market is one
-// warp up to L = 128 (four markets per CTA) and 2-8 warps beyond (one
-// market per CTA).
+// archetype). The launch rule (repro_torch/kernels/autotune.py::auto_tile)
+// takes W = max(1, L / 128): a market is one warp up to L = 128 (four
+// markets per CTA) and 2-8 warps beyond (one market per CTA); the timed
+// sweep there may launch any other shape check_shape below accepts.
 //
 // market_step() runs one step of simulate_step (repro_torch.core.step):
 // the scenario shock, best quotes and the book imbalance, the agents'
@@ -389,10 +389,15 @@ static inline int check_shape(int L, int A, int W, int MPC, int agents,
   return *smem <= MAX_DYNAMIC_SMEM ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// Lets `kernel` take `smem` bytes of dynamic shared memory.
+// Lets `kernel` take `smem` bytes of dynamic shared memory. Without the
+// opt-in a CTA's dynamic and static shared memory together stay within
+// 48 KB, and every kernel here has kc_scratch as its static part: a shape
+// whose dynamic part alone fits 48 KB but not beside the scratch (one team
+// of 1,536 words a CTA eight times: L=128, A=1024 in the shared mode at
+// eight markets a CTA) needs the opt-in too.
 template <class K>
 static inline int allow_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
+  if (smem + sizeof(TeamScratch) <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }

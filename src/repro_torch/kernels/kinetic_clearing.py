@@ -2,8 +2,8 @@
 
 :func:`kinetic_clearing_chunk` advances every market up to ``chunk`` steps
 from absolute step ``step0``, keeping the books on chip (the CUDA kernel in
-``csrc/kinetic_clearing.cu``, launched in the shape of
-:func:`repro_torch.kernels.autotune.auto_tile`). It is the counterpart of
+``csrc/kinetic_clearing.cu``, launched in the shape ``tile=``, by default
+:func:`repro_torch.kernels.autotune.auto_tile`'s). It is the counterpart of
 ``repro.kernels.kinetic_clearing.kinetic_clearing_chunk`` and takes the same
 operands: the books, ``step0``/``n_valid`` (host ints), external orders added
 at local step 0, the chunk-frozen coupling column, the per-market params, and
@@ -158,7 +158,8 @@ def kinetic_clearing_chunk(
         params: Union[PackedParams, MarketParams, None] = None,
         peer_mid: Optional[torch.Tensor] = None,
         stats: Optional[stats_mod.MarketStats] = None,
-        stats_only: bool = False) -> Tuple:
+        stats_only: bool = False,
+        tile: Optional[autotune.TileChoice] = None) -> Tuple:
     """Advance ``n_valid <= chunk`` steps from absolute step ``step0``.
 
     ``cfg`` (an ``EnsembleSpec`` or ``MarketConfig``) supplies A, L and the
@@ -166,8 +167,11 @@ def kinetic_clearing_chunk(
     rows' global ids. ``peer_mid`` defaults to the gather of the entry
     ``pmid`` at ``coupling_peer``. ``scan`` selects the plain version's scan
     (the kernel always runs its raking scan; all give the same bits for
-    exact-integer books). The launch shape is
-    ``autotune.auto_tile(L, A)``.
+    exact-integer books). The launch shape is ``tile`` (a
+    :class:`~repro_torch.kernels.autotune.TileChoice` for the operands' L
+    and A, checked here on every device), or ``autotune.auto_tile(L, A)``
+    when None; the plain version ignores it, as every shape gives the same
+    bits.
 
     Returns ``(bid, ask, last, pmid, price_path, volume_path, mid_path)``
     with ``[M, chunk]`` paths of which the first ``n_valid`` columns are
@@ -179,13 +183,15 @@ def kinetic_clearing_chunk(
             ext_buy, ext_ask, cfg=cfg, chunk=chunk, scan=scan,
             market_ids=market_ids, params=params, peer_mid=peer_mid,
             stats=stats, stats_only=stats_only)
+    shape = autotune.resolve_tile(tile, bid.shape[1], cfg.num_agents,
+                                  hoisted=True)
     args = (bid, ask, last, pmid, step0, n_valid, ext_buy, ext_ask)
     kw = dict(cfg=cfg, chunk=chunk, scan=scan, market_ids=market_ids,
               params=params, peer_mid=peer_mid, stats=stats,
               stats_only=stats_only)
     if bid.device.type == "cpu":
         return kinetic_clearing_chunk_plain(*args, **kw)
-    out = _launch(*args, **kw)
+    out = _launch(*args, shape=shape, **kw)
     kinetic_clearing_chunk.launches += 1
     return out
 
@@ -195,11 +201,11 @@ kinetic_clearing_chunk.launches = 0
 
 
 def _launch(bid, ask, last, pmid, step0, n_valid, ext_buy, ext_ask, *, cfg,
-            chunk, scan, market_ids, params, peer_mid, stats, stats_only):
+            chunk, scan, market_ids, params, peer_mid, stats, stats_only,
+            shape):
     del scan  # the kernel's raking scan serves both modes (same bits)
     lib = _load_library()
     M, L = bid.shape
-    shape = autotune.auto_tile(L, cfg.num_agents)
     c = [t.contiguous() for t in (bid, ask, last, pmid, market_ids, peer_mid)]
     bid, ask, last, pmid, market_ids, peer_mid = c
     ext_buy = None if ext_buy is None else ext_buy.contiguous()
@@ -239,9 +245,11 @@ def kinetic_clearing_chunk_plain(
         bid, ask, last, pmid, step0: int, n_valid: int, ext_buy=None,
         ext_ask=None, *, cfg, chunk: int, scan: str = "cumsum",
         market_ids=None, params=None, peer_mid=None, stats=None,
-        stats_only: bool = False) -> Tuple:
+        stats_only: bool = False, tile=None) -> Tuple:
     """The plain PyTorch version: ``n_valid`` steps of ``simulate_step`` with
-    the kernel's gating, external orders at local step 0 and stats carry."""
+    the kernel's gating, external orders at local step 0 and stats carry
+    (``tile`` is accepted and ignored: every launch shape gives these
+    bits)."""
     M = bid.shape[0]
     device = bid.device
     if market_ids is None:
@@ -308,22 +316,25 @@ def legacy_params(cfg: MarketConfig, device: torch.device) -> PackedParams:
 
 def kinetic_clearing(bid: torch.Tensor, ask: torch.Tensor,
                      last: torch.Tensor, pmid: torch.Tensor, *,
-                     cfg: MarketConfig, scan: str = "cumsum") -> Tuple:
+                     cfg: MarketConfig, scan: str = "cumsum",
+                     tile: Optional[autotune.TileChoice] = None) -> Tuple:
     """Run all ``cfg.num_steps`` steps of a scalar ``MarketConfig`` in one
     persistent launch (the legacy one-shot entry).
 
     Market ids are the rows, and arbitrageurs see their own market's
-    previous mid at every step. There is no ``mb``: the launch shape is
-    ``autotune.auto_tile(L, A)``, and a ragged last CTA is masked, so the
-    TPU entry's rule that the tile divide M does not apply. Returns
-    ``(bid, ask, last, pmid, price_path, volume_path)`` with ``[M, S]``
-    paths.
+    previous mid at every step. ``tile`` (the counterpart of ``mb``) is the
+    launch shape, default ``autotune.auto_tile(L, A)``; a ragged last CTA
+    is masked, so the TPU entry's rule that the tile divide M does not
+    apply. Returns ``(bid, ask, last, pmid, price_path, volume_path)`` with
+    ``[M, S]`` paths.
     """
     check_legacy_operands("kinetic_clearing", bid, ask, last, pmid, cfg=cfg,
                           scan=scan)
+    shape = autotune.resolve_tile(tile, bid.shape[1], cfg.num_agents,
+                                  hoisted=True)
     if bid.device.type == "cpu":
         return kinetic_clearing_plain(bid, ask, last, pmid, cfg=cfg, scan=scan)
-    out = _launch_legacy(bid, ask, last, pmid, cfg)
+    out = _launch_legacy(bid, ask, last, pmid, cfg, shape)
     kinetic_clearing.launches += 1
     return out
 
@@ -332,11 +343,10 @@ def kinetic_clearing(bid: torch.Tensor, ask: torch.Tensor,
 kinetic_clearing.launches = 0
 
 
-def _launch_legacy(bid, ask, last, pmid, cfg):
+def _launch_legacy(bid, ask, last, pmid, cfg, shape):
     lib = _load_library()
     M, L = bid.shape
     S = cfg.num_steps
-    shape = autotune.auto_tile(L, cfg.num_agents)
     state = [t.contiguous() for t in (bid, ask, last, pmid)]
     params = legacy_params(cfg, bid.device)
     out = [torch.empty_like(t) for t in state]
@@ -353,9 +363,10 @@ def _launch_legacy(bid, ask, last, pmid, cfg):
 
 
 def kinetic_clearing_plain(bid, ask, last, pmid, *, cfg: MarketConfig,
-                           scan: str = "cumsum") -> Tuple:
+                           scan: str = "cumsum", tile=None) -> Tuple:
     """The plain PyTorch version: the oracle's loop
-    (:func:`repro_torch.kernels.ref.run_reference`) from the given books."""
+    (:func:`repro_torch.kernels.ref.run_reference`) from the given books
+    (``tile`` is accepted and ignored)."""
     state, prices, volumes = ref.run_reference(
         cfg, MarketState(bid, ask, last, pmid), scan)
     return tuple(state) + (prices, volumes)

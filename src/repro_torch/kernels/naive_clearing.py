@@ -4,7 +4,7 @@ launches, plain versions.
 :func:`naive_clearing_chunk` takes the operands and returns the outputs of
 :func:`repro_torch.kernels.kinetic_clearing.kinetic_clearing_chunk`, but
 launches one single-step kernel per step (``csrc/naive_clearing.cu``, the
-persistent kernels' device step and launch shape), so
+persistent kernels' device step and launch shapes), so
 the books, scalars and stats cross device memory between steps. It is the
 counterpart of ``repro.kernels.naive_clearing.naive_clearing_chunk`` and
 serves the ``cuda-naive`` session backend. :func:`naive_clearing` is the
@@ -73,13 +73,16 @@ def naive_clearing_chunk(
         params: Union[PackedParams, MarketParams, None] = None,
         peer_mid: Optional[torch.Tensor] = None,
         stats: Optional[stats_mod.MarketStats] = None,
-        stats_only: bool = False) -> Tuple:
+        stats_only: bool = False,
+        tile: Optional[autotune.TileChoice] = None) -> Tuple:
     """Advance ``n_valid <= chunk`` steps from absolute step ``step0`` with
     ``n_valid`` launches of the single-step kernel.
 
     Operands and returns are those of ``kinetic_clearing_chunk``: external
     orders join the first step, the peer column is frozen once per call,
-    and ``stats_only`` carries the six stats through every launch. With
+    and ``stats_only`` carries the six stats through every launch. ``tile``
+    is the launch shape (its agent mode is not read: a per-step kernel
+    keeps no agents), default ``autotune.auto_tile(L, A)``. With
     ``n_valid == 0`` nothing is launched and the state comes back as
     copies; the caller's tensors are never written.
     """
@@ -89,6 +92,8 @@ def naive_clearing_chunk(
             ext_buy, ext_ask, cfg=cfg, chunk=chunk, scan=scan,
             market_ids=market_ids, params=params, peer_mid=peer_mid,
             stats=stats, stats_only=stats_only)
+    shape = autotune.resolve_tile(tile, bid.shape[1], cfg.num_agents,
+                                  hoisted=False)
     if bid.device.type == "cpu":
         return naive_clearing_chunk_plain(
             bid, ask, last, pmid, step0, n_valid, ext_buy, ext_ask, cfg=cfg,
@@ -107,7 +112,7 @@ def naive_clearing_chunk(
         out, stats_out, paths = _launch_chunk(
             state, stats_in, ext_buy, ext_ask, step0, n_valid, cfg=cfg,
             chunk=chunk, market_ids=market_ids.contiguous(), params=params,
-            peer_mid=peer_mid.contiguous())
+            peer_mid=peer_mid.contiguous(), shape=shape)
         naive_clearing_chunk.launches += n_valid
     if stats_only:
         return tuple(out) + (stats_mod.MarketStats(
@@ -121,11 +126,10 @@ naive_clearing_chunk.launches = 0
 
 
 def _launch_chunk(state, stats_in, ext_buy, ext_ask, step0, n_valid, *, cfg,
-                  chunk, market_ids, params, peer_mid):
+                  chunk, market_ids, params, peer_mid, shape):
     lib = _load_library()
     bid = state[0]
     M, L = bid.shape
-    shape = autotune.auto_tile(L, cfg.num_agents)
     ext_buy = None if ext_buy is None else ext_buy.contiguous()
     ext_ask = None if ext_ask is None else ext_ask.contiguous()
     floats, ints = params.floats.contiguous(), params.ints.contiguous()
@@ -155,17 +159,20 @@ def _launch_chunk(state, stats_in, ext_buy, ext_ask, step0, n_valid, *, cfg,
 
 def naive_clearing(bid: torch.Tensor, ask: torch.Tensor, last: torch.Tensor,
                    pmid: torch.Tensor, *, cfg: MarketConfig,
-                   scan: str = "cumsum") -> Tuple:
+                   scan: str = "cumsum",
+                   tile: Optional[autotune.TileChoice] = None) -> Tuple:
     """Run ``cfg.num_steps`` steps of a scalar ``MarketConfig`` with one
     launch per step (the legacy one-shot entry of the ablation).
 
     Market ids are the rows, and arbitrageurs see their own market's
-    previous mid at every step. There is no ``mb``: the launch shape is
-    ``autotune.auto_tile(L, A)``. Returns ``(bid, ask, last, pmid, price_path,
-    volume_path)`` with ``[M, S]`` paths.
+    previous mid at every step. ``tile`` (the counterpart of ``mb``) is the
+    launch shape, default ``autotune.auto_tile(L, A)``. Returns ``(bid,
+    ask, last, pmid, price_path, volume_path)`` with ``[M, S]`` paths.
     """
     kc.check_legacy_operands("naive_clearing", bid, ask, last, pmid,
                              cfg=cfg, scan=scan)
+    shape = autotune.resolve_tile(tile, bid.shape[1], cfg.num_agents,
+                                  hoisted=False)
     if bid.device.type == "cpu":
         return naive_clearing_plain(bid, ask, last, pmid, cfg=cfg, scan=scan)
     M, L = bid.shape
@@ -175,7 +182,7 @@ def naive_clearing(bid: torch.Tensor, ask: torch.Tensor, last: torch.Tensor,
              for _ in range(2)]
     if S == 0:
         return tuple(t.clone() for t in state) + tuple(paths)
-    out = _launch_legacy(state, paths, cfg)
+    out = _launch_legacy(state, paths, cfg, shape)
     naive_clearing.launches += S
     return out
 
@@ -185,12 +192,11 @@ def naive_clearing(bid: torch.Tensor, ask: torch.Tensor, last: torch.Tensor,
 naive_clearing.launches = 0
 
 
-def _launch_legacy(state, paths, cfg):
+def _launch_legacy(state, paths, cfg, shape):
     bid = state[0]
     M, L = bid.shape
     S = cfg.num_steps
     lib = _load_library()
-    shape = autotune.auto_tile(L, cfg.num_agents)
     params = kc.legacy_params(cfg, bid.device)
     out = [torch.empty_like(t) for t in state]
     tmp = [torch.empty_like(t) for t in state]

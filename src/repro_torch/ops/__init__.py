@@ -3,9 +3,10 @@
 Three parts, wired through :class:`repro_torch.core.session.Engine`:
 
   * :mod:`repro_torch.ops.chaos`   — deterministic fault injection at chunk
-    boundaries on one card (device loss as a restart on the same card,
-    checkpoint corruption, torn checkpoint writes) and the harnesses
-    :func:`run_plan` and :func:`run_serve_plan`;
+    boundaries (device loss, as a restart on the same card or a rebuild on
+    the surviving mesh; checkpoint corruption; torn checkpoint writes; an
+    out-of-memory tile sweep) and the harnesses :func:`run_plan` and
+    :func:`run_serve_plan`;
   * :mod:`repro_torch.ops.warmup`  — ``Engine.warm(specs)`` builds and
     launches the ``(M, A, L, seed) x chunk`` runners before traffic, and
     ``Engine.readiness()`` reports which are warm;
@@ -13,6 +14,7 @@ Three parts, wired through :class:`repro_torch.core.session.Engine`:
     sampled on the host outside every launch.
 """
 from repro_torch.ops.chaos import (  # noqa: F401 (re-exported API)
+    AutotuneOOM,
     ChaosReport,
     CheckpointCorruption,
     DeviceLoss,
@@ -24,6 +26,7 @@ from repro_torch.ops.chaos import (  # noqa: F401 (re-exported API)
     corrupt_checkpoint,
     count_write_ops,
     crash_during_write,
+    force_autotune_oom,
     run_plan,
     run_serve_plan,
 )

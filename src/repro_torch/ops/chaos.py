@@ -1,5 +1,4 @@
-"""Deterministic failure injection at chunk boundaries (the chaos harness),
-on one card.
+"""Deterministic failure injection at chunk boundaries (the chaos harness).
 
 A :class:`FaultPlan` schedules faults at exact step coordinates and
 :func:`run_plan` drives a session through them, recovering after each one
@@ -14,8 +13,10 @@ Fault classes:
 
   * :class:`DeviceLoss`     — tear the session and engine down, drop the
     loaded kernel libraries, wait for the card, rebuild the engine on the
-    same card (its libraries load again from the on-disk build) and
-    restore the last checkpoint.
+    surviving devices (``devices_after=N``, or a mesh without
+    ``lost_device``; with neither, on the same card: its libraries load
+    again from the on-disk build) and restore the last checkpoint, which
+    keeps the canonical layout on any mesh.
   * :class:`CheckpointCorruption` — damage the newest checkpoint on disk
     (truncate or bit-flip a shard / the manifest) before restarting. The
     restore path must raise a typed
@@ -30,6 +31,9 @@ Fault classes:
     committed checkpoint or a skipped uncommitted directory — a torn
     write must **never** restore loadable-but-wrong state. The chaos
     tests sweep every injection offset.
+  * :class:`AutotuneOOM`    — restart with the tile sweep on while every
+    timed candidate fails out-of-memory-shaped (:func:`force_autotune_oom`);
+    the runner must fall back to the launch rule's tile.
 
 Every fault is injected *between* chunk dispatches — the simulator's only
 coherent preemption points (mid-chunk state never exists on the host) —
@@ -64,8 +68,17 @@ class Fault:
 
 @dataclasses.dataclass(frozen=True)
 class DeviceLoss(Fault):
-    """Simulated loss of the card's state: a plain restart on the same card
-    with the engine's original options."""
+    """Simulated loss of a device: rebuild on the survivors and restore.
+
+    ``devices_after`` pins the rebuilt mesh width (``devices=N``);
+    ``lost_device`` instead names the lost local device index and spans
+    every survivor (``make_markets_mesh(skip=(lost_device,))``). With
+    neither, the session rebuilds on the engine's original options — a
+    plain restart.
+    """
+
+    devices_after: Optional[int] = None
+    lost_device: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +98,13 @@ class CheckpointCorruption(Fault):
             raise ValueError(f"unknown corruption kind {self.kind!r}")
         if self.target not in ("shard", "manifest"):
             raise ValueError(f"unknown corruption target {self.target!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class AutotuneOOM(Fault):
+    """Restart with the autotune sweep enabled while every timed candidate
+    fails with an OOM-shaped error; the runner must fall back to the
+    conservative rule's tile."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -273,18 +293,68 @@ def count_write_ops(mgr: CheckpointManager, step: int, tree) -> int:
     return ops[0]
 
 
+@contextlib.contextmanager
+def force_autotune_oom():
+    """Make every tile-candidate timing call fail out-of-memory-shaped.
+
+    Patches ``repro_torch.kernels.autotune.time_call`` for the duration, so
+    any sweep started inside the context disqualifies every candidate and
+    must fall back to the rule's tile. The injected error is a
+    ``torch.cuda.OutOfMemoryError`` worded as the caching allocator words
+    one, so ``autotune.is_oom_error`` recognises it.
+    """
+    from repro_torch.kernels import autotune
+
+    real = autotune.time_call
+
+    def exploding_time_call(fn, block, trials: int = 2) -> float:
+        raise torch.cuda.OutOfMemoryError(
+            "CUDA out of memory. Tried to allocate 2.00 GiB (injected chaos "
+            "fault: tile candidate exceeded device memory while allocating "
+            "scratch)")
+
+    autotune.time_call = exploding_time_call
+    try:
+        yield
+    finally:
+        autotune.time_call = real
+
+
 # ---------------------------------------------------------------------------
 # the harness
 # ---------------------------------------------------------------------------
 
 def release_engine(engine) -> None:
-    """A :class:`DeviceLoss` teardown on one card: drop the engine's runners
-    and the loaded kernel libraries (the next engine loads them again from
-    the on-disk build, without ``nvcc``), then wait for the card."""
+    """A :class:`DeviceLoss` teardown: drop the engine's runners and the
+    loaded kernel libraries (the next engine loads them again from the
+    on-disk build, without ``nvcc``), then wait for the card."""
     engine.clear_cache()
     _build.forget()
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
+
+
+def surviving_opts(opts: Dict[str, Any], fault: Fault, device
+                   ) -> Tuple[Dict[str, Any], str]:
+    """Engine options after ``fault`` (on ``device``'s type) and the
+    :class:`FaultEvent` detail: ``devices=devices_after``, a mesh over every
+    survivor of ``lost_device``, or (neither, or not a
+    :class:`DeviceLoss`) the original options."""
+    devices_after = getattr(fault, "devices_after", None)
+    lost_device = getattr(fault, "lost_device", None)
+    if devices_after is None and lost_device is None:
+        return dict(opts), "restarted on the same card"
+    from repro_torch.launch.mesh import make_markets_mesh
+
+    new_opts = dict(opts)
+    new_opts.pop("devices", None)
+    new_opts.pop("mesh", None)
+    if devices_after is not None:
+        new_opts["devices"] = devices_after
+        return new_opts, f"rebuilt on devices={devices_after}"
+    new_opts["mesh"] = make_markets_mesh(skip=(lost_device,), device=device)
+    return new_opts, (f"lost device {lost_device}; mesh over "
+                      f"{new_opts['mesh'].size} survivors")
 
 
 def _restore_resilient(session, mgr: CheckpointManager,
@@ -312,8 +382,9 @@ def run_plan(plan: FaultPlan, spec, *, backend: str, ckpt_dir,
 
     The harness checkpoints at step 0 and every ``plan.checkpoint_every``
     steps; when a fault fires it injects the failure, rebuilds the
-    engine/session (dropping the loaded kernel libraries for
-    :class:`DeviceLoss`), restores the newest loadable checkpoint, and
+    engine/session (dropping the loaded kernel libraries and, for a
+    :class:`DeviceLoss` with ``devices_after`` or ``lost_device``, on a
+    different device set), restores the newest loadable checkpoint, and
     replays the lost chunks.
     Replayed chunks are compared bitwise against the originally streamed
     ones (``ChaosReport.replay_matched``); the returned batch is the
@@ -351,8 +422,24 @@ def run_plan(plan: FaultPlan, spec, *, backend: str, ckpt_dir,
             elif isinstance(fault, DeviceLoss):
                 sess.close()
                 release_engine(eng)
-                detail = "restarted on the same card"
-                eng, sess = open_session(opts)
+                new_opts, detail = surviving_opts(opts, fault, eng.device)
+                eng, sess = open_session(new_opts)
+            elif isinstance(fault, AutotuneOOM):
+                from repro_torch.kernels import autotune
+
+                sess.close()
+                autotune.clear_tune_cache()
+                with force_autotune_oom():
+                    eng, sess = open_session({**opts, "autotune": True})
+                report = autotune.last_sweep_report()
+                if report is None or not report.fell_back:
+                    raise RuntimeError(
+                        f"AutotuneOOM at step {t}: the restart's sweep did "
+                        f"not fall back to the rule's tile ({report})")
+                detail = (f"sweep fell_back={report.fell_back} "
+                          f"winner={report.winner} "
+                          f"failures={len(report.failures)}")
+                errors.extend(report.failures)
             elif isinstance(fault, TornCheckpointWrite):
                 # A checkpoint save at this boundary dies mid-commit at the
                 # requested durable-write offset; the "process" restarts

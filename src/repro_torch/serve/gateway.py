@@ -670,26 +670,31 @@ class Gateway:
         return False
 
     def _recover(self, fault, target: int) -> int:
-        """(engine thread) Device-fault recovery under live client load, on
-        the same card.
+        """(engine thread) Device-fault recovery under live client load.
 
         Drop the session, the engine and its runners and the loaded kernel
         libraries, wait for the card (``torch.cuda.synchronize``), open a
-        new engine (its libraries load again from the on-disk build, with
-        no ``nvcc``) and re-warm it, restore the newest loadable checkpoint
+        new engine on the surviving topology (``devices_after`` /
+        ``lost_device``, as in :class:`repro_torch.ops.chaos.DeviceLoss`;
+        with neither, on the same card; its libraries load again from the
+        on-disk build, with no ``nvcc``) and re-warm it, restore the newest
+        loadable checkpoint
         (walking the ladder past corrupt steps), then replay *quietly* back
         to ``target`` (the pre-fault cursor), re-applying splices read from
         the **durable journal** at their original boundaries, so published
         streams continue bitwise after the ``reconnect`` event. Idempotent
         across retry attempts. Returns the step the session resumed from.
         """
-        from repro_torch.ops.chaos import _restore_resilient, release_engine
+        from repro_torch.ops.chaos import (_restore_resilient, release_engine,
+                                           surviving_opts)
 
         if self.session is not None:
             self.session.close()
         if self.engine is not None:
             release_engine(self.engine)
         self.engine = self.session = None
+        self._engine_opts, _ = surviving_opts(self._engine_opts, fault,
+                                              self.device)
         self._open_engine(self._engine_opts)
         errors: List[str] = []
         resumed = _restore_resilient(self.session, self._ckpt, errors)

@@ -194,7 +194,10 @@ class PPOTrainer:
     """PPO over one :class:`MarketEnv` (see the module docstring).
 
     Obtain one from :meth:`Engine.trainer`, or construct it over an env. The
-    trainer runs on the env's device; nothing is built after construction,
+    trainer runs on the env's device, which on a sharded engine is the
+    mesh's first (``launch.replicated_sharding``): the parameters live
+    there unsharded, as ``repro``'s ``replicate_tree`` places them, and
+    only the market axis is cut. Nothing is built after construction,
     so a warm engine's ``trace_count`` stays flat across ``train`` calls
     and trainers over other mixtures of the same shape.
     """

@@ -1,0 +1,548 @@
+"""The timed tile sweep of the port (``repro_torch.kernels.autotune``) and
+its fault, ``AutotuneOOM``.
+
+Counterparts of ``repro``'s sweep tests and of
+``tests/test_chaos.py::test_autotune_oom_falls_back_to_conservative_tile``:
+the candidates are exactly the launch shapes the C entries accept, each
+covering every level and agent of a market once; the rule's tile comes
+first and a pinned agent mode is never swept away; keys keep kernel
+configurations apart; a cache hit sweeps nothing; the winner is the
+fastest candidate, and only when every candidate fails is the rule's tile
+cached, with the failures recorded. On the CPU the sweep times the plain
+version (``autotune=True``); every shape gives the same bits, and the
+recovered chaos stream equals the fault-free one and ``repro``'s.
+"""
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core.config import scenario_config as j_scenario_config
+from repro.kernels import autotune as j_autotune
+from repro.ops import AutotuneOOM as JAutotuneOOM
+from repro.ops import FaultPlan as JFaultPlan
+from repro.ops import run_plan as j_run_plan
+from repro_torch.core.config import MarketConfig, scenario_config
+from repro_torch.core.session import Engine
+from repro_torch.core.step import initial_state
+from repro_torch.kernels import _build, autotune, ops
+from repro_torch.kernels import kinetic_clearing as kc
+from repro_torch.kernels import naive_clearing as nc
+from repro_torch.ops import (AutotuneOOM, FaultPlan, force_autotune_oom,
+                             run_plan)
+
+HEADER = (_build.CSRC / "kinetic_step.cuh").read_text()
+LEVELS = [4, 8, 32, 128, 256, 1024]
+AGENTS = [1, 16, 256, 1024, 3000, 50000]
+CPU = {"device": "cpu"}
+CFG = MarketConfig(num_markets=6, num_agents=16, num_levels=32, num_steps=12,
+                   seed=5)
+
+
+@pytest.fixture(autouse=True)
+def fresh_cache():
+    autotune.clear_tune_cache()
+    yield
+    autotune.clear_tune_cache()
+
+
+# ---------------------------------------------------------------------------
+# The candidates: the C entries' domain, in a fixed order.
+# ---------------------------------------------------------------------------
+
+def _c_accepts(L, A, W, mpc, mode):
+    """``check_shape`` of ``kinetic_step.cuh``, transcribed condition by
+    condition (:func:`test_check_shape_is_the_headers` holds the text)."""
+    pow2 = 4 <= L <= 1024 and (L & (L - 1)) == 0
+    w_ok = W in (1, 2, 4, 8)
+    code = autotune.AGENT_MODES.index(mode)
+    if (not pow2 or A < 1 or not w_ok or W * 128 < L or mpc < 1
+            or (W > 1 and mpc != 1) or 32 * W * mpc > 256
+            or code < 0 or code > 2 or (code == 1 and A > 8 * 32 * W)):
+        return False
+    words = 2 * L + (A + (A + 3) // 4 if code == 0 else 0)
+    return mpc * 4 * words <= 232448 - 1024
+
+
+def test_check_shape_is_the_headers():
+    body = re.search(r"static inline int check_shape\(.*?\n}\n", HEADER,
+                     re.S).group(0)
+    for cond in ("W == 1 || W == 2 || W == 4 || W == 8",
+                 "W * LEVELS_PER_WARP < L", "MPC < 1",
+                 "(W > 1 && MPC != 1)", "32 * W * MPC > MAX_CTA_THREADS",
+                 "(agents == AGENTS_REGISTERS && A > REG_AGENTS * 32 * W)",
+                 "*smem = (size_t)MPC * 4 * team_smem_words(L, A, "
+                 "agents == AGENTS_SHARED);",
+                 "*smem <= MAX_DYNAMIC_SMEM"):
+        assert cond in body, cond
+    # The per-step kernels check their shape in the fresh mode.
+    assert "AGENTS_FRESH, &smem" in (_build.CSRC
+                                     / "naive_clearing.cu").read_text()
+    for L in (4, 64, 128, 512, 1024):
+        for A in (1, 300, 2048, 2049, 46080, 46081):
+            for W in range(0, 10):
+                for mpc in range(0, 10):
+                    for mode in autotune.AGENT_MODES:
+                        try:
+                            autotune.check_shape(L, A, W, mpc, mode, True)
+                            ok = True
+                        except ValueError:
+                            ok = False
+                        assert ok == _c_accepts(L, A, W, mpc, mode), \
+                            (L, A, W, mpc, mode)
+
+
+@pytest.mark.parametrize("hoisted", [True, False])
+@pytest.mark.parametrize("L", LEVELS)
+@pytest.mark.parametrize("A", AGENTS)
+def test_candidates_are_the_c_domain(L, A, hoisted):
+    cands = autotune.candidate_tiles(L, A, hoisted=hoisted)
+    assert cands[0] == autotune.auto_tile(L, A)
+    assert len(set(cands)) == len(cands)
+    mode = autotune.auto_tile(L, A).agents
+    want = {(W, mpc, m) for W in (1, 2, 4, 8) for mpc in (1, 2, 4, 8)
+            for m in (autotune.AGENT_MODES if hoisted else (mode,))
+            if _c_accepts(L, A, W, mpc, m if hoisted else "fresh")}
+    got = {(c.warps_per_market, c.markets_per_cta, c.agents) for c in cands}
+    assert got == want
+    for c in cands:
+        assert (c.num_levels, c.num_agents) == (L, A)
+        assert autotune.check_tile(c, L, A, hoisted) is c
+    pairs = {(W, mpc) for W, mpc, _ in got}
+    if L <= 128:
+        assert len(pairs) == 7      # W in {1,2,4,8}; MPC in {1,2,4,8} at W=1
+    if L == 1024:
+        assert pairs == {(8, 1)}
+        assert len(cands) <= (3 if hoisted else 1)
+        if hoisted and A <= 2048:
+            assert len(cands) == 3  # registers, shared and fresh
+    if hoisted and L <= 128 and A <= 256:
+        assert len(cands) == 21
+
+
+@pytest.mark.parametrize("L,A", [(4, 16), (32, 5), (128, 256), (128, 1024),
+                                 (1024, 300), (128, 50000)])
+def test_candidates_cover_levels_and_agents_once(L, A):
+    """At every candidate's team size the kernel's index maps (levels
+    ``[4t, 4t + 4)``, register slots ``t + k·T``, strided agents
+    ``t, t + T, ...``) cover every level and agent of a market once, and a
+    CTA's teams take disjoint shared memory within the limit."""
+    assert "const int lv = tm.t * LEVELS_PER_LANE + j;" in HEADER
+    assert "const int a = tm.t + k * tm.T;" in HEADER
+    assert HEADER.count("for (int a = tm.t; a < A; a += tm.T)") == 3
+    for c in autotune.candidate_tiles(L, A, hoisted=True):
+        T = c.threads_per_market
+        levels = sorted(4 * t + j for t in range(T) for j in range(4)
+                        if 4 * t + j < L)
+        assert levels == list(range(L)), c
+        if c.agents == "registers":
+            agents = [t + k * T for t in range(T) for k in range(8)
+                      if t + k * T < A]
+        else:
+            agents = [a for t in range(T) for a in range(t, A, T)]
+        assert sorted(agents) == list(range(A)), c
+        assert c.threads_per_cta <= autotune.MAX_CTA_THREADS
+        per_team = autotune.team_smem_bytes(L, A, c.agents == "shared")
+        assert c.smem_bytes(True) == c.markets_per_cta * per_team \
+            <= autotune.MAX_DYNAMIC_SMEM
+
+
+@pytest.mark.parametrize("hoisted", [True, False])
+@pytest.mark.parametrize("mode", autotune.AGENT_MODES)
+def test_pinned_agents_is_kept(mode, hoisted):
+    cands = autotune.candidate_tiles(128, 256, hoisted=hoisted, agents=mode)
+    assert cands and all(c.agents == mode for c in cands)
+    assert cands[0] == autotune.auto_tile(128, 256)._replace(agents=mode)
+    with pytest.raises(ValueError, match="agents"):
+        autotune.candidate_tiles(128, 256, hoisted=hoisted, agents="disk")
+
+
+def test_keys_are_distinct_per_configuration():
+    base = dict(kernel="kinetic_clearing_chunk", scan="cumsum",
+                stats_only=False, agents=None)
+    keys = {autotune.tune_key(128, 256, 64, device="cpu", **base)}
+    for field, other in (("kernel", "naive_clearing_chunk"),
+                         ("scan", "hillis-steele"), ("stats_only", True),
+                         ("agents", "shared")):
+        keys.add(autotune.tune_key(128, 256, 64, device="cpu",
+                                   **dict(base, **{field: other})))
+    keys.add(autotune.tune_key(128, 256, 1, device="cpu", **base))
+    keys.add(autotune.tune_key(64, 256, 64, device="cpu", **base))
+    assert len(keys) == 7
+    key = autotune.tune_key(128, 256, 64, device="cpu", **base)
+    assert key[:4] == ("cpu", 128, 256, 64)
+    # Sorted context, as repro's: the order of the keywords does not matter.
+    assert key == autotune.tune_key(128, 256, 64, device="cpu",
+                                    agents=None, stats_only=False,
+                                    scan="cumsum",
+                                    kernel="kinetic_clearing_chunk")
+
+
+# ---------------------------------------------------------------------------
+# The sweep machinery.
+# ---------------------------------------------------------------------------
+
+def test_cache_hit_does_not_resweep():
+    cands = autotune.candidate_tiles(128, 16, hoisted=True)
+    timed = []
+
+    def time_candidate(c):
+        timed.append(c)
+        return float(len(timed))
+
+    key = ("k",)
+    first = autotune.autotune_tile(key, time_candidate, cands)
+    assert first == cands[0] and timed == cands
+    again = autotune.autotune_tile(key, time_candidate, cands)
+    assert again == first and timed == cands
+    assert len(autotune.sweep_reports()) == 1
+    rep = autotune.last_sweep_report()
+    assert rep.key == key and not rep.fell_back and rep.tried == tuple(cands)
+    assert [c for c, _ in rep.times] == cands and rep.failures == ()
+
+
+def _scripted(monkeypatch):
+    """``time_call`` patched to call each candidate once, untimed, and
+    return rising scripted times (the first candidate wins); returns the
+    list of the candidates' outputs."""
+    calls = []
+
+    def fake_time_call(fn, block, trials=2):
+        out = fn()                    # the candidate's outputs, not timed
+        calls.append(out)
+        return 1.0 + 0.001 * len(calls)
+
+    monkeypatch.setattr(autotune, "time_call", fake_time_call)
+    return calls
+
+
+@pytest.mark.parametrize("backend,hoisted", [("cuda-kinetic", True),
+                                             ("cuda-naive", False)])
+def test_winner_is_the_fastest(backend, hoisted, monkeypatch):
+    """With scripted times the runner takes the fastest candidate, writes
+    one report per miss, and every candidate's call gives the same bits."""
+    spec = CFG
+    cands = autotune.candidate_tiles(spec.num_levels, spec.num_agents,
+                                     hoisted=hoisted)
+    fastest = cands[len(cands) // 2]
+    outs = []
+
+    def fake_time_call(fn, block, trials=2):
+        outs.append(fn())
+        return 0.5 if len(outs) == cands.index(fastest) + 1 else 1.0
+
+    monkeypatch.setattr(autotune, "time_call", fake_time_call)
+    eng = Engine(backend, autotune=True, chunk_size=4, **CPU)
+    with eng.open(spec) as s:
+        assert s._runner.tile == fastest
+        s.run(4)
+    assert len(outs) == len(cands) and len(autotune.sweep_reports()) == 1
+    for out in outs[1:]:
+        for a, b in zip(out, outs[0]):
+            assert torch.equal(a, b)
+    # A second engine, same key: a cache hit; another chunk: a new sweep.
+    with Engine(backend, autotune=True, chunk_size=4, **CPU).open(spec) as s:
+        assert s._runner.tile == fastest
+    assert len(autotune.sweep_reports()) == 1
+    Engine(backend, autotune=True, chunk_size=3, **CPU).open(spec)
+    assert len(autotune.sweep_reports()) == 2
+
+
+def test_all_candidates_fail_falls_back_to_the_rule():
+    cands = autotune.candidate_tiles(32, 16, hoisted=True)
+
+    def refuse(c):
+        raise RuntimeError(f"kinetic_clearing_chunk launch failed: CUDA "
+                           f"error 701 (too many resources requested for "
+                           f"launch) at W={c.warps_per_market}")
+
+    rule = autotune.auto_tile(32, 16)
+    got = autotune.autotune_tile(("all-fail",), refuse, cands[::-1],
+                                 fallback=rule)
+    assert got == rule
+    rep = autotune.last_sweep_report()
+    assert rep.fell_back and rep.winner == rule and rep.times == ()
+    assert len(rep.failures) == len(cands)
+    assert all("RuntimeError" in f and "too many resources" in f
+               for f in rep.failures)
+    assert rep.failures[0].startswith(repr(cands[-1]))
+    # The fall-back is cached: a later call hits it without sweeping.
+    assert autotune.autotune_tile(("all-fail",), refuse, cands) == rule
+    assert len(autotune.sweep_reports()) == 1
+
+
+def test_a_failing_candidate_is_disqualified_not_hidden():
+    cands = autotune.candidate_tiles(128, 16, hoisted=True)
+
+    def time_candidate(c):
+        if c.markets_per_cta == 8:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory.")
+        return 1.0 if c != cands[3] else 0.5
+
+    got = autotune.autotune_tile(("some-fail",), time_candidate, cands)
+    rep = autotune.last_sweep_report()
+    assert got == cands[3] and not rep.fell_back
+    bad = [c for c in cands if c.markets_per_cta == 8]
+    assert len(rep.failures) == len(bad) > 0
+    assert all("OutOfMemoryError" in f for f in rep.failures)
+
+
+@pytest.mark.parametrize("exc,oom", [
+    (torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to allocate "
+                                 "2.00 GiB"), True),
+    (RuntimeError("naive_clearing_chunk launch failed: CUDA error 701 (too "
+                  "many resources requested for launch)"), True),
+    (RuntimeError("RESOURCE_EXHAUSTED: while allocating"), True),
+    (ValueError("launch shape needs 300000 bytes of shared memory over the "
+                "limit of 231424"), True),
+    (RuntimeError("kinetic_clearing_chunk launch failed: CUDA error 1 "
+                  "(invalid argument)"), False),
+    (ValueError("tile is for L=64, A=16 but the operands have L=32"), False),
+])
+def test_is_oom_error_spellings(exc, oom):
+    assert autotune.is_oom_error(exc) is oom
+
+
+def test_check_tile_refusals():
+    with pytest.raises(ValueError, match="shared memory over the limit") \
+            as info:
+        autotune.check_shape(128, 46081, 1, 1, "shared", True)
+    assert autotune.is_oom_error(info.value)
+    with pytest.raises(ValueError, match="operands"):
+        autotune.check_tile(autotune.auto_tile(64, 16), 32, 16, True)
+    with pytest.raises(ValueError, match="registers"):
+        autotune.check_tile(autotune.TileChoice(128, 300, 1, 4, "registers"),
+                            128, 300, True)
+    # A per-step kernel keeps no agents: the same shape is fine there.
+    autotune.check_tile(autotune.TileChoice(128, 300, 1, 4, "registers"),
+                        128, 300, False)
+    with pytest.raises(TypeError):
+        autotune.check_tile((128, 16, 1, 4, "registers"), 128, 16, True)
+
+
+def test_force_autotune_oom_restores_time_call():
+    real = autotune.time_call
+    with force_autotune_oom():
+        assert autotune.time_call is not real
+        with pytest.raises(torch.cuda.OutOfMemoryError) as info:
+            autotune.time_call(lambda: None, lambda _: None)
+        assert autotune.is_oom_error(info.value)
+    assert autotune.time_call is real
+    with pytest.raises(KeyError):
+        with force_autotune_oom():
+            raise KeyError("boom")
+    assert autotune.time_call is real
+
+
+def test_time_call_takes_the_blocks_device_time():
+    """A ``block`` that returns a time (a card's CUDA events) ranks by it;
+    one that returns None falls back to the wall. Either way the warm-up
+    is not timed and the best of ``TRIALS`` calls is kept."""
+    calls = []
+    device = iter([9.0, 0.3, 0.2])       # warm-up, then the two trials
+
+    def fn():
+        calls.append(len(calls))
+
+    assert autotune.time_call(fn, lambda _: next(device)) == 0.2
+    assert len(calls) == 1 + autotune.TRIALS
+    wall = autotune.time_call(fn, lambda _: None)
+    assert 0.0 <= wall < 1.0 and len(calls) == 2 * (1 + autotune.TRIALS)
+
+
+def test_estimate_smem_bytes_is_the_tiles():
+    for hoisted in (True, False):
+        for c in autotune.candidate_tiles(128, 1024, hoisted=hoisted):
+            assert autotune.estimate_smem_bytes(c, 128, 1024, hoisted) == \
+                c.smem_bytes(hoisted)
+
+
+# ---------------------------------------------------------------------------
+# The entries and the runner's knobs.
+# ---------------------------------------------------------------------------
+
+def _operands(spec):
+    return tuple(initial_state(spec, "cpu"))
+
+
+@pytest.mark.parametrize("entry,hoisted", [(kc.kinetic_clearing_chunk, True),
+                                           (nc.naive_clearing_chunk, False)])
+def test_chunk_entries_take_a_tile(entry, hoisted):
+    state = _operands(CFG)
+    kw = dict(cfg=CFG, chunk=6)
+    want = entry(*state, 0, 6, **kw)
+    for tile in autotune.candidate_tiles(32, 16, hoisted=hoisted):
+        got = entry(*state, 0, 6, tile=tile, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="operands"):
+        entry(*state, 0, 6, tile=autotune.auto_tile(64, 16), **kw)
+    with pytest.raises(ValueError, match="operands"):
+        entry(*state, 0, 6, tile=autotune.auto_tile(32, 17), **kw)
+    # The plain version accepts and ignores a tile.
+    plain = kc.kinetic_clearing_chunk_plain(*state, 0, 6, tile=object(), **kw)
+    for a, b in zip(plain, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("entry,hoisted", [(kc.kinetic_clearing, True),
+                                           (nc.naive_clearing, False)])
+def test_legacy_entries_take_a_tile(entry, hoisted):
+    cfg = MarketConfig(num_markets=3, num_agents=16, num_levels=32,
+                       num_steps=5, seed=2)
+    state = _operands(cfg)
+    want = entry(*state, cfg=cfg)
+    for tile in autotune.candidate_tiles(32, 16, hoisted=hoisted)[::5]:
+        got = entry(*state, cfg=cfg, tile=tile)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="operands"):
+        entry(*state, cfg=cfg, tile=autotune.auto_tile(128, 16))
+    plain = kc.kinetic_clearing_plain(*state, cfg=cfg, tile=None)
+    for a, b in zip(plain, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("backend", ["cuda-kinetic", "cuda-naive"])
+def test_runner_knobs(backend, monkeypatch):
+    """``tile=`` pins (no sweep), ``autotune=False`` and ``"auto"`` on the
+    CPU keep the rule, ``agents=`` pins the mode and sweeps the rest, and
+    a sweep builds nothing; every choice runs the same bits."""
+    _scripted(monkeypatch)
+    rule = autotune.auto_tile(32, 16)
+    pinned = autotune.TileChoice(32, 16, 2, 1, "fresh")
+
+    def stream(**opts):
+        eng = Engine(backend, chunk_size=4, **CPU, **opts)
+        with eng.open(CFG) as s:
+            return s._runner, s.run(12).to_numpy(), eng, s.metrics
+
+    runner, want, _, _ = stream(autotune=False)
+    assert runner.tile == rule
+    runner, got, _, _ = stream()                 # "auto": no card, no sweep
+    assert runner.tile == rule and not autotune.sweep_reports()
+    runner, got, _, _ = stream(tile=pinned, autotune=True)
+    assert runner.tile == pinned and not autotune.sweep_reports()
+    for a, b in zip(got, want):
+        assert (a == b).all()
+    runner, got, eng, _ = stream(agents="shared", autotune=True)
+    assert runner.tile.agents == "shared" and eng.trace_count == 1
+    rep = autotune.last_sweep_report()
+    assert all(c.agents == "shared" for c in rep.tried)
+    assert ("agents", "shared") in rep.key
+    for a, b in zip(got, want):
+        assert (a == b).all()
+    with pytest.raises(ValueError, match="operands"):
+        stream(tile=autotune.auto_tile(64, 16))
+    with pytest.raises(ValueError, match="autotune"):
+        stream(autotune="sometimes")
+
+
+def test_the_sweep_times_one_shards_rows(monkeypatch):
+    """A sharded runner times its candidates on one shard's rows (the
+    largest), from the opening books."""
+    from repro_torch.launch import set_host_device_count
+
+    calls = _scripted(monkeypatch)
+    prev = set_host_device_count(3)
+    try:
+        cfg = MarketConfig(num_markets=10, num_agents=16, num_levels=32,
+                           num_steps=8, seed=1)
+        Engine("cuda-kinetic", autotune=True, devices=3, chunk_size=4,
+               **CPU).open(cfg)
+    finally:
+        set_host_device_count(prev)
+    assert calls and all(out[0].shape == (4, 32) for out in calls)
+
+
+@pytest.mark.parametrize("backend,hoisted", [("cuda-kinetic", True),
+                                             ("cuda-naive", False)])
+def test_session_tile_gauges(backend, hoisted):
+    eng = Engine(backend, chunk_size=4, **CPU)
+    with eng.open(CFG) as s:
+        g = s.metrics.snapshot()["gauges"]
+        tile = s._runner.tile
+    assert g["tile_warps_per_market"] == tile.warps_per_market
+    assert g["tile_markets_per_cta"] == tile.markets_per_cta
+    assert g["tile_agents"] == tile.agents
+    assert g["autotune_smem_bytes"] == tile.smem_bytes(hoisted)
+    with Engine("torch-scan", chunk_size=4, **CPU).open(CFG) as s:
+        assert "tile_agents" not in s.metrics.snapshot()["gauges"]
+
+
+# ---------------------------------------------------------------------------
+# AutotuneOOM through the chaos harness.
+# ---------------------------------------------------------------------------
+
+CHAOS_KW = dict(num_markets=6, num_agents=16, num_levels=32, num_steps=24,
+                shock_step=11, seed=7)
+CHUNK = 6
+
+
+def test_autotune_oom_falls_back_and_stays_bitwise(tmp_path):
+    """Restarting under an OOM-shaped sweep falls back to the rule's tile
+    and the recovered stream equals the fault-free one and ``repro``'s
+    ``run_plan`` of the same plan on ``pallas-kinetic``."""
+    cfg = scenario_config("flash-crash", **CHAOS_KW)
+    with Engine("cuda-kinetic", chunk_size=CHUNK, **CPU).open(cfg) as s:
+        want = s.run(CHAOS_KW["num_steps"]).to_numpy()
+    plan = FaultPlan([AutotuneOOM(at_step=12)], checkpoint_every=CHUNK)
+    rep = run_plan(plan, cfg, backend="cuda-kinetic", ckpt_dir=tmp_path / "p",
+                   chunk_size=CHUNK, engine_opts=CPU)
+    assert rep.replay_matched
+    for a, b in zip(rep.batch, want):
+        assert (np.asarray(a) == np.asarray(b)).all()
+    ev = rep.events[0]
+    rule = autotune.auto_tile(32, 16)
+    assert "fell_back=True" in ev.detail and repr(rule) in ev.detail
+    assert len(ev.errors) == len(autotune.candidate_tiles(32, 16,
+                                                          hoisted=True))
+    assert all("OutOfMemoryError" in e and "CUDA out of memory" in e
+               for e in ev.errors)
+    report = autotune.last_sweep_report()
+    assert report.fell_back and report.winner == rule
+    j_autotune.clear_tune_cache()
+    try:
+        jrep = j_run_plan(
+            JFaultPlan([JAutotuneOOM(at_step=12)], checkpoint_every=CHUNK),
+            j_scenario_config("flash-crash", **CHAOS_KW),
+            backend="pallas-kinetic", ckpt_dir=tmp_path / "j",
+            chunk_size=CHUNK)
+    finally:
+        j_autotune.clear_tune_cache()
+    assert "fell_back=True" in jrep.events[0].detail
+    for a, b in zip(rep.batch, jrep.batch):
+        assert (np.asarray(a) == np.asarray(b)).all()
+    for a, b in zip(rep.state, jrep.state):
+        assert (np.asarray(a) == np.asarray(b)).all()
+
+
+def test_autotune_oom_needs_a_sweep(tmp_path):
+    """A pinned tile disables the sweep, so the fault cannot fall back:
+    the harness says so instead of passing silently."""
+    cfg = scenario_config("flash-crash", **CHAOS_KW)
+    plan = FaultPlan([AutotuneOOM(at_step=12)], checkpoint_every=CHUNK)
+    with pytest.raises(RuntimeError, match="fall back"):
+        run_plan(plan, cfg, backend="cuda-kinetic", ckpt_dir=tmp_path,
+                 chunk_size=CHUNK,
+                 engine_opts=dict(CPU, tile=autotune.auto_tile(32, 16)))
+
+
+def test_runners_are_opened_through_the_factories():
+    """Both factories take the knobs by name, as ``Engine`` passes them."""
+    spec = CFG
+    for factory in (ops.open_kinetic_runner, ops.open_naive_runner):
+        r = factory(spec, 4, "cpu", tile=None, agents=None, autotune=False,
+                    devices=None, mesh=None)
+        assert r.tile == autotune.auto_tile(32, 16) and r.mesh.size == 1
+
+
+def test_shared_memory_opt_in_counts_the_static_scratch():
+    """Some candidates take just under 48 KB of dynamic shared memory, which
+    fits the default limit only without the kernels' static reduction
+    scratch: the C side opts in above 48 KB less that scratch."""
+    assert "smem + sizeof(TeamScratch) <= 48 * 1024" in HEADER
+    window = [c for c in autotune.candidate_tiles(128, 1024, hoisted=True)
+              if 48 * 1024 - 1024 < c.smem_bytes(True) <= 48 * 1024]
+    assert autotune.TileChoice(128, 1024, 1, 8, "shared") in window

@@ -87,10 +87,10 @@ def test_launch_rule_shapes_are_resident(cuda, A, L):
 
 def test_session_launches_once_per_chunk(cuda):
     spec = _spec(4, 64, 32, S=50)
-    kc.kinetic_clearing_chunk.launches = 0
+    chip_smoke.reset_counts()
     with Engine("cuda-kinetic", device=cuda).open(spec, chunk_size=16) as s:
         got = s.run_to_result()
-    assert kc.kinetic_clearing_chunk.launches == 4
+    chip_smoke.expect_counts("session", {"kinetic_clearing_chunk": 4})
     with Engine("cuda-kinetic", device="cpu").open(spec,
                                                    chunk_size=16) as s:
         want = s.run_to_result()
@@ -162,10 +162,10 @@ def test_legacy_kernel_equals_plain(cuda, entry, M, A, L):
 
 def test_naive_session_launches_once_per_step(cuda):
     spec = _spec(4, 64, 32, S=50)
-    nc.naive_clearing_chunk.launches = 0
+    chip_smoke.reset_counts()
     with Engine("cuda-naive", device=cuda).open(spec, chunk_size=16) as s:
         got = s.run_to_result()
-    assert nc.naive_clearing_chunk.launches == 50
+    chip_smoke.expect_counts("naive session", {"naive_clearing_chunk": 50})
     with Engine("cuda-kinetic", device=cuda).open(spec, chunk_size=16) as s:
         want = s.run_to_result()
     for g, w in zip(got, want):
@@ -211,11 +211,11 @@ def test_coupled_scenario_on_the_card_equals_the_host(cuda):
 
     over = dict(num_markets=16, num_agents=64, num_levels=64, num_steps=40,
                 seed=5, alpha_arbitrageur=0.2)
-    kc.kinetic_clearing_chunk.launches = 0
+    chip_smoke.reset_counts()
     with engine.open_scenario("flash-crash", device=cuda,
                               config_overrides=over, chunk_size=16) as s:
         got = s.run_to_result().to_numpy()
-    assert kc.kinetic_clearing_chunk.launches == 3
+    chip_smoke.expect_counts("scenario", {"kinetic_clearing_chunk": 3})
     with engine.open_scenario("flash-crash", backend="numpy", device="cpu",
                               config_overrides=over, chunk_size=16) as s:
         want = s.run_to_result().to_numpy()
@@ -278,10 +278,10 @@ def test_env_launches_once_per_step_and_equals_the_host(cuda, backend,
     spec = _spec(3, 256, 128, S=40)
     obs = Composite((MarketFeatures(), BookWindow(4), PortfolioFeatures(),
                      StatsFeatures()))
-    counter.launches = 0
+    chip_smoke.reset_counts()
     final, batch = _env_rollout(backend, cuda, spec, 40, obs)
     torch.cuda.synchronize()
-    assert counter.launches == 40
+    chip_smoke.expect_counts("env", {counter.__name__: 40})
     want = [_env_rollout(b, d, spec, 40, obs)
             for b, d in (("torch-scan", cuda), (backend, "cpu"))]
     for _, ref in want:
@@ -298,9 +298,9 @@ def test_env_zero_actions_equal_session_run_on_the_card(cuda):
     spec = _spec(4, 256, 128, S=40).with_values(
         coupling_peer=-1, num_arbitrageurs=0)
     eng = Engine("cuda-kinetic", device=cuda)
-    kc.kinetic_clearing_chunk.launches = 0
+    chip_smoke.reset_counts()
     final, batch = rollout(eng.env(spec, auto_reset=False), None, 40)
-    assert kc.kinetic_clearing_chunk.launches == 40
+    chip_smoke.expect_counts("zero actions", {"kinetic_clearing_chunk": 40})
     with eng.open(spec) as sess:
         ref = sess.run(40)
         for g, w in zip(list(batch[3:6]) + list(final.market),
@@ -332,14 +332,60 @@ def test_trainer_launches_once_per_env_step_and_equals_torch_scan(
     of every rollout (and of a greedy evaluation), and trains bit for bit
     as ``torch-scan`` on the card: params, Adam state, key, metrics and the
     final env state."""
-    counter.launches = 0
+    chip_smoke.reset_counts()
     tr, ts, metrics = _train(backend, cuda)
     torch.cuda.synchronize()
-    assert counter.launches == 2 * 16
+    chip_smoke.expect_counts("trainer", {counter.__name__: 2 * 16})
     counter.launches = 0
     tr.evaluate(ts.params, n_steps=5)
     assert counter.launches == 5
     _, want_ts, want_metrics = _train("torch-scan", cuda)
     for g, w in zip(chip_smoke.train_outputs(ts, metrics),
                     chip_smoke.train_outputs(want_ts, want_metrics)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize(
+    "tile", autotune.candidate_tiles(128, 256, hoisted=True),
+    ids=lambda t: f"W{t.warps_per_market}-MPC{t.markets_per_cta}-{t.agents}")
+def test_every_table_iv_candidate_equals_the_rule(cuda, tile):
+    """Kernel 1 at every launch shape the sweep may pick at the Table IV
+    width (A=256, L=128) equals the rule's launch and the plain version,
+    paths and stats, on 265 markets (two waves of 132 SMs and a ragged
+    CTA)."""
+    spec = _spec(53, 256, 128, S=64)
+    state = initial_state(spec, cuda)
+    params = params_mod.pack_params(spec.params, cuda)
+    for stats_only in (False, True):
+        kw = dict(cfg=spec, chunk=64, params=params, stats_only=stats_only,
+                  stats=init_stats(spec.num_markets, cuda) if stats_only
+                  else None)
+        rule = kc.kinetic_clearing_chunk(*state, 0, 64, **kw)
+        got = kc.kinetic_clearing_chunk(*state, 0, 64, tile=tile, **kw)
+        plain = kc.kinetic_clearing_chunk_plain(*state, 0, 64, **kw)
+        torch.cuda.synchronize()
+        flat = (lambda out: list(out[:4]) + list(out[4])) if stats_only \
+            else (lambda out: list(out))
+        for g, r, p in zip(flat(got), flat(rule), flat(plain)):
+            assert torch.equal(g, r) and torch.equal(g, p)
+
+
+def test_two_shard_mesh_on_one_card_equals_unsharded(cuda):
+    """A mesh naming ``cuda:0`` twice: a ring-coupled run whose peers cross
+    the cut equals the unsharded run, with two launches a chunk."""
+    from repro_torch.launch import MarketsMesh
+
+    spec = _spec(20, 64, 128, S=48)
+    mesh = MarketsMesh.of([cuda, cuda])
+    runs = {}
+    for label, opts in (("one", {}), ("two", {"mesh": mesh})):
+        eng = Engine("cuda-kinetic", device=cuda, chunk_size=16, **opts)
+        with eng.open(spec) as sess:
+            kc.kinetic_clearing_chunk.launches = 0
+            batch = sess.run(48)
+            torch.cuda.synchronize()
+            runs[label] = (list(sess.state) + list(batch),
+                           kc.kinetic_clearing_chunk.launches)
+    assert runs["one"][1] == 3 and runs["two"][1] == 6
+    for g, w in zip(runs["two"][0], runs["one"][0]):
         assert torch.equal(g, w)

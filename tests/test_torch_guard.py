@@ -25,7 +25,8 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.ops.chaos, repro_torch.checkpoint, "
             "repro_torch.scenario, repro_torch.scenario.validate, "
             "repro_torch.core.numpy_backend, repro_torch.core.sequential, "
-            "repro_torch.train, repro_torch.train.loop; "
+            "repro_torch.train, repro_torch.train.loop, "
+            "repro_torch.launch, repro_torch.launch.mesh; "
             "repro_torch.core.session.backends(); "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
@@ -40,7 +41,7 @@ def test_the_import_scan_covers_every_subpackage():
     scanned = {p.relative_to(ROOT / "src" / "repro_torch").parts[0]
                for p in PORT_FILES if "repro_torch" in p.parts}
     for sub in ("core", "kernels", "env", "serve", "ops", "checkpoint",
-                "scenario", "train"):
+                "scenario", "train", "launch"):
         assert sub in scanned, sub
 
 

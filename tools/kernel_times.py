@@ -17,7 +17,10 @@ steps each, CUDA events over several calls after a warm-up):
     at M=8192, L=128 and the paper's agent sweep A in {16, 64, 256, 1024},
     and at M=8192, A=32, L=1024;
   * kernels 3 and 4 (``kinetic_clearing``, ``naive_clearing``) at M=8192,
-    A=256, L=128, S=64.
+    A=256, L=128, S=64;
+  * the main path: ``Session.run(500)`` of ``cuda-kinetic`` at M=8192,
+    A=256, L=128 (chunk 64, the rule's launch shape on a tree that has a
+    tile sweep), its wall around the run and a ``torch.cuda.synchronize``.
 
 Prints one JSON line per shape, then the card's name and power limit.
 Imports nothing of JAX or of the JAX package.
@@ -35,6 +38,7 @@ SWEEP = [(8192, A, 128) for A in (16, 64, 256, 1024)] + [(8192, 32, 1024)]
 LEGACY = (8192, 256, 128)
 STEPS = 64
 SEED = 20260611
+RUN500_REPS = 7
 
 
 def time_ms(fn, reps: int) -> float:
@@ -49,6 +53,32 @@ def time_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def session_run_ms(shape, device) -> float:
+    """Wall of one ``cuda-kinetic`` ``Session.run(500)``, ms."""
+    import inspect
+    import time
+
+    import torch
+    from repro_torch.core.config import MarketConfig
+    from repro_torch.core.params import EnsembleSpec
+    from repro_torch.core.session import Engine
+    from repro_torch.kernels import ops
+
+    M, A, L = shape
+    spec = EnsembleSpec.homogeneous(MarketConfig(
+        num_markets=M, num_agents=A, num_levels=L, num_steps=500,
+        seed=SEED))
+    knobs = inspect.signature(ops.open_kinetic_runner).parameters
+    opts = {"autotune": False} if "autotune" in knobs else {}
+    with Engine("cuda-kinetic", device=device, chunk_size=64,
+                **opts).open(spec) as sess:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.run(500)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
 
 
 def main() -> int:
@@ -117,6 +147,14 @@ def main() -> int:
         base, markets=M, agents=A, levels=L, steps=STEPS,
         kernel3_ms=statistics.median(k3), kernel3_ms_runs=k3,
         kernel4_ms=statistics.median(k4), kernel4_ms_runs=k4)), flush=True)
+    run500 = []
+    for _ in range(RUN500_REPS + 1):
+        run500.append(session_run_ms(LEGACY, device))
+    run500 = run500[1:]                   # the first run warms up
+    print(json.dumps(dict(
+        base, markets=LEGACY[0], agents=LEGACY[1], levels=LEGACY[2],
+        steps=500, run500_wall_ms=statistics.median(run500),
+        run500_wall_ms_runs=run500)), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
