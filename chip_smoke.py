@@ -137,14 +137,27 @@ line:
            from 2 shards in ``run_plan`` and under a gateway of 8 clients,
            bitwise; ``devices=2`` on one card raises the mesh's
            ``ValueError``; the wall of ``run(500)`` on 1, 2 and 3 shards.
+  roofline ``repro_torch.launch.roofline``: ``Session.run(500)`` at Table
+           IV with and without a ``Roofline``, equal; its kernel records
+           equal to the launches counted (8) and to ``op_count``/
+           ``byte_count`` over the eight chunks, its bound and the bound
+           over the run's wall; the same run on a mesh naming the card
+           twice: per-device totals summing to the unsharded ones, the
+           cut's bytes out and back equal to their closed form; then one
+           64-step ``torch-scan`` chunk, 50 maker env steps and one trainer
+           update (torch's sync debug mode at error) under the recorder,
+           each equal to its unrecorded run: aten ops a step, flops, bytes
+           and the bound, beside ``torch.profiler``'s CUDA kernels a step;
+           the update's backward dots 1.5-2x its forward dots.
 
 Each path is driven with every launch count at 0 just before it and read
 just after; the ``kernels`` line's launches are the ``session`` phase's
 (and the ``legacy_path`` phase's), plus the ``train`` phase's 2 updates,
-the ``autotune`` phase's candidate checks and the ``sharded`` phase's
-paths. Every launch is counted where it is made, the runners' own tile
-sweeps included (a ``cuda-kinetic``/``cuda-naive`` runner opened on the
-card times each candidate once per key, ``autotune.TRIALS`` + 1 calls):
+the ``autotune`` phase's candidate checks and the ``sharded`` and
+``roofline`` phases' paths. Every launch is counted where it is made, the
+runners' own tile sweeps included (a ``cuda-kinetic``/``cuda-naive``
+runner opened on the card times each candidate once per key,
+``autotune.TRIALS`` + 1 calls):
 each window expects its path's launches plus those its sweeps record, and
 a sweep that lost a candidate fails the run.
 The ``timing``, ``agent_sweep``, ``legacy_path`` and
@@ -176,13 +189,6 @@ TABLE_IV = (8192, 256, 128)
 LEGACY_MARKETS = 1024     # markets of the legacy phase's wide configs
 # Few agents and many levels: 2·M·L·4 = 67 MB of books, beyond the 50 MB L2.
 PERSISTENCE = (8192, 32, 1024)
-# H100 SXM data sheet: 67 TFLOP/s in f32 counts an FMA as two operations.
-# One instruction per FP32 lane per clock (132 SMs x 128 lanes x 1.98 GHz)
-# is half that. kc.op_count counts FP32-lane issue slots: each instruction
-# class weighted by 128 over its per-SM rate on compute capability 9.0
-# (FP32 x1, 32-bit integer x2, conversion x8, shuffle x4).
-PEAK_LANE_OPS = 67e12 / 2
-PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 SEED = 20260611
 CARD = ("cuda", 0)        # the one card every phase runs on
 # The serve phase: slots of the template, clients before the first chunk,
@@ -525,6 +531,7 @@ def phase_edges(device):
     from repro_torch.core.config import MarketConfig
     from repro_torch.kernels import autotune
     from repro_torch.kernels import kinetic_clearing as kc
+    from repro_torch.launch import bound
 
     errs = []
     shapes = ((8, 300, 1024), (3, 5, 8), (3, 16, 4))  # 5·M markets
@@ -1003,13 +1010,6 @@ def profile_window(fn, steps: int) -> dict:
              for e in top})
 
 
-def bound(ops: int, nbytes: int) -> dict:
-    """The least time for ``ops`` issue slots and ``nbytes`` bytes."""
-    ops_ms, bytes_ms = ops / PEAK_LANE_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return dict(ops=ops, bytes=nbytes, bound_ms=max(ops_ms, bytes_ms),
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
-
-
 def launch_facts(M, A, L) -> dict:
     """The kernels' launch shape at (M, A, L) and each kernel's resident
     CTAs per SM there."""
@@ -1044,6 +1044,7 @@ def phase_timing(device):
     from repro_torch.core import params as params_mod
     from repro_torch.kernels import kinetic_clearing as kc
     from repro_torch.kernels import naive_clearing as nc
+    from repro_torch.launch import HW, bound
 
     (M, A, L), chunk = TABLE_IV, 64
     spec = homogeneous(M, A, L, 500)
@@ -1078,7 +1079,7 @@ def phase_timing(device):
                   plain_ms=pms, plain_ms_runs=plain_ms,
                   agent_events_per_s=M * A * chunk / (ms * 1e-3),
                   naive_design_bytes=naive_bytes,
-                  naive_design_bytes_ms=naive_bytes / PEAK_BYTES * 1e3,
+                  naive_design_bytes_ms=naive_bytes / HW["hbm_bw"] * 1e3,
                   bound_share=b["bound_ms"] / ms,
                   naive_bound_share=b["bound_ms"] / nms,
                   launch=launch_facts(M, A, L), **b)
@@ -1123,6 +1124,7 @@ def phase_agent_sweep(device):
     from repro_torch.core import params as params_mod
     from repro_torch.kernels import kinetic_clearing as kc
     from repro_torch.kernels import naive_clearing as nc
+    from repro_torch.launch import bound
 
     M, L, chunk = TABLE_IV[0], 128, 64
     errs, rows = [], []
@@ -1170,6 +1172,7 @@ def phase_legacy_path(device):
     from repro_torch.core.config import MarketConfig
     from repro_torch.kernels import kinetic_clearing as kc
     from repro_torch.kernels import naive_clearing as nc
+    from repro_torch.launch import bound
 
     (M, A, L), S = TABLE_IV, 64
     cfg = MarketConfig(num_markets=M, num_agents=A, num_levels=L,
@@ -1222,6 +1225,7 @@ def phase_fixed_workload(device):
     from repro_torch.core.session import Engine
     from repro_torch.kernels import kinetic_clearing as kc
     from repro_torch.kernels import naive_clearing as nc
+    from repro_torch.launch import HW, bound
 
     (M, A, L), S = TABLE_IV, 500
     spec = homogeneous(M, A, L, S)
@@ -1288,7 +1292,7 @@ def phase_fixed_workload(device):
         naive_over_kinetic=statistics.median(naive_ms)
         / statistics.median(kernel_ms),
         naive_design_bytes=naive_bytes,
-        naive_design_bytes_ms=naive_bytes / PEAK_BYTES * 1e3,
+        naive_design_bytes_ms=naive_bytes / HW["hbm_bw"] * 1e3,
         launch=launch_facts(pM, pA, pL),
         **bound(kc.op_count(pM, pA, pL, chunk,
                             kc.agent_mix(pspec.params, pA)),
@@ -1321,6 +1325,7 @@ def phase_autotune(device):
     from repro_torch.kernels import autotune
     from repro_torch.kernels import kinetic_clearing as kc
     from repro_torch.kernels import naive_clearing as nc
+    from repro_torch.launch import bound
     from repro_torch.ops import AutotuneOOM, FaultPlan, run_plan
 
     M, chunk = TABLE_IV[0], 64
@@ -1670,6 +1675,239 @@ def phase_sharded(device):
          serve=dict(clients=SHARDED_CLIENTS, chunks=SHARDED_SERVE_CHUNKS,
                     steps=lost.steps, recoveries=lost.recoveries))
     return errs, launches
+
+
+# ---------------------------------------------------------------------------
+# roofline: repro_torch.launch.roofline on the card
+# ---------------------------------------------------------------------------
+
+def _record(label, fn, want_launches, sync_error=False):
+    """``fn()`` under a ``Roofline`` with the counts at 0 (and torch's sync
+    debug mode at "error" when ``sync_error``): its result, the summary,
+    and the launches counted, which must equal the recorded ones."""
+    import torch
+    from repro_torch.launch import Roofline
+
+    torch.cuda.synchronize()
+    reset_counts()
+    if sync_error:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        with Roofline() as rf:
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = expect_counts(label, want_launches)
+    summary = rf.summarize()
+    recorded = {k: e["launches"] for k, e in summary["kernels"].items()}
+    if recorded != {k: n for k, n in counts.items() if n}:
+        raise Mismatch(f"{label}: recorded launches {recorded}, counted "
+                       f"{counts}")
+    return out, summary, rf
+
+
+def _per_step(summary, steps: int, wall_s: float) -> dict:
+    """A recorded window's counts a step and its bound against a wall."""
+    from repro_torch.launch import bound
+
+    b = bound(summary["operations"], summary["hbm_bytes"],
+              summary["collective_wire_bytes"])
+    return dict(steps=steps, aten_ops_per_step=summary["aten_calls"] / steps,
+                flops=summary["flops"], operations=summary["operations"],
+                bytes=summary["hbm_bytes"], kernels=summary["kernels"],
+                bound=b, wall_s=wall_s,
+                bound_share=b["bound_ms"] * 1e-3 / wall_s)
+
+
+def phase_roofline(device):
+    """``repro_torch.launch.roofline`` on the card: ``Session.run(500)`` at
+    Table IV with and without the recorder, equal, its kernel records equal
+    to the launches and to ``op_count``/``byte_count`` over the chunks, and
+    its bound against the run's wall; the same over a mesh naming the card
+    twice (per-device sums, the cut's closed form); then one ``torch-scan``
+    chunk, 50 maker env steps and one trainer update (no synchronizing
+    call under the recorder), each with its aten ops a step beside
+    ``torch.profiler``'s CUDA kernels a step."""
+    import time
+
+    import torch
+    from repro_torch.core.session import Engine
+    from repro_torch.env import (InventoryPenalty, MarketFeatures,
+                                 SpreadCapture, Sum, rollout)
+    from repro_torch.kernels import kinetic_clearing as kc
+    from repro_torch.launch import MarketsMesh, Roofline, bound
+    from repro_torch.train import PPOConfig, make_market_maker
+
+    (M, A, L), S, chunk = TABLE_IV, 500, 64
+    spec = homogeneous(M, A, L, S)
+    steps = [min(chunk, S - s) for s in range(0, S, chunk)]
+    mix = kc.agent_mix(spec.params, A)
+    want = {"kinetic_clearing_chunk": dict(
+        calls=len(steps), launches=len(steps),
+        operations=sum(kc.op_count(M, A, L, n, mix) for n in steps),
+        bytes=sum(kc.byte_count(M, L, n, ext=False, stats_only=False)
+                  for n in steps))}
+    errs, launches = [], 0
+
+    def run500(eng, label=None, want_launches=None):
+        """(outputs, wall s, summary) of ``run(500)`` on a fresh session;
+        with ``label`` the run (not the opening) is recorded."""
+        with eng.open(spec, chunk_size=chunk) as sess:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = None
+            if label is None:
+                batch = sess.run(S)
+            else:
+                batch, summary, _ = _record(label, lambda: sess.run(S),
+                                            want_launches)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            return list(sess.state) + list(batch), wall, summary
+
+    # 1. run(500) at Table IV: a warm run, timed runs, then the recorded one.
+    eng = Engine("cuda-kinetic", device=device)
+    plain = run500(eng)[0]
+    walls = [run500(eng)[1] for _ in range(5)]
+    got, _, one = run500(eng, "roofline run(500)",
+                         {"kinetic_clearing_chunk": len(steps)})
+    launches += len(steps)
+    errs.append(compare("roofline run(500) recorded vs plain", got, plain))
+    if one["kernels"] != want:
+        raise Mismatch(f"roofline run(500): kernel records {one['kernels']}"
+                       f", op_count/byte_count give {want}")
+    wall = statistics.median(walls)
+    run_bound = bound(one["operations"], one["hbm_bytes"])
+    chunk_bound = bound(kc.op_count(M, A, L, chunk, mix),
+                        kc.byte_count(M, L, chunk, ext=False,
+                                      stats_only=False))
+
+    # 2. The same run over a mesh naming the card twice.
+    n = 2
+    mesh_eng = Engine("cuda-kinetic", device=device,
+                      mesh=MarketsMesh.of([device] * n))
+    run500(mesh_eng)                        # builds the runner
+    got, _, two = run500(mesh_eng, "roofline run(500) on 2 shards",
+                         {"kinetic_clearing_chunk": n * len(steps)})
+    launches += n * len(steps)
+    errs.append(compare("roofline 2 shards vs unsharded", got, plain))
+    for key, total in (("flops", "flops"), ("operations", "operations"),
+                       ("bytes", "hbm_bytes")):
+        split = sum(d[key] for d in two["per_device"].values())
+        if split != one[total] or two[total] != one[total]:
+            raise Mismatch(f"roofline 2 shards: per-device {key} sum to "
+                           f"{split}, unsharded {one[total]}")
+    rows = M - M // n                        # the second shard's rows
+    out_bytes = len(steps) * rows * (2 * L * 4 + 2 * 4
+                                     + kc.NUM_PARAM_OPERANDS * 4 + 4 + 4)
+    back_bytes = len(steps) * rows * (2 * L * 4 + 2 * 4 + 3 * chunk * 4)
+    moved = two["collective_breakdown"]
+    if (moved["scatter"], moved["gather"]) != (out_bytes, back_bytes) or \
+            two["wire_no_link"] != out_bytes + back_bytes:
+        raise Mismatch(f"roofline 2 shards: moved {moved}, no link "
+                       f"{two['wire_no_link']}; the cut's closed form "
+                       f"gives {out_bytes} out, {back_bytes} back")
+    per_chunk = (out_bytes + back_bytes) / len(steps)
+    sharded = dict(
+        shards=n, per_device=two["per_device"],
+        scatter_bytes_per_chunk=out_bytes / len(steps),
+        gather_bytes_per_chunk=back_bytes / len(steps),
+        nvlink_ms_per_chunk=bound(0, 0, per_chunk)["bound_ms"],
+        repro_ring_bytes_per_chunk=(n - 1) * (M // n) * 4,
+        wire_no_link=two["wire_no_link"])
+
+    # 3. One torch-scan chunk, 50 maker env steps, one trainer update.
+    eager = Engine("torch-scan", device=device)
+    eager_runs = {}
+    for mode in ("warm", "plain", "recorded", "profiled"):
+        with eager.open(spec, chunk_size=chunk) as sess:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "recorded":
+                out, eager_sum, _ = _record(
+                    "roofline torch-scan chunk",
+                    lambda: list(sess.run(chunk)), {})
+            elif mode == "profiled":
+                out = profile_window(lambda: sess.run(chunk), chunk)
+            else:
+                out = list(sess.run(chunk))
+                torch.cuda.synchronize()
+            eager_runs[mode] = (out, time.perf_counter() - t0)
+    errs.append(compare("roofline torch-scan recorded vs plain",
+                        eager_runs["recorded"][0], eager_runs["plain"][0]))
+    eager_line = dict(_per_step(eager_sum, chunk, eager_runs["plain"][1]),
+                      profile=eager_runs["profiled"][0])
+
+    env = eng.env(spec)
+    maker = make_market_maker(L)
+    state0, _ = env.reset()
+    rollout(env, maker, 8, state=state0)    # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    env_plain = env_outputs(*rollout(env, maker, ENV_PROFILED_STEPS,
+                                     state=state0))
+    torch.cuda.synchronize()
+    env_wall = time.perf_counter() - t0
+    env_got, env_sum, _ = _record(
+        "roofline env", lambda: env_outputs(*rollout(
+            env, maker, ENV_PROFILED_STEPS, state=state0)),
+        {"kinetic_clearing_chunk": ENV_PROFILED_STEPS})
+    launches += ENV_PROFILED_STEPS
+    errs.append(compare("roofline env recorded vs plain", env_got,
+                        env_plain))
+    env_line = dict(_per_step(env_sum, ENV_PROFILED_STEPS, env_wall),
+                    profile=profile_window(lambda: rollout(
+                        env, maker, ENV_PROFILED_STEPS, state=state0),
+                        ENV_PROFILED_STEPS))
+
+    T = TRAIN_CONFIG["rollout_len"]
+    tr = eng.trainer(train_spec(TRAIN_MIX, TRAIN_BLOCK, A, L, T,
+                                TRAIN_CONFIG["seed"]),
+                     PPOConfig(**TRAIN_CONFIG),
+                     reward=Sum((SpreadCapture(), InventoryPenalty(0.001))),
+                     obs=MarketFeatures())
+    ts = tr.init()
+    tr.train(ts, 1)                          # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_plain = train_outputs(*tr.train(ts, 1))
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    train_got, train_sum, train_rf = _record(
+        "roofline train", lambda: tr.train(ts, 1),
+        {"kinetic_clearing_chunk": T}, sync_error=True)
+    launches += T
+    errs.append(compare("roofline train recorded vs plain",
+                        train_outputs(*train_got), train_plain))
+    # The update's backward dots, counted on autograd's threads: about
+    # twice its forward dots (the first layer's input gradient is skipped).
+    _, batch = tr.collect(ts)
+    flat = tr.advantages(ts, batch)
+    with Roofline() as opt:
+        tr.optimize(ts, flat)
+    dots = {"forward": 0, "backward": 0}
+    for flops, _, name, _ in opt.top_contributors("flops", 10 ** 6):
+        if name.split(".")[1] in ("mm", "addmm", "bmm", "baddbmm"):
+            dots["backward" if "(backward)" in name else "forward"] += flops
+    if not 1.5 <= dots["backward"] / max(dots["forward"], 1) <= 2.0:
+        raise Mismatch(f"roofline train: backward dots {dots['backward']} "
+                       f"against forward {dots['forward']}")
+    train_line = dict(_per_step(train_sum, T, train_wall),
+                      backward_over_forward_dots=dots["backward"]
+                      / dots["forward"],
+                      top_bytes=train_rf.top_contributors("bytes", 6),
+                      profile=profile_window(lambda: tr.train(ts, 1), T))
+    emit("roofline", ok=True, markets=M, agents=A, levels=L, steps=S,
+         chunk=chunk,
+         run500=dict(kernels=one["kernels"], aten_calls=one["aten_calls"],
+                     operations=one["operations"], bytes=one["hbm_bytes"],
+                     bound=run_bound, chunk_bound=chunk_bound,
+                     wall_ms=wall * 1e3, wall_ms_runs=[w * 1e3 for w in walls],
+                     bound_share=run_bound["bound_ms"] * 1e-3 / wall),
+         sharded=sharded, torch_scan_chunk=eager_line, env=env_line,
+         train=train_line, max_abs_err=max(errs), card=card_line())
+    return max(errs), {"kinetic_clearing_chunk": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -2503,6 +2741,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: the port is not beside this script (no "
+              f"{ROOT / 'src' / 'repro_torch'}): run it from a checkout",
+              file=sys.stderr)
+        return 1
     from repro_torch.kernels import kinetic_clearing as kc
     from repro_torch.kernels import naive_clearing as nc
 
@@ -2523,12 +2766,14 @@ def main() -> int:
     phase_fixed_workload(device)
     err_tune, tune_launches = phase_autotune(device)
     err_shard, shard_launches = phase_sharded(device)
+    err_roof, roof_launches = phase_roofline(device)
     err_env = phase_env(device)
     err_train, train_launches = phase_train(device)
     serve = phase_serve(device)
     check_sweeps("the last phase")
     launches.update(legacy["launches"])
-    for extra in (train_launches, tune_launches, shard_launches):
+    for extra in (train_launches, tune_launches, shard_launches,
+                  roof_launches):
         for name, n in extra.items():
             launches[name] += n
     errs = {"kinetic_clearing_chunk":
@@ -2541,7 +2786,8 @@ def main() -> int:
             max(err_l, legacy["max_abs_err"]["kinetic_clearing"]),
             "naive_clearing":
             max(err_l, legacy["max_abs_err"]["naive_clearing"])}
-    for extra in (err_tune, err_shard):
+    for extra in (err_tune, err_shard,
+                  {"kinetic_clearing_chunk": err_roof}):
         for name, e in extra.items():
             errs[name] = max(errs[name], e)
     times = {"kinetic_clearing_chunk": (timing["ms"], timing["plain_ms"],

@@ -26,6 +26,7 @@ from typing import (Any, Dict, Iterable, NamedTuple, Sequence, Tuple,
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core.config import (
     MarketConfig,
@@ -130,14 +131,44 @@ class PackedParams(NamedTuple):
 
 
 def pack_params(params: MarketParams, device) -> PackedParams:
-    """Pack host or device columns into the two contiguous device tensors."""
+    """Pack host or device columns into the two contiguous device tensors
+    (the int32 block keeps its host copy: :func:`host_ints`)."""
     def stack(fields, dtype):
         cols = [torch.tensor(_host(getattr(params, f)).reshape(-1),
                              dtype=dtype) for f in fields]
-        return torch.stack(cols, dim=1).contiguous().to(device)
+        return torch.stack(cols, dim=1).contiguous()
 
-    return PackedParams(floats=stack(FLOAT_FIELDS, torch.float32),
-                        ints=stack(INT_FIELDS, torch.int32))
+    ints = stack(INT_FIELDS, torch.int32)
+    return with_host_ints(PackedParams(
+        floats=stack(FLOAT_FIELDS, torch.float32).to(device),
+        ints=ints.to(device)), ints.numpy().copy())
+
+
+#: The host copy of each packed int32 block, by the tensor it was packed
+#: into (weakly: an entry lives as long as its tensor, so a copy must not
+#: share the tensor's memory, which would keep it alive).
+_HOST_INTS = WeakIdKeyDictionary()
+
+
+def with_host_ints(packed: PackedParams, host: np.ndarray) -> PackedParams:
+    """Record ``host`` (int32 ``[M, 11]``) as the host copy of
+    ``packed.ints``; returns ``packed``."""
+    _HOST_INTS[packed.ints] = host
+    return packed
+
+
+def host_ints(packed: PackedParams) -> np.ndarray:
+    """The host copy of ``packed.ints`` (int32 ``[M, 11]``, columns in
+    :data:`INT_FIELDS` order), read without touching the device: the
+    archetype counts of the rows a kernel call ran. Raises ``LookupError``
+    for a block that :func:`pack_params` (or :func:`with_host_ints`) did
+    not make."""
+    try:
+        return _HOST_INTS[packed.ints]
+    except KeyError:
+        raise LookupError(
+            "these packed params have no host copy: make them with "
+            "pack_params (or record one with with_host_ints)") from None
 
 
 def replace_rows(params: MarketParams, slots, rows: MarketParams,

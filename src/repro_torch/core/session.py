@@ -601,6 +601,9 @@ class Session:
                                             init_stats(idx.size, "cpu")))
         packed = params_mod.pack_params(sub.params, "cpu")
         new_params = PackedParams(*splice(self._params, packed))
+        host = params_mod.host_ints(self._params).copy()
+        host[idx] = params_mod.host_ints(packed)
+        params_mod.with_host_ints(new_params, host)
         self._state, self._stats = new_state, new_stats
         self._params, self.spec = new_params, new_spec
         if self.metrics is not None:

@@ -39,6 +39,7 @@ from repro_torch.core.params import (FLOAT_FIELDS, INT_FIELDS, EnsembleSpec,
 from repro_torch.core.step import (MarketState, resolve_peer_mids,
                                    simulate_step)
 from repro_torch.kernels import _build, autotune, ref
+from repro_torch.launch import roofline
 
 #: Per-market parameter operands (11 float32 + 11 int32 columns).
 NUM_PARAM_OPERANDS = len(MarketParams._fields)
@@ -177,22 +178,30 @@ def kinetic_clearing_chunk(
     with ``[M, chunk]`` paths of which the first ``n_valid`` columns are
     written, or ``(bid, ask, last, pmid, MarketStats)`` with ``stats_only``.
     """
-    step0, n_valid, chunk, market_ids, params, peer_mid = \
-        check_chunk_operands(
-            "kinetic_clearing_chunk", bid, ask, last, pmid, step0, n_valid,
-            ext_buy, ext_ask, cfg=cfg, chunk=chunk, scan=scan,
-            market_ids=market_ids, params=params, peer_mid=peer_mid,
-            stats=stats, stats_only=stats_only)
+    with roofline.uncounted():    # the operands' defaults join the call
+        step0, n_valid, chunk, market_ids, params, peer_mid = \
+            check_chunk_operands(
+                "kinetic_clearing_chunk", bid, ask, last, pmid, step0,
+                n_valid, ext_buy, ext_ask, cfg=cfg, chunk=chunk, scan=scan,
+                market_ids=market_ids, params=params, peer_mid=peer_mid,
+                stats=stats, stats_only=stats_only)
     shape = autotune.resolve_tile(tile, bid.shape[1], cfg.num_agents,
                                   hoisted=True)
     args = (bid, ask, last, pmid, step0, n_valid, ext_buy, ext_ask)
     kw = dict(cfg=cfg, chunk=chunk, scan=scan, market_ids=market_ids,
               params=params, peer_mid=peer_mid, stats=stats,
               stats_only=stats_only)
-    if bid.device.type == "cpu":
-        return kinetic_clearing_chunk_plain(*args, **kw)
-    out = _launch(*args, shape=shape, **kw)
-    kinetic_clearing_chunk.launches += 1
+    M, L = bid.shape
+    # The paths are charged n_valid columns: later ones are never written.
+    with roofline.kernel_call("kinetic_clearing_chunk", bid.device, lambda: (
+            op_count(M, cfg.num_agents, L, n_valid,
+                     packed_mix(params, cfg.num_agents)),
+            byte_count(M, L, n_valid, ext=ext_buy is not None,
+                       stats_only=stats_only), 1)):
+        if bid.device.type == "cpu":
+            return kinetic_clearing_chunk_plain(*args, **kw)
+        out = _launch(*args, shape=shape, **kw)
+        kinetic_clearing_chunk.launches += 1
     return out
 
 
@@ -332,10 +341,15 @@ def kinetic_clearing(bid: torch.Tensor, ask: torch.Tensor,
                           scan=scan)
     shape = autotune.resolve_tile(tile, bid.shape[1], cfg.num_agents,
                                   hoisted=True)
-    if bid.device.type == "cpu":
-        return kinetic_clearing_plain(bid, ask, last, pmid, cfg=cfg, scan=scan)
-    out = _launch_legacy(bid, ask, last, pmid, cfg, shape)
-    kinetic_clearing.launches += 1
+    M, L = bid.shape
+    with roofline.kernel_call("kinetic_clearing", bid.device, lambda: (
+            legacy_op_count(cfg, M),
+            legacy_byte_count(M, L, cfg.num_steps), 1)):
+        if bid.device.type == "cpu":
+            return kinetic_clearing_plain(bid, ask, last, pmid, cfg=cfg,
+                                          scan=scan)
+        out = _launch_legacy(bid, ask, last, pmid, cfg, shape)
+        kinetic_clearing.launches += 1
     return out
 
 
@@ -453,6 +467,15 @@ def agent_mix(params: MarketParams, num_agents: int) -> Dict[int, int]:
     return counts
 
 
+def packed_mix(params: PackedParams, num_agents: int) -> Dict[int, int]:
+    """:func:`agent_mix` of the rows of packed params, from their host copy
+    (``params.host_ints``): no device read."""
+    ints = params_mod.host_ints(params)
+    return agent_mix(MarketParams(**{
+        f: ints[:, INT_FIELDS.index(f)] if f in INT_FIELDS else None
+        for f in MarketParams._fields}), num_agents)
+
+
 def op_count(num_markets: int, num_agents: int, num_levels: int, steps: int,
              mix: Mapping[int, int]) -> int:
     """FP32-lane issue slots of one call that runs ``steps`` steps: the
@@ -481,6 +504,14 @@ def byte_count(num_markets: int, num_levels: int, chunk: int, *,
     out = 2 * 6 * M * 4 if stats_only else 3 * M * chunk * 4
     params = M * NUM_PARAM_OPERANDS * 4
     return books + scalars + ext_b + params + out
+
+
+def legacy_op_count(cfg: MarketConfig, num_markets: int) -> int:
+    """:func:`op_count` of one legacy call: ``cfg.num_steps`` steps of
+    ``num_markets`` markets of one scalar config."""
+    return op_count(num_markets, cfg.num_agents, cfg.num_levels,
+                    cfg.num_steps, agent_mix(params_mod.params_from_config(
+                        cfg, num_markets), cfg.num_agents))
 
 
 def legacy_byte_count(num_markets: int, num_levels: int, steps: int) -> int:

@@ -28,6 +28,7 @@ from repro_torch.core.config import MarketConfig
 from repro_torch.core.params import MarketParams, PackedParams
 from repro_torch.kernels import _build, autotune
 from repro_torch.kernels import kinetic_clearing as kc
+from repro_torch.launch import roofline
 
 #: The source of the CUDA kernels and the TPU kernels they replace.
 SOURCE = "src/repro_torch/kernels/csrc/naive_clearing.cu"
@@ -86,34 +87,41 @@ def naive_clearing_chunk(
     ``n_valid == 0`` nothing is launched and the state comes back as
     copies; the caller's tensors are never written.
     """
-    step0, n_valid, chunk, market_ids, params, peer_mid = \
-        kc.check_chunk_operands(
-            "naive_clearing_chunk", bid, ask, last, pmid, step0, n_valid,
-            ext_buy, ext_ask, cfg=cfg, chunk=chunk, scan=scan,
-            market_ids=market_ids, params=params, peer_mid=peer_mid,
-            stats=stats, stats_only=stats_only)
+    with roofline.uncounted():    # the operands' defaults join the call
+        step0, n_valid, chunk, market_ids, params, peer_mid = \
+            kc.check_chunk_operands(
+                "naive_clearing_chunk", bid, ask, last, pmid, step0,
+                n_valid, ext_buy, ext_ask, cfg=cfg, chunk=chunk, scan=scan,
+                market_ids=market_ids, params=params, peer_mid=peer_mid,
+                stats=stats, stats_only=stats_only)
     shape = autotune.resolve_tile(tile, bid.shape[1], cfg.num_agents,
                                   hoisted=False)
-    if bid.device.type == "cpu":
-        return naive_clearing_chunk_plain(
-            bid, ask, last, pmid, step0, n_valid, ext_buy, ext_ask, cfg=cfg,
-            chunk=chunk, scan=scan, market_ids=market_ids, params=params,
-            peer_mid=peer_mid, stats=stats, stats_only=stats_only)
-    M = bid.shape[0]
-    state = [t.contiguous() for t in (bid, ask, last, pmid)]
-    stats_in = (torch.cat(list(stats), dim=1).contiguous() if stats_only
-                else None)
-    if n_valid == 0:
-        out = [t.clone() for t in state]
-        stats_out = None if stats_in is None else stats_in.clone()
-        paths = [torch.zeros((M, chunk), dtype=torch.float32,
-                             device=bid.device) for _ in range(3)]
-    else:
-        out, stats_out, paths = _launch_chunk(
-            state, stats_in, ext_buy, ext_ask, step0, n_valid, cfg=cfg,
-            chunk=chunk, market_ids=market_ids.contiguous(), params=params,
-            peer_mid=peer_mid.contiguous(), shape=shape)
-        naive_clearing_chunk.launches += n_valid
+    M, L = bid.shape
+    with roofline.kernel_call("naive_clearing_chunk", bid.device, lambda: (
+            op_count(M, cfg.num_agents, L, n_valid,
+                     kc.packed_mix(params, cfg.num_agents)) if n_valid else 0,
+            byte_count(M, L, n_valid, ext=ext_buy is not None,
+                       stats_only=stats_only) if n_valid else 0, n_valid)):
+        if bid.device.type == "cpu":
+            return naive_clearing_chunk_plain(
+                bid, ask, last, pmid, step0, n_valid, ext_buy, ext_ask,
+                cfg=cfg, chunk=chunk, scan=scan, market_ids=market_ids,
+                params=params, peer_mid=peer_mid, stats=stats,
+                stats_only=stats_only)
+        state = [t.contiguous() for t in (bid, ask, last, pmid)]
+        stats_in = (torch.cat(list(stats), dim=1).contiguous() if stats_only
+                    else None)
+        if n_valid == 0:
+            out = [t.clone() for t in state]
+            stats_out = None if stats_in is None else stats_in.clone()
+            paths = [torch.zeros((M, chunk), dtype=torch.float32,
+                                 device=bid.device) for _ in range(3)]
+        else:
+            out, stats_out, paths = _launch_chunk(
+                state, stats_in, ext_buy, ext_ask, step0, n_valid, cfg=cfg,
+                chunk=chunk, market_ids=market_ids.contiguous(),
+                params=params, peer_mid=peer_mid.contiguous(), shape=shape)
+            naive_clearing_chunk.launches += n_valid
     if stats_only:
         return tuple(out) + (stats_mod.MarketStats(
             *(stats_out[:, k:k + 1] for k in range(6))),)
@@ -173,17 +181,21 @@ def naive_clearing(bid: torch.Tensor, ask: torch.Tensor, last: torch.Tensor,
                              cfg=cfg, scan=scan)
     shape = autotune.resolve_tile(tile, bid.shape[1], cfg.num_agents,
                                   hoisted=False)
-    if bid.device.type == "cpu":
-        return naive_clearing_plain(bid, ask, last, pmid, cfg=cfg, scan=scan)
     M, L = bid.shape
     S = cfg.num_steps
-    state = [t.contiguous() for t in (bid, ask, last, pmid)]
-    paths = [torch.empty((M, S), dtype=torch.float32, device=bid.device)
-             for _ in range(2)]
-    if S == 0:
-        return tuple(t.clone() for t in state) + tuple(paths)
-    out = _launch_legacy(state, paths, cfg, shape)
-    naive_clearing.launches += S
+    with roofline.kernel_call("naive_clearing", bid.device, lambda: (
+            kc.legacy_op_count(cfg, M) if S else 0,
+            legacy_byte_count(M, L, S), S)):
+        if bid.device.type == "cpu":
+            return naive_clearing_plain(bid, ask, last, pmid, cfg=cfg,
+                                        scan=scan)
+        state = [t.contiguous() for t in (bid, ask, last, pmid)]
+        paths = [torch.empty((M, S), dtype=torch.float32, device=bid.device)
+                 for _ in range(2)]
+        if S == 0:
+            return tuple(t.clone() for t in state) + tuple(paths)
+        out = _launch_legacy(state, paths, cfg, shape)
+        naive_clearing.launches += S
     return out
 
 

@@ -50,10 +50,11 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from repro_torch.core import params as params_mod
 from repro_torch.core import session
 from repro_torch.core import stats as stats_mod
 from repro_torch.core.device import resolve_device
-from repro_torch.core.params import (FLOAT_FIELDS, INT_FIELDS, EnsembleSpec,
+from repro_torch.core.params import (INT_FIELDS, EnsembleSpec, MarketParams,
                                      PackedParams)
 from repro_torch.core.result import SimResult
 from repro_torch.core.step import (MarketState, StepOutput, initial_state,
@@ -61,6 +62,7 @@ from repro_torch.core.step import (MarketState, StepOutput, initial_state,
 from repro_torch.kernels import _build, autotune
 from repro_torch.kernels import kinetic_clearing as kc
 from repro_torch.kernels import naive_clearing as nc
+from repro_torch.launch import roofline
 from repro_torch.launch.mesh import MarketsMesh, make_markets_mesh
 from repro_torch.launch.sharding import market_sharding
 
@@ -84,6 +86,17 @@ def _resolve_mesh(mesh, devices, device: torch.device) -> MarketsMesh:
     if devices is not None:
         return make_markets_mesh(devices, device=device)
     return MarketsMesh((device,))
+
+
+def _cut_params(params: PackedParams, cut, rows: slice) -> PackedParams:
+    """``params`` cut by ``cut``, with the rows of its host copy (if it has
+    one: the roofline's kernel records read it)."""
+    part = PackedParams(*map(cut, params))
+    try:
+        host = params_mod.host_ints(params)
+    except LookupError:
+        return part
+    return params_mod.with_host_ints(part, host[rows])
 
 
 class ClearingChunkRunner(session.ChunkRunner):
@@ -166,11 +179,8 @@ class ClearingChunkRunner(session.ChunkRunner):
         device time between two CUDA events, else the wall."""
         device, spec = self.device, self.spec
         state = tuple(x[:rows] for x in initial_state(spec, device))
-        params = PackedParams(
-            torch.zeros((rows, len(FLOAT_FIELDS)), dtype=torch.float32,
-                        device=device),
-            torch.zeros((rows, len(INT_FIELDS)), dtype=torch.int32,
-                        device=device))
+        params = params_mod.pack_params(MarketParams.zeros(rows, "cpu"),
+                                        device)
         stats = stats_mod.init_stats(rows, device) if self.stats_only \
             else None
         on_card = device.type == "cuda"
@@ -219,25 +229,39 @@ class ClearingChunkRunner(session.ChunkRunner):
         peer = resolve_peer_mids(state.prev_mid, params.ints[:, _PEER])
         home = self.device
         outs = []
-        for dev, rows in zip(self.mesh.devices, self._rows):
+        for pos, (dev, rows) in enumerate(zip(self.mesh.devices,
+                                              self._rows)):
             if rows.start == rows.stop:
                 continue          # a shard with no rows launches nothing
+            sent = []
 
             def cut(t):
-                return None if t is None else t[rows].to(dev)
+                if t is None:
+                    return None
+                sent.append(t[rows].to(dev))
+                return sent[-1]
 
-            outs.append(self._call(
-                MarketState(*map(cut, state)),
-                PackedParams(*map(cut, params)), step0, n,
-                None if ext is None else tuple(map(cut, ext)),
-                None if stats is None else stats_mod.MarketStats(
-                    *map(cut, stats)),
-                cut(self._market_ids), cut(peer)))
+            with roofline.uncounted():
+                args = (MarketState(*map(cut, state)),
+                        _cut_params(params, cut, rows), step0, n,
+                        None if ext is None else tuple(map(cut, ext)),
+                        None if stats is None else stats_mod.MarketStats(
+                            *map(cut, stats)),
+                        cut(self._market_ids), cut(peer))
+            if pos:               # the first shard's rows stay home
+                roofline.transfer("scatter", pos, home, sent)
+            with roofline.shard(pos, dev):
+                outs.append(self._call(*args))
         if len(outs) == 1:
             return outs[0]
 
         def join(parts):
-            return torch.cat([p.to(home) for p in parts], dim=0)
+            # Only trailing shards can have no rows (market_sharding), so
+            # part k is shard k's.
+            for pos, part in enumerate(parts[1:], 1):
+                roofline.transfer("gather", pos, home, [part])
+            with roofline.uncounted():
+                return torch.cat([p.to(home) for p in parts], dim=0)
 
         joined = [join(parts) for parts in zip(*(o[:4] for o in outs))]
         if self.stats_only:

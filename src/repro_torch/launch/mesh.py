@@ -27,6 +27,23 @@ from repro_torch.core.device import resolve_device
 #: Host devices a CPU mesh may span (see set_host_device_count).
 _HOST_DEVICES = [1]
 
+# The card the roofline (repro_torch.launch.roofline) is held to: NVIDIA's
+# data sheet for the H100 SXM (80 GB HBM3) at its 700 W power limit, dense
+# rates. 67 TFLOP/s in f32 counts an FMA as two operations; one instruction
+# per FP32 lane per clock (132 SMs x 128 lanes x 1.98 GHz) is half that.
+# kinetic_clearing.op_count counts FP32-lane issue slots: each instruction
+# class weighted by 128 over its per-SM rate on compute capability 9.0
+# (FP32 x1, 32-bit integer x2, conversion x8, shuffle x4). NVLink 4 moves
+# 900 GB/s both ways, 450 GB/s each way.
+HW = {
+    "peak_flops_bf16": 989e12,   # tensor cores, per card
+    "peak_flops_fp32": 67e12,    # outside the tensor cores
+    "peak_lane_ops": 67e12 / 2,  # FP32-lane issue slots per second
+    "hbm_bw": 3.35e12,           # bytes/s per card
+    "nvlink_bw": 450e9,          # bytes/s per direction
+    "hbm_per_chip": 80e9,
+}
+
 
 class MarketsMesh(NamedTuple):
     """An ordered tuple of devices over the market axis."""

@@ -5,6 +5,8 @@ Marked ``cuda``: they need an NVIDIA card and ``nvcc``, and skip without a
 card. On the card: ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``.
 """
+import contextlib
+
 import pytest
 import torch
 
@@ -389,3 +391,36 @@ def test_two_shard_mesh_on_one_card_equals_unsharded(cuda):
     assert runs["one"][1] == 3 and runs["two"][1] == 6
     for g, w in zip(runs["two"][0], runs["one"][0]):
         assert torch.equal(g, w)
+
+
+def test_roofline_records_table_iv_run_on_the_card(cuda):
+    """``Session.run(500)`` at Table IV under a ``Roofline``: its kernel
+    record equals the launches counted and ``op_count``/``byte_count``
+    summed over the eight chunks (the last runs 52 steps), and the run
+    equals the unrecorded one."""
+    from repro_torch.launch import Roofline
+
+    M, A, L, S, chunk = 8192, 256, 128, 500, 64
+    spec = EnsembleSpec.homogeneous(MarketConfig(
+        num_markets=M, num_agents=A, num_levels=L, num_steps=S,
+        seed=chip_smoke.SEED))
+    eng = Engine("cuda-kinetic", device=cuda, chunk_size=chunk)
+    runs = []
+    for record in (False, True):
+        with eng.open(spec) as sess:
+            torch.cuda.synchronize()
+            kc.kinetic_clearing_chunk.launches = 0
+            with Roofline() if record else contextlib.nullcontext() as rf:
+                batch = sess.run(S)
+            torch.cuda.synchronize()
+            runs.append(list(sess.state) + list(batch))
+    for g, w in zip(runs[1], runs[0]):
+        assert torch.equal(g, w)
+    steps = [min(chunk, S - s) for s in range(0, S, chunk)]
+    mix = kc.agent_mix(spec.params, A)
+    assert kc.kinetic_clearing_chunk.launches == len(steps) == 8
+    assert rf.summarize()["kernels"] == {"kinetic_clearing_chunk": dict(
+        calls=8, launches=8,
+        operations=sum(kc.op_count(M, A, L, n, mix) for n in steps),
+        bytes=sum(kc.byte_count(M, L, n, ext=False, stats_only=False)
+                  for n in steps))}

@@ -26,7 +26,8 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.scenario, repro_torch.scenario.validate, "
             "repro_torch.core.numpy_backend, repro_torch.core.sequential, "
             "repro_torch.train, repro_torch.train.loop, "
-            "repro_torch.launch, repro_torch.launch.mesh; "
+            "repro_torch.launch, repro_torch.launch.mesh, "
+            "repro_torch.launch.roofline; "
             "repro_torch.core.session.backends(); "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
