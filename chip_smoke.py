@@ -136,14 +136,21 @@ line:
            chunks (x steps for kernel 2); ``DeviceLoss(devices_after=1)``
            from 2 shards in ``run_plan`` and under a gateway of 8 clients,
            bitwise; ``devices=2`` on one card raises the mesh's
-           ``ValueError``; the wall of ``run(500)`` on 1, 2 and 3 shards.
+           ``ValueError``; each shard's rows on its device after every
+           chunk of ``run(500)`` (state, params, market ids, stats), in
+           storage of their own; the bytes ``run(500)`` moves under a
+           ``Roofline`` equal to the resident closed form (no ``scatter``,
+           (n-1)·M·4 ``collective-permute`` bytes a chunk, the joined
+           paths' ``gather``); peak device bytes, the wall and device
+           time of ``run(500)`` on 1, 2 and 3 shards, and one 64-step
+           kernel-1 call on every row against one on each shard's rows.
   roofline ``repro_torch.launch.roofline``: ``Session.run(500)`` at Table
            IV with and without a ``Roofline``, equal; its kernel records
            equal to the launches counted (8) and to ``op_count``/
            ``byte_count`` over the eight chunks, its bound and the bound
            over the run's wall; the same run on a mesh naming the card
            twice: per-device totals summing to the unsharded ones, the
-           cut's bytes out and back equal to their closed form; then one
+           ring's and the joins' bytes equal to their closed form; then one
            64-step ``torch-scan`` chunk, 50 maker env steps and one trainer
            update (torch's sync debug mode at error) under the recorder,
            each equal to its unrecorded run: aten ops a step, flops, bytes
@@ -656,7 +663,8 @@ def drive_session(backend, spec, device, chunk, **opts):
             spec, chunk_size=chunk) as sess:
         batch = sess.run(spec.num_steps)
         out = list(sess.state)
-        out += list(sess._stats) if sess._stats is not None else list(batch)
+        stats = sess._joined_stats()
+        out += list(stats) if stats is not None else list(batch)
         torch.cuda.synchronize()
     return out
 
@@ -1507,6 +1515,31 @@ def frames_equal(label, got, want) -> None:
                                    f"step {f0.step0}")
 
 
+def check_resident(sess, mesh, M) -> int:
+    """Every leaf a sharded session holds (state, params, market ids,
+    stats) is a ``RowShards`` whose part k holds exactly shard k's rows on
+    shard k's device, in storage of its own: no canonical copy is held.
+    Returns the number of leaves checked."""
+    from repro_torch.launch import market_sharding
+    from repro_torch.launch.sharding import RowShards
+
+    rows = market_sharding(mesh, M)
+    leaves = list(sess._state) + list(sess._params) + \
+        [sess._runner._market_ids] + list(sess._stats or ())
+    for k, leaf in enumerate(leaves):
+        if not isinstance(leaf, RowShards) or leaf.rows != rows:
+            raise Mismatch(f"leaf {k} is not row-sharded over {rows}")
+        for part, r, dev in zip(leaf.parts, rows, mesh.devices):
+            n = r.stop - r.start
+            if part.shape[0] != n or part.device != dev or (
+                    n and part.untyped_storage().nbytes()
+                    != n * part.stride(0) * part.element_size()):
+                raise Mismatch(f"leaf {k}: a part of {part.shape[0]} rows "
+                               f"on {part.device} is not shard {r}'s own "
+                               f"rows on {dev}")
+    return len(leaves)
+
+
 def phase_sharded(device):
     """``devices=``/``mesh=`` on the card: meshes naming ``cuda:0`` twice
     and three times. Sharded ``Session.run(500)`` at the Table IV width
@@ -1521,9 +1554,13 @@ def phase_sharded(device):
     import time
 
     import torch
+    from repro_torch.core import params as params_mod
+    from repro_torch.core.params import PackedParams
     from repro_torch.core.session import Engine
     from repro_torch.env import MarketFeatures, rollout
-    from repro_torch.launch import MarketsMesh, make_markets_mesh
+    from repro_torch.kernels import kinetic_clearing as kc
+    from repro_torch.launch import (MarketsMesh, Roofline, make_markets_mesh,
+                                    market_sharding)
     from repro_torch.ops import (DeviceLoss, FaultPlan, run_plan,
                                  run_serve_plan)
     from repro_torch.train import PPOConfig, make_market_maker
@@ -1553,6 +1590,8 @@ def phase_sharded(device):
         for stats_only in (False, True) if label == "ring" else (False,):
             base = drive_session("cuda-kinetic", spec, device, chunk,
                                  stats_only=stats_only)
+            if label == "table_iv":
+                base_iv = base
             for n in (2, 3):
                 got = counted(
                     f"sharded {label} {n}",
@@ -1653,25 +1692,121 @@ def phase_sharded(device):
         else:
             raise Mismatch("devices=2 on one card did not raise")
 
-    # 7. The wall of run(500) at Table IV on 1, 2 and 3 shards, in turns.
+    # 7. Residency: after opening and after every chunk of run(500), each
+    # shard's rows of the state, params, market ids and stats are on its
+    # device, in storage of their own; a joined copy equals the unsharded.
     spec = specs["table_iv"]
+    checked = {}
+    for n in (2, 3):
+        for stats_only in (False, True):
+            def drive():
+                eng = Engine("cuda-kinetic", device=device, mesh=meshes[n],
+                             stats_only=stats_only)
+                with eng.open(spec, chunk_size=chunk) as sess:
+                    checks = check_resident(sess, meshes[n], M)
+                    for _ in sess.stream(S):
+                        checks += check_resident(sess, meshes[n], M)
+                    return checks, list(sess.state)
+
+            checks, books = counted(
+                f"resident {n} stats={stats_only}",
+                {"kinetic_clearing_chunk": n * n_chunks}, drive)
+            checked[f"{n} shards stats={stats_only}"] = checks
+            if not stats_only:
+                note("kinetic_clearing_chunk", compare(
+                    f"resident {n} shards", books, base_iv[:4]))
+
+    # 8. The bytes run(500) moves, recorded, against the closed form.
+    moves = {}
+    for n, stats_only in ((2, False), (3, False), (2, True)):
+        eng = Engine("cuda-kinetic", device=device, mesh=meshes[n],
+                     stats_only=stats_only)
+        with eng.open(spec, chunk_size=chunk) as sess:
+            with Roofline() as rf:
+                counted(f"moves {n} stats={stats_only}",
+                        {"kinetic_clearing_chunk": n * n_chunks},
+                        lambda: sess.run(S))
+        got = rf.summarize()
+        want = resident_moves(M, n, S, chunk, stats_only=stats_only)
+        moved = {k: got["collective_breakdown"][k] for k in want}
+        if moved != want or got["wire_no_link"] != sum(want.values()):
+            raise Mismatch(f"sharded moves {n} stats={stats_only}: "
+                           f"{moved}, no link {got['wire_no_link']}; the "
+                           f"closed form gives {want}")
+        moves[f"{n} shards stats={stats_only}"] = dict(
+            moved, per_chunk_ring=want["collective-permute"] / n_chunks,
+            routes={f"{a}->{b}": v
+                    for (a, b), v in got["collective_routes"].items()})
+
+    # 9. The wall of run(500) at Table IV on 1, 2 and 3 shards, in turns,
+    # then each one's peak device bytes above what the process held.
     engines = {n: Engine("cuda-kinetic", device=device, mesh=meshes[n])
                for n in meshes}
     wall = {n: [] for n in meshes}
+    device_ms = {n: [] for n in meshes}
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     for n in (1, 2, 3) + (1, 2, 3, 3, 2, 1) * 2:
         with engines[n].open(spec) as sess:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
+            start.record()
             sess.run(S)
+            stop.record()
             torch.cuda.synchronize()
             wall[n].append((time.perf_counter() - t0) * 1e3)
+            device_ms[n].append(start.elapsed_time(stop))
     wall = {n: w[1:] for n, w in wall.items()}   # the first run warms up
+    device_ms = {n: w[1:] for n, w in device_ms.items()}
+    peak, tiles = {}, {}
+    for n in meshes:
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        with engines[n].open(spec) as sess:
+            sess.run(S)
+            torch.cuda.synchronize()
+            tiles[n] = sess._runner.tile
+        peak[str(n)] = dict(
+            run_bytes=torch.cuda.max_memory_allocated(device) - held,
+            held_before=held)
+
+    # The grid split alone: one 64-step kernel-1 call on every row against
+    # one call on each shard's rows, through the sessions' launch shape
+    # (device time, in turns).
+    state = opening(spec, device)
+    packed = params_mod.pack_params(spec.params, device)
+
+    def split(n):
+        cuts = market_sharding(meshes[n] or MarketsMesh.of([device]), M)
+
+        def fn():
+            for r in cuts:
+                kc.kinetic_clearing_chunk(
+                    *(x[r] for x in state), 0, chunk, cfg=spec, chunk=chunk,
+                    params=PackedParams(*(p[r] for p in packed)),
+                    tile=tiles[n])
+        return fn
+
+    split_ms = {n: [] for n in meshes}
+    for n in (1, 2, 3, 3, 2, 1):
+        split_ms[n].append(_time(split(n), 20))
     emit("sharded", ok=True, markets=M, agents=A, levels=L, steps=S,
          chunk=chunk, launches=launches, max_abs_err=errs,
          devices_2_refusal=refusal,
          run500_wall_ms={str(n): statistics.median(w)
                          for n, w in wall.items()},
          run500_wall_ms_runs={str(n): w for n, w in wall.items()},
+         run500_wall_ratio={str(n): statistics.median(w)
+                            / statistics.median(wall[1])
+                            for n, w in wall.items()},
+         run500_device_ms={str(n): statistics.median(w)
+                           for n, w in device_ms.items()},
+         chunk_split_ms={str(n): w for n, w in split_ms.items()},
+         chunk_split_ratio={str(n): statistics.median(w)
+                            / statistics.median(split_ms[1])
+                            for n, w in split_ms.items()},
+         tiles={str(n): list(t[2:]) for n, t in tiles.items()},
+         resident_checks=checked, moves=moves, peak=peak,
          serve=dict(clients=SHARDED_CLIENTS, chunks=SHARDED_SERVE_CHUNKS,
                     steps=lost.steps, recoveries=lost.recoveries))
     return errs, launches
@@ -1680,6 +1815,17 @@ def phase_sharded(device):
 # ---------------------------------------------------------------------------
 # roofline: repro_torch.launch.roofline on the card
 # ---------------------------------------------------------------------------
+
+def resident_moves(M, shards, steps, chunk, *, stats_only) -> dict:
+    """The bytes a sharded ``run(steps)`` moves with the rows resident:
+    nothing placed, the ring's (n-1)·M·4 bytes a chunk, and the paths of
+    shards 1.. joined (12 bytes a row and step; none with ``stats_only``)."""
+    chunks = -(-steps // chunk)
+    joined = M - -(-M // shards) if shards > 1 else 0  # rows of shards 1..
+    return {"scatter": 0,
+            "collective-permute": chunks * (shards - 1) * M * 4,
+            "gather": 0 if stats_only else joined * steps * 12}
+
 
 def _record(label, fn, want_launches, sync_error=False):
     """``fn()`` under a ``Roofline`` with the counts at 0 (and torch's sync
@@ -1798,23 +1944,19 @@ def phase_roofline(device):
         if split != one[total] or two[total] != one[total]:
             raise Mismatch(f"roofline 2 shards: per-device {key} sum to "
                            f"{split}, unsharded {one[total]}")
-    rows = M - M // n                        # the second shard's rows
-    out_bytes = len(steps) * rows * (2 * L * 4 + 2 * 4
-                                     + kc.NUM_PARAM_OPERANDS * 4 + 4 + 4)
-    back_bytes = len(steps) * rows * (2 * L * 4 + 2 * 4 + 3 * chunk * 4)
-    moved = two["collective_breakdown"]
-    if (moved["scatter"], moved["gather"]) != (out_bytes, back_bytes) or \
-            two["wire_no_link"] != out_bytes + back_bytes:
+    want_moved = resident_moves(M, n, S, chunk, stats_only=False)
+    moved = {k: two["collective_breakdown"][k] for k in want_moved}
+    if moved != want_moved or two["wire_no_link"] != sum(moved.values()):
         raise Mismatch(f"roofline 2 shards: moved {moved}, no link "
-                       f"{two['wire_no_link']}; the cut's closed form "
-                       f"gives {out_bytes} out, {back_bytes} back")
-    per_chunk = (out_bytes + back_bytes) / len(steps)
+                       f"{two['wire_no_link']}; the resident closed form "
+                       f"gives {want_moved}")
+    ring = want_moved["collective-permute"] / len(steps)
     sharded = dict(
         shards=n, per_device=two["per_device"],
-        scatter_bytes_per_chunk=out_bytes / len(steps),
-        gather_bytes_per_chunk=back_bytes / len(steps),
-        nvlink_ms_per_chunk=bound(0, 0, per_chunk)["bound_ms"],
-        repro_ring_bytes_per_chunk=(n - 1) * (M // n) * 4,
+        moved=moved, ring_bytes_per_chunk=ring,
+        routes={f"{a}->{b}": v
+                for (a, b), v in two["collective_routes"].items()},
+        nvlink_ms_per_chunk=bound(0, 0, ring)["bound_ms"],
         wire_no_link=two["wire_no_link"])
 
     # 3. One torch-scan chunk, 50 maker env steps, one trainer update.

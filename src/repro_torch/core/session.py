@@ -52,11 +52,12 @@ import torch
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.core import params as params_mod
 from repro_torch.core.config import MarketConfig
-from repro_torch.core.device import DEFAULT_DEVICE, resolve_device, upload
+from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.params import EnsembleSpec, MarketParams, PackedParams
 from repro_torch.core.result import SimResult, to_host
 from repro_torch.core.stats import MarketStats, init_stats
 from repro_torch.core.step import MarketState, initial_state
+from repro_torch.launch import sharding
 
 #: Default chunk length (steps per kernel launch) for streaming runs.
 DEFAULT_CHUNK = 64
@@ -139,6 +140,11 @@ class ChunkRunner:
     def params_to_device(self, params: MarketParams) -> PackedParams:
         """Pack the per-market params into the two device tensors."""
         return params_mod.pack_params(params, self.device)
+
+    def place(self, t: torch.Tensor) -> Any:
+        """A canonical ``[M, ...]`` tensor on the first device, as the
+        runner holds it (a sharded kernel runner: row-sharded)."""
+        return t.to(self.device)
 
     def init_stats(self, spec: EnsembleSpec) -> Optional[MarketStats]:
         return init_stats(spec.num_markets, self.device) \
@@ -271,6 +277,7 @@ def run_runner_to_result(runner: ChunkRunner, spec) -> SimResult:
         t += n
     batch = StepBatch.concatenate(batches) if batches else _empty_batch(
         spec.num_markets, runner.device)
+    state = MarketState(*(sharding.join(x, runner.device) for x in state))
     return SimResult(bid=state.bid, ask=state.ask,
                      last_price=state.last_price, prev_mid=state.prev_mid,
                      price_path=batch.price, volume_path=batch.volume)
@@ -440,14 +447,19 @@ class Session:
 
     @property
     def state(self) -> MarketState:
+        """The books and scalars on the first device (a joined copy when
+        the runner holds them row-sharded over a mesh)."""
         self._check_open()
-        return self._state
+        return MarketState(*(sharding.join(x, self.device)
+                             for x in self._state))
 
     @property
     def params(self) -> PackedParams:
-        """The device-resident packed per-market params."""
+        """The packed per-market params on the first device (a joined copy,
+        with the joined host copy, when the runner holds them
+        row-sharded)."""
         self._check_open()
-        return self._params
+        return sharding.join_params(self._params, self.device)
 
     @property
     def step_count(self) -> int:
@@ -461,9 +473,17 @@ class Session:
 
     @property
     def stats(self) -> Optional[MarketStats]:
-        """Host copy of the running statistics (``stats_only``; else None)."""
+        """Host copy of the running statistics (``stats_only``; else None),
+        read from each shard straight to the host."""
         self._check_open()
-        return None if self._stats is None else self._stats.to_numpy()
+        return None if self._stats is None else MarketStats(
+            *map(sharding.to_host, self._stats))
+
+    def _joined_stats(self) -> Optional[MarketStats]:
+        """The running statistics on the first device, with no wait for
+        the card (``stats_only``; else None)."""
+        return None if self._stats is None else MarketStats(
+            *(sharding.join(x, self.device) for x in self._stats))
 
     def _resolve_steps(self, n_steps: Optional[int]) -> int:
         if n_steps is not None:
@@ -542,8 +562,9 @@ class Session:
 
         orders = actions_mod.validate_actions(
             actions, self.spec.num_markets, self.spec.num_levels)
-        return actions_mod.lower_actions(
-            orders, self.spec.num_markets, self.spec.num_levels, self.device)
+        return tuple(map(self._step_runner.place, actions_mod.lower_actions(
+            orders, self.spec.num_markets, self.spec.num_levels,
+            self.device)))
 
     def to_result(self, batch: StepBatch) -> SimResult:
         """Terminal :class:`SimResult` from the books plus a batch."""
@@ -551,7 +572,7 @@ class Session:
         if self._runner.stats_only:
             raise ValueError("stats_only sessions have no path outputs: read "
                              "Session.stats instead")
-        s = self._state
+        s = self.state
         return SimResult(bid=s.bid, ask=s.ask, last_price=s.last_price,
                          prev_mid=s.prev_mid, price_path=batch.price,
                          volume_path=batch.volume)
@@ -569,8 +590,9 @@ class Session:
         :class:`PackedParams`, their books take ``sub``'s opening books
         (with ``reset_books``; else they keep their live books) and their
         ``stats_only`` accumulators start afresh, all by ``index_copy`` on
-        the device: no runner is built and no other row changes (rows are
-        independent and the RNG keys on the global market id). Detaching is
+        the device (on a mesh, on the device of the shard that owns each
+        row, and only there): no runner is built and no other row changes
+        (rows are independent and the RNG keys on the global market id). Detaching is
         the same call with :meth:`EnsembleSpec.parked` rows. ``sub`` must
         agree on every static field. Rejected during an active
         :meth:`stream`; a failed splice leaves the session untouched.
@@ -585,10 +607,9 @@ class Session:
         t0 = time.perf_counter()
         new_spec = self.spec.replace_markets(slots, sub)  # validates slots
         idx = np.asarray(slots, dtype=np.int64).reshape(-1)
-        rows = upload(torch.from_numpy(idx), self.device)
 
         def splice(leaves, fresh):
-            return [leaf.index_copy(0, rows, upload(src, self.device))
+            return [sharding.splice(leaf, idx, src, self.device)
                     for leaf, src in zip(leaves, fresh)]
 
         new_state = self._state
@@ -599,11 +620,9 @@ class Session:
         if self._stats is not None:
             new_stats = MarketStats(*splice(self._stats,
                                             init_stats(idx.size, "cpu")))
-        packed = params_mod.pack_params(sub.params, "cpu")
-        new_params = PackedParams(*splice(self._params, packed))
-        host = params_mod.host_ints(self._params).copy()
-        host[idx] = params_mod.host_ints(packed)
-        params_mod.with_host_ints(new_params, host)
+        new_params = sharding.splice_params(
+            self._params, idx, params_mod.pack_params(sub.params, "cpu"),
+            self.device)
         self._state, self._stats = new_state, new_stats
         self._params, self.spec = new_params, new_spec
         if self.metrics is not None:
@@ -612,12 +631,13 @@ class Session:
 
     def snapshot(self) -> Dict[str, Any]:
         """Exact host-side capture: books, cursor, params, stats and a
-        stateful RNG's state (``rng``, JSON, as in the JAX package). The
-        copy from the card is synchronous, so the result is complete host
-        memory."""
+        stateful RNG's state (``rng``, JSON, as in the JAX package), in the
+        canonical ``[M, ...]`` layout (each shard of a mesh read straight
+        to the host). The copy from the card is synchronous, so the result
+        is complete host memory."""
         self._check_open()
         t0 = time.perf_counter()
-        snap: Dict[str, Any] = {f: to_host(v) for f, v in
+        snap: Dict[str, Any] = {f: sharding.to_host(v) for f, v in
                                 zip(MarketState._fields, self._state)}
         snap["t"] = self._t
         snap["rng"] = self._runner.aux_state(self._aux)
@@ -626,13 +646,12 @@ class Session:
         snap["num_steps"] = self.spec.num_steps
         snap["scenarios"] = [[name, len(list(group))] for name, group
                              in itertools.groupby(self.spec.scenarios)]
-        snap["params"] = dict(zip(MarketParams._fields,
-                                  self._params.to_numpy()))
+        snap["params"] = dict(zip(MarketParams._fields, PackedParams(
+            *map(sharding.to_host, self._params)).to_numpy()))
         snap["init"] = {"quote_qty": np.asarray(self.spec.initial_quote_qty),
                         "spread": np.asarray(self.spec.initial_spread)}
         if self._stats is not None:
-            snap["stats"] = dict(zip(MarketStats._fields,
-                                     self._stats.to_numpy()))
+            snap["stats"] = dict(zip(MarketStats._fields, self.stats))
         if self.metrics is not None:
             self.metrics.observe("snapshot_seconds", time.perf_counter() - t0)
             self.metrics.inc("snapshots_total")

@@ -21,7 +21,10 @@ host loops on every backend:
     of kernel 2, on the eager and numpy backends one ``simulate_step``. A
     zero-action trajectory equals ``Session.run`` bit for bit, and nothing
     reaches the host inside the loop on the card. A second env of the same
-    shape reuses the runner, so ``Engine.trace_count`` stays flat.
+    shape reuses the runner, so ``Engine.trace_count`` stays flat. The
+    env's state is canonical ``[M, ...]`` tensors on the runner's first
+    device; on a mesh the step core places them row-wise and joins them
+    back every step.
   * Actions are per-market external limit orders lowered onto the
     ``ext_buy``/``ext_ask`` slot (:mod:`repro_torch.env.actions`);
     ``actions=None`` passes no operand, which adds nothing.
@@ -50,11 +53,11 @@ from repro_torch.core import session
 from repro_torch.core.config import MarketConfig
 from repro_torch.core.device import upload
 from repro_torch.core.params import (EnsembleSpec, PackedParams,
-                                     params_from_dict)
+                                     pack_params, params_from_dict)
 from repro_torch.core.result import to_host
 from repro_torch.core.session import Engine
 from repro_torch.core.stats import MarketStats, accumulate, init_stats
-from repro_torch.core.step import MarketState, StepOutput
+from repro_torch.core.step import MarketState, StepOutput, initial_state
 from repro_torch.env import actions as actions_mod
 from repro_torch.env.obs import MarketFeatures, ObservationSpec
 from repro_torch.env.rewards import PnLReward, RewardContext, RewardFn
@@ -211,13 +214,13 @@ class MarketEnv:
                 f"backend {self._engine.backend!r} compiles the RNG seed "
                 "into its executable; open the env on a spec with "
                 f"seed={seed} instead of passing a runtime override")
-        market = runner.init_state(self.spec)
+        market = initial_state(self.spec, self.device)
         M = self.spec.num_markets
         zeros = torch.zeros((M, 1), dtype=torch.float32, device=self.device)
         state = EnvState(
             market=market, last_out=self._reset_out(market),
-            reset_market=runner.init_state(self.spec),
-            params=runner.params_to_device(self.spec.params), t=0,
+            reset_market=initial_state(self.spec, self.device),
+            params=pack_params(self.spec.params, self.device), t=0,
             portfolio=Portfolio(cash=zeros, inventory=zeros, equity=zeros),
             stats=(init_stats(M, self.device)
                    if self.obs_spec.needs_stats else None),
@@ -356,9 +359,9 @@ class MarketEnv:
             market=f32(MarketState, snap["market"]),
             last_out=f32(StepOutput, snap["last_out"]),
             reset_market=f32(MarketState, snap["reset_market"]),
-            params=runner.params_to_device(params_from_dict(
+            params=pack_params(params_from_dict(
                 snap["params"], self.spec.num_markets,
-                self.spec.num_levels)),
+                self.spec.num_levels), device),
             t=int(snap["t"]), portfolio=f32(Portfolio, snap["portfolio"]),
             stats=stats,
             seed=None if seed is None else int(seed) & 0xFFFFFFFF,

@@ -31,22 +31,30 @@ brackets):
     nothing: ``trace_count`` does not move.
   * ``devices=N`` / ``mesh=`` — cut the market axis over a
     :class:`~repro_torch.launch.MarketsMesh` (default: a mesh of the one
-    device, a single shard). One controller drives it, as
-    JAX drives a mesh: the state stays in the canonical ``[M, ...]``
-    layout on the mesh's first device, and each chunk cuts the rows into
-    the mesh's contiguous slices (``launch.market_sharding``), builds every
-    row's peer mid from the whole chunk-entry mid column (what ``repro``'s
-    ring gather assembles on each shard), sends each slice to its device
-    with its global market ids, params, peers, external orders and stats,
-    launches there (one launch per shard and chunk, per step for kernel 2)
-    and brings the outputs back with ``torch.cat``. No padding is needed:
-    the grid masks a ragged CTA and a row's stream keys on its global id,
-    so a sharded run equals the unsharded one bit for bit, coupled runs
-    included.
+    device, a single shard). One controller drives it, as JAX drives a
+    mesh, and the placement is ``repro``'s: on more than one shard the
+    placement hooks (``init_state``, ``to_device``, ``params_to_device``,
+    ``init_stats``, ``stats_to_device``) return
+    :class:`~repro_torch.launch.sharding.RowShards`, each shard's rows of
+    the books, scalars, packed params (with their host copy) and
+    ``stats_only`` accumulators on its device
+    (``launch.market_sharding``'s contiguous slices) from open to close,
+    and the runner holds each shard's global market ids there too. A chunk
+    moves only the chunk-entry mid column round the ring (n-1 hops, each
+    shard's part to the next, ``repro``'s ``ppermute``); each shard then
+    assembles the whole ``[M, 1]`` column on its device, resolves its own
+    rows' peers, and launches on its resident rows (one launch per shard
+    and chunk, per step for kernel 2). New books, scalars and stats stay
+    where they are; only the paths a ``run`` returns are joined, sliced to
+    the steps taken, on the first device. No padding is needed: the grid
+    masks a ragged CTA and a row's stream keys on its global id, so a
+    sharded run equals the unsharded one bit for bit, coupled runs
+    included. A one-shard mesh keeps plain tensors and launches on them
+    as they are.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
@@ -56,7 +64,7 @@ from repro_torch.core import stats as stats_mod
 from repro_torch.core.device import resolve_device
 from repro_torch.core.params import (INT_FIELDS, EnsembleSpec, MarketParams,
                                      PackedParams)
-from repro_torch.core.result import SimResult
+from repro_torch.core.result import SimResult, to_host
 from repro_torch.core.step import (MarketState, StepOutput, initial_state,
                                    resolve_peer_mids)
 from repro_torch.kernels import _build, autotune
@@ -64,7 +72,8 @@ from repro_torch.kernels import kinetic_clearing as kc
 from repro_torch.kernels import naive_clearing as nc
 from repro_torch.launch import roofline
 from repro_torch.launch.mesh import MarketsMesh, make_markets_mesh
-from repro_torch.launch.sharding import market_sharding
+from repro_torch.launch.sharding import (RowShards, market_sharding,
+                                         place_params, shard_params)
 
 BACKEND = "cuda-kinetic"
 NAIVE_BACKEND = "cuda-naive"
@@ -88,17 +97,6 @@ def _resolve_mesh(mesh, devices, device: torch.device) -> MarketsMesh:
     return MarketsMesh((device,))
 
 
-def _cut_params(params: PackedParams, cut, rows: slice) -> PackedParams:
-    """``params`` cut by ``cut``, with the rows of its host copy (if it has
-    one: the roofline's kernel records read it)."""
-    part = PackedParams(*map(cut, params))
-    try:
-        host = params_mod.host_ints(params)
-    except LookupError:
-        return part
-    return params_mod.with_host_ints(part, host[rows])
-
-
 class ClearingChunkRunner(session.ChunkRunner):
     """One ``chunk_fn`` call per chunk of up to ``chunk`` steps (per shard
     and chunk on a mesh)."""
@@ -115,8 +113,9 @@ class ClearingChunkRunner(session.ChunkRunner):
                  tile: Optional[autotune.TileChoice] = None,
                  agents: Optional[str] = None, autotune_mode="auto",
                  devices: Optional[int] = None, mesh=None):
-        #: The market-axis mesh; the canonical state lives on its first
-        #: device.
+        #: The market-axis mesh. On more than one shard each shard's rows
+        #: live on its device; the joined copies the API returns, on the
+        #: first.
         self.mesh = _resolve_mesh(mesh, devices, device)
         super().__init__(self.mesh.devices[0])
         device = self.device
@@ -140,8 +139,10 @@ class ClearingChunkRunner(session.ChunkRunner):
                 session.record_failure(backend, f"{type(exc).__name__}: {exc}")
                 raise
             self._builds += _build.load_count() - loads
-        self._market_ids = torch.arange(spec.num_markets, dtype=torch.int32,
-                                        device=device)
+        self._sharded = self.mesh.size > 1
+        self._market_ids = self.place(torch.arange(
+            spec.num_markets, dtype=torch.int32,
+            device="cpu" if self._sharded else device))
         self.tile = self._resolve_tile(tile, agents, autotune_mode)
 
     # ---- launch shape ----
@@ -210,6 +211,41 @@ class ClearingChunkRunner(session.ChunkRunner):
 
         return time_candidate
 
+    # ---- placement hooks (sharded state stays sharded between chunks) ----
+    def place(self, t: torch.Tensor):
+        """A canonical ``[M, ...]`` tensor (host or device) as the runner
+        holds it: on its device, or row-sharded over its mesh."""
+        return RowShards.place(t, self.mesh) if self._sharded \
+            else t.to(self.device)
+
+    def init_state(self, spec: EnsembleSpec) -> MarketState:
+        if not self._sharded:
+            return super().init_state(spec)
+        return MarketState(*map(self.place, initial_state(spec, "cpu")))
+
+    def to_device(self, state: MarketState) -> MarketState:
+        if not self._sharded:
+            return super().to_device(state)
+        return MarketState(*(self.place(torch.as_tensor(
+            to_host(x), dtype=torch.float32)) for x in state))
+
+    def params_to_device(self, params: MarketParams) -> PackedParams:
+        if not self._sharded:
+            return super().params_to_device(params)
+        return place_params(params_mod.pack_params(params, "cpu"), self.mesh)
+
+    def init_stats(self, spec: EnsembleSpec):
+        if not (self._sharded and self.stats_only):
+            return super().init_stats(spec)
+        return stats_mod.MarketStats(*map(self.place, stats_mod.init_stats(
+            spec.num_markets, "cpu")))
+
+    def stats_to_device(self, stats):
+        if not self._sharded:
+            return super().stats_to_device(stats)
+        return stats_mod.MarketStats(*(self.place(torch.as_tensor(
+            to_host(x), dtype=torch.float32)) for x in stats))
+
     # ---- execution ----
     def _call(self, state: MarketState, params: PackedParams, step0: int,
               n: int, ext, stats, market_ids, peer_mid) -> Tuple:
@@ -220,79 +256,110 @@ class ClearingChunkRunner(session.ChunkRunner):
             market_ids=market_ids, params=params, peer_mid=peer_mid,
             stats=stats, stats_only=self.stats_only, tile=self.tile)
 
+    def _ring(self, prev_mid: RowShards) -> List[torch.Tensor]:
+        """Each shard's whole ``[M, 1]`` chunk-entry mid column, on its
+        device: ``repro``'s ring. In each of n-1 hops every shard sends the
+        part it holds to the next shard and keeps the one it receives (one
+        ``collective-permute`` each)."""
+        devices, n = self.mesh.devices, self.mesh.size
+        held = list(prev_mid.parts)
+        seen = [{k: held[k]} for k in range(n)]
+        for hop in range(1, n):
+            for k in range(n):
+                if held[k].numel():
+                    roofline.transfer("collective-permute", k,
+                                      devices[(k + 1) % n], [held[k]],
+                                      to=(k + 1) % n)
+            with roofline.uncounted():
+                held = [held[k - 1].to(devices[k], non_blocking=True)
+                        for k in range(n)]
+            for k in range(n):
+                seen[k][(k - hop) % n] = held[k]
+        with roofline.uncounted():
+            return [torch.cat([seen[k][j] for j in range(n)], dim=0)
+                    for k in range(n)]
+
     def _launch_shards(self, state: MarketState, params: PackedParams,
-                      step0: int, n: int, ext, stats) -> Tuple:
-        """One call per shard on its rows, the outputs joined on the first
-        device (a single shard's outputs as they are). The peer column is
-        gathered from every row's entry mid before the cut, as ``repro``'s
-        ring gather assembles it."""
-        peer = resolve_peer_mids(state.prev_mid, params.ints[:, _PEER])
-        home = self.device
+                       step0: int, n: int, ext, stats) -> Tuple:
+        """One call per shard on its resident rows, after the ring; the new
+        books, scalars and stats stay on their shards (a shard with no rows
+        keeps its empty parts), and the paths, sliced to the ``n`` steps
+        taken, are joined on the first device."""
+        mids = self._ring(state.prev_mid)
         outs = []
         for pos, (dev, rows) in enumerate(zip(self.mesh.devices,
                                               self._rows)):
             if rows.start == rows.stop:
-                continue          # a shard with no rows launches nothing
-            sent = []
+                outs.append(None)   # a shard with no rows launches nothing
+                continue
 
-            def cut(t):
-                if t is None:
-                    return None
-                sent.append(t[rows].to(dev))
-                return sent[-1]
+            def part(x):
+                return x.parts[pos]
 
-            with roofline.uncounted():
-                args = (MarketState(*map(cut, state)),
-                        _cut_params(params, cut, rows), step0, n,
-                        None if ext is None else tuple(map(cut, ext)),
-                        None if stats is None else stats_mod.MarketStats(
-                            *map(cut, stats)),
-                        cut(self._market_ids), cut(peer))
-            if pos:               # the first shard's rows stay home
-                roofline.transfer("scatter", pos, home, sent)
             with roofline.shard(pos, dev):
-                outs.append(self._call(*args))
-        if len(outs) == 1:
-            return outs[0]
+                own = torch.arange(rows.start, rows.stop, device=dev)[:, None]
+                p = shard_params(params, pos)
+                peer = resolve_peer_mids(mids[pos], p.ints[:, _PEER], own)
+                outs.append(self._call(
+                    MarketState(*map(part, state)), p, step0, n,
+                    None if ext is None else tuple(map(part, ext)),
+                    None if stats is None else stats_mod.MarketStats(
+                        *map(part, stats)),
+                    part(self._market_ids), peer))
 
-        def join(parts):
-            # Only trailing shards can have no rows (market_sharding), so
-            # part k is shard k's.
-            for pos, part in enumerate(parts[1:], 1):
-                roofline.transfer("gather", pos, home, [part])
-            with roofline.uncounted():
-                return torch.cat([p.to(home) for p in parts], dim=0)
-
-        joined = [join(parts) for parts in zip(*(o[:4] for o in outs))]
+        # Each shard's outputs, flat: four state leaves, then six stats
+        # (which stay with the state) or three paths (which are joined).
+        flat = [None if o is None else
+                o[:4] + tuple(o[4]) if self.stats_only else o for o in outs]
+        held = list(state) + (list(stats) if self.stats_only else [])
+        kept = [RowShards([old.parts[pos] if f is None else f[k]
+                           for pos, f in enumerate(flat)], self._rows)
+                for k, old in enumerate(held)]
         if self.stats_only:
-            return tuple(joined) + (stats_mod.MarketStats(
-                *(join(parts) for parts in zip(*(o[4] for o in outs)))),)
-        return tuple(joined) + tuple(
-            join(parts) for parts in zip(*(o[4:] for o in outs)))
+            return MarketState(*kept[:4]), stats_mod.MarketStats(*kept[4:])
+        ran = [f for f in flat if f is not None]   # the leading shards
+        paths = tuple(RowShards([f[k][:, :n] for f in ran],
+                                self._rows[:len(ran)]).join(self.device)
+                      for k in range(4, 7))
+        return MarketState(*kept), paths
 
     def run(self, state: MarketState, params, step0: int, n: int, ext,
             stats=None, aux=None
             ) -> Tuple[MarketState, session.StepBatch, Any]:
         loads = _build.load_count()
-        out = self._launch_shards(state, params, step0, n, ext, stats)
+        if self._sharded:
+            new_state, out = self._launch_shards(state, params, step0, n,
+                                                 ext, stats)
+        else:
+            peer = resolve_peer_mids(state.prev_mid, params.ints[:, _PEER])
+            res = self._call(state, params, step0, n, ext, stats,
+                             self._market_ids, peer)
+            new_state, out = MarketState(*res[:4]), (
+                res[4] if self.stats_only else res[4:])
         self._builds += _build.load_count() - loads
         self.launched = True
-        new_state = MarketState(*out[:4])
         if self.stats_only:
             return new_state, session._empty_batch(
-                self.spec.num_markets, self.device), out[4]
-        pp, vp, mp = out[4:]
+                self.spec.num_markets, self.device), out
+        pp, vp, mp = out
         return new_state, session.StepBatch(
             price=pp[:, :n], volume=vp[:, :n], mid=mp[:, :n]), None
 
     def env_step_fn(self) -> Callable:
-        """One :meth:`run` of one step from ``t`` (sharded when the runner
-        is), the env's orders as the chunk's external orders (None: no
-        operand at all, which adds nothing). The seed is the spec's: the env
-        rejects a runtime one."""
+        """One :meth:`run` of one step from ``t``, the env's orders as the
+        chunk's external orders (None: no operand at all, which adds
+        nothing). The env holds canonical tensors on the first device: on a
+        mesh each step places them row-wise, runs, and joins the new state
+        back. The seed is the spec's: the env rejects a runtime one."""
         def step_core(market, params, t, ext_buy, ext_ask, seed, aux):
             ext = None if ext_buy is None else (ext_buy, ext_ask)
+            if self._sharded:
+                market = MarketState(*map(self.place, market))
+                params = place_params(params, self.mesh)
+                ext = None if ext is None else tuple(map(self.place, ext))
             state, batch, _ = self.run(market, params, t, 1, ext)
+            if self._sharded:
+                state = MarketState(*(x.join(self.device) for x in state))
             return state, StepOutput(*batch), aux
 
         return step_core

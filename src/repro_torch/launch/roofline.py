@@ -24,14 +24,18 @@ port counts at run time, where the work runs:
     ``op_count``/``byte_count`` of ``repro_torch.kernels``, on every device
     alike (on the CPU the wrapper runs its plain version; its aten ops are
     not counted a second time).
-  * **cross-device bytes**, where a sharded runner cuts a chunk's rows and
-    joins them back (``kernels/ops.py``, :func:`transfer`): each tensor sent
-    to a shard other than the first is ``scatter``, each part joined back
-    from one is ``gather``. ``repro``'s ring moves only the ``[m_shard, 1]``
-    mid column, (n-1) hops a chunk (``src/repro/kernels/ops.py:193-200``);
-    the port moves the rows themselves, because a sharded runner keeps the
-    canonical state on the mesh's first device. The port issues no
-    collective, so ``repro``'s five collective kinds stay 0.
+  * **cross-device bytes**, where a sharded runner moves rows
+    (:func:`transfer`, from ``launch/sharding.py`` and ``kernels/ops.py``):
+    ``scatter`` where a shard's rows are placed on its device (a session's
+    opening, ``restore``, ``swap_markets``, ``Session.step``'s external
+    orders, the env's step), ``gather`` where a part is joined onto the
+    mesh's first device (the paths a ``run`` returns), and one
+    ``collective-permute`` per ring hop of the chunk-entry mid column, as
+    ``repro``'s ``ppermute`` ring (``src/repro/kernels/ops.py:176-200``):
+    (n-1) hops a chunk of M·4 bytes each, recorded with their source and
+    destination shard (``collective_routes``). ``repro``'s other four
+    collective kinds stay 0: the port issues no all-reduce, all-gather,
+    reduce-scatter or all-to-all.
 
 Totals are kept per device, by shard position in the mesh (work outside a
 shard counts at position 0, the mesh's first device; so does host work on
@@ -39,9 +43,10 @@ CPU tensors, such as a session's uploads when the recorder encloses its
 opening), as ``repro``'s analyzer reads one device of a partitioned
 program; the top-level totals sum the devices. A mesh that names one
 device twice, or a CPU mesh, reports the plan's bytes all the same, and
-``wire_no_link`` says how many of them crossed no link. Since a shard's cut and join count as transfers, not as
-aten ops, the per-device flops and bytes of a sharded run sum to the
-unsharded run's.
+``wire_no_link`` says how many of them crossed no link. Since moves count
+as transfers, not as aten ops, and a shard resolves its own rows' peers
+with the ops the unsharded run applies to every row, the per-device flops
+and bytes of a sharded run sum to the unsharded run's.
 
 Bytes are eager's: every op reads its operands and writes its result, where
 XLA would fuse, so they are held to closed forms, not to ``repro``'s fused
@@ -64,7 +69,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.launch.mesh import HW
 
-#: ``repro``'s collective kinds (0 in the port), then the port's transfers.
+#: ``repro``'s collective kinds (the port issues collective-permute only),
+#: then the port's placements and joins.
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute")
 TRANSFERS = ("scatter", "gather")
@@ -197,6 +203,7 @@ class Roofline(TorchDispatchMode):
         self._kernels: Dict[str, Dict[str, int]] = {}
         self._coll = {k: 0 for k in KINDS}
         self._cnt = {k: 0 for k in KINDS}
+        self._routes: Dict[Tuple[int, int], int] = {}
 
     def __enter__(self) -> "Roofline":
         super().__enter__()
@@ -253,10 +260,13 @@ class Roofline(TorchDispatchMode):
             entry["bytes"] += nbytes
             self._charge(pos, where or device, operations=ops, bytes=nbytes)
 
-    def _transfer(self, kind, pos, device, nbytes, count, local) -> None:
+    def _transfer(self, kind, pos, device, nbytes, count, local, to) -> None:
         with self._lock:
             self._coll[kind] += nbytes
             self._cnt[kind] += count
+            if to is not None:
+                route = (pos, to)
+                self._routes[route] = self._routes.get(route, 0) + nbytes
             self._charge(pos, device, wire=nbytes, wire_no_link=local)
 
     # ---- reading ----
@@ -277,14 +287,16 @@ class Roofline(TorchDispatchMode):
         """``repro``'s ``summarize`` keys, plus ``operations``,
         ``aten_calls`` (materializing aten ops run), ``wire_no_link``,
         ``per_device`` (by shard position: device, flops, operations,
-        bytes, wire, wire_no_link) and ``kernels`` (by entry: calls,
-        launches, operations, bytes)."""
+        bytes, wire, wire_no_link), ``kernels`` (by entry: calls,
+        launches, operations, bytes) and ``collective_routes`` (the ring
+        hops' bytes by ``(source, destination)`` shard)."""
         r = self.analyze()
         with self._lock:
             per_device = {pos: dict(d) for pos, d in
                           sorted(self._devices.items())}
             kernels = {name: dict(e) for name, e in self._kernels.items()}
             calls = sum(e[0] for e in self._aten.values())
+            routes = dict(sorted(self._routes.items()))
         return {
             "flops": r["flops"],
             "hbm_bytes": r["bytes"],
@@ -297,6 +309,7 @@ class Roofline(TorchDispatchMode):
                                 for d in per_device.values()),
             "per_device": per_device,
             "kernels": kernels,
+            "collective_routes": routes,
         }
 
     def top_contributors(self, key: str = "bytes", n: int = 25):
@@ -364,24 +377,27 @@ def kernel_call(name: str, device, cost: Callable[[], Tuple[int, int, int]]):
     return _Scope(quiet=True)
 
 
-def transfer(kind: str, pos: int, home, parts) -> None:
-    """Report the tensors ``parts``, on shard ``pos``'s device, moved
-    between it and ``home`` (the mesh's first device): ``"scatter"`` the
-    rows sent out, ``"gather"`` the parts joined back. A part already on
-    ``home`` crossed no link."""
+def transfer(kind: str, pos: int, peer, parts, to: Optional[int] = None
+             ) -> None:
+    """Report the tensors ``parts`` moved between shard ``pos`` and the
+    device ``peer``, charged to shard ``pos``: ``"scatter"`` the rows placed
+    on it from ``peer`` (the host or the first device), ``"gather"`` a part
+    joined from it onto ``peer``, ``"collective-permute"`` one ring hop
+    sent from it to shard ``to`` on ``peer``. A part already on ``peer``
+    crossed no link."""
     if not _ACTIVE:
         return
-    if kind not in TRANSFERS:
+    if kind not in TRANSFERS + ("collective-permute",):
         raise ValueError(f"unknown transfer kind {kind!r}")
-    home = torch.device(home)
+    peer = torch.device(peer)
     nbytes = local = 0
     for t in parts:
         b = _nbytes(t)
         nbytes += b
-        local += b if t.device == home else 0
+        local += b if t.device == peer else 0
     for rec in list(_ACTIVE):
         rec._transfer(kind, pos, str(parts[0].device), nbytes, len(parts),
-                      local)
+                      local, to)
 
 
 def _run(fn, args, kwargs) -> Roofline:

@@ -544,9 +544,9 @@ class Gateway:
         step0 = sess.step_count
         t0 = time.perf_counter()
         batch = sess.run(self.chunk)   # returns once the kernel is queued
-        # The carried stats (stats_only) take the same non-blocking copy;
-        # Session.stats would wait for the card.
-        stats = sess._stats
+        # The carried stats (stats_only), joined on the first device, take
+        # the same non-blocking copy; Session.stats would wait for the card.
+        stats = sess._joined_stats()
         copy = HostCopy(list(batch) + list(stats or ()), self._copy_stream)
         meta = (seq, step0, self.chunk, t0, attached)
         done = self._buffer.push(meta, (copy, stats is not None))

@@ -424,3 +424,34 @@ def test_roofline_records_table_iv_run_on_the_card(cuda):
         operations=sum(kc.op_count(M, A, L, n, mix) for n in steps),
         bytes=sum(kc.byte_count(M, L, n, ext=False, stats_only=False)
                   for n in steps))}
+
+
+@pytest.mark.parametrize("shards", [2, 3])
+def test_rows_stay_on_their_shards_on_the_card(cuda, shards):
+    """On a mesh naming ``cuda:0`` ``shards`` times, every leaf a session
+    holds is its shards' own rows on the card after every chunk, a swap
+    and a restore, and the run equals the unsharded one."""
+    from repro_torch.launch import MarketsMesh
+
+    spec = _spec(20, 64, 128, S=48)
+    sub = _spec(2, 64, 128, S=48)
+    mesh = MarketsMesh.of([cuda] * shards)
+    runs = {}
+    for label, opts in (("one", {}), ("many", {"mesh": mesh})):
+        eng = Engine("cuda-kinetic", device=cuda, chunk_size=16, **opts)
+        with eng.open(spec) as sess:
+            out = []
+            for batch in sess.stream(32):
+                out += list(batch)
+                if opts:
+                    chip_smoke.check_resident(sess, mesh, spec.num_markets)
+            sess.swap_markets(list(range(30, 35)) + list(range(64, 69)),
+                              sub)
+            sess.restore(sess.snapshot())
+            if opts:
+                chip_smoke.check_resident(sess, mesh, spec.num_markets)
+            out += list(sess.run(16)) + list(sess.state)
+            torch.cuda.synchronize()
+            runs[label] = out
+    for g, w in zip(runs["many"], runs["one"]):
+        assert torch.equal(g, w)

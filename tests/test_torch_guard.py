@@ -27,7 +27,7 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.core.numpy_backend, repro_torch.core.sequential, "
             "repro_torch.train, repro_torch.train.loop, "
             "repro_torch.launch, repro_torch.launch.mesh, "
-            "repro_torch.launch.roofline; "
+            "repro_torch.launch.roofline, repro_torch.launch.sharding; "
             "repro_torch.core.session.backends(); "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"

@@ -8,7 +8,7 @@ runs) and an MLP forward. Bytes are eager's: every op reads its operands
 and writes its result, where XLA fuses, so they are held to closed forms,
 not to ``repro``'s fused count. Kernel calls are held to the wrappers'
 ``op_count``/``byte_count`` and launch counts, transfers to the closed form
-of the shard cut, and every result under the recorder to the result
+of the resident shards (the ring of mids and the joined paths), and every result under the recorder to the result
 without it (and to ``repro``'s) with ``==``.
 """
 import jax
@@ -374,18 +374,9 @@ def host_devices():
     set_host_device_count(prev)
 
 
-def _cut_bytes(rows, L, chunk, *, stats_only):
-    """Closed form of one chunk's transfers to and from a shard of
-    ``rows`` markets: books, last/mid, params, ids and peers out; books,
-    last/mid and the paths (or the six stats) back."""
-    out = rows * (2 * L * 4 + 2 * 4 + PARAM_COLS * 4 + 4 + 4)
-    back = rows * (2 * L * 4 + 2 * 4)
-    if stats_only:
-        out += rows * 6 * 4
-        back += rows * 6 * 4
-    else:
-        back += rows * 3 * chunk * 4
-    return out, back
+def _rows(M, shards):
+    base, extra = divmod(M, shards)
+    return [base + (k < extra) for k in range(shards)]
 
 
 def _sharded(shards, stats_only=False):
@@ -395,14 +386,18 @@ def _sharded(shards, stats_only=False):
                 stats_only=stats_only).open(spec) as s:
         with Roofline() as rf:
             batch = s.run(spec.num_steps)
-        out = list(s.state) + (list(s._stats) if stats_only
-                               else list(batch))
+        out = list(s.state) + ([torch.from_numpy(x) for x in s.stats]
+                               if stats_only else list(batch))
     return spec, rf.summarize(), out
 
 
 @pytest.mark.parametrize("shards", [2, 3])
 @pytest.mark.parametrize("stats_only", [False, True])
 def test_sharded_totals_sum_to_unsharded(host_devices, shards, stats_only):
+    """The rows stay on their shards: a chunk moves the entry mids round
+    the ring, (n-1)·M·4 bytes, and a run joins only the paths it returns,
+    rows of shards 1.. x steps x 12 bytes (none with ``stats_only``);
+    nothing is placed."""
     spec, one, want = _sharded(1, stats_only)
     _, many, got = _sharded(shards, stats_only)
     for g, w in zip(got, want):
@@ -416,34 +411,45 @@ def test_sharded_totals_sum_to_unsharded(host_devices, shards, stats_only):
     assert many["kernels"]["kinetic_clearing_chunk"] == dict(
         one["kernels"]["kinetic_clearing_chunk"],
         calls=shards * calls, launches=shards * calls)
-    # The cut: shards 1.. get their rows out and send them back each chunk.
-    base, extra = divmod(spec.num_markets, shards)
-    rows = [base + (k < extra) for k in range(shards)]
-    out = back = 0
-    for r in rows[1:]:
-        o, b = _cut_bytes(r, spec.num_levels, CHUNK, stats_only=stats_only)
-        out, back = out + calls * o, back + calls * b
-    assert many["collective_breakdown"]["scatter"] == out
-    assert many["collective_breakdown"]["gather"] == back
-    assert many["collective_wire_bytes"] == out + back
-    assert many["wire_no_link"] == out + back      # one host: no link
-    assert many["per_device"][0]["wire"] == 0
+    M, S = spec.num_markets, spec.num_steps
+    rows = _rows(M, shards)
+    ring = calls * (shards - 1) * M * 4
+    back = 0 if stats_only else sum(rows[1:]) * S * 3 * 4
+    moved = many["collective_breakdown"]
+    assert moved["scatter"] == 0
+    assert moved["collective-permute"] == ring
+    assert many["collective_counts"]["collective-permute"] == \
+        calls * (shards - 1) * shards
+    # Each hop k -> k+1 carries every part but shard k+1's own.
+    assert many["collective_routes"] == {
+        (k, (k + 1) % shards): calls * (M - rows[(k + 1) % shards]) * 4
+        for k in range(shards)}
+    assert moved["gather"] == back
+    assert many["collective_wire_bytes"] == ring + back
+    assert many["wire_no_link"] == ring + back     # one host: no link
+    assert sum(d["wire"] for d in many["per_device"].values()) == ring + back
     for kind in hlo_analysis.COLLECTIVES:
-        assert many["collective_breakdown"][kind] == 0
+        if kind != "collective-permute":
+            assert moved[kind] == 0
     assert one["collective_wire_bytes"] == 0       # 1 shard: nothing moves
 
 
 def test_sharded_env_step_sends_the_orders_too(host_devices):
+    """The env keeps canonical state: each step places every row (books,
+    scalars, params and the orders), sends the mids round the ring and
+    joins shard 1's books, scalars and one-step paths back."""
     spec = _spec()
     mesh = MarketsMesh.of(["cpu"] * 2)
     env = Engine("cuda-kinetic", device="cpu", mesh=mesh).env(spec)
     with Roofline() as rf:
         rollout(env, make_market_maker(spec.num_levels), 3)
     s = rf.summarize()
-    L = spec.num_levels
-    out, back = _cut_bytes(5, L, 1, stats_only=False)
-    assert s["collective_breakdown"]["scatter"] == 3 * (out + 5 * 2 * L * 4)
-    assert s["collective_breakdown"]["gather"] == 3 * back
+    M, L = spec.num_markets, spec.num_levels
+    books = 2 * L * 4 + 2 * 4
+    assert s["collective_breakdown"]["scatter"] == \
+        3 * M * (books + PARAM_COLS * 4 + 2 * L * 4)
+    assert s["collective_breakdown"]["collective-permute"] == 3 * M * 4
+    assert s["collective_breakdown"]["gather"] == 3 * 5 * (books + 3 * 4)
 
 
 # ---------------------------------------------------------------------------

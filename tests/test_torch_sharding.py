@@ -28,6 +28,7 @@ from repro.core.config import MarketConfig as JConfig
 from repro.core.config import scenario_config as j_scenario_config
 from repro.core.params import EnsembleSpec as JSpec
 from repro.core.session import Engine as JEngine
+from repro.core.session import ExternalOrders as JOrders
 from repro.env import MarketFeatures as JMarketFeatures
 from repro.env import rollout as j_rollout
 from repro.ops import run_serve_plan as j_run_serve_plan
@@ -35,11 +36,13 @@ from repro.scenario import CouplingSpec as JCoupling
 from repro.train.policies import make_market_maker as j_make_market_maker
 from repro_torch.core.config import MarketConfig, scenario_config
 from repro_torch.core.params import EnsembleSpec
-from repro_torch.core.session import Engine
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.core.session import Engine, ExternalOrders
 from repro_torch.env import MarketFeatures, rollout
-from repro_torch.launch import (MarketsMesh, make_markets_mesh,
+from repro_torch.launch import (MarketsMesh, Roofline, make_markets_mesh,
                                 market_sharding, replicate_tree,
                                 replicated_sharding, set_host_device_count)
+from repro_torch.launch.sharding import RowShards
 from repro_torch.ops import DeviceLoss, FaultPlan, run_plan, run_serve_plan
 from repro_torch.scenario import CouplingSpec
 from repro_torch.train import PPOConfig, PPOTrainer
@@ -222,6 +225,20 @@ def test_sharded_naive_equals_repro(shards):
         _same(batch, _repro_run(case)[0], f"cuda-naive {case}")
 
 
+@pytest.mark.parametrize("shards", [2, 3])
+def test_one_shot_simulate_on_a_mesh(shards):
+    """``simulate_kinetic``/``simulate_naive`` with ``devices=`` return the
+    books joined on the first device, equal to the unsharded result."""
+    from repro_torch.kernels import ops
+
+    cfg = MarketConfig(**dict(COUPLED_KW, alpha_whale=0.1, whale_period=3))
+    want = ops.simulate_kinetic(cfg, device="cpu").to_numpy()
+    for fn in (ops.simulate_kinetic, ops.simulate_naive):
+        got = fn(cfg, device="cpu", devices=shards)
+        assert all(isinstance(x, torch.Tensor) for x in got)
+        _same(got.to_numpy(), want, fn.__name__)
+
+
 def test_ring_peers_cross_shards_and_couple():
     """The ring's peers do cross the cut, and the coupling moves prices."""
     spec = CASES["ring"]
@@ -265,6 +282,214 @@ def test_snapshot_across_shard_counts():
     with two.open(spec) as s:
         s.restore(snap1)
         _same([x[:, 6:] for x in want], s.run(12).to_numpy(), "1 onto 2")
+
+
+# ---------------------------------------------------------------------------
+# Each shard's rows live on its shard, from open to close.
+# ---------------------------------------------------------------------------
+
+def _resident(leaf, mesh, M):
+    """``leaf`` is a RowShards whose part k holds exactly shard k's rows on
+    shard k's device, in storage of its own (no view of a canonical
+    tensor)."""
+    assert isinstance(leaf, RowShards), type(leaf)
+    rows = market_sharding(mesh, M)
+    assert leaf.rows == rows
+    for part, r, dev in zip(leaf.parts, rows, mesh.devices):
+        n = r.stop - r.start
+        assert part.shape[0] == n and part.device == dev
+        if n:
+            assert part.untyped_storage().nbytes() == \
+                n * part.stride(0) * part.element_size()
+
+
+def _check_residency(sess):
+    runner, M = sess._runner, sess.spec.num_markets
+    leaves = list(sess._state) + list(sess._params) + [runner._market_ids]
+    if sess._stats is not None:
+        leaves += list(sess._stats)
+    for leaf in leaves:
+        _resident(leaf, runner.mesh, M)
+
+
+@pytest.mark.parametrize("shards", [2, 3])
+@pytest.mark.parametrize("stats_only", [False, True])
+def test_rows_stay_on_their_shards(shards, stats_only, tmp_path):
+    """After ``open``, every ``run``/``step``, ``swap_markets`` and
+    ``restore``, the state, params, market ids and stats are held only as
+    each shard's rows; the accessors' joined copies equal the unsharded
+    session's."""
+    spec = CASES["ring"]
+    sub = scenario_config("whale", **dict(COUPLED_KW, num_markets=2))
+    eng = Engine("cuda-kinetic", device="cpu", chunk_size=CHUNK,
+                 stats_only=stats_only, devices=shards)
+    ref = Engine("cuda-kinetic", device="cpu", chunk_size=CHUNK,
+                 stats_only=stats_only)
+    with eng.open(spec) as s, ref.open(spec) as u:
+        _check_residency(s)
+        for sess in (s, u):
+            sess.run(6)
+            sess.step()
+            sess.swap_markets([4, 7], sub)
+            sess.run(5)
+        _check_residency(s)
+        s.restore(u.snapshot())
+        _check_residency(s)
+        _same(s.state, u.state, "state")
+        _same(s.params, u.params, "params")
+        if stats_only:
+            _same(s.stats, u.stats, "stats")
+        assert (params_host(s.params) == params_host(u.params)).all()
+        for sess in (s, u):
+            sess.run(7)
+        _check_residency(s)
+        _same(s.state, u.state, "state after restore")
+
+
+def params_host(packed):
+    from repro_torch.core.params import host_ints
+    return host_ints(packed)
+
+
+@pytest.mark.parametrize("shards", [2, 3])
+def test_swap_across_a_shard_boundary_equals_repro(shards):
+    """Slots on both sides of every shard boundary are spliced into the
+    shards that own them, with their params and host copies, equal to
+    ``repro``'s ``jax-scan`` swap and to the unsharded port with ``==``;
+    the kernel records count the new rows' archetypes."""
+    slots = [3, 4, 6, 7]
+    kw = dict(COUPLED_KW, num_markets=1)
+    sub = EnsembleSpec.from_scenarios(["whale", "hft", "informed",
+                                       "thin-book"], **kw)
+    jsub = JSpec.from_scenarios(["whale", "hft", "informed", "thin-book"],
+                                **kw)
+    owners = {k for k, r in enumerate(market_sharding(
+        make_markets_mesh(shards, device="cpu"), 10))
+              for i in slots if r.start <= i < r.stop}
+    assert len(owners) >= 2
+    outs = {}
+    for label, opts in (("unsharded", {}), ("sharded", {"devices": shards})):
+        eng = Engine("cuda-kinetic", device="cpu", chunk_size=CHUNK, **opts)
+        with eng.open(CASES["ring"]) as s:
+            s.run(6)
+            before = s._params
+            s.swap_markets(slots, sub)
+            if opts:
+                _check_residency(s)
+                for pos, r in enumerate(s._runner._rows):
+                    touched = any(r.start <= i < r.stop for i in slots)
+                    same = s._params.ints.parts[pos] is before.ints.parts[pos]
+                    assert same != touched, pos
+            with Roofline() as rf:
+                batch = s.run(12).to_numpy()
+            outs[label] = (batch, s.snapshot(), rf.summarize()["kernels"])
+    with JEngine("jax-scan", chunk_size=CHUNK).open(J_CASES["ring"]) as j:
+        j.run(6)
+        j.swap_markets(slots, jsub)
+        jbatch, jsnap = j.run(12).to_numpy(), j.snapshot()
+    for label, (batch, snap, _) in outs.items():
+        _same(batch, jbatch, f"{label} vs repro")
+        _same(_snap_state(snap), _snap_state(jsnap), f"{label} books")
+        for f, want in jsnap["params"].items():
+            _same([snap["params"][f]], [want], f"{label} params {f}")
+    ops = {label: k["kinetic_clearing_chunk"]["operations"]
+           for label, (_, _, k) in outs.items()}
+    assert ops["sharded"] == ops["unsharded"]
+
+
+@pytest.mark.parametrize("shards", [2, 3])
+def test_step_actions_on_a_mesh_equal_repro(shards):
+    """``Session.step(actions)`` places the orders row-wise: runs, steps
+    with orders and a stream interleaved equal ``repro``'s with ``==``."""
+    spec, jspec = CASES["ring"], J_CASES["ring"]
+    M, L = spec.num_markets, spec.num_levels
+    r = np.random.default_rng(4)
+    orders = [(r.random(M) < 0.5, r.integers(0, L, M),
+               r.integers(0, 6, M).astype(np.float32)) for _ in range(3)]
+
+    def drive(sess, cls):
+        out = [sess.run(5).to_numpy()]
+        for side, price, qty in orders:
+            out.append(sess.step(cls(side, price, qty)).to_numpy())
+        out += [b.to_numpy() for b in sess.stream(10)]
+        return out
+
+    eng = Engine("cuda-kinetic", device="cpu", chunk_size=CHUNK,
+                 devices=shards)
+    with eng.open(spec) as s:
+        got = drive(s, ExternalOrders)
+        _check_residency(s)
+        state = s.state
+    with JEngine("numpy", chunk_size=CHUNK).open(jspec) as j:
+        want = drive(j, JOrders)
+        jstate = j.snapshot()
+    for k, (g, w) in enumerate(zip(got, want)):
+        _same(g, w, f"call {k}")
+    _same(state, _snap_state(jstate), "books")
+
+
+def test_snapshot_inside_an_open_stream():
+    """A snapshot taken while a ``stream()`` is open on 3 shards reads the
+    rows as of the chunks yielded so far; restored onto 2 shards it
+    continues the straight run."""
+    spec = CASES["ring"]
+    want = _repro_run("ring")[0]
+    eng = Engine("cuda-kinetic", device="cpu", chunk_size=CHUNK, devices=3)
+    with eng.open(spec) as s:
+        stream = s.stream(18)
+        next(stream)
+        next(stream)
+        snap = s.snapshot()
+        rest = [b.to_numpy() for b in stream]
+    _same([np.concatenate([b[k] for b in rest], axis=1) for k in range(3)],
+          [x[:, 12:] for x in want], "stream after the snapshot")
+    two = Engine("cuda-kinetic", device="cpu", chunk_size=CHUNK, devices=2)
+    with two.open(spec) as s:
+        s.restore(snap)
+        assert s.step_count == 12
+        _same(s.run(6).to_numpy(), [x[:, 12:] for x in want], "restored")
+
+
+def test_checkpoint_one_shard_into_three_and_back(tmp_path):
+    """A 1-shard checkpoint restores into 3 shards, runs on, checkpoints,
+    and restores into 1 shard again, bit for bit against the straight
+    run; checkpoints keep the canonical layout."""
+    spec = CASES["ring"]
+    want = _repro_run("ring")
+    mgr = CheckpointManager(tmp_path, async_write=False)
+    one = Engine("cuda-kinetic", device="cpu", chunk_size=CHUNK)
+    three = Engine("cuda-kinetic", device="cpu", chunk_size=CHUNK, devices=3)
+    with one.open(spec) as s:
+        s.run(6)
+        s.save_checkpoint(mgr)
+    with three.open(spec) as s:
+        assert s.restore_checkpoint(mgr, 6) == 6
+        _check_residency(s)
+        _same(s.run(6).to_numpy(), [x[:, 6:12] for x in want[0]], "on 3")
+        s.save_checkpoint(mgr)
+    with one.open(spec) as s:
+        assert s.restore_checkpoint(mgr, 12) == 12
+        _same(s.run(6).to_numpy(), [x[:, 12:] for x in want[0]], "back")
+        _same(s.state, _snap_state(want[2]), "books")
+
+
+@pytest.mark.parametrize("shards", [2, 3])
+def test_restore_onto_more_shards_than_markets(shards):
+    """Trailing shards with no rows keep empty parts through a restore and
+    a run."""
+    spec = scenario_config("flash-crash", **dict(SHARD_KW, num_markets=1))
+    with Engine("cuda-kinetic", device="cpu",
+                chunk_size=CHUNK).open(spec) as s:
+        s.run(6)
+        snap = s.snapshot()
+        want = s.run(14).to_numpy()
+    eng = Engine("cuda-kinetic", device="cpu", chunk_size=CHUNK,
+                 devices=shards)
+    with eng.open(spec) as s:
+        s.restore(snap)
+        _check_residency(s)
+        _same(s.run(14).to_numpy(), want, "1 market on a mesh")
+        _check_residency(s)
 
 
 def test_no_new_build_on_a_warm_sharded_session():
