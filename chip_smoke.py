@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port's paths on one GPU and check them.
 
     python3 chip_smoke.py        # needs one CUDA card; takes no arguments
+    python3 chip_smoke.py env-rates SRC   # the sharded env's rates, with
+                                          # the port of the tree SRC
 
 Every run drives every phase at full width. Phases, each printing one JSON
 line:
@@ -131,9 +133,18 @@ line:
            times (``MarketsMesh.of``): ``Session.run(500)`` at Table IV
            (homogeneous; ring-coupled across all 8192 markets with every
            archetype, paths and ``stats_only``), ``cuda-naive``, a snapshot
-           from 2 shards restored onto 1 and 3, 64 env steps and 2 trainer
-           updates equal the unsharded runs, with launches = shards x
-           chunks (x steps for kernel 2); ``DeviceLoss(devices_after=1)``
+           from 2 shards restored onto 1 and 3, 64 env steps on 2 and 3
+           shards (every ``EnvState`` leaf its shards' own rows after every
+           step) and 2 trainer updates on 2 shards (torch's sync debug mode
+           at error; the env state resident after them) equal the
+           unsharded runs, with launches = shards x chunks (x steps for
+           kernel 2); the bytes 50 maker env steps move on 2 shards
+           (``scatter`` of the order triple, the ring, ``gather`` of the
+           observation, reward and info) equal to their closed form to the
+           byte; a 2-shard env checkpoint restored onto 1 and 3 shards
+           continues the straight rollout; the maker's env at Table IV on
+           1, 2 and 3 shards: steps/s, CUDA kernels and bytes moved a
+           step; ``DeviceLoss(devices_after=1)``
            from 2 shards in ``run_plan`` and under a gateway of 8 clients,
            bitwise; ``devices=2`` on one card raises the mesh's
            ``ValueError``; each shard's rows on its device after every
@@ -1107,6 +1118,10 @@ AUTOTUNE_REPS = 10
 #: The sharded phase's gateway: clients (one preset each) and chunks.
 SHARDED_CLIENTS = 8
 SHARDED_SERVE_CHUNKS = 12
+# The sharded env at Table IV: the maker steps of each timed rollout (in
+# turns over 1, 2 and 3 shards), and the turns.
+SHARDED_ENV_STEPS = 100
+SHARDED_ENV_TURNS = (1, 2, 3, 3, 2, 1)
 
 
 def sweep_spec(M, A, L=128):
@@ -1517,15 +1532,32 @@ def frames_equal(label, got, want) -> None:
 
 def check_resident(sess, mesh, M) -> int:
     """Every leaf a sharded session holds (state, params, market ids,
-    stats) is a ``RowShards`` whose part k holds exactly shard k's rows on
-    shard k's device, in storage of its own: no canonical copy is held.
-    Returns the number of leaves checked."""
+    stats) is its shards' own rows (``check_rows``). Returns the number of
+    leaves checked."""
+    return check_rows(list(sess._state) + list(sess._params)
+                      + [sess._runner._market_ids] + list(sess._stats or ()),
+                      mesh, M)
+
+
+def check_env_resident(state, mesh, M) -> int:
+    """Every ``[M, ...]`` leaf of a sharded env's ``EnvState`` (books,
+    scalars, last output, opening books, params, portfolio, stats) is its
+    shards' own rows (``check_rows``): nothing of the env's state is
+    canonical on the first device. Returns the number of leaves checked."""
+    return check_rows(list(state.market) + list(state.last_out)
+                      + list(state.reset_market) + list(state.params)
+                      + list(state.portfolio) + list(state.stats or ()),
+                      mesh, M)
+
+
+def check_rows(leaves, mesh, M) -> int:
+    """Each leaf is a ``RowShards`` whose part k holds exactly shard k's
+    rows on shard k's device, in storage of its own: no canonical copy is
+    held. Returns the number of leaves checked."""
     from repro_torch.launch import market_sharding
     from repro_torch.launch.sharding import RowShards
 
     rows = market_sharding(mesh, M)
-    leaves = list(sess._state) + list(sess._params) + \
-        [sess._runner._market_ids] + list(sess._stats or ())
     for k, leaf in enumerate(leaves):
         if not isinstance(leaf, RowShards) or leaf.rows != rows:
             raise Mismatch(f"leaf {k} is not row-sharded over {rows}")
@@ -1545,8 +1577,12 @@ def phase_sharded(device):
     and three times. Sharded ``Session.run(500)`` at the Table IV width
     (homogeneous, and ring-coupled across every market with every
     archetype, paths and ``stats_only``), ``cuda-naive``, a snapshot across
-    shard counts, 64 env steps and 2 trainer updates all equal the
-    unsharded runs; launches = shards x chunks (x steps for kernel 2);
+    shard counts, 64 env steps (2 and 3 shards, the env state resident
+    after every step), an env checkpoint across shard counts and 2
+    trainer updates (no synchronizing call) all equal the unsharded runs;
+    an env step's moves equal their closed form; the env's steps/s, CUDA
+    kernels and bytes a step on 1, 2 and 3 shards;
+    launches = shards x chunks (x steps for kernel 2);
     ``DeviceLoss(devices_after=1)`` from two shards in ``run_plan`` and
     under the gateway, bitwise; ``devices=2`` on one card raises; the wall
     of a sharded ``run(500)`` against the unsharded one."""
@@ -1554,6 +1590,7 @@ def phase_sharded(device):
     import time
 
     import torch
+    from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core import params as params_mod
     from repro_torch.core.params import PackedParams
     from repro_torch.core.session import Engine
@@ -1625,17 +1662,82 @@ def phase_sharded(device):
         note("kinetic_clearing_chunk", compare(f"snapshot 2 -> {n}", got,
                                                want))
 
-    # 3. 64 env steps of the scripted maker over the ring, on 2 shards.
+    # 3. 64 env steps of the scripted maker over the ring on 2 and 3
+    # shards, one step a rollout call, every leaf of the EnvState on its
+    # shard after every step; equal to the unsharded rollout.
     maker = make_market_maker(L)
     env1 = Engine("cuda-kinetic", device=device).env(ring)
-    env2 = Engine("cuda-kinetic", device=device, mesh=meshes[2]).env(ring)
-    want = env_outputs(*rollout(env1, maker, ENV_STEPS))
-    got = counted("sharded env",
-                  {"kinetic_clearing_chunk": 2 * ENV_STEPS},
-                  lambda: env_outputs(*rollout(env2, maker, ENV_STEPS)))
-    note("kinetic_clearing_chunk", compare("sharded env", got, want))
+    envs = {n: Engine("cuda-kinetic", device=device, mesh=meshes[n])
+            .env(ring) for n in (2, 3)}
+    straight = rollout(env1, maker, ENV_STEPS)
+    want = env_outputs(*straight)
+    env_checks = {}
+    for n, env in envs.items():
+        def stepwise():
+            state, _ = env.reset()
+            checks = check_env_resident(state, meshes[n], M)
+            batches = []
+            for _ in range(ENV_STEPS):
+                state, batch = rollout(env, maker, 1, state=state)
+                checks += check_env_resident(state, meshes[n], M)
+                batches.append(batch)
+            return checks, env_outputs(state, join_batches(batches))
 
-    # 4. Two trainer updates on 2 shards.
+        env_checks[f"{n} shards"], got = counted(
+            f"sharded env {n}", {"kinetic_clearing_chunk": n * ENV_STEPS},
+            stepwise)
+        note("kinetic_clearing_chunk", compare(f"sharded env {n}", got,
+                                               want))
+
+    # 3a. The bytes 50 maker steps move on 2 shards, to the byte.
+    state, _ = envs[2].reset()
+    with Roofline() as rf:
+        counted("sharded env moves",
+                {"kinetic_clearing_chunk": 2 * ENV_PROFILED_STEPS},
+                lambda: rollout(envs[2], maker, ENV_PROFILED_STEPS,
+                                state=state))
+    got = rf.summarize()
+    env_moved = {k: v for k, v in got["collective_breakdown"].items() if v}
+    want_moved = env_moves(M, 2, ENV_PROFILED_STEPS,
+                           envs[2].obs_size())
+    if env_moved != want_moved or \
+            got["wire_no_link"] != sum(want_moved.values()):
+        raise Mismatch(f"sharded env moves: {env_moved}, no link "
+                       f"{got['wire_no_link']}; the closed form gives "
+                       f"{want_moved}")
+
+    # 3b. A 2-shard env checkpoint after 32 steps, restored onto 1 shard
+    # and onto 3, continues the straight rollout.
+    half = ENV_STEPS // 2
+    tail = env_outputs(straight[0], batch_tail(straight[1], half))
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, async_write=False)
+
+        def first_half():
+            state, _ = rollout(envs[2], maker, half)
+            envs[2].save_checkpoint(mgr, state, step=half)
+
+        counted("env checkpoint on 2",
+                {"kinetic_clearing_chunk": 2 * half}, first_half)
+        for n, env in ((1, env1), (3, envs[3])):
+            got = counted(
+                f"env checkpoint 2 -> {n}",
+                {"kinetic_clearing_chunk": n * half},
+                lambda: env_outputs(*rollout(
+                    env, maker, half, state=env.restore_checkpoint(mgr,
+                                                                   half))))
+            note("kinetic_clearing_chunk", compare(
+                f"env checkpoint 2 -> {n}", got, tail))
+
+    # 3c. The maker's env at Table IV on 1, 2 and 3 shards: steps/s, CUDA
+    # kernels and bytes moved a step.
+    env_rates = counted("sharded env rates",
+                        {"kinetic_clearing_chunk": env_rate_launches()},
+                        lambda: env_mesh_rates(device, specs["table_iv"]))
+
+    # 4. Two trainer updates on 2 shards, torch's sync debug mode at
+    # "error" (no synchronizing call), equal to the unsharded trainer; the
+    # env state it carries stays on its shards.
     T = TRAIN_CONFIG["rollout_len"]
     tspec = train_spec(TRAIN_MIX, TRAIN_BLOCK, A, L, T, TRAIN_CONFIG["seed"])
     cfg = PPOConfig(**TRAIN_CONFIG)
@@ -1644,9 +1746,22 @@ def phase_sharded(device):
         tr = Engine("cuda-kinetic", device=device, mesh=meshes[n]).trainer(
             tspec, cfg, obs=MarketFeatures())
         ts = tr.init()
-        runs[n] = counted(f"sharded train {n}",
-                          {"kinetic_clearing_chunk": 2 * T * n},
-                          lambda: train_outputs(*tr.train(ts, 2)))
+
+        def train2():
+            torch.cuda.synchronize()
+            if n > 1:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                return tr.train(ts, 2)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        ts, metrics = counted(f"sharded train {n}",
+                              {"kinetic_clearing_chunk": 2 * T * n}, train2)
+        if n > 1:
+            env_checks["trainer 2 shards"] = check_env_resident(
+                ts.env_state, meshes[n], tr.env.num_markets)
+        runs[n] = train_outputs(ts, metrics)
     note("kinetic_clearing_chunk", compare("sharded train", runs[2],
                                            runs[1]))
 
@@ -1807,6 +1922,10 @@ def phase_sharded(device):
                             for n, w in split_ms.items()},
          tiles={str(n): list(t[2:]) for n, t in tiles.items()},
          resident_checks=checked, moves=moves, peak=peak,
+         env_resident_checks=env_checks, env_moves=env_moved,
+         env_moves_per_step={k: v / ENV_PROFILED_STEPS
+                             for k, v in env_moved.items()},
+         env_rates=env_rates,
          serve=dict(clients=SHARDED_CLIENTS, chunks=SHARDED_SERVE_CHUNKS,
                     steps=lost.steps, recoveries=lost.recoveries))
     return errs, launches
@@ -2056,13 +2175,138 @@ def phase_roofline(device):
 # env: the RL environment on kernel 1 at full width
 # ---------------------------------------------------------------------------
 
+def whole(x):
+    """A plain tensor as it is; a ``RowShards`` joined on its first
+    shard's device."""
+    from repro_torch.launch.sharding import RowShards
+
+    return x.join(x.parts[0].device) if isinstance(x, RowShards) else x
+
+
 def env_outputs(state, batch) -> list:
-    """A rollout's batch and final state, flat, for ``compare``."""
+    """A rollout's batch and final state (sharded leaves joined), flat,
+    for ``compare``."""
     import torch
 
-    parts = list(batch[:8]) + list(state.market) + list(state.last_out) \
-        + list(state.portfolio) + list(state.stats or ())
+    parts = list(batch[:8]) + [whole(x) for x in list(state.market)
+                               + list(state.last_out)
+                               + list(state.portfolio)
+                               + list(state.stats or ())]
     return [p.float() if p.dtype == torch.bool else p for p in parts]
+
+
+def join_batches(batches):
+    """One-step ``RolloutBatch``es as the batch of one rollout."""
+    import torch
+    from repro_torch.env.core import RolloutBatch
+
+    cat = [torch.cat(parts, dim=0 if k < 3 else -1)
+           for k, parts in enumerate(zip(*(b[:8] for b in batches)))]
+    return RolloutBatch(*cat)
+
+
+def batch_tail(batch, k):
+    """A ``RolloutBatch`` from its step ``k`` on."""
+    from repro_torch.env.core import RolloutBatch
+
+    return RolloutBatch(*(x[k:] for x in batch[:3]),
+                        *(p[:, k:] for p in batch[3:8]))
+
+
+def env_moves(M, shards, steps, D) -> dict:
+    """The bytes a resumed ``steps``-step maker rollout moves on
+    ``shards`` shards with the env's state resident: each step places the
+    [M] order triple (bool side, int32 tick, f32 lots: 9 bytes a market),
+    sends the entry mids round the ring ((n-1)·M·4), and joins shards 1..'s
+    rows of the [M, D] observation, the [M] reward and the five StepInfo
+    columns; the rollout also joins its opening observation once."""
+    joined = M - -(-M // shards)                    # rows of shards 1..
+    return {"scatter": steps * M * 9,
+            "collective-permute": steps * (shards - 1) * M * 4,
+            "gather": joined * 4 * D + steps * joined * (4 * D + 4 + 5 * 4)}
+
+
+def env_mesh_rates(device, spec) -> dict:
+    """The scripted maker's env at ``spec`` on meshes naming ``device`` 1,
+    2 and 3 times, from the same opening state: steps/s of
+    ``SHARDED_ENV_STEPS``-step rollouts in the turns of
+    ``SHARDED_ENV_TURNS`` (after an 8-step warm rollout each), CUDA
+    kernels and device ms a step over ``ENV_PROFILED_STEPS`` steps
+    (``torch.profiler``), and the bytes moved a step (a ``Roofline``
+    window of as many steps). Public API only, so it measures any tree of
+    the port; its kernel-1 launches are ``env_rate_launches()``."""
+    import time
+
+    import torch
+    from repro_torch.core.session import Engine
+    from repro_torch.env import rollout
+    from repro_torch.launch import MarketsMesh, Roofline
+    from repro_torch.train import make_market_maker
+
+    maker = make_market_maker(spec.num_levels)
+    shards = sorted(set(SHARDED_ENV_TURNS))
+    envs = {n: Engine("cuda-kinetic", device=device,
+                      mesh=MarketsMesh.of([device] * n)).env(spec)
+            for n in shards}
+    starts = {n: env.reset()[0] for n, env in envs.items()}
+
+    def run(n, steps):
+        return rollout(envs[n], maker, steps, state=starts[n])
+
+    for n in shards:
+        run(n, 8)
+    rates = {n: [] for n in shards}
+    for n in SHARDED_ENV_TURNS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(n, SHARDED_ENV_STEPS)
+        torch.cuda.synchronize()
+        rates[n].append(SHARDED_ENV_STEPS / (time.perf_counter() - t0))
+    out = {}
+    for n in shards:
+        profile = profile_window(lambda: run(n, ENV_PROFILED_STEPS),
+                                 ENV_PROFILED_STEPS)
+        with Roofline() as rf:
+            run(n, ENV_PROFILED_STEPS)
+            torch.cuda.synchronize()
+        moved = rf.summarize()["collective_breakdown"]
+        moved = {k: v for k, v in moved.items() if v}
+        out[str(n)] = dict(
+            steps_per_s=statistics.median(rates[n]),
+            steps_per_s_runs=rates[n],
+            kernels_per_step=profile["kernels_per_step"],
+            device_ms_per_step=profile["device_ms_per_step"],
+            busy_share=profile["busy_share"], moved=moved,
+            bytes_per_step=sum(moved.values()) / ENV_PROFILED_STEPS)
+    return out
+
+
+def env_rate_launches() -> int:
+    """Kernel-1 launches of ``env_mesh_rates``: a launch a shard and step
+    of every rollout it runs (warm, timed, profiled, recorded)."""
+    shards = sorted(set(SHARDED_ENV_TURNS))
+    return (sum(shards) * (8 + 2 * ENV_PROFILED_STEPS)
+            + sum(SHARDED_ENV_TURNS) * SHARDED_ENV_STEPS)
+
+
+def env_rates_child(src: str) -> int:
+    """``python3 chip_smoke.py env-rates SRC``: ``env_mesh_rates`` at
+    Table IV with the port of the tree ``SRC`` (a ``src`` directory, say
+    a ``git archive`` of another commit), printed as one JSON line, so two
+    commits can be measured in turns in one chip call."""
+    import torch
+
+    sys.path.insert(0, str(Path(src).resolve()))
+    import repro_torch
+
+    where = str(Path(repro_torch.__file__).resolve())
+    if not where.startswith(str(Path(src).resolve())):
+        raise Mismatch(f"env-rates imported {where}, not the tree {src}")
+    M, A, L = TABLE_IV
+    print(json.dumps({"env_rates": env_mesh_rates(
+        torch.device(*CARD), homogeneous(M, A, L, 500)), "src": src,
+        "card": card_line()}), flush=True)
+    return 0
 
 
 def phase_env(device):
@@ -2301,7 +2545,8 @@ def train_outputs(ts, metrics) -> list:
     env = ts.env_state
     return tree_leaves(ts.params) + tree_leaves(ts.opt_state) + [
         ts.key.to(torch.int64)] + [metrics[k] for k in sorted(metrics)] \
-        + list(env.market) + list(env.last_out) + list(env.portfolio)
+        + [whole(x) for x in list(env.market) + list(env.last_out)
+           + list(env.portfolio)]
 
 
 def flagship_gate(device) -> dict:
@@ -2872,6 +3117,8 @@ def card_line() -> str:
 def main() -> int:
     if len(sys.argv) == 5 and sys.argv[1] == "serve-child":
         return serve_child(*sys.argv[2:])
+    if len(sys.argv) == 3 and sys.argv[1] == "env-rates":
+        return env_rates_child(sys.argv[2])
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
         return 2

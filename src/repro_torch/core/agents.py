@@ -118,7 +118,7 @@ def archetype_names() -> Dict[int, str]:
 
 def decide(cfg, params: MarketParams, mid, prev_mid, step: int, market_ids,
            atype=None, seed=None, imbalance=None, peer_mid=None,
-           uniform_fn=None):
+           uniform_fn=None, agent_ids=None):
     """Vectorized agent decisions for one step.
 
     ``cfg`` supplies ``num_agents``, ``num_levels`` and the RNG ``seed``;
@@ -130,6 +130,8 @@ def decide(cfg, params: MarketParams, mid, prev_mid, step: int, market_ids,
     ``numpy-pcg64`` reference backends); it is called once per channel in
     the fixed order side, price, marketable, quantity, shock, and ``seed``
     is then ignored. ``None`` keeps the counter stream the kernels draw.
+    ``agent_ids`` (int32 ``[A]`` or ``[1, A]``, the agents' indices within a
+    market) defaults to ``arange(A)``, the ids the kernels hard-code.
 
     Returns side_buy bool[M, A], price int32[M, A], qty float32[M, A].
     """
@@ -137,7 +139,10 @@ def decide(cfg, params: MarketParams, mid, prev_mid, step: int, market_ids,
     device = mid.device
     seed = cfg.seed if seed is None else seed
     step = int(step)
-    agent_ids = torch.arange(A, dtype=torch.int32, device=device)[None, :]
+    if agent_ids is None:
+        agent_ids = torch.arange(A, dtype=torch.int32, device=device)
+    agent_ids = torch.as_tensor(agent_ids, dtype=torch.int32,
+                                device=device).reshape(1, -1)
     gid = market_ids.reshape(-1, 1).to(torch.int64) * A + agent_ids
     if uniform_fn is None:
         def uniform_fn(gid, step, channel):

@@ -183,6 +183,19 @@ class MarketConfig:
         counts[NOISE] = self.num_agents - sum(counts.values())
         return counts
 
+    def agent_types(self, device=DEFAULT_DEVICE) -> torch.Tensor:
+        """int32[A] strategy class per agent index, on ``device``.
+
+        The config's scalar counts through the one assignment rule
+        (:func:`assign_agent_types`), which the per-market ensemble path
+        (``repro_torch.core.params.agent_types``) shares, so the two cannot
+        drift apart.
+        """
+        return assign_agent_types(
+            self.num_agents, self.num_makers, self.num_momentum,
+            self.num_fundamentalists, self.num_whales, self.num_hft,
+            self.num_informed, self.num_arbitrageurs, device=device)[0]
+
     def initial_books(self, device=DEFAULT_DEVICE
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(bid, ask) float32[M, L] opening books on ``device``."""

@@ -25,14 +25,26 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
-from repro_torch.core.config import scenario_config, scenario_names
+from repro_torch.core.config import (  # noqa: F401 (re-exported API)
+    MarketConfig,
+    scenario_config,
+    scenario_names,
+)
+from repro_torch.core.params import (  # noqa: F401 (re-exported API)
+    EnsembleSpec,
+    MarketParams,
+)
 from repro_torch.core.result import SimResult
 from repro_torch.core.session import (  # noqa: F401 (re-exported API)
     Engine,
+    ExternalOrders,
     Session,
+    StepBatch,
     backend_available,
     backends,
+    register_backend,
 )
+from repro_torch.core.stats import MarketStats  # noqa: F401 (re-exported API)
 
 DEFAULT_BACKEND = "cuda-kinetic"
 

@@ -70,6 +70,16 @@ class MarketParams(NamedTuple):
     def to_numpy(self) -> "MarketParams":
         return MarketParams(*(_host(x) for x in self))
 
+    def asarray(self, device=DEFAULT_DEVICE) -> "MarketParams":
+        """Dtype-preserving placement of every column on ``device``: the
+        one copy of the per-field dtype coercion, which the packing, the
+        scalar columns and the kernels' spec fallback share."""
+        device = resolve_device(device)
+        return MarketParams(*(
+            torch.from_numpy(np.array(_host(leaf),
+                                      dtype=MarketParams.field_dtype(f)))
+            .to(device) for f, leaf in zip(MarketParams._fields, self)))
+
     @classmethod
     def zeros(cls, num_markets: int, device=DEFAULT_DEVICE) -> "MarketParams":
         """Valid all-zero ``[M, 1]`` torch columns on ``device`` (timing
@@ -133,14 +143,15 @@ class PackedParams(NamedTuple):
 def pack_params(params: MarketParams, device) -> PackedParams:
     """Pack host or device columns into the two contiguous device tensors
     (the int32 block keeps its host copy: :func:`host_ints`)."""
-    def stack(fields, dtype):
-        cols = [torch.tensor(_host(getattr(params, f)).reshape(-1),
-                             dtype=dtype) for f in fields]
-        return torch.stack(cols, dim=1).contiguous()
+    host = params.asarray("cpu")
 
-    ints = stack(INT_FIELDS, torch.int32)
+    def stack(fields):
+        return torch.stack([getattr(host, f).reshape(-1) for f in fields],
+                           dim=1).contiguous()
+
+    ints = stack(INT_FIELDS)
     return with_host_ints(PackedParams(
-        floats=stack(FLOAT_FIELDS, torch.float32).to(device),
+        floats=stack(FLOAT_FIELDS).to(device),
         ints=ints.to(device)), ints.numpy().copy())
 
 
@@ -232,9 +243,7 @@ def params_from_config(cfg: MarketConfig, num_markets: int = None,
 
 def scalar_params(cfg: MarketConfig, device=DEFAULT_DEVICE) -> MarketParams:
     """Broadcastable ``[1, 1]`` torch columns for scalar-config callers."""
-    device = resolve_device(device)
-    host = params_from_config(cfg, num_markets=1)
-    return MarketParams(*(torch.as_tensor(x).to(device) for x in host))
+    return params_from_config(cfg, num_markets=1).asarray(device)
 
 
 def agent_types(params: MarketParams, num_agents: int,

@@ -430,6 +430,11 @@ class Session:
     def device(self) -> torch.device:
         return self._runner.device
 
+    @property
+    def cfg(self) -> EnsembleSpec:
+        """The session's ensemble spec (kept under the historical name)."""
+        return self.spec
+
     def __enter__(self) -> "Session":
         return self
 

@@ -21,13 +21,23 @@ host loops on every backend:
     of kernel 2, on the eager and numpy backends one ``simulate_step``. A
     zero-action trajectory equals ``Session.run`` bit for bit, and nothing
     reaches the host inside the loop on the card. A second env of the same
-    shape reuses the runner, so ``Engine.trace_count`` stays flat. The
-    env's state is canonical ``[M, ...]`` tensors on the runner's first
-    device; on a mesh the step core places them row-wise and joins them
-    back every step.
+    shape reuses the runner, so ``Engine.trace_count`` stays flat.
+  * The state is placed through the runner's hooks (``init_state``,
+    ``params_to_device``, ``place``, ``to_device``, ``stats_to_device``),
+    as the JAX package's env is. On a mesh every ``[M, ...]`` leaf (books,
+    scalars, params, the last output, the portfolio, the stats) is a
+    :class:`~repro_torch.launch.sharding.RowShards`, each shard's rows on
+    its device from reset to the end: the step core launches on them, and
+    fill attribution, the portfolio, the reward, the stats and the
+    auto-reset run shard by shard (``sharding.per_shard``). A step places
+    only the ``[M]`` order triple and moves the ring of entry mids; only
+    what the caller reads is joined on the first device: the observation,
+    the reward and the :class:`StepInfo` columns. Unsharded, the same code
+    is one call on plain tensors.
   * Actions are per-market external limit orders lowered onto the
-    ``ext_buy``/``ext_ask`` slot (:mod:`repro_torch.env.actions`);
-    ``actions=None`` passes no operand, which adds nothing.
+    ``ext_buy``/``ext_ask`` slot (:mod:`repro_torch.env.actions`), on each
+    shard for its rows; ``actions=None`` passes no operand, which adds
+    nothing.
   * Observations and rewards are pluggable frozen specs
     (:mod:`repro_torch.env.obs`, :mod:`repro_torch.env.rewards`).
   * Snapshots use the JAX package's wire format (:func:`state_tree`), so an
@@ -53,14 +63,15 @@ from repro_torch.core import session
 from repro_torch.core.config import MarketConfig
 from repro_torch.core.device import upload
 from repro_torch.core.params import (EnsembleSpec, PackedParams,
-                                     pack_params, params_from_dict)
+                                     params_from_dict)
 from repro_torch.core.result import to_host
-from repro_torch.core.session import Engine
+from repro_torch.core.session import Engine, ExternalOrders
 from repro_torch.core.stats import MarketStats, accumulate, init_stats
-from repro_torch.core.step import MarketState, StepOutput, initial_state
+from repro_torch.core.step import MarketState, StepOutput
 from repro_torch.env import actions as actions_mod
 from repro_torch.env.obs import MarketFeatures, ObservationSpec
 from repro_torch.env.rewards import PnLReward, RewardContext, RewardFn
+from repro_torch.launch import sharding
 
 
 class Portfolio(NamedTuple):
@@ -174,9 +185,13 @@ class MarketEnv:
         # the JAX package's host-loop rollout does.
         self._check_rollout_values = session.is_host_only(
             self._engine.backend)
-        self._levels = torch.arange(self.spec.num_levels,
-                                    dtype=torch.float32,
-                                    device=self.device)[None, :]
+        # The price grid, one copy on each device of the runner's mesh.
+        mesh = getattr(self._runner, "mesh", None)
+        levels = [torch.arange(self.spec.num_levels, dtype=torch.float32,
+                               device=d)[None, :]
+                  for d in dict.fromkeys(mesh.devices if mesh is not None
+                                         else (self.device,))]
+        self._levels = {t.device: t for t in levels}
 
     # ---- introspection ----
     @property
@@ -214,24 +229,33 @@ class MarketEnv:
                 f"backend {self._engine.backend!r} compiles the RNG seed "
                 "into its executable; open the env on a spec with "
                 f"seed={seed} instead of passing a runtime override")
-        market = initial_state(self.spec, self.device)
+        market = runner.init_state(self.spec)
         M = self.spec.num_markets
-        zeros = torch.zeros((M, 1), dtype=torch.float32, device=self.device)
+        zeros = runner.place(torch.zeros((M, 1), dtype=torch.float32,
+                                         device=self.device))
         state = EnvState(
-            market=market, last_out=self._reset_out(market),
-            reset_market=initial_state(self.spec, self.device),
-            params=pack_params(self.spec.params, self.device), t=0,
+            market=market,
+            last_out=sharding.per_shard(self._reset_out, market),
+            reset_market=runner.init_state(self.spec),
+            params=runner.params_to_device(self.spec.params), t=0,
             portfolio=Portfolio(cash=zeros, inventory=zeros, equity=zeros),
-            stats=(init_stats(M, self.device)
+            stats=(MarketStats(*map(runner.place,
+                                    init_stats(M, self.device)))
                    if self.obs_spec.needs_stats else None),
             seed=None if seed is None else int(seed) & 0xFFFFFFFF,
             aux=runner.init_aux(self.spec))
         return state, self.observe(state)
 
     def observe(self, state: EnvState) -> torch.Tensor:
-        """float32[M, D] observation of ``state``."""
-        return self.obs_spec.observe(self.spec, state.market, state.last_out,
-                                     state.portfolio, state.stats)
+        """float32[M, D] observation of ``state``, on the env's device
+        (computed on each shard and joined, on a mesh)."""
+        def features(market, last_out, portfolio, stats):
+            return self.obs_spec.observe(self.spec, market, last_out,
+                                         portfolio, stats)
+
+        return sharding.join(sharding.per_shard(
+            features, state.market, state.last_out, state.portfolio,
+            state.stats), self.device)
 
     def step(self, state: EnvState, actions: Any = None,
              ) -> Tuple[EnvState, torch.Tensor, torch.Tensor, bool, StepInfo]:
@@ -247,11 +271,19 @@ class MarketEnv:
 
     # ---- internals ----
     def _lower(self, actions: Any, check_values: bool):
+        """Validate ``actions`` where they are, place the ``[M]`` order
+        triple as the runner holds its rows, and lower it to the
+        ``(ext_buy, ext_ask)`` grids on each shard."""
         if actions is None:
             return None, None
         M, L = self.spec.num_markets, self.spec.num_levels
         orders = actions_mod.validate_actions(actions, M, L, check_values)
-        return actions_mod.lower_actions(orders, M, L, self.device)
+        placed = ExternalOrders(*(
+            self._runner.place(torch.as_tensor(x).reshape(-1).expand(M))
+            for x in orders))
+        return sharding.per_shard(
+            lambda o: actions_mod.lower_actions(o, o.qty.shape[0], L,
+                                                o.qty.device), placed)
 
     def _reset_out(self, market: MarketState) -> StepOutput:
         """The zero-volume output describing a freshly reset state."""
@@ -260,26 +292,25 @@ class MarketEnv:
         return StepOutput(price=market.last_price,
                           volume=torch.zeros_like(mid), mid=mid)
 
-    def _step_impl(self, state: EnvState, eb, ea):
-        """The transition shared by :meth:`step` and :func:`rollout`."""
-        market, out, aux = self._step_core(
-            state.market, state.params, state.t, eb, ea, state.seed,
-            state.aux)
-
+    def _transition(self, reset: bool, out: StepOutput, prev: Portfolio,
+                    stats: Optional[MarketStats], eb, ea,
+                    reset_market: MarketState):
+        """The row-wise part of a step on one shard's rows (all rows
+        unsharded): ``(portfolio, reward, stats, info, last_out)``."""
         # Fill attribution (price-priority, no rationing; rewards.py).
         pstar = out.price
         if eb is None:
             fill_buy = fill_ask = torch.zeros_like(pstar)
         else:
+            levels = self._levels[pstar.device]
             executed = out.volume > 0.0
             fill_buy = torch.where(
-                executed, torch.where(self._levels >= pstar, eb, 0.0)
+                executed, torch.where(levels >= pstar, eb, 0.0)
                 .sum(dim=-1, keepdim=True), 0.0)
             fill_ask = torch.where(
-                executed, torch.where(self._levels <= pstar, ea, 0.0)
+                executed, torch.where(levels <= pstar, ea, 0.0)
                 .sum(dim=-1, keepdim=True), 0.0)
 
-        prev = state.portfolio
         cash = prev.cash - fill_buy * pstar + fill_ask * pstar
         inventory = prev.inventory + fill_buy - fill_ask
         equity = cash + inventory * out.mid
@@ -287,27 +318,38 @@ class MarketEnv:
         reward = self.reward_fn(RewardContext(
             fill_buy=fill_buy, fill_ask=fill_ask, fill_price=pstar, out=out,
             prev=prev, portfolio=portfolio))
-
-        stats = state.stats
         if stats is not None:
             stats = accumulate(stats, out.mid, out.volume)
-
-        t_next = state.t + 1
-        done = t_next >= self.horizon
         info = StepInfo(price=out.price, volume=out.volume, mid=out.mid,
                         fill_buy=fill_buy, fill_ask=fill_ask)
         last_out = out
-        if self.auto_reset and done:
-            market = state.reset_market
+        if reset:
             portfolio = Portfolio(*(torch.zeros_like(c) for c in portfolio))
             if stats is not None:
-                stats = init_stats(self.spec.num_markets, self.device)
-            last_out = self._reset_out(state.reset_market)
-            t_next = 0
+                stats = init_stats(pstar.shape[0], pstar.device)
+            last_out = self._reset_out(reset_market)
+        return portfolio, reward, stats, info, last_out
+
+    def _step_impl(self, state: EnvState, eb, ea):
+        """The transition shared by :meth:`step` and :func:`rollout`."""
+        market, out, aux = self._step_core(
+            state.market, state.params, state.t, eb, ea, state.seed,
+            state.aux)
+        t_next = state.t + 1
+        done = t_next >= self.horizon
+        reset = self.auto_reset and done
+        portfolio, reward, stats, info, last_out = sharding.per_shard(
+            lambda *rows: self._transition(reset, *rows), out,
+            state.portfolio, state.stats, eb, ea, state.reset_market)
+        if reset:
+            market, t_next = state.reset_market, 0
 
         new_state = state._replace(market=market, last_out=last_out, t=t_next,
                                    portfolio=portfolio, stats=stats, aux=aux)
-        return new_state, self.observe(new_state), reward, done, info
+        device = self.device
+        return (new_state, self.observe(new_state),
+                sharding.join(reward, device), done,
+                StepInfo(*(sharding.join(x, device) for x in info)))
 
     # ---- snapshot / checkpoint ----
     def snapshot(self, state: EnvState) -> Dict[str, Any]:
@@ -317,7 +359,9 @@ class MarketEnv:
             "market": _tuple_to_dict(state.market),
             "last_out": _tuple_to_dict(state.last_out),
             "reset_market": _tuple_to_dict(state.reset_market),
-            "params": _tuple_to_dict(state.params.to_numpy()),
+            "params": _tuple_to_dict(PackedParams(*(
+                torch.from_numpy(sharding.to_host(x))
+                for x in state.params)).to_numpy()),
             "portfolio": _tuple_to_dict(state.portfolio),
             "t": int(state.t),
             "rng": self._runner.aux_state(state.aux),
@@ -332,9 +376,11 @@ class MarketEnv:
         return snap
 
     def restore(self, snap: Dict[str, Any]) -> EnvState:
-        """A live :class:`EnvState` from a snapshot of either package. A
-        snapshot taken under another seed or agent count raises."""
-        runner, device = self._runner, self.device
+        """A live :class:`EnvState` from a snapshot of either package,
+        placed through the runner's hooks (on a mesh of any shard count,
+        each shard's rows on its device). A snapshot taken under another
+        seed or agent count raises."""
+        runner = self._runner
         for field, have in (("static_seed", self.spec.seed),
                             ("num_agents", self.spec.num_agents)):
             got = snap.get(field)
@@ -345,24 +391,28 @@ class MarketEnv:
 
         def f32(cls, d):
             return cls(*(torch.as_tensor(np.asarray(d[f], np.float32))
-                         .to(device) for f in cls._fields))
+                         for f in cls._fields))
+
+        def placed(cls, d):
+            return cls(*map(runner.place, f32(cls, d)))
 
         stats = None
         if snap.get("stats") is not None:
-            stats = f32(MarketStats, snap["stats"])
+            stats = runner.stats_to_device(f32(MarketStats, snap["stats"]))
         elif self.obs_spec.needs_stats:
             raise ValueError(
                 "snapshot carries no MarketStats accumulators but this "
                 "env's observation spec needs them")
         rng, seed = snap.get("rng"), snap.get("seed")
         return EnvState(
-            market=f32(MarketState, snap["market"]),
-            last_out=f32(StepOutput, snap["last_out"]),
-            reset_market=f32(MarketState, snap["reset_market"]),
-            params=pack_params(params_from_dict(
+            market=runner.to_device(f32(MarketState, snap["market"])),
+            last_out=placed(StepOutput, snap["last_out"]),
+            reset_market=runner.to_device(
+                f32(MarketState, snap["reset_market"])),
+            params=runner.params_to_device(params_from_dict(
                 snap["params"], self.spec.num_markets,
-                self.spec.num_levels), device),
-            t=int(snap["t"]), portfolio=f32(Portfolio, snap["portfolio"]),
+                self.spec.num_levels)),
+            t=int(snap["t"]), portfolio=placed(Portfolio, snap["portfolio"]),
             stats=stats,
             seed=None if seed is None else int(seed) & 0xFFFFFFFF,
             aux=(runner.restore_aux(rng) if rng is not None
@@ -501,7 +551,8 @@ _ARRAY_SUBTREES = ("market", "last_out", "reset_market", "params",
 
 
 def _tuple_to_dict(t) -> Dict[str, np.ndarray]:
-    return {f: np.array(to_host(v)) for f, v in zip(type(t)._fields, t)}
+    return {f: np.array(sharding.to_host(v))
+            for f, v in zip(type(t)._fields, t)}
 
 
 def state_tree(snap: Dict[str, Any]) -> Dict[str, Any]:

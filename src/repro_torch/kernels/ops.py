@@ -12,8 +12,9 @@ function with the operands of
 On the CPU both run the same plain PyTorch version. The coupling column is
 frozen at chunk entry inside the wrappers, as on every backend of the JAX
 package. The env step core (:meth:`ClearingChunkRunner.env_step_fn`) is one
-``run`` of one step on the engine's chunk-1 runner: one launch of kernel 1
-(or 2) per env step, its peer column resolved at every step.
+step of ``run``'s path on the engine's chunk-1 runner: one launch of kernel 1
+(or 2) per env step (per shard and step on a mesh, on the env's row-sharded
+state as it is), its peer column resolved at every step.
 
 Knobs (``Engine`` backend options, all composable; ``repro``'s names in
 brackets):
@@ -280,11 +281,12 @@ class ClearingChunkRunner(session.ChunkRunner):
                     for k in range(n)]
 
     def _launch_shards(self, state: MarketState, params: PackedParams,
-                       step0: int, n: int, ext, stats) -> Tuple:
+                       step0: int, n: int, ext, stats, join: bool) -> Tuple:
         """One call per shard on its resident rows, after the ring; the new
         books, scalars and stats stay on their shards (a shard with no rows
         keeps its empty parts), and the paths, sliced to the ``n`` steps
-        taken, are joined on the first device."""
+        taken, are joined on the first device (``join``) or left on their
+        shards as :class:`RowShards` (a shard with no rows: empty parts)."""
         mids = self._ring(state.prev_mid)
         outs = []
         for pos, (dev, rows) in enumerate(zip(self.mesh.devices,
@@ -317,50 +319,62 @@ class ClearingChunkRunner(session.ChunkRunner):
                 for k, old in enumerate(held)]
         if self.stats_only:
             return MarketState(*kept[:4]), stats_mod.MarketStats(*kept[4:])
+        if not join:
+            return MarketState(*kept), tuple(
+                RowShards([torch.empty((0, n), device=dev) if f is None
+                           else f[k][:, :n]
+                           for f, dev in zip(flat, self.mesh.devices)],
+                          self._rows)
+                for k in range(4, 7))
         ran = [f for f in flat if f is not None]   # the leading shards
         paths = tuple(RowShards([f[k][:, :n] for f in ran],
                                 self._rows[:len(ran)]).join(self.device)
                       for k in range(4, 7))
         return MarketState(*kept), paths
 
-    def run(self, state: MarketState, params, step0: int, n: int, ext,
-            stats=None, aux=None
-            ) -> Tuple[MarketState, session.StepBatch, Any]:
+    def _advance(self, state: MarketState, params, step0: int, n: int, ext,
+                 stats, join: bool) -> Tuple:
+        """``(new state, paths sliced to n steps | stats)`` of one chunk
+        call (one per shard on a mesh; ``join`` as in
+        :meth:`_launch_shards`)."""
         loads = _build.load_count()
         if self._sharded:
             new_state, out = self._launch_shards(state, params, step0, n,
-                                                 ext, stats)
+                                                 ext, stats, join)
         else:
             peer = resolve_peer_mids(state.prev_mid, params.ints[:, _PEER])
             res = self._call(state, params, step0, n, ext, stats,
                              self._market_ids, peer)
             new_state, out = MarketState(*res[:4]), (
-                res[4] if self.stats_only else res[4:])
+                res[4] if self.stats_only else
+                tuple(p[:, :n] for p in res[4:]))
         self._builds += _build.load_count() - loads
         self.launched = True
+        return new_state, out
+
+    def run(self, state: MarketState, params, step0: int, n: int, ext,
+            stats=None, aux=None
+            ) -> Tuple[MarketState, session.StepBatch, Any]:
+        new_state, out = self._advance(state, params, step0, n, ext, stats,
+                                       join=True)
         if self.stats_only:
             return new_state, session._empty_batch(
                 self.spec.num_markets, self.device), out
-        pp, vp, mp = out
-        return new_state, session.StepBatch(
-            price=pp[:, :n], volume=vp[:, :n], mid=mp[:, :n]), None
+        return new_state, session.StepBatch(*out), None
 
     def env_step_fn(self) -> Callable:
-        """One :meth:`run` of one step from ``t``, the env's orders as the
-        chunk's external orders (None: no operand at all, which adds
-        nothing). The env holds canonical tensors on the first device: on a
-        mesh each step places them row-wise, runs, and joins the new state
-        back. The seed is the spec's: the env rejects a runtime one."""
+        """One step of :meth:`run`'s path from ``t``, the env's orders as
+        the chunk's external orders (None: no operand at all, which adds
+        nothing). On a mesh the env's state, params and order grids arrive
+        row-sharded and stay so: the new state and the one-step
+        :class:`StepOutput` are returned as each shard's rows on its
+        device, and only the ring of entry mids moves. The seed is the
+        spec's: the env rejects a runtime one."""
         def step_core(market, params, t, ext_buy, ext_ask, seed, aux):
             ext = None if ext_buy is None else (ext_buy, ext_ask)
-            if self._sharded:
-                market = MarketState(*map(self.place, market))
-                params = place_params(params, self.mesh)
-                ext = None if ext is None else tuple(map(self.place, ext))
-            state, batch, _ = self.run(market, params, t, 1, ext)
-            if self._sharded:
-                state = MarketState(*(x.join(self.device) for x in state))
-            return state, StepOutput(*batch), aux
+            state, paths = self._advance(market, params, t, 1, ext, None,
+                                         join=False)
+            return state, StepOutput(*paths), aux
 
         return step_core
 

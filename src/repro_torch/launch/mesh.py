@@ -22,7 +22,15 @@ from typing import Iterable, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.core.device import resolve_device
+
+def _resolve_device(device) -> torch.device:
+    """``repro_torch.core.device.resolve_device``, imported at the call:
+    the ``repro_torch.core`` package imports the session, which imports
+    this one."""
+    from repro_torch.core.device import resolve_device
+
+    return resolve_device(device)
+
 
 #: Host devices a CPU mesh may span (see set_host_device_count).
 _HOST_DEVICES = [1]
@@ -59,7 +67,7 @@ class MarketsMesh(NamedTuple):
     def of(cls, devices: Iterable, axis_names=("markets",)) -> "MarketsMesh":
         """A mesh over an explicit device list, which may repeat a device;
         every device must be of one type (``cuda`` or ``cpu``)."""
-        devs = tuple(resolve_device(d) for d in devices)
+        devs = tuple(_resolve_device(d) for d in devices)
         if not devs:
             raise ValueError("a mesh needs at least one device")
         if len({d.type for d in devs}) != 1:
@@ -82,7 +90,7 @@ def set_host_device_count(n: int) -> int:
 def local_devices(device="cuda") -> Tuple[torch.device, ...]:
     """The local devices of ``device``'s type: every card, or the host
     devices of :func:`set_host_device_count`."""
-    kind = resolve_device(device).type
+    kind = _resolve_device(device).type
     if kind == "cuda":
         return tuple(torch.device("cuda", i)
                      for i in range(torch.cuda.device_count()))
@@ -100,7 +108,7 @@ def make_markets_mesh(devices=None, skip=(), device="cuda") -> MarketsMesh:
     ``skip`` excludes every device or ``devices`` is out of range.
     """
     skip = frozenset(int(i) for i in skip)
-    kind = resolve_device(device).type
+    kind = _resolve_device(device).type
     avail = [d for i, d in enumerate(local_devices(kind)) if i not in skip]
     if not avail:
         raise ValueError(f"skip={sorted(skip)} excludes every local {kind} "

@@ -28,8 +28,10 @@ port counts at run time, where the work runs:
     (:func:`transfer`, from ``launch/sharding.py`` and ``kernels/ops.py``):
     ``scatter`` where a shard's rows are placed on its device (a session's
     opening, ``restore``, ``swap_markets``, ``Session.step``'s external
-    orders, the env's step), ``gather`` where a part is joined onto the
-    mesh's first device (the paths a ``run`` returns), and one
+    orders, an env's reset and the order triple of its every step),
+    ``gather`` where a part is joined onto the mesh's first device (the
+    paths a ``run`` returns; an env step's observation, reward and info
+    columns), and one
     ``collective-permute`` per ring hop of the chunk-entry mid column, as
     ``repro``'s ``ppermute`` ring (``src/repro/kernels/ops.py:176-200``):
     (n-1) hops a chunk of M·4 bytes each, recorded with their source and

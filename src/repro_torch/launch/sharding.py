@@ -23,10 +23,11 @@ not counted again as aten ops.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Any, Callable, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree
 
 from repro_torch.core import params as params_mod
 from repro_torch.core import result
@@ -165,6 +166,35 @@ class RowShards:
             roofline.transfer("scatter", pos, src.device, [rows])
             parts[pos] = part.index_copy(0, local, rows)
         return RowShards(parts, self.rows)
+
+
+def per_shard(fn: Callable, *trees) -> Any:
+    """``fn(*trees)`` applied shard by shard: where a leaf of ``trees`` is a
+    :class:`RowShards`, ``fn`` runs once per shard on every such leaf's
+    part for that shard (other leaves as they are), under
+    :func:`roofline.shard`, so each shard's ops are charged to its device;
+    the tensors ``fn`` returns come back as :class:`RowShards` over the
+    same rows, and any other result is the first shard's. ``fn`` must work
+    row by row. Without a :class:`RowShards` among the leaves it is one
+    plain call, so an unsharded caller keeps one path."""
+    leaves, spec = _pytree.tree_flatten(trees)
+    sharded = [x for x in leaves if isinstance(x, RowShards)]
+    if not sharded:
+        return fn(*trees)
+    rows = sharded[0].rows
+    outs = []
+    for pos in range(len(rows)):
+        part = [x.parts[pos] if isinstance(x, RowShards) else x
+                for x in leaves]
+        device = next(x.parts[pos].device for x in sharded)
+        with roofline.shard(pos, device):
+            outs.append(fn(*_pytree.tree_unflatten(part, spec)))
+    flat = [_pytree.tree_flatten(o) for o in outs]
+    out_spec = flat[0][1]
+    merged = [RowShards([f[0][k] for f in flat], rows)
+              if isinstance(first, torch.Tensor) else first
+              for k, first in enumerate(flat[0][0])]
+    return _pytree.tree_unflatten(merged, out_spec)
 
 
 # ---- placement of a session's leaves, plain or row-sharded ----

@@ -6,8 +6,10 @@ metrics back *between* spans, and threads the whole :class:`TrainState`
 through ``CheckpointManager`` in the JAX package's wire format: policy and
 optimizer trees beside the env states, under the COMMIT-marker protocol.
 A restore continues the learning curve bit for bit: params, Adam moments,
-key, update counter and every env leaf round-trip exactly. Either package
-restores the other's trainer checkpoints; the ``key`` leaf is then
+key, update counter and every env leaf round-trip exactly. The env states
+go through ``MarketEnv.snapshot``/``restore``, so a trainer checkpoint
+taken on one shard count restores into a trainer on another. Either
+package restores the other's trainer checkpoints; the ``key`` leaf is then
 reinterpreted (the port derives its counter-hash draws from it, ``repro``
 its ``jax.random`` splits), so the draws after a cross-package restore
 differ.

@@ -94,7 +94,8 @@ class TrainState(NamedTuple):
     ``key`` is a CPU ``uint32[2]`` tensor, the JAX package's key leaf; it
     seeds every draw together with ``update_idx`` (a Python int, the global
     update counter) and does not change between updates. ``env_state`` is
-    one :class:`EnvState`, or a tuple of ``num_envs`` of them.
+    one :class:`EnvState`, or a tuple of ``num_envs`` of them; on a mesh
+    its leaves stay row-sharded across updates, as the env keeps them.
     """
 
     params: Any
@@ -195,9 +196,10 @@ class PPOTrainer:
 
     Obtain one from :meth:`Engine.trainer`, or construct it over an env. The
     trainer runs on the env's device, which on a sharded engine is the
-    mesh's first (``launch.replicated_sharding``): the parameters live
-    there unsharded, as ``repro``'s ``replicate_tree`` places them, and
-    only the market axis is cut. Nothing is built after construction,
+    mesh's first (``launch.replicated_sharding``): the parameters, GAE and
+    Adam live there unsharded, as ``repro``'s ``replicate_tree`` places
+    them, on the observations and rewards the env joins there; the env's
+    state stays on its shards. Nothing is built after construction,
     so a warm engine's ``trace_count`` stays flat across ``train`` calls
     and trainers over other mixtures of the same shape.
     """

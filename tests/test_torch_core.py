@@ -211,3 +211,58 @@ def test_register_scenario_matches():
     finally:
         config.SCENARIO_PRESETS.pop("test-third", None)
         j_config.SCENARIO_PRESETS.pop("test-third", None)
+
+
+@pytest.mark.parametrize("name", ["baseline", "whale", "hft", "informed"])
+def test_config_agent_types_match(name):
+    """``MarketConfig.agent_types(device="cpu")`` is ``repro``'s
+    ``agent_types(np)``: int32[A] through the one assignment rule."""
+    from repro.core.config import scenario_config as j_scenario
+    from repro_torch.core.config import scenario_config
+
+    kw = dict(num_agents=40, alpha_arbitrageur=0.1, alpha_fundamentalist=0.1)
+    got = scenario_config(name, **kw).agent_types(device="cpu")
+    want = j_scenario(name, **kw).agent_types(np)
+    assert got.dtype == torch.int32 and got.shape == (40,)
+    _eq(got, want)
+
+
+def test_market_params_asarray_matches():
+    """``MarketParams.asarray`` keeps each field's dtype as ``repro``'s
+    does, from host columns of other dtypes too."""
+    jspec, tspec = _mixed_specs()
+    raw = tspec.params._replace(
+        shock_step=np.asarray(tspec.params.shock_step, np.float64),
+        q_max=np.asarray(tspec.params.q_max, np.int64))
+    got = raw.asarray("cpu")
+    want = jspec.params._replace(
+        shock_step=np.asarray(jspec.params.shock_step, np.float64),
+        q_max=np.asarray(jspec.params.q_max, np.int64)).asarray(np)
+    for f, g, w in zip(want._fields, got, want):
+        assert g.numpy().dtype == np.asarray(w).dtype, f
+        _eq(g, w)
+
+
+@pytest.mark.parametrize("ids", ["arange", "reversed", "offset"])
+def test_decide_with_agent_ids_matches(ids):
+    """``decide(agent_ids=...)`` equals ``repro``'s ``decide`` given the
+    same ids; ``None`` is ``arange(A)``."""
+    jspec, tspec = _mixed_specs()
+    M, A = jspec.num_markets, jspec.num_agents
+    r = np.random.default_rng(5)
+    mid = r.integers(10, 22, (M, 1)).astype(np.float32)
+    prev = mid + r.integers(-1, 2, (M, 1)).astype(np.float32)
+    mids = np.arange(M, dtype=np.int32)[:, None]
+    agent_ids = {"arange": np.arange(A), "reversed": np.arange(A)[::-1],
+                 "offset": np.arange(A) + 3 * A}[ids].astype(np.int32)
+    want = j_agents.decide(jspec, jspec.params, mid, prev, np.int32(4),
+                           mids, agent_ids, np)
+    cols = params_mod.pack_params(tspec.params, "cpu").columns()
+    got = agents.decide(tspec, cols, _t(mid), _t(prev), 4, _t(mids),
+                        agent_ids=_t(agent_ids.copy()))
+    for g, w in zip(got, want):
+        _eq(g, np.broadcast_to(w, (M, A)))
+    if ids == "arange":
+        plain = agents.decide(tspec, cols, _t(mid), _t(prev), 4, _t(mids))
+        for g, w in zip(plain, got):
+            assert torch.equal(g, w)

@@ -153,12 +153,15 @@ def _constructors():
         "cfg.initial_books": cfg.initial_books,
         "scalar_params": lambda: params.scalar_params(cfg),
         "agent_types": lambda: params.agent_types(cols, 4),
+        "cfg.agent_types": cfg.agent_types,
+        "params.asarray": spec.params.asarray,
     }
 
 
 @pytest.mark.parametrize("name", ["initial_state", "init_stats",
                                   "spec.initial_books", "cfg.initial_books",
-                                  "scalar_params", "agent_types"])
+                                  "scalar_params", "agent_types",
+                                  "cfg.agent_types", "params.asarray"])
 def test_constructors_default_to_the_card(name):
     """Every tensor constructor defaults to ``cuda``: with no card it raises
     instead of building CPU tensors the wrapper would then run plainly."""
@@ -230,3 +233,218 @@ def test_failed_naive_build_is_reported_by_backend_available(monkeypatch):
         ops.NaiveChunkRunner(spec, 2, torch.device("cuda"))
     assert "nvcc failed" in session.backend_available("cuda-naive")
     assert session.backend_available("cuda-kinetic") is True
+
+
+# ---------------------------------------------------------------------------
+# repro's public names: the port has every one, or says why not.
+# ---------------------------------------------------------------------------
+
+#: ``repro`` modules whose counterpart has another name.
+MODULE_MAP = {"core.jax_backend": "core.torch_backend",
+              "launch.hlo_analysis": "launch.roofline"}
+#: Parameters that name a JAX device or array module: the port's
+#: counterpart is ``device=``, or nothing.
+IGNORED_PARAMS = {"xp", "interpret", "device"}
+
+_TPU = ("a TPU device: the port bins with scatter_add_ and shared-memory "
+        "atomicAdd, and its launch shape is a TileChoice of warps a market, "
+        "markets a CTA and an agent mode, with no VMEM, sublane padding or "
+        "agent chunks")
+_TILE = ("the launch shape is tile= (a TileChoice), the counterpart of mb=; "
+         "agents= pins the agent mode, the counterpart of agent_chunk=")
+_JAX_RUNNER = ("a JAX-only runner: its backends (jax-scan, jax-per-step, "
+               "pallas-*) are torch-scan, torch-per-step and the CUDA "
+               "kernels' ClearingChunkRunner in the port")
+_XP = ("the array module or jit flag of the JAX package: the port's code is "
+       "written on torch tensors and has no jit")
+_ARCHETYPES = "the kernels hard-code the eight archetypes"
+_KEY = ("the port's init takes an int seed (a torch.Generator), where repro "
+        "takes a jax.random key")
+_ROWS = "the port names it num_markets"
+_KWARGS = "the engine's options are spelt **backend_opts in the port"
+_HLO = ("the port's roofline counts what runs, at run time: PyTorch eager "
+        "has no HLO text to parse")
+_COMPAT = "a shim for old JAX versions' mesh construction"
+_REIMPORT = ("an incidental re-import of the kernel module's constant, which "
+             "the port keeps in kernels.kinetic_clearing")
+
+#: What the port lacks by design, each with its reason (README.md's "Not
+#: ported" list gives the same reasons). Keys: ``module:name``,
+#: ``module:Class.member`` or ``module:function(parameter)``.
+NOT_PORTED = {
+    "core.step:bin_orders_onehot": _TPU,
+    "core.step:simulate_step(bin_orders)": _TPU,
+    "core.step:simulate_step(agent_chunk)": _TPU,
+    "core.jax_backend:open_chunk_runner(binning)": _TPU,
+    "core.jax_backend:simulate(binning)": _TPU,
+    "kernels.autotune:SUBLANES": _TPU,
+    "kernels.autotune:default_agent_chunk": _TPU,
+    "kernels.autotune:estimate_vmem_bytes": _TPU,
+    "kernels.autotune:pad_to_multiple": _TPU,
+    "kernels.kinetic_clearing:pad_params": _TPU,
+    "kernels.kinetic_clearing:pick_tile": _TPU,
+    "kernels.autotune:TileChoice.mb": _TPU,
+    "kernels.autotune:TileChoice.agent_chunk": _TPU,
+    "kernels.autotune:TileChoice.m_padded": _TPU,
+    "kernels.autotune:auto_tile(num_markets)": _TPU,
+    "kernels.autotune:auto_tile(target)": _TPU,
+    "kernels.autotune:candidate_tiles(num_markets)": _TPU,
+    "kernels.autotune:candidate_tiles(target)": _TPU,
+    "kernels.autotune:autotune_tile(num_markets)": _TPU,
+    "kernels.autotune:candidate_tiles(agent_chunk)": _TILE,
+    "kernels.kinetic_clearing:kinetic_clearing(mb)": _TILE,
+    "kernels.kinetic_clearing:kinetic_clearing_chunk(mb)": _TILE,
+    "kernels.kinetic_clearing:kinetic_clearing_chunk(agent_chunk)": _TILE,
+    "kernels.naive_clearing:naive_clearing(mb)": _TILE,
+    "kernels.naive_clearing:naive_clearing_chunk(mb)": _TILE,
+    "kernels.naive_clearing:naive_clearing_chunk(agent_chunk)": _TILE,
+    "kernels.ops:open_kinetic_runner(mb)": _TILE,
+    "kernels.ops:open_naive_runner(mb)": _TILE,
+    "kernels.ops:simulate_kinetic(mb)": _TILE,
+    "kernels.ops:simulate_naive(mb)": _TILE,
+    "kernels.ops:open_kinetic_runner(**opts)": _TILE,
+    "kernels.ops:open_naive_runner(**opts)": _TILE,
+    "kernels.ops:simulate_kinetic(**opts)": _TILE,
+    "kernels.ops:simulate_naive(**opts)": _TILE,
+    "core.jax_backend:JaxChunkRunner": _JAX_RUNNER,
+    "kernels.ops:PallasChunkRunner": _JAX_RUNNER,
+    "core.agents:ArchetypeContext.xp": _XP,
+    "core.numpy_backend:NumpyChunkRunner.xp": _XP,
+    "core.session:ChunkRunner.xp": _XP,
+    "core.session:ChunkRunner.env_traceable": _XP,
+    "env.rewards:RewardContext.xp": _XP,
+    "core.agents:register_archetype": _ARCHETYPES,
+    "train:init_actor_critic(key)": _KEY,
+    "train.policies:init_actor_critic(key)": _KEY,
+    "kernels.kinetic_clearing:resolve_params(M)": _ROWS,
+    "core.engine:simulate(**kwargs)": _KWARGS,
+    "core.engine:simulate_scenario(**kwargs)": _KWARGS,
+    "core.engine:open_scenario(**kwargs)": _KWARGS,
+    "launch.hlo_analysis:Op": _HLO,
+    "launch.hlo_analysis:analyze(hlo)": _HLO,
+    "launch.hlo_analysis:summarize(hlo)": _HLO,
+    "launch.hlo_analysis:top_contributors(hlo)": _HLO,
+    "launch.mesh:make_mesh_compat": _COMPAT,
+    "kernels.naive_clearing:NUM_PARAM_OPERANDS": _REIMPORT,
+}
+
+
+def _repro_modules():
+    """Every module of ``repro`` by its name below the package ("core",
+    "core.session", ...), and whether it is a package ``__init__``."""
+    base = ROOT / "src" / "repro"
+    for path in sorted(base.rglob("*.py")):
+        parts = path.relative_to(base).with_suffix("").parts
+        if parts[-1] == "__init__":
+            yield ".".join(parts[:-1]), True
+        else:
+            yield ".".join(parts), False
+
+
+def _param_names(fn):
+    import inspect
+
+    try:
+        sig = inspect.signature(fn)
+    except (TypeError, ValueError):
+        return None
+    marks = {inspect.Parameter.VAR_POSITIONAL: "*",
+             inspect.Parameter.VAR_KEYWORD: "**"}
+    return [marks.get(p.kind, "") + p.name for p in sig.parameters.values()
+            if p.name not in IGNORED_PARAMS]
+
+
+def _fields(cls):
+    """A class's fields: a NamedTuple's and a dataclass's."""
+    import dataclasses
+
+    names = set(getattr(cls, "_fields", ()))
+    if dataclasses.is_dataclass(cls):
+        names.update(f.name for f in dataclasses.fields(cls))
+    return names
+
+
+def _members(cls):
+    """A class's own public members, its fields and its constructor."""
+    names = {n for n in vars(cls) if not n.startswith("_")} | _fields(cls)
+    if "__init__" in vars(cls):
+        names.add("__init__")
+    return sorted(names)
+
+
+def _missing_public_names():
+    """What ``repro`` exports and the port lacks, as NOT_PORTED's keys."""
+    import importlib
+    import inspect
+
+    missing = set()
+
+    def compare_params(key, theirs, ours):
+        a, b = _param_names(theirs), _param_names(ours)
+        if a is not None and b is not None:
+            missing.update(f"{key}({p})" for p in a if p not in b)
+
+    for rel, is_package in _repro_modules():
+        theirs = importlib.import_module("repro." + rel)
+        ours = importlib.import_module(
+            "repro_torch." + MODULE_MAP.get(rel, rel))
+        names = {}
+        for n in dir(theirs):
+            obj = getattr(theirs, n)
+            if n.startswith("_") or inspect.ismodule(obj):
+                continue
+            where = getattr(obj, "__module__", None)
+            if is_package or (rel == "core.engine"
+                              and str(where).startswith("repro.")):
+                names[n] = obj           # the package's or engine's API
+            elif where == theirs.__name__ or not isinstance(where, str):
+                names[n] = obj           # defined here (constants too)
+        for n, obj in sorted(names.items()):
+            key = f"{rel}:{n}"
+            if not hasattr(ours, n):
+                missing.add(key)
+                continue
+            mine = getattr(ours, n)
+            if inspect.isclass(obj):
+                if obj.__module__ != theirs.__name__:
+                    continue         # a re-export: compared where defined
+                for m in _members(obj):
+                    if not (hasattr(mine, m) or m in _fields(mine)):
+                        missing.add(f"{key}.{m}")
+                        continue
+                    member = inspect.getattr_static(obj, m, None)
+                    if isinstance(member, (staticmethod, classmethod)) or \
+                            inspect.isfunction(member):
+                        compare_params(f"{key}.{m}", getattr(obj, m),
+                                       getattr(mine, m))
+            elif callable(obj):          # functions, jitted ones too
+                compare_params(key, obj, mine)
+    return missing
+
+
+def test_the_port_has_every_public_name_of_repro():
+    """Every module of both packages, ``core.jax_backend`` held against
+    ``core.torch_backend`` and ``launch.hlo_analysis`` against
+    ``launch.roofline``: the names each module defines, every name of each
+    package ``__init__``, ``core.engine``'s re-exported block, the public
+    members (fields and constructor included) of every public class and the
+    parameter names of every public function and method (without ``xp``,
+    ``interpret`` and ``device``). What the port lacks is exactly
+    NOT_PORTED, each entry with its reason."""
+    missing = _missing_public_names()
+    assert not missing - set(NOT_PORTED), \
+        f"repro exports these and the port lacks them: " \
+        f"{sorted(missing - set(NOT_PORTED))}"
+    assert not set(NOT_PORTED) - missing, \
+        f"the port has these now; drop them from NOT_PORTED: " \
+        f"{sorted(set(NOT_PORTED) - missing)}"
+
+
+def test_the_readme_gives_each_reason_for_what_is_not_ported():
+    readme = " ".join((ROOT / "README.md").read_text().split())
+    section = readme[readme.index("**Not ported.**"):]
+    for reason in sorted(set(NOT_PORTED.values())):
+        assert reason in section, reason
+    for key in NOT_PORTED:
+        name = key.split(":")[1].split("(")[0].split(".")[-1]
+        assert f"`{name}" in section or name in section, key

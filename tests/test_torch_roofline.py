@@ -434,22 +434,49 @@ def test_sharded_totals_sum_to_unsharded(host_devices, shards, stats_only):
     assert one["collective_wire_bytes"] == 0       # 1 shard: nothing moves
 
 
-def test_sharded_env_step_sends_the_orders_too(host_devices):
-    """The env keeps canonical state: each step places every row (books,
-    scalars, params and the orders), sends the mids round the ring and
-    joins shard 1's books, scalars and one-step paths back."""
+@pytest.mark.parametrize("shards", [2, 3])
+def test_sharded_env_step_moves_orders_mids_and_what_the_caller_reads(
+        host_devices, shards):
+    """The env's state stays on its shards: after ``reset`` a step places
+    only the [M] order triple (the scripted maker's bool side, int32 tick
+    and f32 lots: 9 bytes a market), sends the mids round the ring, and
+    joins only what the caller reads from shards 1..: the [M, D]
+    observation, the [M] reward and the five StepInfo columns, every step
+    (no book, scalar or params byte), beside the opening observation a
+    resumed rollout reads once. The per-device work sums to the total,
+    which is no less than the unsharded env's: each shard repeats the
+    small set-up ops of a call (the level grid of the orders, the peer
+    resolution)."""
     spec = _spec()
-    mesh = MarketsMesh.of(["cpu"] * 2)
-    env = Engine("cuda-kinetic", device="cpu", mesh=mesh).env(spec)
-    with Roofline() as rf:
-        rollout(env, make_market_maker(spec.num_levels), 3)
-    s = rf.summarize()
     M, L = spec.num_markets, spec.num_levels
-    books = 2 * L * 4 + 2 * 4
-    assert s["collective_breakdown"]["scatter"] == \
-        3 * M * (books + PARAM_COLS * 4 + 2 * L * 4)
-    assert s["collective_breakdown"]["collective-permute"] == 3 * M * 4
-    assert s["collective_breakdown"]["gather"] == 3 * 5 * (books + 3 * 4)
+    D, steps = MarketFeatures().size(spec), 3
+    runs = {}
+    for n in (1, shards):
+        env = Engine("cuda-kinetic", device="cpu",
+                     mesh=MarketsMesh.of(["cpu"] * n)).env(spec)
+        state, _ = env.reset()
+        with Roofline() as rf:
+            final, batch = rollout(env, make_market_maker(L), steps,
+                                   state=state)
+        runs[n] = (rf.summarize(), batch)
+    (one, want), (many, got) = runs[1], runs[shards]
+    for g, w in zip(got[:8], want[:8]):
+        assert torch.equal(g, w)
+    moved = many["collective_breakdown"]
+    joined = sum(_rows(M, shards)[1:])
+    assert moved["scatter"] == steps * M * 9
+    assert moved["collective-permute"] == steps * (shards - 1) * M * 4
+    assert moved["gather"] == joined * 4 * D \
+        + steps * joined * (4 * D + 4 + 5 * 4)
+    for kind in hlo_analysis.COLLECTIVES:
+        if kind != "collective-permute":
+            assert moved[kind] == 0
+    assert one["collective_wire_bytes"] == 0
+    assert many["kernels"]["kinetic_clearing_chunk"]["calls"] == \
+        shards * steps
+    for key in ("flops", "operations"):
+        assert sum(d[key] for d in many["per_device"].values()) == \
+            many[key] >= one[key]
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,11 @@ the same configuration with ``==`` (``repro``'s host ``numpy`` backend
 over the same chunks, the reference its own backends equal): runs with a
 flash crash straddling a chunk, a ring coupling whose peers cross shard
 boundaries, ``stats_only``, a mixed ensemble, snapshots across shard
-counts, env rollouts, the chaos harness's and the gateway's device losses.
-Trainers on a mesh equal the port's unsharded trainer with ``==``. One
+counts, env rollouts (auto-reset, ``StatsFeatures``, a shard with no rows,
+snapshots across shard counts, with every ``EnvState`` leaf on its shard
+after every step), the chaos harness's and the gateway's device losses.
+Trainers on a mesh equal the port's unsharded trainer with ``==``, and
+their checkpoints restore across shard counts. One
 subprocess probe holds a 2-shard coupled run against ``repro``'s
 ``devices=2`` run under forced host devices.
 """
@@ -29,7 +32,10 @@ from repro.core.config import scenario_config as j_scenario_config
 from repro.core.params import EnsembleSpec as JSpec
 from repro.core.session import Engine as JEngine
 from repro.core.session import ExternalOrders as JOrders
+from repro.env import Composite as JComposite
 from repro.env import MarketFeatures as JMarketFeatures
+from repro.env import PortfolioFeatures as JPortfolioFeatures
+from repro.env import StatsFeatures as JStatsFeatures
 from repro.env import rollout as j_rollout
 from repro.ops import run_serve_plan as j_run_serve_plan
 from repro.scenario import CouplingSpec as JCoupling
@@ -38,15 +44,19 @@ from repro_torch.core.config import MarketConfig, scenario_config
 from repro_torch.core.params import EnsembleSpec
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.session import Engine, ExternalOrders
-from repro_torch.env import MarketFeatures, rollout
+from repro_torch.env import (Composite, MarketFeatures, PortfolioFeatures,
+                             StatsFeatures, rollout)
 from repro_torch.launch import (MarketsMesh, Roofline, make_markets_mesh,
                                 market_sharding, replicate_tree,
                                 replicated_sharding, set_host_device_count)
+from repro_torch.launch import sharding
 from repro_torch.launch.sharding import RowShards
 from repro_torch.ops import DeviceLoss, FaultPlan, run_plan, run_serve_plan
 from repro_torch.scenario import CouplingSpec
 from repro_torch.train import PPOConfig, PPOTrainer
 from repro_torch.train import make_market_maker
+from repro_torch.train.loop import (restore_train_checkpoint,
+                                    save_train_checkpoint)
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 CHUNK = 6
@@ -509,7 +519,7 @@ def test_no_new_build_on_a_warm_sharded_session():
 
 
 # ---------------------------------------------------------------------------
-# The env and the trainer shard unchanged.
+# The env and the trainer keep their state on the mesh's shards.
 # ---------------------------------------------------------------------------
 
 ENV_STEPS = 10
@@ -537,32 +547,173 @@ def test_sharded_env_rollout_equals_repro():
                   "fill_buy", "fill_ask"):
             _same([getattr(batch, f)], [getattr(jbatch, f)],
                   f"{shards} shards {f}")
-        _same([x.numpy() for x in final.market], list(jfinal.market),
-              f"{shards} shards market")
+        _same([sharding.to_host(x) for x in final.market],
+              list(jfinal.market), f"{shards} shards market")
 
 
 def test_sharded_trainer_equals_unsharded():
     """Two PPO updates on 2 and 3 shards equal the unsharded trainer with
     ``==`` (params, Adam state, metrics, the env state); the params sit on
-    the mesh's first device."""
+    the mesh's first device, the env state on its shards."""
+    _check_sharded_trainers("cuda-kinetic")
+
+
+def _env_leaves(state):
+    """Every ``[M, ...]`` leaf of an EnvState."""
+    leaves = (list(state.market) + list(state.last_out)
+              + list(state.reset_market) + list(state.params)
+              + list(state.portfolio))
+    return leaves + list(state.stats or ())
+
+
+def _check_env_residency(env, state):
+    """Every leaf of ``state`` is held as each shard's rows on its device:
+    nothing of the env's state is canonical on the first device."""
+    mesh, M = env._runner.mesh, env.num_markets
+    for leaf in _env_leaves(state):
+        _resident(leaf, mesh, M)
+
+
+#: The observation that reads every part of the state: the book and last
+#: output, the portfolio and the carried MarketStats.
+ALL_OBS = (MarketFeatures(), PortfolioFeatures(), StatsFeatures())
+
+
+def _stepped(env, n, state=None):
+    """``n`` ``env.step`` calls of the scripted maker (values checked
+    eagerly), with the residency of a sharded state after every step:
+    the final state and the stacked (obs, reward, done, five info
+    columns) on the host."""
+    maker = make_market_maker(env.spec.num_levels)
+    if state is None:
+        state, obs = env.reset()
+    else:
+        obs = env.observe(state)
+    sharded = env._runner.mesh.size > 1
+    if sharded:
+        _check_env_residency(env, state)
+    rows = []
+    for _ in range(n):
+        state, obs, reward, done, info = env.step(state,
+                                                  maker(obs, state.t))
+        if sharded:
+            _check_env_residency(env, state)
+        rows.append([obs.numpy(), reward.numpy(), np.asarray(done)]
+                    + [x.numpy() for x in info])
+    return state, [np.stack(parts) for parts in zip(*rows)]
+
+
+@pytest.mark.parametrize("backend", ["cuda-kinetic", "cuda-naive"])
+@pytest.mark.parametrize("shards", [2, 3])
+def test_sharded_env_auto_reset_and_stats_equal_repro(backend, shards):
+    """Ten maker steps over a horizon of four (two auto-resets) with the
+    book, portfolio and ``StatsFeatures`` observation, on 2 and 3 shards:
+    every step's observation, reward, done and info, and the final state,
+    equal the unsharded port and ``repro``'s ``numpy`` env, with every
+    leaf of the state on its shard after every step."""
+    spec, jspec = CASES["ring"], J_CASES["ring"]
+    L, n = spec.num_levels, ENV_STEPS
+    jenv = JEngine("numpy").env(jspec, obs=JComposite((
+        JMarketFeatures(), JPortfolioFeatures(), JStatsFeatures())),
+        horizon=4)
+    jmaker = j_make_market_maker(L)
+    jstate, jobs = jenv.reset()
+    jrows = []
+    for _ in range(n):
+        jstate, jobs, jr, jd, jinfo = jenv.step(jstate, jmaker(
+            jobs, jstate.t))
+        jrows.append([np.asarray(jobs), np.asarray(jr), np.asarray(jd)]
+                     + [np.asarray(x) for x in jinfo])
+    want = [np.stack(parts) for parts in zip(*jrows)]
+    jsnap = jenv.snapshot(jstate)
+    runs = {}
+    for mesh in (1, shards):
+        env = Engine(backend, device="cpu", devices=mesh).env(
+            spec, obs=Composite(ALL_OBS), horizon=4)
+        final, got = _stepped(env, n)
+        runs[mesh] = got
+        _same(got, want, f"{backend} {mesh} shards")
+        snap = env.snapshot(final)
+        for sub in ("market", "last_out", "portfolio", "stats", "params"):
+            _same([snap[sub][f] for f in sorted(snap[sub])],
+                  [np.asarray(jsnap[sub][f]) for f in sorted(snap[sub])],
+                  f"{backend} {mesh} shards final {sub}")
+        assert snap["t"] == int(np.asarray(jsnap["t"]))
+    _same(runs[shards], runs[1], "sharded vs unsharded")
+
+
+@pytest.mark.parametrize("shards", [4, 5])
+def test_sharded_env_with_shards_without_rows(shards):
+    """Three markets on 4 and 5 shards: the shards past the last row hold
+    empty parts of every leaf and launch nothing; the rollout, auto-reset
+    included, equals the unsharded one and ``repro``'s env."""
+    kw = dict(SHARD_KW, num_markets=3)
+    spec, jspec = (scenario_config("flash-crash", **kw),
+                   j_scenario_config("flash-crash", **kw))
+    L = spec.num_levels
+    jenv = JEngine("numpy").env(jspec, obs=JComposite((
+        JMarketFeatures(), JStatsFeatures())), horizon=5)
+    _, jbatch = j_rollout(jenv, j_make_market_maker(L), ENV_STEPS)
+    jbatch = jbatch.to_numpy()
+    mesh = MarketsMesh.of(["cpu"] * shards)
+    env = Engine("cuda-kinetic", device="cpu", mesh=mesh).env(
+        spec, obs=Composite((MarketFeatures(), StatsFeatures())), horizon=5)
+    final, got = _stepped(env, ENV_STEPS)
+    for leaf in _env_leaves(final):
+        assert [p.shape[0] for p in leaf.parts] == [1, 1, 1] + \
+            [0] * (shards - 3)
+    _same(got[:3], [jbatch.obs, jbatch.reward, jbatch.done], "obs")
+    _same(got[3:], [x.T[:, :, None] for x in (
+        jbatch.price, jbatch.volume, jbatch.mid, jbatch.fill_buy,
+        jbatch.fill_ask)], "info")
+
+
+def test_env_snapshot_one_shard_into_three_and_back(tmp_path):
+    """An env checkpoint taken on 1 shard restores onto 3, steps on with
+    every leaf on its shard, checkpoints again, and restores onto 1: both
+    continue the straight rollout bit for bit, auto-reset and stats
+    included."""
+    spec = CASES["ring"]
+    opts = dict(obs=Composite(ALL_OBS), horizon=7)
+    envs = {n: Engine("cuda-kinetic", device="cpu", devices=n).env(
+        spec, **opts) for n in (1, 3)}
+    _, want = _stepped(envs[1], 15)
+    mgr = CheckpointManager(tmp_path, async_write=False)
+    state, first = _stepped(envs[1], 5)
+    envs[1].save_checkpoint(mgr, state, step=5)
+    state = envs[3].restore_checkpoint(mgr, 5)
+    _check_env_residency(envs[3], state)
+    state, second = _stepped(envs[3], 5, state)
+    envs[3].save_checkpoint(mgr, state, step=10)
+    state, third = _stepped(envs[1], 5, envs[1].restore_checkpoint(mgr, 10))
+    _same([np.concatenate(parts) for parts in zip(first, second, third)],
+          want, "1 -> 3 -> 1")
+
+
+def _check_sharded_trainers(backend):
+    """Two PPO updates on ``backend`` over 2 and 3 shards equal the
+    unsharded trainer (params, Adam state, metrics, the env state read
+    through ``sharding.to_host``); the params sit on the mesh's first
+    device, and the env state the trainer carries stays on its shards."""
+    from repro_torch.train.buffers import tree_leaves
+
     spec = EnsembleSpec.from_scenarios(["flash-crash", "high-vol"],
                                        num_markets=3, num_agents=16,
                                        num_levels=16, num_steps=12, seed=3)
     cfg = PPOConfig(rollout_len=8, num_updates=2, num_envs=1, num_epochs=2,
                     num_minibatches=4, hidden=(16,), seed=0)
     runs = {}
-    for shards in (None, 2, 3):
-        opts = {} if shards is None else {"devices": shards}
-        tr = Engine("cuda-kinetic", device="cpu", **opts).trainer(
+    for shards in (1, 2, 3):
+        tr = Engine(backend, device="cpu", devices=shards).trainer(
             spec, cfg, obs=MarketFeatures())
         assert isinstance(tr, PPOTrainer)
-        ts = tr.init()
-        ts, metrics = tr.train(ts, 2)
-        runs[shards] = (ts, metrics, tr.env.snapshot(ts.env_state))
-    ts0, m0, snap0 = runs[None]
-    from repro_torch.train.buffers import tree_leaves
+        ts, metrics = tr.train(tr.init(), 2)
+        if shards > 1:
+            _check_env_residency(tr.env, ts.env_state)
+        runs[shards] = (ts, metrics)
+    ts0, m0 = runs[1]
     for shards in (2, 3):
-        ts, m, snap = runs[shards]
+        ts, m = runs[shards]
         home = replicated_sharding(MarketsMesh.of(["cpu"] * shards))
         assert all(p.device == home for p in tree_leaves(ts.params))
         for a, b in zip(tree_leaves(ts.params) + tree_leaves(ts.opt_state),
@@ -570,9 +721,46 @@ def test_sharded_trainer_equals_unsharded():
             assert torch.equal(a, b), shards
         for k in m0:
             assert torch.equal(m[k], m0[k]), (shards, k)
-        _same([np.asarray(snap["market"][f]) for f in sorted(snap["market"])],
-              [np.asarray(snap0["market"][f])
-               for f in sorted(snap0["market"])], f"{shards} env state")
+        _same([sharding.to_host(x) for x in _env_leaves(ts.env_state)],
+              [sharding.to_host(x) for x in _env_leaves(ts0.env_state)],
+              f"{backend} {shards} shards env state")
+
+
+def test_sharded_naive_trainer_equals_unsharded():
+    """The same on ``cuda-naive``."""
+    _check_sharded_trainers("cuda-naive")
+
+
+def test_sharded_trainer_checkpoint_into_one_shard(tmp_path):
+    """A 2-shard trainer's checkpoint after one update restores into a
+    1-shard trainer, whose second update equals two straight updates on 2
+    shards; the 1-shard checkpoint restores into 2 shards again."""
+    spec = EnsembleSpec.from_scenarios(["flash-crash", "high-vol"],
+                                       num_markets=5, num_agents=16,
+                                       num_levels=16, num_steps=12, seed=3)
+    cfg = PPOConfig(rollout_len=6, num_updates=1, num_envs=1, num_epochs=1,
+                    num_minibatches=2, hidden=(8,), seed=1)
+    trainers = {n: Engine("cuda-kinetic", device="cpu", devices=n).trainer(
+        spec, cfg, obs=Composite((MarketFeatures(), StatsFeatures())))
+        for n in (1, 2)}
+    straight, _ = trainers[2].train(trainers[2].init(), 2)
+    mgr = CheckpointManager(tmp_path, async_write=False)
+    ts, _ = trainers[2].train(trainers[2].init(), 1)
+    save_train_checkpoint(mgr, trainers[2], ts)
+    ts = restore_train_checkpoint(mgr, trainers[1], 1)
+    ts, _ = trainers[1].train(ts, 1)
+    from repro_torch.train.buffers import tree_leaves
+    for a, b in zip(tree_leaves(ts.params), tree_leaves(straight.params)):
+        assert torch.equal(a, b)
+    _same([sharding.to_host(x) for x in _env_leaves(ts.env_state)],
+          [sharding.to_host(x) for x in _env_leaves(straight.env_state)],
+          "2 -> 1 env state")
+    save_train_checkpoint(mgr, trainers[1], ts)
+    back = restore_train_checkpoint(mgr, trainers[2], 2)
+    _check_env_residency(trainers[2].env, back.env_state)
+    _same([sharding.to_host(x) for x in _env_leaves(back.env_state)],
+          [sharding.to_host(x) for x in _env_leaves(straight.env_state)],
+          "1 -> 2 env state")
 
 
 # ---------------------------------------------------------------------------
