@@ -4,6 +4,7 @@
     python3 chip_smoke.py        # needs one CUDA card; takes no arguments
     python3 chip_smoke.py env-rates SRC   # the sharded env's rates, with
                                           # the port of the tree SRC
+    python3 chip_smoke.py host-column     # the CPU column alone (no card)
 
 Every run drives every phase at full width. Phases, each printing one JSON
 line:
@@ -41,8 +42,16 @@ line:
            (kernel 1), ``cuda-naive`` (kernel 2) and ``torch-scan`` on the
            card equal the host ``numpy`` reference field by field, and the
            ``cuda-kinetic`` statistics (mean clearing price, volume per
-           market, trade count, volatility) are within 0.1% of it. Prints
-           the configurations held and the mismatches; any mismatch fails.
+           market, trade count, volatility) are within 0.1% of it. The
+           reference is the NumPy program of ``repro_torch.core.host``,
+           independent of the torch step. Prints the configurations held,
+           the mismatches and the reference's seconds; any mismatch fails.
+  cross_stream  the paper's statistical equivalence at scale (M=4096,
+           A=64, L=64, S=100): ``cuda-kinetic`` on the card == the host
+           ``numpy`` reference field by field (the gate), then the relative
+           gaps of the mean clearing price and the volume per market of
+           ``numpy-splitmix64`` and ``numpy-pcg64`` (other streams) to it
+           (a measurement: no gate).
   scenario the scenario tier on kernel 1: ``validate_pinned`` on the four
            pinned mixtures (M=64, A=256, L=128, S=500, stats cross-check)
            on ``cuda-kinetic`` and ``torch-scan``, every report passing
@@ -63,7 +72,12 @@ line:
            each with the counts at 0, then times against the bound.
   fixed_workload  the paper's Table IV shape (M=8192, A=256, L=128, S=500)
            as warm ``Session.run(500)`` of each backend: time, agent-events/s,
-           peak memory and the ratio to ``cuda-kinetic``; then the two
+           peak memory and the ratio to ``cuda-kinetic``; the CPU column:
+           the ``numpy`` reference's steps at Table IV (one warm-up, then
+           4 timed; ms a step, agent-events/s, the 500-step time from the
+           rate, ``cuda-kinetic``'s agent-events/s over it) beside the same
+           steps through ``torch-scan`` on the CPU, with the host's CPU
+           model, cores, NumPy's version and torch's threads; then the two
            chunk kernels alone at M=8192, A=32, L=1024 (books beyond L2).
   env      the RL environment (``repro_torch.env``) at the Table IV width:
            a zero-action rollout of 64 steps on ``cuda-kinetic`` (64
@@ -261,6 +275,12 @@ PARITY_TOL = 1e-3
 PINNED_STEPS = 500
 PRODUCT_SHAPE = (256, 128, 500)
 PRODUCT_MARKETS_PER_CONFIG = 1024
+# The CPU column: the numpy reference's steps at Table IV, after a warm-up.
+HOST_STEPS = 4
+# The paper's CPU-vs-card statistical equivalence (tests/test_cross_backend
+# .py's A and L at the paper's M = 4096).
+CROSS_SHAPE = (4096, 64, 64, 100)
+CROSS_SEED = 11
 PRODUCT_SWEEP = {"alpha_momentum": (0.15, 0.3, 0.5, 0.7),
                  "p_marketable": (0.1, 0.2)}
 # The edges phase's fresh agent mode: (M per block of small_spec, A, L)
@@ -815,10 +835,12 @@ def phase_parity(device):
         "kinetic_clearing_chunk": len(steps),  # S <= 64: one chunk a run
         "naive_clearing_chunk": sum(steps)})
     card_s = time.perf_counter() - t0
-    mismatches, worst = {}, 0.0
+    mismatches, worst, ref_s = {}, 0.0, 0.0
     for case, got in results.items():
         cfg = parity_config(case)
+        t1 = time.perf_counter()
         want = engine.simulate(cfg, backend="numpy", device="cpu").to_numpy()
+        ref_s += time.perf_counter() - t1
         faults = parity_faults(got, want)
         if faults:
             mismatches["/".join(map(str, case))] = faults
@@ -828,12 +850,67 @@ def phase_parity(device):
          held=len(PARITY_MATRIX) - len(mismatches),
          mismatches=len(mismatches), first=dict(list(mismatches.items())[:4]),
          launches={k: n for k, n in counts.items() if n},
-         card_seconds=card_s, seconds=time.perf_counter() - t0,
-         max_abs_err=worst)
+         card_seconds=card_s, reference="numpy", reference_seconds=ref_s,
+         seconds=time.perf_counter() - t0, max_abs_err=worst)
     if mismatches:
         raise Mismatch(f"parity: {len(mismatches)} of {len(PARITY_MATRIX)} "
                        "configurations differ")
     return counts, worst
+
+
+def phase_cross_stream(device):
+    """The paper's "aggregate statistics match the CPU reference to within
+    0.1%" at its M: ``cuda-kinetic`` on the card equals the host ``numpy``
+    reference bit for bit (the gate); ``numpy-splitmix64`` and
+    ``numpy-pcg64`` draw other streams, so their gaps to it are measured,
+    not gated."""
+    import time
+
+    from repro_torch.core import engine
+    from repro_torch.core.config import MarketConfig
+
+    M, A, L, S = CROSS_SHAPE
+    cfg = MarketConfig(num_markets=M, num_agents=A, num_levels=L,
+                       num_steps=S, seed=CROSS_SEED)
+    reset_counts()
+    card = engine.simulate(cfg, backend="cuda-kinetic", device=device)
+    card = card.to_numpy()
+    chunk = min(64, S)
+    counts = expect_counts("cross_stream", {
+        "kinetic_clearing_chunk": -(-S // chunk)})
+    rows, seconds = {}, {}
+    for backend in ("numpy", "numpy-splitmix64", "numpy-pcg64"):
+        t0 = time.perf_counter()
+        rows[backend] = engine.simulate(cfg, backend=backend,
+                                        device="cpu").to_numpy()
+        seconds[backend] = time.perf_counter() - t0
+    ref = rows["numpy"]
+    worst = 0.0
+    for field, g, w in zip(card._fields, card, ref):
+        if g.shape != w.shape or g.dtype != w.dtype or not (g == w).all():
+            raise Mismatch(f"cross_stream: cuda-kinetic {field} differs "
+                           "from the numpy reference")
+        worst = max(worst, float(abs(g - w).max()) if g.size else 0.0)
+    # The noise floor of the price gap: the standard error of the mean
+    # over markets of each market's mean clearing price, relative.
+    traded = ref.volume_path > 0
+    per_market = (ref.price_path * traded).sum(1) / traded.sum(1).clip(1)
+    floor = float(per_market.std() / M ** 0.5 / per_market.mean())
+    gaps = {}
+    for backend in ("numpy-splitmix64", "numpy-pcg64"):
+        gaps[backend] = {}
+        for stat in ("mean_clearing_price", "volume_per_market"):
+            got, want = getattr(rows[backend], stat)(), getattr(ref, stat)()
+            gaps[backend][stat] = dict(value=got, reference=want,
+                                       rel_gap=abs(got - want) / abs(want))
+    emit("cross_stream", ok=True, markets=M, agents=A, levels=L, steps=S,
+         seed=CROSS_SEED, bitwise="cuda-kinetic == numpy",
+         launches={k: n for k, n in counts.items() if n}, gaps=gaps,
+         within_0_1_percent={b: all(v["rel_gap"] <= PARITY_TOL
+                                    for v in g.values())
+                             for b, g in gaps.items()},
+         price_rel_stderr=floor, host_seconds=seconds, max_abs_err=worst)
+    return worst
 
 
 def same_facts(label, got, want) -> None:
@@ -1284,6 +1361,10 @@ def phase_fixed_workload(device):
         row["ratio_to_cuda_kinetic"] = row["ms"] / base["ms"]
         row["peak_ratio_to_cuda_kinetic"] = \
             row["peak_bytes"] / base["peak_bytes"]
+    cpu = host_column(spec)
+    for row in cpu["backends"].values():
+        row["cuda_kinetic_over_this"] = \
+            base["agent_events_per_s"] / row["agent_events_per_s"]
 
     # Persistence where it pays: few agents, 1024 levels, 67 MB of books.
     (pM, pA, pL), chunk = PERSISTENCE, 64
@@ -1321,9 +1402,70 @@ def phase_fixed_workload(device):
                             kc.agent_mix(pspec.params, pA)),
                 kc.byte_count(pM, pL, chunk, ext=False, stats_only=False)))
     emit("fixed_workload", ok=True, markets=M, agents=A, levels=L, steps=S,
-         launch=launch_facts(M, A, L), backends=rows,
+         launch=launch_facts(M, A, L), backends=rows, cpu_column=cpu,
          persistence=persistence)
     return rows, persistence
+
+
+def host_facts() -> dict:
+    """The host the CPU column ran on: CPU model and cpuid fields, cores,
+    NumPy's version and torch's intra-op threads."""
+    import platform
+
+    import numpy as np
+    import torch
+
+    info = {}
+    try:  # the first processor's "key : value" lines
+        for line in Path("/proc/cpuinfo").read_text().split("\n\n")[0] \
+                .splitlines():
+            key, _, value = line.partition(":")
+            info.setdefault(key.strip().lower(), value.strip())
+    except OSError:
+        pass
+    # Some hosts hide the model name ("unknown"); the cpuid fields remain.
+    cpuid = " ".join(f"{k} {info[k]}" for k in ("vendor_id", "cpu family",
+                                                  "model", "stepping",
+                                                  "cpu mhz") if k in info)
+    return dict(cpu_model=info.get("model name") or platform.processor(),
+                cpuid=cpuid, machine=platform.machine(),
+                cores=os.cpu_count(), numpy=np.__version__,
+                torch_threads=torch.get_num_threads())
+
+
+def host_column(spec) -> dict:
+    """The paper's CPU column at ``spec``'s shape: the ``numpy`` reference
+    (a NumPy program) and, for comparison, ``torch-scan`` on the CPU, each
+    one warm-up step and then ``HOST_STEPS`` timed steps of a session.
+    ``ms`` is the 500-step time from the measured rate (500 steps are not
+    run)."""
+    import time
+
+    from repro_torch.core.session import Engine
+
+    M, A = spec.num_markets, spec.num_agents
+    rows = {}
+    for backend in ("numpy", "torch-scan"):
+        with Engine(backend, device="cpu").open(spec) as sess:
+            sess.run(1)
+            t0 = time.perf_counter()
+            sess.run(HOST_STEPS)
+            step_ms = (time.perf_counter() - t0) * 1e3 / HOST_STEPS
+        rows[backend] = dict(device="cpu", steps=HOST_STEPS,
+                             ms_per_step=step_ms, ms=step_ms * 500,
+                             agent_events_per_s=M * A / (step_ms * 1e-3))
+    rows["numpy"]["ms_ratio_to_torch_cpu"] = \
+        rows["numpy"]["ms_per_step"] / rows["torch-scan"]["ms_per_step"]
+    return dict(host=host_facts(), backends=rows)
+
+
+def host_column_child() -> int:
+    """``python3 chip_smoke.py host-column``: the CPU column at Table IV
+    alone, as one JSON line (needs no card)."""
+    (M, A, L), S = TABLE_IV, 500
+    emit("host_column", markets=M, agents=A, levels=L,
+         **host_column(homogeneous(M, A, L, S)))
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -3119,6 +3261,8 @@ def main() -> int:
         return serve_child(*sys.argv[2:])
     if len(sys.argv) == 3 and sys.argv[1] == "env-rates":
         return env_rates_child(sys.argv[2])
+    if len(sys.argv) == 2 and sys.argv[1] == "host-column":
+        return host_column_child()
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
         return 2
@@ -3148,6 +3292,7 @@ def main() -> int:
     err_l = phase_legacy(device)
     launches, session_errs = phase_session(device, MARKETS_PER_BLOCK)
     _, err_p = phase_parity(device)
+    err_x = phase_cross_stream(device)
     err_sc = phase_scenario(device)
     timing = phase_timing(device)
     err_s = phase_agent_sweep(device)
@@ -3167,7 +3312,8 @@ def main() -> int:
             launches[name] += n
     errs = {"kinetic_clearing_chunk":
             max(err_k, err_s, session_errs["kinetic_clearing_chunk"],
-                err_p, err_sc, err_env, err_train, serve["max_abs_err"]),
+                err_p, err_x, err_sc, err_env, err_train,
+                serve["max_abs_err"]),
             "naive_clearing_chunk":
             max(err_n, err_s, session_errs["naive_clearing_chunk"],
                 err_p, err_env, err_train, serve["max_abs_err"]),

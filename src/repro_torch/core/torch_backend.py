@@ -19,7 +19,6 @@ a user picks by name; they are not a fallback of the kernel backends.
 """
 from __future__ import annotations
 
-import functools
 from typing import Any, Callable, Tuple
 
 import numpy as np
@@ -57,21 +56,14 @@ class TorchChunkRunner(session.ChunkRunner):
         self._market_ids = torch.arange(spec.num_markets, dtype=torch.int32,
                                         device=device)[:, None]
 
-    def step_fn(self, aux, seed=None) -> Callable:
-        """The step a chunk loops, ``f(cfg, state, step, market_ids,
-        **simulate_step keywords)``: the call-auction step here; the numpy
-        reference family swaps in its RNG stream (``seed`` overrides the
-        spec's) and clearing mechanism."""
-        return functools.partial(simulate_step, scan=self.scan)
-
     def env_step_fn(self) -> Callable:
-        """One :meth:`step_fn` call a step, with the runtime ``seed`` and
+        """One ``simulate_step`` call a step, with the runtime ``seed`` and
         the peer column gathered from ``market.prev_mid``."""
         def step_core(market, params, t, ext_buy, ext_ask, seed, aux):
             cols = params.columns()
-            new_state, out = self.step_fn(aux, seed)(
-                self.spec, market, t, self._market_ids, ext_buy=ext_buy,
-                ext_ask=ext_ask, params=cols,
+            new_state, out = simulate_step(
+                self.spec, market, t, self._market_ids, scan=self.scan,
+                ext_buy=ext_buy, ext_ask=ext_ask, params=cols,
                 atype=params_mod.agent_types(cols, self.spec.num_agents,
                                              self.device),
                 seed=seed, peer_mid=resolve_peer_mids(market.prev_mid,
@@ -91,12 +83,11 @@ class TorchChunkRunner(session.ChunkRunner):
                                        self.device)
         peer_mid = resolve_peer_mids(state.prev_mid, cols.coupling_peer)
         per_step = self.mode == "per-step"
-        step_fn = self.step_fn(aux)
         paths = ([], [], [])
         for k in range(n):
             first = k == 0
-            state, out = step_fn(
-                self.spec, state, step0 + k, self._market_ids,
+            state, out = simulate_step(
+                self.spec, state, step0 + k, self._market_ids, scan=self.scan,
                 ext_buy=eb if first else None,
                 ext_ask=ea if first else None, params=cols, atype=atype,
                 peer_mid=peer_mid)

@@ -25,6 +25,7 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.ops.chaos, repro_torch.checkpoint, "
             "repro_torch.scenario, repro_torch.scenario.validate, "
             "repro_torch.core.numpy_backend, repro_torch.core.sequential, "
+            "repro_torch.core.host.step, repro_torch.core.host.sequential, "
             "repro_torch.train, repro_torch.train.loop, "
             "repro_torch.launch, repro_torch.launch.mesh, "
             "repro_torch.launch.roofline, repro_torch.launch.sharding; "
@@ -61,6 +62,72 @@ def test_no_file_of_the_port_imports_jax_or_repro(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), \
                 f"{path.name}:{node.lineno} imports {name}"
+
+
+HOST_FILES = sorted((ROOT / "src" / "repro_torch" / "core" / "host")
+                    .glob("*.py"))
+
+
+@pytest.mark.parametrize("path", HOST_FILES, ids=lambda p: p.name)
+def test_the_host_step_imports_numpy_only(path):
+    """The CPU reference family's step imports numpy and its own modules:
+    no torch, no JAX, nothing of either package's torch or JAX code."""
+    allowed = {"__future__", "typing", "numpy"}
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name in allowed or name == "repro_torch.core.host" \
+                or name.startswith("repro_torch.core.host."), \
+                f"{path.name}:{node.lineno} imports {name}"
+
+
+def test_the_host_scan_covers_every_module():
+    assert {p.stem for p in HOST_FILES} >= {
+        "__init__", "rng", "auction", "agents", "stats", "step",
+        "sequential"}
+
+
+def _aten_ops(fn) -> int:
+    """The number of aten ops ``fn()`` dispatches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+@pytest.mark.parametrize("stats_only", [False, True])
+@pytest.mark.parametrize("backend", ["numpy", "numpy-splitmix64",
+                                     "numpy-pcg64", "torch-scan"])
+def test_the_numpy_family_steps_without_torch(backend, stats_only):
+    """A ``run(n)`` of the numpy family makes as many torch ops for n=8 as
+    for n=2: only the conversions at the chunk's edges are torch, never the
+    step. ``torch-scan`` on the CPU, whose step is torch, is the contrast."""
+    from repro_torch.core.config import MarketConfig
+    from repro_torch.core.session import Engine
+
+    cfg = MarketConfig(num_markets=4, num_agents=16, num_levels=16,
+                       num_steps=40, seed=3, alpha_maker=0.15)
+    sess = Engine(backend, device="cpu", stats_only=stats_only).open(
+        cfg, chunk_size=8)
+    short, long = (_aten_ops(lambda: sess.run(n)) for n in (2, 8))
+    if backend == "torch-scan":
+        assert long > short > 0
+    else:
+        assert long == short
 
 
 def test_engine_without_a_card_raises():
@@ -309,7 +376,6 @@ NOT_PORTED = {
     "core.jax_backend:JaxChunkRunner": _JAX_RUNNER,
     "kernels.ops:PallasChunkRunner": _JAX_RUNNER,
     "core.agents:ArchetypeContext.xp": _XP,
-    "core.numpy_backend:NumpyChunkRunner.xp": _XP,
     "core.session:ChunkRunner.xp": _XP,
     "core.session:ChunkRunner.env_traceable": _XP,
     "env.rewards:RewardContext.xp": _XP,
