@@ -12,8 +12,10 @@ line:
   build    build the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
            ``nvcc`` per source, all started together; each kernel's
            registers and spills from ptxas (``-Xptxas -v``), the persistent
-           kernels once per agent mode (``<0>`` shared, ``<1>`` registers,
-           ``<2>`` fresh); any spill fails.
+           kernels once per agent mode at one CTA a market (``<0, false>``
+           shared, ``<1, false>`` registers, ``<2, false>`` fresh) and in
+           the fresh mode on a market cluster (``<2, true>``); any spill
+           fails.
   kernel   ``kinetic_clearing_chunk`` (CUDA) == its plain PyTorch version,
            field by field, at the paper's width A=256, L=128 on a
            heterogeneous ensemble populating all eight archetypes: a chunk
@@ -23,8 +25,21 @@ line:
            the last two with 15 markets (a ragged last CTA); then kernels 1
            and 3 in the fresh agent mode (populations past shared memory:
            L=128, A=50,000 and L=1024, A=45,000, 10 markets, 6 steps)
-           against their plain versions, with each shape's ``TileChoice``
-           and times.
+           against their plain versions at one CTA a market and on the
+           rule's market cluster (16 CTAs a market), with each shape's
+           ``TileChoice``, grid, resident clusters and times.
+  population  large populations through the main path, all in the fresh
+           mode: P1 one market of 100,000 agents (L=128, S=16), P2 16
+           markets of 50,000 (L=1024, S=32), P3 128 markets of 50,000
+           (L=128, S=32), every archetype, a shock, ring-coupled
+           arbitrageurs. For each, ``Engine("cuda-kinetic").open(spec)
+           .run(S)`` in one chunk (its tile sweep included) and the legacy
+           ``kinetic_clearing``, each with the counts at 0, == their plain
+           versions on the card (P1 also == the host ``numpy`` reference);
+           then kernels 1 and 3 at one CTA a market (C = 1, pinned) and at
+           the rule's market cluster, in turns: ms, the bound and its
+           share, the grid, its share of the SMs, the resident clusters
+           and agent-events/s.
   naive    ``naive_clearing_chunk`` (one launch per step) == its plain
            version over the five cases of ``kernel``.
   legacy   the legacy one-shot ``kinetic_clearing`` and ``naive_clearing``
@@ -185,13 +200,13 @@ line:
 Each path is driven with every launch count at 0 just before it and read
 just after; the ``kernels`` line's launches are the ``session`` phase's
 (and the ``legacy_path`` phase's), plus the ``train`` phase's 2 updates,
-the ``autotune`` phase's candidate checks and the ``sharded`` and
-``roofline`` phases' paths. Every launch is counted where it is made, the
-runners' own tile sweeps included (a ``cuda-kinetic``/``cuda-naive``
-runner opened on the card times each candidate once per key,
-``autotune.TRIALS`` + 1 calls):
-each window expects its path's launches plus those its sweeps record, and
-a sweep that lost a candidate fails the run.
+the ``autotune`` phase's candidate checks and the ``sharded``,
+``roofline`` and ``population`` phases' paths. Every launch is counted
+where it is made, the runners' own tile sweeps included (a
+``cuda-kinetic``/``cuda-naive`` runner opened on the card times each
+candidate once per key, ``autotune.TRIALS`` + 1 calls): each window
+expects its path's launches plus those its sweeps record, and a sweep
+that lost a candidate fails the run.
 The ``timing``, ``agent_sweep``, ``legacy_path`` and
 ``fixed_workload`` lines give each timed shape's launch shape
 (``autotune.auto_tile``) and resident CTAs per SM
@@ -287,6 +302,18 @@ PRODUCT_SWEEP = {"alpha_momentum": (0.15, 0.3, 0.5, 0.7),
 # past shared memory at L=128 and L=1024, and the steps of each call.
 FRESH_SHAPES = ((2, 50000, 128), (2, 45000, 1024))
 FRESH_STEPS = 6
+#: The population phase's shapes (label, M, A, L, S), all past shared
+#: memory (the fresh mode): one deep market, a few assets with wide books,
+#: and as many markets as the card has SMs. A·8·S stays below 2^24 in each
+#: (whales add 2% of agents at 32 lots every 4th step), so books, bins and
+#: scans stay exact-integer float32.
+POPULATION = (("P1", 1, 100000, 128, 16), ("P2", 16, 50000, 1024, 32),
+              ("P3", 128, 50000, 128, 32))
+POPULATION_MIX = dict(alpha_fundamentalist=0.1, alpha_whale=0.02,
+                      whale_period=4, alpha_hft=0.1, alpha_informed=0.05,
+                      alpha_arbitrageur=0.1, shock_intensity=0.3,
+                      shock_cancel=0.5)
+POPULATION_REPS = 5
 # The env phase (at TABLE_IV): the checked rollouts' steps, the auto-reset
 # horizon and steps, the checkpoint step, and the timed maker rollout.
 ENV_STEPS = 64
@@ -484,7 +511,7 @@ def expect_counts(label: str, want) -> dict:
 
 def kernel_vs_plain(label, spec, device, *, step0, n_valid, chunk,
                     ext=False, stats_only=False, scan="cumsum", state=None,
-                    entry="kinetic"):
+                    entry="kinetic", tile=None):
     import torch
     from repro_torch.core import params as params_mod
     from repro_torch.core.stats import init_stats
@@ -503,7 +530,7 @@ def kernel_vs_plain(label, spec, device, *, step0, n_valid, chunk,
     kw = dict(cfg=spec, chunk=chunk, scan=scan, params=params,
               stats=init_stats(M, device) if stats_only else None,
               stats_only=stats_only)
-    got = kernel(*state, step0, n_valid, eb, ea, **kw)
+    got = kernel(*state, step0, n_valid, eb, ea, tile=tile, **kw)
     want = plain(*state, step0, n_valid, eb, ea, **kw)
     torch.cuda.synchronize()
     err = compare(label, outputs(got, n_valid), outputs(want, n_valid))
@@ -524,9 +551,14 @@ def phase_build():
     nc._load_library()
     ptxas = {**_build.ptxas_report("kinetic_clearing"),
              **_build.ptxas_report("naive_clearing")}
-    # The persistent kernels once per agent mode (<code>: AGENT_MODES).
-    kernels = tuple(f"kinetic_{k}_kernel<{code}>" for k in ("chunk", "legacy")
-                    for code in range(len(autotune.AGENT_MODES))) + (
+    # The persistent kernels once per agent mode (<code, false>: the
+    # AGENT_MODES index, one CTA a market) and the fresh mode on a market
+    # cluster (<2, true>).
+    fresh = autotune.AGENT_MODES.index("fresh")
+    kernels = tuple(f"kinetic_{k}_kernel<{code}, false>"
+                    for k in ("chunk", "legacy")
+                    for code in range(len(autotune.AGENT_MODES))) + tuple(
+        f"kinetic_{k}_kernel<{fresh}, true>" for k in ("chunk", "legacy")) + (
         "naive_chunk_step_kernel", "naive_legacy_step_kernel")
     for name in kernels:
         got = ptxas.get(name, {})
@@ -563,7 +595,8 @@ def phase_kernel(device, B, entry="kinetic"):
 def phase_edges(device):
     """Kernel 1 at the launch rule's edges, then kernels 1 and 3 in the
     fresh agent mode (populations past shared memory) against their plain
-    versions, bit for bit, with their times."""
+    versions, bit for bit, at one CTA a market and on the rule's market
+    cluster, with their times."""
     import torch
     from repro_torch.core import params as params_mod
     from repro_torch.core.config import MarketConfig
@@ -585,30 +618,20 @@ def phase_edges(device):
         errs.append(e)
     fresh = []
     for M, A, L in FRESH_SHAPES:
-        shape = autotune.auto_tile(L, A)
-        if shape.agents != "fresh":
-            raise Mismatch(f"L={L}, A={A} took {shape.agents}, not fresh")
         spec = small_spec(M, A, L, num_steps=20)
-        e, _ = kernel_vs_plain(f"fresh L={L} A={A}", spec, device, step0=4,
-                               n_valid=FRESH_STEPS, chunk=FRESH_STEPS,
-                               ext=True)
-        cfg = MarketConfig(num_markets=spec.num_markets, num_agents=A,
-                           num_levels=L, num_steps=FRESH_STEPS, seed=SEED,
+        n = spec.num_markets
+        one, rule = autotune.auto_tile(L, A), autotune.auto_tile(L, A, n)
+        if one.agents != "fresh" or rule.ctas_per_market == 1:
+            raise Mismatch(f"L={L}, A={A}, M={n}: the rule took {rule}, "
+                           f"not a fresh market cluster")
+        cfg = MarketConfig(num_markets=n, num_agents=A, num_levels=L,
+                           num_steps=FRESH_STEPS, seed=SEED,
                            alpha_arbitrageur=0.2, alpha_whale=0.1,
                            whale_period=3)
-        state = opening(cfg, device)
-        got = list(kc.kinetic_clearing(*state, cfg=cfg))
+        state, cstate = opening(cfg, device), opening(spec, device)
         want = list(kc.kinetic_clearing_plain(*state, cfg=cfg))
-        torch.cuda.synchronize()
-        e = max(e, compare(f"fresh legacy L={L} A={A}", got, want))
-        errs.append(e)
-        cstate = opening(spec, device)
         kw = dict(cfg=spec, chunk=FRESH_STEPS,
                   params=params_mod.pack_params(spec.params, device))
-        chunk_ms = _time(lambda: kc.kinetic_clearing_chunk(
-            *cstate, 0, FRESH_STEPS, **kw), 5)
-        legacy_ms = _time(lambda: kc.kinetic_clearing(*state, cfg=cfg), 5)
-        n = spec.num_markets
         chunk_bound = bound(
             kc.op_count(n, A, L, FRESH_STEPS, kc.agent_mix(spec.params, A)),
             kc.byte_count(n, L, FRESH_STEPS, ext=False, stats_only=False))
@@ -616,18 +639,163 @@ def phase_edges(device):
             kc.op_count(n, A, L, FRESH_STEPS, kc.agent_mix(
                 params_mod.params_from_config(cfg, n), A)),
             kc.legacy_byte_count(n, L, FRESH_STEPS))
-        fresh.append(dict(markets=n, agents=A, levels=L,
-                          steps=FRESH_STEPS, tile=shape._asdict(),
-                          max_abs_err=e, chunk_ms=chunk_ms,
-                          legacy_ms=legacy_ms, chunk_bound=chunk_bound,
-                          legacy_bound=legacy_bound,
-                          bound_share={
-                              "chunk": chunk_bound["bound_ms"] / chunk_ms,
-                              "legacy": legacy_bound["bound_ms"] / legacy_ms},
-                          launch=launch_facts(n, A, L)))
+        row = dict(markets=n, agents=A, levels=L, steps=FRESH_STEPS,
+                   chunk_bound=chunk_bound, legacy_bound=legacy_bound,
+                   launch=launch_facts(n, A, L))
+        for name, tile in (("one_cta", one), ("rule", rule)):
+            e, _ = kernel_vs_plain(f"fresh {name} L={L} A={A}", spec, device,
+                                   step0=4, n_valid=FRESH_STEPS,
+                                   chunk=FRESH_STEPS, ext=True, tile=tile)
+            got = list(kc.kinetic_clearing(*state, cfg=cfg, tile=tile))
+            torch.cuda.synchronize()
+            e = max(e, compare(f"fresh {name} legacy L={L} A={A}", got,
+                               want))
+            errs.append(e)
+            # Device times (the calls queued behind a sleep: at a tenth
+            # of a millisecond the wrappers' host work would count), C = 1
+            # then the rule's C.
+            chunk_ms = _queued_ms(lambda: kc.kinetic_clearing_chunk(
+                *cstate, 0, FRESH_STEPS, tile=tile, **kw), 5)
+            legacy_ms = _queued_ms(lambda: kc.kinetic_clearing(
+                *state, cfg=cfg, tile=tile), 5)
+            row[name] = dict(
+                tile=tile._asdict(), max_abs_err=e,
+                chunk_ms=chunk_ms, legacy_ms=legacy_ms,
+                bound_share={
+                    "chunk": chunk_bound["bound_ms"] / chunk_ms,
+                    "legacy": legacy_bound["bound_ms"] / legacy_ms},
+                **cluster_facts(tile, n))
+        fresh.append(row)
     emit("edges", ok=True, shapes=[list(x) for x in shapes], fresh=fresh,
          max_abs_err=max(errs))
     return max(errs)
+
+
+def population_case(M, A, L, S):
+    """The population phase's config and spec at (M, A, L, S): every
+    archetype, a shock halfway, arbitrageurs on a ring of peers."""
+    import numpy as np
+    from repro_torch.core.config import MarketConfig
+    from repro_torch.core.params import EnsembleSpec
+
+    cfg = MarketConfig(num_markets=M, num_agents=A, num_levels=L,
+                       num_steps=S, seed=SEED, shock_step=S // 2,
+                       **POPULATION_MIX)
+    spec = EnsembleSpec.homogeneous(cfg)
+    if M > 1:
+        spec = spec.with_values(coupling_peer=(np.arange(M) + 1) % M)
+    return cfg, spec
+
+
+def phase_population(device):
+    """Large populations (the fresh mode) at full width through the main
+    path: for each of P1-P3, ``Engine("cuda-kinetic").open(spec).run(S)``
+    in one chunk (the runner's sweep included) and the legacy
+    ``kinetic_clearing``, each with the counts at 0, equal bit for bit to
+    their plain versions on the card (P1 also to the host ``numpy``
+    reference); then kernels 1 and 3 timed on the device at one CTA a
+    market (C = 1, pinned) and at the rule's market cluster, in turns,
+    against the bound.
+    Returns the launches and the worst error."""
+    import time
+
+    import torch
+    from repro_torch.core import params as params_mod
+    from repro_torch.core.session import Engine
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import kinetic_clearing as kc
+    from repro_torch.launch import bound
+
+    launches = {name: 0 for name in counters()}
+    rows, worst = [], 0.0
+    for label, M, A, L, S in POPULATION:
+        cfg, spec = population_case(M, A, L, S)
+        one, rule = autotune.auto_tile(L, A), autotune.auto_tile(L, A, M)
+        if one.agents != "fresh":
+            raise Mismatch(f"population {label}: mode {one.agents}")
+        # The main path: a session over the horizon in one chunk.
+        reset_counts()
+        t0 = time.perf_counter()
+        with Engine("cuda-kinetic", device=device).open(
+                spec, chunk_size=S) as sess:
+            batch = sess.run(S)
+            got = list(sess.state) + list(batch)
+            session_tile = sess._runner.tile
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = expect_counts(f"population {label} session",
+                               {"kinetic_clearing_chunk": 1})
+        params = params_mod.pack_params(spec.params, device)
+        want = list(kc.kinetic_clearing_chunk_plain(
+            *opening(spec, device), 0, S, cfg=spec, chunk=S, params=params))
+        err = compare(f"population {label} session", got, want)
+        if label == "P1":
+            with Engine("numpy", device="cpu").open(
+                    spec, chunk_size=S) as host:
+                ref = list(host.run(S))
+                ref = list(host.state) + ref
+            err = max(err, compare(f"population {label} numpy",
+                                   [x.cpu() for x in got], ref))
+        # The legacy entry, the rule's shape.
+        state = opening(cfg, device)
+        reset_counts()
+        legacy = list(kc.kinetic_clearing(*state, cfg=cfg))
+        torch.cuda.synchronize()
+        lcounts = expect_counts(f"population {label} legacy",
+                                {"kinetic_clearing": 1})
+        err = max(err, compare(f"population {label} legacy", legacy,
+                               list(kc.kinetic_clearing_plain(*state,
+                                                              cfg=cfg))))
+        for name in launches:
+            launches[name] += counts[name] + lcounts[name]
+        worst = max(worst, err)
+        price, volume = got[4], got[5]
+        if not (bool(torch.isfinite(torch.stack([price, volume])).all())
+                and float(volume.sum()) > 0):
+            raise Mismatch(f"population {label}: no finite trading")
+
+        mix = kc.agent_mix(spec.params, A)
+        b1 = bound(kc.op_count(M, A, L, S, mix),
+                   kc.byte_count(M, L, S, ext=False, stats_only=False))
+        b3 = bound(kc.op_count(M, A, L, S, kc.agent_mix(
+            params_mod.params_from_config(cfg, M), A)),
+            kc.legacy_byte_count(M, L, S))
+        cstate = opening(spec, device)
+        times = {}
+        for name, tile in (("one_cta", one), ("rule", rule), ("rule", rule),
+                           ("one_cta", one)):
+            # Device times: the calls queued behind a sleep.
+            k1 = _queued_ms(lambda: kc.kinetic_clearing_chunk(
+                *cstate, 0, S, cfg=spec, chunk=S, params=params,
+                tile=tile), POPULATION_REPS)
+            k3 = _queued_ms(lambda: kc.kinetic_clearing(*state, cfg=cfg,
+                                                        tile=tile),
+                            POPULATION_REPS)
+            times.setdefault(name, []).append((k1, k3))
+        row = dict(label=label, markets=M, agents=A, levels=L, steps=S,
+                   agents_x_8_x_steps=A * 8 * S, session_wall_s=wall,
+                   session_tile=session_tile._asdict(),
+                   launches={k: n for k, n in counts.items() if n},
+                   chunk_bound=b1, legacy_bound=b3, max_abs_err=err,
+                   traded_volume=float(volume.sum()))
+        for name, tile in (("one_cta", one), ("rule", rule)):
+            k1 = statistics.median(t[0] for t in times[name])
+            k3 = statistics.median(t[1] for t in times[name])
+            row[name] = dict(
+                tile=tile._asdict(), **cluster_facts(tile, M),
+                chunk_ms=k1, legacy_ms=k3,
+                chunk_ms_runs=[t[0] for t in times[name]],
+                legacy_ms_runs=[t[1] for t in times[name]],
+                bound_share={"chunk": b1["bound_ms"] / k1,
+                             "legacy": b3["bound_ms"] / k3},
+                agent_events_per_s={"chunk": M * A * S / (k1 * 1e-3),
+                                    "legacy": M * A * S / (k3 * 1e-3)})
+        row["rule_over_one_cta"] = {
+            "chunk": row["rule"]["chunk_ms"] / row["one_cta"]["chunk_ms"],
+            "legacy": row["rule"]["legacy_ms"] / row["one_cta"]["legacy_ms"]}
+        rows.append(row)
+    emit("population", ok=True, shapes=rows, max_abs_err=worst)
+    return launches, worst
 
 
 def legacy_configs():
@@ -1104,6 +1272,31 @@ def profile_window(fn, steps: int) -> dict:
         busy_share=device_us * 1e-6 / wall,
         top={e.key[:100]: e.self_device_time_total / 1e3 / steps
              for e in top})
+
+
+def card_sms() -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(
+        torch.device(*CARD)).multi_processor_count
+
+
+def cluster_facts(tile, M) -> dict:
+    """A launch shape at M markets: CTAs a market, the grid, the share of
+    the card's SMs it can occupy, and what kernels 1 and 3 hold on the
+    card at once (at C > 1 the clusters on the card, else the CTAs per
+    SM). A cluster the card cannot place fails."""
+    from repro_torch.kernels import kinetic_clearing as kc
+
+    sms, grid = card_sms(), tile.grid(M)
+    held = {"kinetic_clearing_chunk": kc.resident_ctas(False, tile),
+            "kinetic_clearing": kc.resident_ctas(True, tile)}
+    if min(held.values()) < 1:
+        raise Mismatch(f"the card holds none of {tile}: {held}")
+    key = "resident_clusters" if tile.ctas_per_market > 1 else \
+        "resident_ctas_per_sm"
+    return {"ctas_per_market": tile.ctas_per_market, "grid": grid,
+            "sms": sms, "sm_share": min(grid, sms) / sms, key: held}
 
 
 def launch_facts(M, A, L) -> dict:
@@ -3288,6 +3481,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     err_k = max(phase_kernel(device, MARKETS_PER_BLOCK), phase_edges(device))
+    pop_launches, err_pop = phase_population(device)
     err_n = phase_kernel(device, MARKETS_PER_BLOCK, entry="naive")
     err_l = phase_legacy(device)
     launches, session_errs = phase_session(device, MARKETS_PER_BLOCK)
@@ -3307,18 +3501,18 @@ def main() -> int:
     check_sweeps("the last phase")
     launches.update(legacy["launches"])
     for extra in (train_launches, tune_launches, shard_launches,
-                  roof_launches):
+                  roof_launches, pop_launches):
         for name, n in extra.items():
             launches[name] += n
     errs = {"kinetic_clearing_chunk":
             max(err_k, err_s, session_errs["kinetic_clearing_chunk"],
                 err_p, err_x, err_sc, err_env, err_train,
-                serve["max_abs_err"]),
+                serve["max_abs_err"], err_pop),
             "naive_clearing_chunk":
             max(err_n, err_s, session_errs["naive_clearing_chunk"],
                 err_p, err_env, err_train, serve["max_abs_err"]),
             "kinetic_clearing":
-            max(err_l, legacy["max_abs_err"]["kinetic_clearing"]),
+            max(err_l, legacy["max_abs_err"]["kinetic_clearing"], err_pop),
             "naive_clearing":
             max(err_l, legacy["max_abs_err"]["naive_clearing"])}
     for extra in (err_tune, err_shard,

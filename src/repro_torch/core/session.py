@@ -420,6 +420,7 @@ class Session:
 
                 metrics.gauge("tile_warps_per_market", tile.warps_per_market)
                 metrics.gauge("tile_markets_per_cta", tile.markets_per_cta)
+                metrics.gauge("tile_ctas_per_market", tile.ctas_per_market)
                 metrics.gauge("tile_agents", tile.agents)
                 metrics.gauge("autotune_smem_bytes",
                               autotune.estimate_smem_bytes(

@@ -93,21 +93,29 @@ def build(names: Iterable[str]) -> List[Path]:
     return [library_path(n) for n in names]
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's name from its mangled one, with its int and bool template
+    arguments as C++ writes them (``kinetic_chunk_kernel<2, true>``: the
+    persistent kernels' agent mode and cluster flag)."""
+    m = re.match(r"_Z(\d+)(\w+)", mangled)
+    n, rest = int(m.group(1)), m.group(2)
+    args = re.match(r"I((?:L[ib]\d+E)+)E", rest[n:])
+    if not args:
+        return rest[:n]
+    vals = [v if t == "i" else ("false", "true")[int(v)]
+            for t, v in re.findall(r"L([ib])(\d+)E", args.group(1))]
+    return f"{rest[:n]}<{', '.join(vals)}>"
+
+
 def ptxas_report(name: str) -> Dict[str, dict]:
     """Registers and spill bytes of each kernel of a built library, from
-    ptxas's ``-v`` report, keyed by kernel name (with a ``<N>`` suffix for
-    an int template argument, such as the persistent kernels' agent
-    mode)."""
+    ptxas's ``-v`` report, keyed by :func:`kernel_name`."""
     report, kernel = {}, None
     log = library_path(name).with_suffix(".log").read_text()
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
+        m = re.search(r"Compiling entry function '(_Z\d+\w+)'", line)
         if m:
-            n, rest = int(m.group(1)), m.group(2)
-            kernel = rest[:n]
-            arg = re.match(r"ILi(\d+)E", rest[n:])
-            if arg:
-                kernel += f"<{arg.group(1)}>"
+            kernel = kernel_name(m.group(1))
             report[kernel] = {}
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",

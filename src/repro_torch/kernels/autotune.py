@@ -20,16 +20,25 @@ unit is a *market team* and not a sublane tile (``csrc/kinetic_step.cuh``):
     bytes of bins, past 46,080 agents at L=128 (44,646 at L=1024), has
     them recomputed at every step (``"fresh"``), as the per-step kernels
     always do: its books still stay on chip for the chunk. So the rule
-    takes any population, as the JAX package's agent chunking does.
+    takes any population, as the JAX package's agent chunking does;
+  * in the fresh mode a persistent kernel may spread one market over a
+    thread-block cluster of ``ctas_per_market`` = C CTAs (C in
+    ``CTAS_PER_MARKET``, one team a CTA): CTA rank ``r`` hashes the agents
+    ``a ≡ r·T + t (mod C·T)`` into its own bins, and the C CTAs sum their
+    bins through distributed shared memory, each clearing its own copy of
+    the book. A few markets of a large population then fill the card's
+    SMs, where one CTA a market would leave most of them idle.
 
 :func:`auto_tile` is the rule: ``W = max(1, L / 128)``, four one-warp
-teams a CTA, and the first agent mode that fits. :func:`check_shape`
-repeats the C side's domain check, and :func:`candidate_tiles` lists every
-shape in it. :func:`autotune_tile` times candidates once (the runner's
-``time_candidate``) and caches the winner per :func:`tune_key`; a candidate
-that raises is disqualified and its failure recorded in a
-:class:`SweepReport`, and only when every candidate fails does the rule's
-tile win, with ``fell_back=True``. Every shape computes the same bits, so
+teams a CTA, and the first agent mode that fits; in the fresh mode a team
+of ``MAX_TEAM_WARPS`` warps, one a CTA, and, given the number of markets,
+the smallest C whose grid reaches the card's SMs (:func:`cluster_ctas`).
+:func:`check_shape` repeats the C side's domain check, and
+:func:`candidate_tiles` lists every shape in it. :func:`autotune_tile`
+times candidates once (the runner's ``time_candidate``) and caches the
+winner per :func:`tune_key`; a candidate that raises is disqualified and
+its failure recorded in a :class:`SweepReport`, and only when every
+candidate fails does the rule's tile win, with ``fell_back=True``. Every shape computes the same bits, so
 the choice changes the time of a launch and nothing else. The wrapper
 passes the shape to the C entry, which checks it again. The constants
 repeat ``kinetic_step.cuh``.
@@ -48,6 +57,8 @@ MARKETS_PER_CTA = 4
 MAX_CTA_THREADS = 256
 #: Warps a market may take, and teams a CTA of one-warp teams may hold.
 WARPS_PER_MARKET = (1, 2, 4, 8)
+#: The widest team, which the rule gives a market in the fresh mode.
+MAX_TEAM_WARPS = WARPS_PER_MARKET[-1]
 MARKETS_PER_CTA_CHOICES = (1, 2, 4, 8)
 #: Dynamic shared memory a CTA may take: the 227 KB a block can use on
 #: Hopper, less 1 KB for the static reduction scratch.
@@ -55,6 +66,13 @@ MAX_DYNAMIC_SMEM = 232448 - 1024
 #: Where a persistent kernel keeps the agents' keys and types, in the order
 #: of the C side's ``AgentMode`` codes (``kinetic_step.cuh``).
 AGENT_MODES = ("shared", "registers", "fresh")
+#: CTAs a market may take as a thread-block cluster (the fresh mode of the
+#: persistent kernels only); past the portable 8 a cluster is non-portable,
+#: and Hopper's limit is 16.
+CTAS_PER_MARKET = (1, 2, 4, 8, 16)
+#: SMs of the card the port is built for (an H100 SXM): the rule's count
+#: where the process has no card (:func:`card_limits`).
+TARGET_SMS = 132
 
 #: Timed calls of a sweep candidate after its warm-up (:func:`time_call`).
 TRIALS = 2
@@ -64,6 +82,8 @@ _TUNE_CACHE: Dict[Tuple, "TileChoice"] = {}
 #: One record per real sweep (cache misses only), newest last; the chaos
 #: harness reads these to assert that an OOM-shaped sweep fell back.
 _SWEEP_REPORTS: List["SweepReport"] = []
+#: :func:`card_limits` per (card, L, A, W).
+_CARD_LIMITS: Dict[Tuple, Tuple[int, int]] = {}
 
 # Substrings of an out-of-memory-shaped failure: the JAX package's markers
 # (XLA's RESOURCE_EXHAUSTED, Mosaic's VMEM) and the card's spellings
@@ -82,6 +102,7 @@ class TileChoice(NamedTuple):
     warps_per_market: int
     markets_per_cta: int
     agents: str    # persistent kernels: one of AGENT_MODES
+    ctas_per_market: int = 1   # > 1: a market's cluster (fresh mode only)
 
     @property
     def threads_per_market(self) -> int:
@@ -92,21 +113,24 @@ class TileChoice(NamedTuple):
         return self.threads_per_market * self.markets_per_cta
 
     def grid(self, num_markets: int) -> int:
-        """CTAs for ``num_markets``; the last may be ragged."""
-        return -(-num_markets // self.markets_per_cta)
+        """CTAs for ``num_markets``: the last may be ragged, and a
+        market's cluster is ``ctas_per_market`` CTAs side by side."""
+        return -(-num_markets // self.markets_per_cta) * self.ctas_per_market
 
     def smem_bytes(self, hoisted: bool) -> int:
-        """Dynamic shared memory per CTA: each team's int bins (2·L) and,
-        for a persistent kernel (``hoisted``) in the ``"shared"`` mode, A
-        keys and A type bytes."""
+        """Dynamic shared memory per CTA: each team's int bins (2·L, two
+        such buffers in a cluster) and, for a persistent kernel
+        (``hoisted``) in the ``"shared"`` mode, A keys and A type bytes."""
         return self.markets_per_cta * team_smem_bytes(
             self.num_levels, self.num_agents,
-            hoisted and self.agents == "shared")
+            hoisted and self.agents == "shared") * (
+                2 if self.ctas_per_market > 1 else 1)
 
-    def as_c_args(self) -> Tuple[int, int, int]:
-        """``(warps_per_market, markets_per_cta, agent mode code)``."""
+    def as_c_args(self) -> Tuple[int, int, int, int]:
+        """``(warps_per_market, markets_per_cta, agent mode code,
+        ctas_per_market)``."""
         return (self.warps_per_market, self.markets_per_cta,
-                AGENT_MODES.index(self.agents))
+                AGENT_MODES.index(self.agents), self.ctas_per_market)
 
 
 class SweepReport(NamedTuple):
@@ -140,13 +164,16 @@ def _check_domain(num_levels: int, num_agents: int) -> Tuple[int, int]:
 
 
 def check_shape(num_levels: int, num_agents: int, warps_per_market: int,
-                markets_per_cta: int, agents: str, hoisted: bool) -> int:
+                markets_per_cta: int, agents: str, hoisted: bool,
+                ctas_per_market: int = 1) -> int:
     """The C side's ``check_shape``: the dynamic shared memory a CTA of
     this shape takes, or ``ValueError`` for a shape the kernels refuse. A
     per-step kernel (``hoisted=False``) keeps no agents, so it checks the
-    shape in the fresh mode, as its C entry does."""
+    shape in the fresh mode, as its C entry does; it runs one CTA a
+    market, so only a persistent kernel takes a cluster."""
     L, A = _check_domain(num_levels, num_agents)
     W, mpc = int(warps_per_market), int(markets_per_cta)
+    C = int(ctas_per_market)
     mode = agents if hoisted else "fresh"
     if agents not in AGENT_MODES:
         raise ValueError(f"agents must be one of {AGENT_MODES}, got "
@@ -162,7 +189,14 @@ def check_shape(num_levels: int, num_agents: int, warps_per_market: int,
     if mode == "registers" and A > REG_AGENTS * 32 * W:
         raise ValueError(f"agents='registers' holds at most "
                          f"{REG_AGENTS * 32 * W} agents at W={W}, got A={A}")
-    smem = mpc * team_smem_bytes(L, A, mode == "shared")
+    if C not in CTAS_PER_MARKET:
+        raise ValueError(f"ctas_per_market must be one of "
+                         f"{CTAS_PER_MARKET}, got {C}")
+    if C > 1 and not (hoisted and mode == "fresh" and mpc == 1):
+        raise ValueError(f"ctas_per_market={C}: a market spans a cluster "
+                         f"only in a persistent kernel's fresh mode, at "
+                         f"one market a CTA")
+    smem = mpc * team_smem_bytes(L, A, mode == "shared") * (2 if C > 1 else 1)
     if smem > MAX_DYNAMIC_SMEM:
         raise ValueError(f"launch shape needs {smem} bytes of shared memory "
                          f"over the limit of {MAX_DYNAMIC_SMEM}")
@@ -181,7 +215,8 @@ def check_tile(tile: TileChoice, num_levels: int, num_agents: int,
             f"tile is for L={tile.num_levels}, A={tile.num_agents} but the "
             f"operands have L={num_levels}, A={num_agents}")
     check_shape(num_levels, num_agents, tile.warps_per_market,
-                tile.markets_per_cta, tile.agents, hoisted)
+                tile.markets_per_cta, tile.agents, hoisted,
+                tile.ctas_per_market)
     return tile
 
 
@@ -193,9 +228,62 @@ def estimate_smem_bytes(tile: TileChoice, num_levels: int, num_agents: int,
         hoisted)
 
 
-def auto_tile(num_levels: int, num_agents: int) -> TileChoice:
+def card_limits(num_levels: int, num_agents: int,
+                warps_per_market: int) -> Tuple[int, int]:
+    """``(SMs, largest C)`` the rule counts on for a fresh team of
+    ``warps_per_market`` warps: the current card's SM count and the largest
+    C of ``CTAS_PER_MARKET`` at which it holds a cluster of both persistent
+    kernels (``cudaOccupancyMaxActiveClusters`` >= 1); in a process without
+    a card, the H100's (``TARGET_SMS``, 16). Cached per card and shape."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return TARGET_SMS, CTAS_PER_MARKET[-1]
+    card = torch.cuda.current_device()
+    key = (card, int(num_levels), int(num_agents), int(warps_per_market))
+    if key not in _CARD_LIMITS:
+        from repro_torch.kernels import kinetic_clearing as kc
+
+        cap = 1
+        for C in CTAS_PER_MARKET[1:]:
+            shape = TileChoice(key[1], key[2], key[3], 1, "fresh", C)
+            if min(kc.resident_ctas(legacy, shape)
+                   for legacy in (False, True)) < 1:
+                break
+            cap = C
+        _CARD_LIMITS[key] = (
+            torch.cuda.get_device_properties(card).multi_processor_count, cap)
+    return _CARD_LIMITS[key]
+
+
+def cluster_ctas(tile: TileChoice, num_markets: int, sms: int,
+                 max_ctas: int) -> int:
+    """The rule's C for a fresh ``tile`` (one CTA a market) over
+    ``num_markets``: the smallest C of ``CTAS_PER_MARKET`` up to
+    ``max_ctas`` whose grid reaches ``sms`` SMs (C = 1 at the tile's own
+    markets a CTA, C > 1 at one), else the largest admitted."""
+    best = 1
+    for C in CTAS_PER_MARKET:
+        if C > max_ctas:
+            break
+        best = C
+        grid = tile.grid(num_markets) if C == 1 else num_markets * C
+        if grid >= sms:
+            break
+    return best
+
+
+def auto_tile(num_levels: int, num_agents: int,
+              num_markets: Optional[int] = None, *,
+              sms: Optional[int] = None,
+              max_ctas: Optional[int] = None) -> TileChoice:
     """The launch rule for ``num_levels`` (a power of two in [4, 1024]) and
-    ``num_agents`` (>= 1); raises ``ValueError`` outside that domain."""
+    ``num_agents`` (>= 1); raises ``ValueError`` outside that domain.
+
+    In the fresh mode, given ``num_markets``, a market spans a cluster of
+    :func:`cluster_ctas` CTAs (one team a CTA), counting ``sms`` SMs and at
+    most ``max_ctas`` CTAs a cluster (default: :func:`card_limits`). Without
+    ``num_markets``, and in every other mode, C = 1."""
     L, A = _check_domain(num_levels, num_agents)
     W = max(1, L // LEVELS_PER_WARP)
     if A <= REG_AGENTS * 32 * W:
@@ -204,17 +292,35 @@ def auto_tile(num_levels: int, num_agents: int) -> TileChoice:
         agents = "shared"
     else:
         agents = "fresh"
+        # A fresh market hashes its A > 44,646 agents at every step: the
+        # widest team hashes them MAX_TEAM_WARPS times as fast as one warp.
+        W = MAX_TEAM_WARPS
     per_market = team_smem_bytes(L, A, agents == "shared")
     mpc = MARKETS_PER_CTA if W == 1 else 1
     while mpc > 1 and mpc * per_market > MAX_DYNAMIC_SMEM:
         mpc //= 2
-    return TileChoice(L, A, W, mpc, agents)
+    tile = TileChoice(L, A, W, mpc, agents)
+    if agents != "fresh" or num_markets is None:
+        return tile
+    if sms is None or max_ctas is None:
+        card_sms, card_cap = card_limits(L, A, W)
+        sms = card_sms if sms is None else sms
+        max_ctas = card_cap if max_ctas is None else max_ctas
+    C = cluster_ctas(tile, int(num_markets), int(sms), int(max_ctas))
+    return tile if C == 1 else tile._replace(markets_per_cta=1,
+                                             ctas_per_market=C)
 
 
-def candidate_tiles(num_levels: int, num_agents: int, *, hoisted: bool,
-                    agents=...) -> List[TileChoice]:
-    """Every launch shape :func:`check_shape` accepts for ``(L, A)``, the
-    rule's first, then by warps a market, markets a CTA and agent mode.
+def candidate_tiles(num_levels: int, num_agents: int,
+                    num_markets: Optional[int] = None, *, hoisted: bool,
+                    agents=..., max_ctas: Optional[int] = None
+                    ) -> List[TileChoice]:
+    """Every launch shape :func:`check_shape` accepts for ``(L, A)`` at one
+    CTA a market, the rule's (for ``num_markets``) first, then by warps a
+    market, markets a CTA and agent mode; then, where the population is
+    past shared memory (the rule's mode is fresh) and the kernel is
+    persistent, each fresh team size on a cluster of every C > 1 of
+    ``CTAS_PER_MARKET`` up to ``max_ctas`` (default: :func:`card_limits`).
 
     A persistent kernel (``hoisted``) sweeps the agent modes valid for
     ``(L, A)``; a per-step kernel keeps none, so only ``(W, MPC)`` is swept
@@ -222,13 +328,16 @@ def candidate_tiles(num_levels: int, num_agents: int, *, hoisted: bool,
     pins the mode: a caller's choice is never swept away (the counterpart
     of a pinned ``agent_chunk``).
     """
-    rule = auto_tile(num_levels, num_agents)
+    rule = auto_tile(num_levels, num_agents,
+                     num_markets if hoisted else None, max_ctas=max_ctas)
     L, A = rule.num_levels, rule.num_agents
+    clusters = hoisted and rule.agents == "fresh"
     if agents is not ...:
         if agents not in AGENT_MODES:
             raise ValueError(f"agents must be one of {AGENT_MODES}, got "
                              f"{agents!r}")
-        rule = rule._replace(agents=agents)
+        if agents != rule.agents:   # one CTA a market, in that mode
+            rule = auto_tile(L, A)._replace(agents=agents)
         modes = (agents,)
     else:
         modes = AGENT_MODES if hoisted else (rule.agents,)
@@ -238,17 +347,24 @@ def candidate_tiles(num_levels: int, num_agents: int, *, hoisted: bool,
         out.append(rule)
     except ValueError:
         pass               # a pinned mode the rule's shape cannot hold
-    for W in WARPS_PER_MARKET:
-        for mpc in MARKETS_PER_CTA_CHOICES:
-            for mode in modes:
-                cand = TileChoice(L, A, W, mpc, mode)
-                if cand in out:
-                    continue
-                try:
-                    check_shape(L, A, W, mpc, mode, hoisted)
-                except ValueError:
-                    continue
-                out.append(cand)
+    shapes = [(W, mpc, mode, 1) for W in WARPS_PER_MARKET
+              for mpc in MARKETS_PER_CTA_CHOICES for mode in modes]
+    if clusters and "fresh" in modes:
+        for W in WARPS_PER_MARKET:
+            if W * LEVELS_PER_WARP < L:
+                continue
+            cap = card_limits(L, A, W)[1] if max_ctas is None else max_ctas
+            shapes += [(W, 1, "fresh", C) for C in CTAS_PER_MARKET[1:]
+                       if C <= cap]
+    for W, mpc, mode, C in shapes:
+        cand = TileChoice(L, A, W, mpc, mode, C)
+        if cand in out:
+            continue
+        try:
+            check_shape(L, A, W, mpc, mode, hoisted, C)
+        except ValueError:
+            continue
+        out.append(cand)
     return out
 
 
@@ -269,8 +385,11 @@ def tune_key(num_levels: int, num_agents: int, chunk: int, *, device=None,
              **context) -> Tuple:
     """Winner cache key: (device kind, L, A, chunk) plus any ``context``
     that changes what is timed (kernel, scan, ``stats_only``, a pinned
-    ``agents``): distinct kernel configurations never share a winner. The
-    number of markets is not in it: no launch shape depends on it."""
+    ``agents``, the rule's ``ctas_per_market``): distinct kernel
+    configurations never share a winner. The number of markets enters
+    through the rule's C, which depends on it in the fresh mode (the
+    runner passes it): markets the rule gives one C share a winner, and
+    shapes that differ in C do not."""
     return ((device_kind(device), int(num_levels), int(num_agents),
              int(chunk)) + tuple(sorted(context.items())))
 
@@ -350,9 +469,12 @@ def clear_tune_cache() -> None:
 
 
 def resolve_tile(tile: Optional[TileChoice], num_levels: int,
-                 num_agents: int, hoisted: bool) -> TileChoice:
+                 num_agents: int, hoisted: bool,
+                 num_markets: Optional[int] = None) -> TileChoice:
     """The shape a wrapper launches: ``tile`` checked against the operands,
-    or the rule's when ``None``."""
+    or the rule's when ``None`` (for ``num_markets`` in a persistent
+    kernel, which may then take a cluster; one CTA a market otherwise)."""
     if tile is None:
-        return auto_tile(num_levels, num_agents)
+        return auto_tile(num_levels, num_agents,
+                         num_markets if hoisted else None)
     return check_tile(tile, num_levels, num_agents, hoisted)

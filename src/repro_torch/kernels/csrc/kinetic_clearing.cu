@@ -14,7 +14,8 @@
 // market's previous mid at every step (simulate_step with peer_mid=None),
 // not a column frozen at entry.
 //
-// Layout (kinetic_step.cuh): a team of W = max(1, L/128) warps per market,
+// Layout (kinetic_step.cuh): a team of W = max(1, L/128) warps per market
+// (8 in the fresh mode),
 // four levels per thread, the books in registers for all the steps and only
 // the incoming bins in shared memory, so the books touch device memory only
 // at entry and exit. Each agent's step-invariant hash round and type are
@@ -22,7 +23,12 @@
 // (AGENTS_REGISTERS), else in the team's shared memory (AGENTS_SHARED);
 // a market whose A keys and type bytes do not fit one CTA's shared memory
 // recomputes them at every step (AGENTS_FRESH), as the per-step kernels
-// do, and keeps only its books and bins on chip.
+// do, and keeps only its books and bins on chip. Such a market may also
+// spread its agents over a thread-block cluster of C = ctas_per_market
+// CTAs on neighbouring SMs (kinetic_step.cuh: ClusterAgents, ClusterBins),
+// the instances <AGENTS_FRESH, true>, launched with cudaLaunchKernelEx and
+// a cluster dimension of C; every other shape is a CLUSTER = false
+// instance, launched as before.
 //
 // What bounds them on this card: operations, not bytes. Per step a market
 // moves nothing through device memory, while every agent draws the
@@ -42,22 +48,30 @@
 // peer column, no external orders, stats or mid path) is carried by the
 // ChunkArgs its C entry fills, never by the kernel. They stay two kernels
 // so each TPU kernel has its own name in the launch counts and ptxas report;
-// a change to one body is a change to both. AGENTS is an AgentMode.
-template <int AGENTS>
+// a change to one body is a change to both. AGENTS is an AgentMode;
+// CLUSTER (fresh only) spreads a market over a thread-block cluster.
+template <int AGENTS, bool CLUSTER>
 __device__ __forceinline__ void persistent_body(const ChunkArgs& g) {
-  if constexpr (AGENTS == AGENTS_REGISTERS) persistent_market<RegAgents>(g);
-  else if constexpr (AGENTS == AGENTS_SHARED) persistent_market<SmemAgents>(g);
-  else persistent_market<FreshAgents>(g);
+  static_assert(!CLUSTER || AGENTS == AGENTS_FRESH, "clusters run fresh");
+  if constexpr (CLUSTER) {
+    persistent_market<ClusterAgents, ClusterBins>(g);
+  } else if constexpr (AGENTS == AGENTS_REGISTERS) {
+    persistent_market<RegAgents, CtaBins>(g);
+  } else if constexpr (AGENTS == AGENTS_SHARED) {
+    persistent_market<SmemAgents, CtaBins>(g);
+  } else {
+    persistent_market<FreshAgents, CtaBins>(g);
+  }
 }
 
-template <int AGENTS>
+template <int AGENTS, bool CLUSTER = false>
 __global__ void kinetic_chunk_kernel(ChunkArgs g) {
-  persistent_body<AGENTS>(g);
+  persistent_body<AGENTS, CLUSTER>(g);
 }
 
-template <int AGENTS>
+template <int AGENTS, bool CLUSTER = false>
 __global__ void kinetic_legacy_kernel(ChunkArgs g) {
-  persistent_body<AGENTS>(g);
+  persistent_body<AGENTS, CLUSTER>(g);
 }
 
 template <class K>
@@ -66,6 +80,51 @@ static int launch(K kernel, const ChunkArgs& g, size_t smem, void* stream) {
   if (err != 0) return err;
   kernel<<<grid_of(g), cta_of(g), smem, (cudaStream_t)stream>>>(g);
   return (int)cudaGetLastError();
+}
+
+// Lets `kernel` take `smem` bytes and, past the portable 8, a cluster of
+// `ctas` CTAs.
+template <class K>
+static int allow_cluster(K kernel, size_t smem, int ctas) {
+  int err = allow_smem(kernel, smem);
+  if (err == 0 && ctas > PORTABLE_CLUSTER_CTAS) {
+    err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  return err;
+}
+
+// A launch configuration of `grid` CTAs in clusters of `ctas` along x.
+static inline cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr,
+                                                dim3 grid, dim3 cta,
+                                                size_t smem, int ctas,
+                                                void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = cta;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)ctas;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// M clusters of g.ctas_per_market CTAs. A cluster the card cannot place
+// fails the launch (its error is returned); nothing runs in its stead.
+template <class K>
+static int launch_cluster(K kernel, const ChunkArgs& g, size_t smem,
+                          void* stream) {
+  const int err = allow_cluster(kernel, smem, g.ctas_per_market);
+  if (err != 0) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      &attr, grid_of(g), cta_of(g), smem, g.ctas_per_market, stream);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, g);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 template <int AGENTS>
@@ -79,8 +138,15 @@ static int launch_persistent(bool legacy, const ChunkArgs& g, int agents,
                              void* stream) {
   size_t smem;
   const int bad = check_shape(g.L, g.A, g.warps_per_market,
-                              g.markets_per_cta, agents, &smem);
+                              g.markets_per_cta, agents, g.ctas_per_market,
+                              &smem);
   if (bad != 0) return bad;
+  if (g.ctas_per_market > 1) {
+    return legacy ? launch_cluster(kinetic_legacy_kernel<AGENTS_FRESH, true>,
+                                   g, smem, stream)
+                  : launch_cluster(kinetic_chunk_kernel<AGENTS_FRESH, true>,
+                                   g, smem, stream);
+  }
   switch (agents) {
     case AGENTS_REGISTERS:
       return launch_mode<AGENTS_REGISTERS>(legacy, g, smem, stream);
@@ -99,6 +165,21 @@ static int occupancy_mode(bool legacy, int threads, size_t smem, int* ctas) {
                                 ctas);
 }
 
+// Clusters of `ctas` CTAs of `kernel` the card holds at once
+// (cudaOccupancyMaxActiveClusters; 0: it cannot place one).
+template <class K>
+static int resident_clusters(K kernel, int threads, size_t smem, int ctas,
+                             int* clusters) {
+  const int err = allow_cluster(kernel, smem, ctas);
+  if (err != 0) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      &attr, dim3((unsigned)ctas), dim3((unsigned)threads), smem, ctas,
+      nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, (const void*)kernel,
+                                             &cfg);
+}
+
 extern "C" {
 
 // Launches the chunk kernel on `stream` and returns cudaGetLastError() (or
@@ -113,12 +194,14 @@ int kc_kinetic_clearing_chunk(
     float* ask_out, float* last_out, float* pmid_out, float* price_path,
     float* volume_path, float* mid_path, float* stats_out, int M, int A,
     int L, int chunk, int step0, int n_valid, int warps_per_market,
-    int markets_per_cta, int agents, uint32_t seed, void* stream) {
+    int markets_per_cta, int agents, int ctas_per_market, uint32_t seed,
+    void* stream) {
   const ChunkArgs g{market_ids, bid, ask, last, pmid, ext_buy, ext_ask,
                     peer_mid, fparams, iparams, 1, stats_in, bid_out,
                     ask_out, last_out, pmid_out, price_path, volume_path,
                     mid_path, stats_out, M, A, L, chunk, step0, n_valid,
-                    seed, warps_per_market, markets_per_cta};
+                    seed, warps_per_market, markets_per_cta,
+                    ctas_per_market};
   const int err = launch_persistent(false, g, agents, stream);
   return err != 0 ? err : (int)cudaGetLastError();
 }
@@ -130,27 +213,36 @@ int kc_kinetic_clearing(
     const float* fparams, const int* iparams, float* bid_out, float* ask_out,
     float* last_out, float* pmid_out, float* price_path, float* volume_path,
     int M, int A, int L, int S, int warps_per_market, int markets_per_cta,
-    int agents, uint32_t seed, void* stream) {
+    int agents, int ctas_per_market, uint32_t seed, void* stream) {
   const ChunkArgs g{nullptr, bid, ask, last, pmid, nullptr, nullptr,
                     nullptr, fparams, iparams, 0, nullptr, bid_out, ask_out,
                     last_out, pmid_out, price_path, volume_path, nullptr,
                     nullptr, M, A, L, S, 0, S, seed, warps_per_market,
-                    markets_per_cta};
+                    markets_per_cta, ctas_per_market};
   const int err = launch_persistent(true, g, agents, stream);
   return err != 0 ? err : (int)cudaGetLastError();
 }
 
 // Resident CTAs per SM of the chunk kernel (legacy = 0) or the legacy
-// kernel (legacy = 1) at a launch shape, into *ctas; returns the CUDA error
-// of the query, else cudaGetLastError().
+// kernel (legacy = 1) at a launch shape of one CTA a market, or at a
+// cluster shape (ctas_per_market > 1) the clusters the card holds at once,
+// into *ctas; returns the CUDA error of the query, else cudaGetLastError().
 int kc_occupancy(int legacy, int A, int L, int warps_per_market,
-                 int markets_per_cta, int agents, int* ctas) {
+                 int markets_per_cta, int agents, int ctas_per_market,
+                 int* ctas) {
   size_t smem;
   const int bad = check_shape(L, A, warps_per_market, markets_per_cta,
-                              agents, &smem);
+                              agents, ctas_per_market, &smem);
   if (bad != 0) return bad;
   const int threads = 32 * warps_per_market * markets_per_cta;
   int err;
+  if (ctas_per_market > 1) {
+    err = legacy ? resident_clusters(kinetic_legacy_kernel<AGENTS_FRESH, true>,
+                                     threads, smem, ctas_per_market, ctas)
+                 : resident_clusters(kinetic_chunk_kernel<AGENTS_FRESH, true>,
+                                     threads, smem, ctas_per_market, ctas);
+    return err != 0 ? err : (int)cudaGetLastError();
+  }
   switch (agents) {
     case AGENTS_REGISTERS:
       err = occupancy_mode<AGENTS_REGISTERS>(legacy, threads, smem, ctas);

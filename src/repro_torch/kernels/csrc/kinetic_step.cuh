@@ -7,8 +7,18 @@
 // thread a mod T, so a warp holds 32 consecutive agent ids (mostly one
 // archetype). The launch rule (repro_torch/kernels/autotune.py::auto_tile)
 // takes W = max(1, L / 128): a market is one warp up to L = 128 (four
-// markets per CTA) and 2-8 warps beyond (one market per CTA); the timed
-// sweep there may launch any other shape check_shape below accepts.
+// markets per CTA) and 2-8 warps beyond (one market per CTA), and eight
+// warps in the fresh agent mode; the timed sweep there may launch any
+// other shape check_shape below accepts.
+//
+// A market cluster (the fresh agent mode only, one team a CTA): C CTAs of a
+// thread-block cluster, C in {2, 4, 8, 16}, clear one market together. Each
+// CTA holds its own copy of the market's books in registers and hashes its
+// own agents, a ≡ r·T + t (mod C·T) for CTA rank r. Each bins into its own
+// shared memory; after one cluster barrier a step, every thread sums its
+// own levels' bins over the C CTAs through distributed shared memory, so
+// every copy of the books clears alike and only rank 0 writes the outputs.
+// C = 1 is the one-CTA layout above, compiled without any of this.
 //
 // market_step() runs one step of simulate_step (repro_torch.core.step):
 // the scenario shock, best quotes and the book imbalance, the agents'
@@ -78,11 +88,40 @@ enum AgentType {
 #define REG_AGENTS 8          // agent slots a thread holds in registers
 #define MAX_CTA_THREADS 256
 #define MAX_DYNAMIC_SMEM (232448 - 1024)  // 227 KB less the static scratch
+#define MAX_CLUSTER_CTAS 16   // CTAs a market cluster may take (non-portable)
+#define PORTABLE_CLUSTER_CTAS 8
 
 // The bins' element type. Every quantity is an integer below 2^24, so int
 // bins give the float bins' bits, and the shared-memory int atomicAdd is a
 // native ATOMS.ADD where the float one is a compare-and-swap loop.
 typedef int bin_t;
+
+// The thread-block cluster, in PTX (sm_90): this CTA's rank and the
+// cluster's CTAs, the barrier over every thread of the cluster (arrive
+// with release, wait with acquire: what each CTA wrote before it is
+// visible to every CTA after it), and a peer CTA's copy of a shared
+// variable, as a generic address (distributed shared memory).
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int cluster_ctas() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return (int)n;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n\t"
+               "barrier.cluster.wait.acquire;" ::: "memory");
+}
+template <class T>
+__device__ __forceinline__ T* cluster_peer(T* p, int rank) {
+  uint64_t out;
+  asm volatile("mapa.u64 %0, %1, %2;"
+               : "=l"(out) : "l"(p), "r"((uint32_t)rank));
+  return reinterpret_cast<T*>(out);
+}
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 16;
@@ -193,7 +232,8 @@ struct TeamScratch {
   float demand[MAX_TEAM_WARPS], supply[MAX_TEAM_WARPS], vol[MAX_TEAM_WARPS];
 };
 
-extern __shared__ int kc_smem[];  // the teams' bins (and hoisted agents)
+// The teams' bins (and hoisted agents); 16-byte aligned for int4 access.
+extern __shared__ __align__(16) int kc_smem[];
 __shared__ TeamScratch kc_scratch;
 
 // max(bb), min(ba), sum(sb), sum(sa) over the team; every thread gets them.
@@ -360,6 +400,29 @@ struct FreshAgents {
   }
 };
 
+// FreshAgents spread over a market cluster: CTA rank r holds the agents
+// a ≡ r·T + t (mod C·T), so a warp still holds 32 consecutive agent ids.
+struct ClusterAgents {
+  static constexpr bool kSmem = false;
+  FreshAgents fresh;
+  int first, stride;
+
+  __device__ __forceinline__ void init(const Team& tm, const MarketRow& row,
+                                       uint32_t seed, uint32_t mkt, int A,
+                                       int* area) {
+    fresh.init(tm, row, seed, mkt, A, area);
+    first = cluster_rank() * tm.T + tm.t;
+    stride = cluster_ctas() * tm.T;
+  }
+
+  template <class F>
+  __device__ __forceinline__ void each(const Team&, int A, F&& f) const {
+    for (int a = first; a < A; a += stride)
+      f(a, agent_key(fresh.seed_g, fresh.market, A, a),
+        agent_type(a, *fresh.p));
+  }
+};
+
 // 32-bit words of one team's dynamic shared memory: buy and sell bins, then
 // (SmemAgents only) A keys and A type bytes.
 static inline __host__ __device__ int team_smem_words(int L, int A,
@@ -373,19 +436,23 @@ static inline __host__ __device__ int team_smem_words(int L, int A,
 // nothing across steps, so they always run AGENTS_FRESH.
 enum AgentMode { AGENTS_SHARED = 0, AGENTS_REGISTERS = 1, AGENTS_FRESH = 2 };
 
-// 0 when (W, MPC, agents) is a launch shape the kernels can run for (L, A),
-// else cudaErrorInvalidValue.
+// 0 when (W, MPC, agents, C) is a launch shape the kernels can run for
+// (L, A), else cudaErrorInvalidValue. C CTAs a market (a cluster) only in
+// the fresh mode and at one team a CTA; a cluster's bins are two buffers.
 static inline int check_shape(int L, int A, int W, int MPC, int agents,
-                              size_t* smem) {
+                              int C, size_t* smem) {
   const bool pow2 = L >= 4 && L <= 1024 && (L & (L - 1)) == 0;
   const bool w_ok = W == 1 || W == 2 || W == 4 || W == 8;
+  const bool c_ok = C >= 1 && C <= MAX_CLUSTER_CTAS && (C & (C - 1)) == 0;
   if (!pow2 || A < 1 || !w_ok || W * LEVELS_PER_WARP < L || MPC < 1 ||
       (W > 1 && MPC != 1) || 32 * W * MPC > MAX_CTA_THREADS ||
       agents < AGENTS_SHARED || agents > AGENTS_FRESH ||
-      (agents == AGENTS_REGISTERS && A > REG_AGENTS * 32 * W)) {
+      (agents == AGENTS_REGISTERS && A > REG_AGENTS * 32 * W) || !c_ok ||
+      (C > 1 && (agents != AGENTS_FRESH || MPC != 1))) {
     return (int)cudaErrorInvalidValue;
   }
-  *smem = (size_t)MPC * 4 * team_smem_words(L, A, agents == AGENTS_SHARED);
+  *smem = (size_t)MPC * 4 * team_smem_words(L, A, agents == AGENTS_SHARED) *
+          (C > 1 ? 2 : 1);
   return *smem <= MAX_DYNAMIC_SMEM ? 0 : (int)cudaErrorInvalidValue;
 }
 
@@ -419,6 +486,101 @@ static inline int resident_ctas(K kernel, int threads, size_t smem,
 // A thread's four levels: resting books between steps, totals within one.
 struct Book {
   float bid[LEVELS_PER_LANE], ask[LEVELS_PER_LANE];
+};
+
+// Where a step's orders are binned and summed: the team's own bins
+// (CtaBins) or a market cluster's (ClusterBins). add() bins one order,
+// sync() is the barrier after the binning, take() hands a thread the
+// step's totals at its levels lv0 + j (0 past L) and resets what it read
+// for a later step, leader() says whether this CTA writes the outputs, and
+// finish() ends the call.
+
+// The team's 2L bins in its CTA's shared memory (buy [0, L), sell
+// [L, 2L)), read and reset in place.
+struct CtaBins {
+  static constexpr bool kCluster = false;
+  bin_t* b;
+
+  __device__ __forceinline__ void init(const Team& tm, int* area, int L) {
+    b = reinterpret_cast<bin_t*>(area);
+    for (int k = tm.t; k < 2 * L; k += tm.T) b[k] = (bin_t)0;
+  }
+  __device__ __forceinline__ void add(int, int bin, int q) const {
+    atomicAdd(&b[bin], (bin_t)q);
+  }
+  __device__ __forceinline__ void sync(const Team& tm) const { team_sync(tm); }
+  __device__ __forceinline__ void take(const Team&, int, int lv0, int L,
+                                       bin_t* buy, bin_t* sell) const {
+#pragma unroll
+    for (int j = 0; j < LEVELS_PER_LANE; ++j) {
+      const int lv = lv0 + j;
+      buy[j] = sell[j] = (bin_t)0;
+      if (lv < L) {
+        buy[j] = b[lv];
+        sell[j] = b[L + lv];
+        b[lv] = (bin_t)0;
+        b[L + lv] = (bin_t)0;
+      }
+    }
+  }
+  __device__ __forceinline__ bool leader() const { return true; }
+  __device__ __forceinline__ void finish() const {}
+};
+
+// A market cluster's bins: each CTA bins its own agents into its own
+// shared memory, and after the cluster barrier each thread sums its levels
+// over the C CTAs through distributed shared memory (ints: the order of
+// the sum changes no bit). Two buffers of 2L, by step parity, so one
+// barrier a step is enough: after step s's barrier every peer has read
+// the buffer of step s - 1, and a thread resets its levels of it there.
+struct ClusterBins {
+  static constexpr bool kCluster = true;
+  bin_t* b;
+  int L2, rank, ranks;
+
+  __device__ __forceinline__ void init(const Team& tm, int* area, int L) {
+    b = reinterpret_cast<bin_t*>(area);
+    L2 = 2 * L;
+    rank = cluster_rank();
+    ranks = cluster_ctas();
+    for (int k = tm.t; k < 2 * L2; k += tm.T) b[k] = (bin_t)0;
+  }
+  __device__ __forceinline__ bin_t* at(int step) const {
+    return b + (step & 1) * L2;
+  }
+  __device__ __forceinline__ void add(int step, int bin, int q) const {
+    atomicAdd(at(step) + bin, (bin_t)q);
+  }
+  // Every CTA of the cluster has binned this step, and its bins are
+  // visible to the peers.
+  __device__ __forceinline__ void sync(const Team&) const { cluster_sync(); }
+  // L is a multiple of 4, so a thread owns four levels or none: one int4
+  // a side and CTA.
+  __device__ __forceinline__ void take(const Team&, int step, int lv0, int L,
+                                       bin_t* buy, bin_t* sell) const {
+    static_assert(LEVELS_PER_LANE == 4, "one int4 a side");
+    int4 tb = make_int4(0, 0, 0, 0), ts = tb;
+    if (lv0 < L) {
+      const bin_t* cur = at(step);
+#pragma unroll 8
+      for (int r = 0; r < ranks; ++r) {
+        const int4 pb = *cluster_peer(
+            reinterpret_cast<const int4*>(cur + lv0), r);
+        const int4 ps = *cluster_peer(
+            reinterpret_cast<const int4*>(cur + L + lv0), r);
+        tb.x += pb.x; tb.y += pb.y; tb.z += pb.z; tb.w += pb.w;
+        ts.x += ps.x; ts.y += ps.y; ts.z += ps.z; ts.w += ps.w;
+      }
+      bin_t* prev = at(step + 1);
+      *reinterpret_cast<int4*>(prev + lv0) = make_int4(0, 0, 0, 0);
+      *reinterpret_cast<int4*>(prev + L + lv0) = make_int4(0, 0, 0, 0);
+    }
+    buy[0] = tb.x; buy[1] = tb.y; buy[2] = tb.z; buy[3] = tb.w;
+    sell[0] = ts.x; sell[1] = ts.y; sell[2] = ts.z; sell[3] = ts.w;
+  }
+  __device__ __forceinline__ bool leader() const { return rank == 0; }
+  // No CTA leaves (and frees its shared memory) while a peer may read it.
+  __device__ __forceinline__ void finish() const { cluster_sync(); }
 };
 
 // One agent's order at this step: returns its quantity (0: none) and sets
@@ -497,13 +659,14 @@ __device__ __forceinline__ int agent_order(
 }
 
 // One step of simulate_step for the team's market at absolute `step`, on
-// the books in `bk` and the team's `bins` (zero on entry and on return).
-// `peer` is the arbitrageurs' peer mid; `eb`/`ea` are the market's external
-// order rows (null: none). Advances `last` and `pmid` and leaves the step's
-// mid and cleared volume in every thread of the team.
-template <class Agents>
+// the books in `bk` and the team's `bins` (a CtaBins or ClusterBins, zero
+// where this step bins on entry). `peer` is the arbitrageurs' peer mid;
+// `eb`/`ea` are the market's external order rows (null: none). Advances
+// `last` and `pmid` and leaves the step's mid and cleared volume in every
+// thread of the team.
+template <class Agents, class Bins>
 __device__ __forceinline__ void market_step(
-    const Team& tm, Book& bk, bin_t* bins, const MarketRow& p,
+    const Team& tm, Book& bk, const Bins& bins, const MarketRow& p,
     const Agents& agents, const float* eb, const float* ea, float peer,
     int step, int A, int L, float& last, float& pmid, float& mid_out,
     float& volume_out) {
@@ -543,23 +706,23 @@ __device__ __forceinline__ void market_step(
     int bin;
     const int q = agent_order(p, a, key, type, step, mid, pmid, imb, peer, L,
                               bin);
-    if (q != 0) atomicAdd(&bins[bin], (bin_t)q);
+    if (q != 0) bins.add(step, bin, q);
   });
-  team_sync(tm);
+  bins.sync(tm);
 
   // 6. Totals over resting + incoming flow (+ external orders), in place;
-  // the bins are reset for the next step.
+  // the bins are reset for a later step.
+  bin_t inb[LEVELS_PER_LANE], ina[LEVELS_PER_LANE];
+  bins.take(tm, step, lv0, L, inb, ina);
   float lb = 0.f, la = 0.f;
 #pragma unroll
   for (int j = 0; j < LEVELS_PER_LANE; ++j) {
     const int lv = lv0 + j;
     if (lv < L) {
-      float tb = bk.bid[j] + (float)bins[lv];
-      float ta = bk.ask[j] + (float)bins[L + lv];
+      float tb = bk.bid[j] + (float)inb[j];
+      float ta = bk.ask[j] + (float)ina[j];
       if (eb != nullptr) tb += eb[lv];
       if (ea != nullptr) ta += ea[lv];
-      bins[lv] = (bin_t)0;
-      bins[L + lv] = (bin_t)0;
       bk.bid[j] = tb;
       bk.ask[j] = ta;
       lb += tb;
@@ -653,6 +816,7 @@ struct ChunkArgs {
   int M, A, L, chunk, step0, n_valid;
   uint32_t seed;
   int warps_per_market, markets_per_cta;
+  int ctas_per_market;    // 1, or the CTAs of a market cluster
 };
 
 // What a team reads at entry: its market's row, id and books.
@@ -695,29 +859,30 @@ __device__ __forceinline__ void store_book(const Team& tm, const Book& bk,
   }
 }
 
-__device__ __forceinline__ void zero_bins(const Team& tm, bin_t* bins,
-                                          int L) {
-  for (int k = tm.t; k < 2 * L; k += tm.T) bins[k] = (bin_t)0;
-}
-
 // The persistent body (kernels 1 and 3): up to `chunk` steps with the books
-// in registers, the step-invariant agent keys and types computed once, and
-// the per-step outputs buffered in warp 0 (lane s mod 32 holds step s) and
-// written 32 steps at a time.
-template <class Agents>
+// in registers, the step-invariant agent keys and types computed once (or,
+// fresh, at every step), and the per-step outputs buffered in warp 0 (lane
+// s mod 32 holds step s) and written 32 steps at a time. With ClusterBins
+// the CTAs of a cluster of g.ctas_per_market clear one market, and rank 0
+// writes its outputs.
+template <class Agents, class Bins>
 __device__ __forceinline__ void persistent_market(const ChunkArgs& g) {
   const Team tm = make_team(g.warps_per_market);
-  const int m = (int)blockIdx.x * g.markets_per_cta + tm.slot;
+  const int m = Bins::kCluster
+                    ? (int)blockIdx.x / g.ctas_per_market
+                    : (int)blockIdx.x * g.markets_per_cta + tm.slot;
   // The ragged last CTA: a team past M leaves. Teams share a CTA only when
-  // each is one warp, and those never cross __syncthreads().
+  // each is one warp, and those never cross __syncthreads(). A cluster is
+  // one market, so none is ragged.
   if (m >= g.M) return;
   const int L = g.L, A = g.A;
   int* area = kc_smem + tm.slot * team_smem_words(L, A, Agents::kSmem);
-  bin_t* bins = reinterpret_cast<bin_t*>(area);
   const MarketIn in = market_in(g, m);
   Book bk;
   load_book(tm, bk, g.bid + in.row, g.ask + in.row, L);
-  zero_bins(tm, bins, L);
+  Bins bins;
+  bins.init(tm, area, L);
+  const bool writes = bins.leader();
   Agents agents;
   agents.init(tm, in.p, g.seed ^ SEED_GOLDEN, in.market, A, area + 2 * L);
   float last = g.last[m];
@@ -745,7 +910,7 @@ __device__ __forceinline__ void persistent_market(const ChunkArgs& g) {
     }
     const int lane_s = s & 31;
     if (tm.lane == lane_s) { kp = last; kv = volume; km = mid; }
-    if ((lane_s == 31 || s == g.n_valid - 1) && tm.warp == 0 &&
+    if ((lane_s == 31 || s == g.n_valid - 1) && writes && tm.warp == 0 &&
         tm.lane <= lane_s) {
       const size_t o = (size_t)m * g.chunk + (s - lane_s) + tm.lane;
       g.price_path[o] = kp;
@@ -754,14 +919,17 @@ __device__ __forceinline__ void persistent_market(const ChunkArgs& g) {
     }
   }
 
-  store_book(tm, bk, g.bid_out + in.row, g.ask_out + in.row, L);
-  if (tm.t == 0) {
-    g.last_out[m] = last;
-    g.pmid_out[m] = pmid;
-    if (stats) {
-      for (int k = 0; k < NUM_STATS; ++k) g.stats_out[(size_t)m * NUM_STATS + k] = st[k];
+  if (writes) {
+    store_book(tm, bk, g.bid_out + in.row, g.ask_out + in.row, L);
+    if (tm.t == 0) {
+      g.last_out[m] = last;
+      g.pmid_out[m] = pmid;
+      if (stats) {
+        for (int k = 0; k < NUM_STATS; ++k) g.stats_out[(size_t)m * NUM_STATS + k] = st[k];
+      }
     }
   }
+  bins.finish();
 }
 
 // The per-step body (kernels 2 and 4): step step0 + s from the state in
@@ -772,12 +940,11 @@ __device__ __forceinline__ void one_step_market(const ChunkArgs& g, int s) {
   const int m = (int)blockIdx.x * g.markets_per_cta + tm.slot;
   if (m >= g.M) return;  // the ragged last CTA, as above
   const int L = g.L, A = g.A;
-  bin_t* bins = reinterpret_cast<bin_t*>(
-      kc_smem + tm.slot * team_smem_words(L, A, false));
   const MarketIn in = market_in(g, m);
   Book bk;
   load_book(tm, bk, g.bid + in.row, g.ask + in.row, L);
-  zero_bins(tm, bins, L);
+  CtaBins bins;
+  bins.init(tm, kc_smem + tm.slot * team_smem_words(L, A, false), L);
   FreshAgents agents;
   agents.init(tm, in.p, g.seed ^ SEED_GOLDEN, in.market, A, nullptr);
   float last = g.last[m];
@@ -807,9 +974,11 @@ __device__ __forceinline__ void one_step_market(const ChunkArgs& g, int s) {
   }
 }
 
-// The launch of `g`'s shape: grid, CTA threads.
+// The launch of `g`'s shape: grid (a cluster's CTAs side by side), CTA
+// threads.
 static inline dim3 grid_of(const ChunkArgs& g) {
-  return dim3((unsigned)((g.M + g.markets_per_cta - 1) / g.markets_per_cta));
+  return dim3((unsigned)((g.M + g.markets_per_cta - 1) / g.markets_per_cta *
+                         g.ctas_per_market));
 }
 static inline dim3 cta_of(const ChunkArgs& g) {
   return dim3((unsigned)(32 * g.warps_per_market * g.markets_per_cta));

@@ -81,7 +81,7 @@ static int launch_steps(K kernel, ChunkArgs g, StateBufs src,
                         void* stream) {
   size_t smem;
   int err = check_shape(g.L, g.A, g.warps_per_market, g.markets_per_cta,
-                        AGENTS_FRESH, &smem);
+                        AGENTS_FRESH, 1, &smem);
   if (err == 0) err = allow_smem(kernel, smem);
   if (err != 0) return err;
   const float* ext_buy = g.ext_buy;
@@ -125,7 +125,7 @@ int kc_naive_clearing_chunk(
                     peer_mid, fparams, iparams, 1, stats_in, nullptr,
                     nullptr, nullptr, nullptr, price_path, volume_path,
                     mid_path, nullptr, M, A, L, chunk, step0, n_valid, seed,
-                    warps_per_market, markets_per_cta};
+                    warps_per_market, markets_per_cta, 1};
   const OutBufs out{bid_out, ask_out, last_out, pmid_out, stats_out};
   const OutBufs tmp{bid_tmp, ask_tmp, last_tmp, pmid_tmp, stats_tmp};
   const int err = launch_steps(naive_chunk_step_kernel, g,
@@ -148,7 +148,7 @@ int kc_naive_clearing(
                     nullptr, fparams, iparams, 0, nullptr, nullptr, nullptr,
                     nullptr, nullptr, price_path, volume_path, nullptr,
                     nullptr, M, A, L, S, 0, S, seed, warps_per_market,
-                    markets_per_cta};
+                    markets_per_cta, 1};
   const OutBufs out{bid_out, ask_out, last_out, pmid_out, nullptr};
   const OutBufs tmp{bid_tmp, ask_tmp, last_tmp, pmid_tmp, nullptr};
   const int err = launch_steps(naive_legacy_step_kernel, g,
@@ -164,7 +164,7 @@ int kc_occupancy(int legacy, int A, int L, int warps_per_market,
                  int markets_per_cta, int* ctas) {
   size_t smem;
   const int bad = check_shape(L, A, warps_per_market, markets_per_cta,
-                              AGENTS_FRESH, &smem);
+                              AGENTS_FRESH, 1, &smem);
   if (bad != 0) return bad;
   const int threads = 32 * warps_per_market * markets_per_cta;
   const int err =

@@ -52,10 +52,10 @@ _LIB_NAME = "kinetic_clearing"
 _c_ptr, _c_int, _c_u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 #: C entries of the library and their argument types.
 _ENTRIES = {
-    "kc_kinetic_clearing_chunk": [_c_ptr] * 19 + [_c_int] * 9 + [_c_u32,
-                                                                 _c_ptr],
-    "kc_kinetic_clearing": [_c_ptr] * 12 + [_c_int] * 7 + [_c_u32, _c_ptr],
-    "kc_occupancy": [_c_int] * 6 + [_c_ptr],
+    "kc_kinetic_clearing_chunk": [_c_ptr] * 19 + [_c_int] * 10 + [_c_u32,
+                                                                  _c_ptr],
+    "kc_kinetic_clearing": [_c_ptr] * 12 + [_c_int] * 8 + [_c_u32, _c_ptr],
+    "kc_occupancy": [_c_int] * 7 + [_c_ptr],
 }
 
 
@@ -78,7 +78,9 @@ def _load_library() -> ctypes.CDLL:
 
 def resident_ctas(legacy: bool, shape: autotune.TileChoice) -> int:
     """CTAs of the chunk (or legacy) kernel resident on one SM at
-    ``shape`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    ``shape`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); at a
+    cluster shape (``ctas_per_market > 1``), the clusters the card holds at
+    once (``cudaOccupancyMaxActiveClusters``; 0: it cannot place one)."""
     out = ctypes.c_int(0)
     _build.check_launch(
         _load_library(), _load_library().kc_occupancy(
@@ -170,9 +172,10 @@ def kinetic_clearing_chunk(
     (the kernel always runs its raking scan; all give the same bits for
     exact-integer books). The launch shape is ``tile`` (a
     :class:`~repro_torch.kernels.autotune.TileChoice` for the operands' L
-    and A, checked here on every device), or ``autotune.auto_tile(L, A)``
-    when None; the plain version ignores it, as every shape gives the same
-    bits.
+    and A, checked here on every device), or ``autotune.auto_tile(L, A,
+    M)`` when None (a market cluster in the fresh mode where the markets
+    alone leave SMs idle); the plain version ignores it, as every shape
+    gives the same bits.
 
     Returns ``(bid, ask, last, pmid, price_path, volume_path, mid_path)``
     with ``[M, chunk]`` paths of which the first ``n_valid`` columns are
@@ -186,7 +189,7 @@ def kinetic_clearing_chunk(
                 market_ids=market_ids, params=params, peer_mid=peer_mid,
                 stats=stats, stats_only=stats_only)
     shape = autotune.resolve_tile(tile, bid.shape[1], cfg.num_agents,
-                                  hoisted=True)
+                                  hoisted=True, num_markets=bid.shape[0])
     args = (bid, ask, last, pmid, step0, n_valid, ext_buy, ext_ask)
     kw = dict(cfg=cfg, chunk=chunk, scan=scan, market_ids=market_ids,
               params=params, peer_mid=peer_mid, stats=stats,
@@ -332,15 +335,15 @@ def kinetic_clearing(bid: torch.Tensor, ask: torch.Tensor,
 
     Market ids are the rows, and arbitrageurs see their own market's
     previous mid at every step. ``tile`` (the counterpart of ``mb``) is the
-    launch shape, default ``autotune.auto_tile(L, A)``; a ragged last CTA
-    is masked, so the TPU entry's rule that the tile divide M does not
+    launch shape, default ``autotune.auto_tile(L, A, M)``; a ragged last
+    CTA is masked, so the TPU entry's rule that the tile divide M does not
     apply. Returns ``(bid, ask, last, pmid, price_path, volume_path)`` with
     ``[M, S]`` paths.
     """
     check_legacy_operands("kinetic_clearing", bid, ask, last, pmid, cfg=cfg,
                           scan=scan)
     shape = autotune.resolve_tile(tile, bid.shape[1], cfg.num_agents,
-                                  hoisted=True)
+                                  hoisted=True, num_markets=bid.shape[0])
     M, L = bid.shape
     with roofline.kernel_call("kinetic_clearing", bid.device, lambda: (
             legacy_op_count(cfg, M),

@@ -20,16 +20,20 @@ Knobs (``Engine`` backend options, all composable; ``repro``'s names in
 brackets):
 
   * ``tile=`` [``mb=``] — pin the launch shape
-    (:class:`~repro_torch.kernels.autotune.TileChoice`); no sweep.
+    (:class:`~repro_torch.kernels.autotune.TileChoice`); no sweep. Without
+    it, the rule's shape for the shard's rows (``autotune.auto_tile(L, A,
+    rows)``: in the fresh mode each shard's rows pick their own market
+    cluster) or the sweep's winner.
   * ``agents=`` [``agent_chunk=``] — pin the agent mode and sweep the rest.
   * ``autotune="auto"`` — ``"auto"`` sweeps when the runner's device is a
     card, ``True`` on any device (on the CPU it times the plain version),
     ``False`` keeps the rule (``autotune.auto_tile``). The sweep times one
-    chunk call of each candidate on a shard's rows (the opening books, zero
-    params) when the runner is built (on a card its device time, by CUDA
-    events), through the counted wrappers, and caches the winner per
-    ``autotune.tune_key`` for every runner of the process. It builds
-    nothing: ``trace_count`` does not move.
+    chunk call of each candidate on the largest shard's rows (the opening
+    books, zero params) when the runner is built (on a card its device
+    time, by CUDA events), through the counted wrappers, and caches the
+    winner per ``autotune.tune_key`` (with the rule's cluster size for
+    those rows) for every runner of the process; every shard launches the
+    winner. It builds nothing: ``trace_count`` does not move.
   * ``devices=N`` / ``mesh=`` — cut the market axis over a
     :class:`~repro_torch.launch.MarketsMesh` (default: a mesh of the one
     device, a single shard). One controller drives it, as JAX drives a
@@ -144,36 +148,52 @@ class ClearingChunkRunner(session.ChunkRunner):
         self._market_ids = self.place(torch.arange(
             spec.num_markets, dtype=torch.int32,
             device="cpu" if self._sharded else device))
-        self.tile = self._resolve_tile(tile, agents, autotune_mode)
+        #: The launch shape of the largest shard's rows, and each shard's.
+        self.tile, self.shard_tiles = self._resolve_tile(
+            tile, agents, autotune_mode)
 
     # ---- launch shape ----
-    def _resolve_tile(self, tile, agents, autotune_mode
-                      ) -> autotune.TileChoice:
+    def _rule(self, rows: int, agents) -> autotune.TileChoice:
+        """The rule's shape for ``rows`` markets (a persistent kernel's
+        may be a market cluster), in a pinned agent mode if one is given."""
         L, A = self.spec.num_levels, self.spec.num_agents
+        rule = autotune.auto_tile(L, A, rows if self.hoisted else None)
+        if agents is not None and agents != rule.agents:
+            rule = autotune.auto_tile(L, A)._replace(agents=agents)
+        return rule
+
+    def _resolve_tile(self, tile, agents, autotune_mode
+                      ) -> Tuple[autotune.TileChoice, tuple]:
+        L, A = self.spec.num_levels, self.spec.num_agents
+        shard_rows = [max(1, r.stop - r.start) for r in self._rows]
+        # A shard's launch shape is the tile: the largest shard's rows.
+        rows = max(shard_rows)
         if tile is not None:
-            return autotune.check_tile(tile, L, A, self.hoisted)
-        rule = autotune.auto_tile(L, A)
-        if agents is not None:
-            rule = rule._replace(agents=agents)
+            tile = autotune.check_tile(tile, L, A, self.hoisted)
+            return tile, (tile,) * len(shard_rows)
         sweep = autotune_mode is True or (autotune_mode == "auto"
                                           and self.device.type == "cuda")
         if not sweep:
-            return autotune.check_tile(rule, L, A, self.hoisted)
+            tiles = tuple(autotune.check_tile(self._rule(n, agents), L, A,
+                                              self.hoisted)
+                          for n in shard_rows)
+            return tiles[shard_rows.index(rows)], tiles
+        rule = self._rule(rows, agents)
         cands = autotune.candidate_tiles(
-            L, A, hoisted=self.hoisted,
+            L, A, rows, hoisted=self.hoisted,
             agents=agents if agents is not None else ...)
         if not cands:
             raise ValueError(f"no launch shape holds agents={agents!r} at "
                              f"L={L}, A={A}")
-        # A shard's launch shape is the tile: time the largest shard's rows.
-        rows = -(-self.spec.num_markets // self.mesh.size)
         key = autotune.tune_key(
             L, A, self.chunk, device=self.device,
             kernel=self._chunk_fn.__name__, scan=self.scan,
-            stats_only=self.stats_only, agents=agents)
-        return autotune.autotune_tile(
+            stats_only=self.stats_only, agents=agents,
+            ctas_per_market=rule.ctas_per_market)
+        tile = autotune.autotune_tile(
             key, self._timer(rows), cands,
             fallback=rule if rule in cands else cands[0])
+        return tile, (tile,) * len(shard_rows)
 
     def _timer(self, rows: int) -> Callable[[autotune.TileChoice], float]:
         """``time_candidate``: one chunk call of a candidate on ``rows``
@@ -249,13 +269,15 @@ class ClearingChunkRunner(session.ChunkRunner):
 
     # ---- execution ----
     def _call(self, state: MarketState, params: PackedParams, step0: int,
-              n: int, ext, stats, market_ids, peer_mid) -> Tuple:
+              n: int, ext, stats, market_ids, peer_mid, pos: int = 0
+              ) -> Tuple:
         eb, ea = (None, None) if ext is None else ext
         return self._chunk_fn(
             state.bid, state.ask, state.last_price, state.prev_mid, step0, n,
             eb, ea, cfg=self.spec, chunk=self.chunk, scan=self.scan,
             market_ids=market_ids, params=params, peer_mid=peer_mid,
-            stats=stats, stats_only=self.stats_only, tile=self.tile)
+            stats=stats, stats_only=self.stats_only,
+            tile=self.shard_tiles[pos])
 
     def _ring(self, prev_mid: RowShards) -> List[torch.Tensor]:
         """Each shard's whole ``[M, 1]`` chunk-entry mid column, on its
@@ -307,7 +329,7 @@ class ClearingChunkRunner(session.ChunkRunner):
                     None if ext is None else tuple(map(part, ext)),
                     None if stats is None else stats_mod.MarketStats(
                         *map(part, stats)),
-                    part(self._market_ids), peer))
+                    part(self._market_ids), peer, pos))
 
         # Each shard's outputs, flat: four state leaves, then six stats
         # (which stay with the state) or three paths (which are joined).

@@ -51,18 +51,20 @@ def fresh_cache():
 # The candidates: the C entries' domain, in a fixed order.
 # ---------------------------------------------------------------------------
 
-def _c_accepts(L, A, W, mpc, mode):
+def _c_accepts(L, A, W, mpc, mode, C=1):
     """``check_shape`` of ``kinetic_step.cuh``, transcribed condition by
     condition (:func:`test_check_shape_is_the_headers` holds the text)."""
     pow2 = 4 <= L <= 1024 and (L & (L - 1)) == 0
     w_ok = W in (1, 2, 4, 8)
+    c_ok = 1 <= C <= 16 and (C & (C - 1)) == 0
     code = autotune.AGENT_MODES.index(mode)
     if (not pow2 or A < 1 or not w_ok or W * 128 < L or mpc < 1
             or (W > 1 and mpc != 1) or 32 * W * mpc > 256
-            or code < 0 or code > 2 or (code == 1 and A > 8 * 32 * W)):
+            or code < 0 or code > 2 or (code == 1 and A > 8 * 32 * W)
+            or not c_ok or (C > 1 and (code != 2 or mpc != 1))):
         return False
     words = 2 * L + (A + (A + 3) // 4 if code == 0 else 0)
-    return mpc * 4 * words <= 232448 - 1024
+    return mpc * 4 * words * (2 if C > 1 else 1) <= 232448 - 1024
 
 
 def test_check_shape_is_the_headers():
@@ -72,53 +74,77 @@ def test_check_shape_is_the_headers():
                  "W * LEVELS_PER_WARP < L", "MPC < 1",
                  "(W > 1 && MPC != 1)", "32 * W * MPC > MAX_CTA_THREADS",
                  "(agents == AGENTS_REGISTERS && A > REG_AGENTS * 32 * W)",
+                 "C >= 1 && C <= MAX_CLUSTER_CTAS && (C & (C - 1)) == 0",
+                 "(C > 1 && (agents != AGENTS_FRESH || MPC != 1))",
                  "*smem = (size_t)MPC * 4 * team_smem_words(L, A, "
-                 "agents == AGENTS_SHARED);",
+                 "agents == AGENTS_SHARED) *\n          (C > 1 ? 2 : 1);",
                  "*smem <= MAX_DYNAMIC_SMEM"):
         assert cond in body, cond
-    # The per-step kernels check their shape in the fresh mode.
-    assert "AGENTS_FRESH, &smem" in (_build.CSRC
-                                     / "naive_clearing.cu").read_text()
+    assert "#define MAX_CLUSTER_CTAS 16" in HEADER
+    assert autotune.CTAS_PER_MARKET[-1] == 16
+    # The per-step kernels check their shape in the fresh mode, one CTA a
+    # market.
+    assert "AGENTS_FRESH, 1, &smem" in (_build.CSRC
+                                        / "naive_clearing.cu").read_text()
     for L in (4, 64, 128, 512, 1024):
         for A in (1, 300, 2048, 2049, 46080, 46081):
             for W in range(0, 10):
                 for mpc in range(0, 10):
                     for mode in autotune.AGENT_MODES:
-                        try:
-                            autotune.check_shape(L, A, W, mpc, mode, True)
-                            ok = True
-                        except ValueError:
-                            ok = False
-                        assert ok == _c_accepts(L, A, W, mpc, mode), \
-                            (L, A, W, mpc, mode)
+                        for C in (0, 1, 2, 3, 4, 8, 16, 32):
+                            try:
+                                autotune.check_shape(L, A, W, mpc, mode,
+                                                     True, C)
+                                ok = True
+                            except ValueError:
+                                ok = False
+                            assert ok == _c_accepts(L, A, W, mpc, mode, C), \
+                                (L, A, W, mpc, mode, C)
 
 
 @pytest.mark.parametrize("hoisted", [True, False])
 @pytest.mark.parametrize("L", LEVELS)
 @pytest.mark.parametrize("A", AGENTS)
 def test_candidates_are_the_c_domain(L, A, hoisted):
-    cands = autotune.candidate_tiles(L, A, hoisted=hoisted)
+    cands = autotune.candidate_tiles(L, A, hoisted=hoisted, max_ctas=16)
     assert cands[0] == autotune.auto_tile(L, A)
     assert len(set(cands)) == len(cands)
     mode = autotune.auto_tile(L, A).agents
-    want = {(W, mpc, m) for W in (1, 2, 4, 8) for mpc in (1, 2, 4, 8)
+    # Clusters only for a persistent kernel whose population is past shared
+    # memory (the rule's own mode is fresh).
+    sizes = (1, 2, 4, 8, 16) if hoisted and mode == "fresh" else (1,)
+    want = {(W, mpc, m, C) for W in (1, 2, 4, 8) for mpc in (1, 2, 4, 8)
             for m in (autotune.AGENT_MODES if hoisted else (mode,))
-            if _c_accepts(L, A, W, mpc, m if hoisted else "fresh")}
-    got = {(c.warps_per_market, c.markets_per_cta, c.agents) for c in cands}
+            for C in sizes
+            if _c_accepts(L, A, W, mpc, m if hoisted else "fresh", C)}
+    got = {(c.warps_per_market, c.markets_per_cta, c.agents,
+            c.ctas_per_market) for c in cands}
     assert got == want
     for c in cands:
         assert (c.num_levels, c.num_agents) == (L, A)
         assert autotune.check_tile(c, L, A, hoisted) is c
-    pairs = {(W, mpc) for W, mpc, _ in got}
+    pairs = {(W, mpc) for W, mpc, _, C in got if C == 1}
+    one = [c for c in cands if c.ctas_per_market == 1]
     if L <= 128:
         assert len(pairs) == 7      # W in {1,2,4,8}; MPC in {1,2,4,8} at W=1
     if L == 1024:
         assert pairs == {(8, 1)}
-        assert len(cands) <= (3 if hoisted else 1)
+        assert len(one) <= (3 if hoisted else 1)
         if hoisted and A <= 2048:
-            assert len(cands) == 3  # registers, shared and fresh
+            assert len(one) == 3  # registers, shared and fresh
     if hoisted and L <= 128 and A <= 256:
         assert len(cands) == 21
+    # A cluster is fresh, one team a CTA, of each W that holds L.
+    clusters = {(c.warps_per_market, c.ctas_per_market) for c in cands
+                if c.ctas_per_market > 1}
+    if len(sizes) > 1:
+        assert clusters == {(W, C) for W in (1, 2, 4, 8) if 128 * W >= L
+                            for C in (2, 4, 8, 16)}
+    else:
+        assert not clusters
+    # A smaller cluster limit (the card's occupancy query) caps the list.
+    capped = autotune.candidate_tiles(L, A, hoisted=hoisted, max_ctas=4)
+    assert [c for c in cands if c.ctas_per_market <= 4] == capped
 
 
 @pytest.mark.parametrize("L,A", [(4, 16), (32, 5), (128, 256), (128, 1024),
@@ -131,8 +157,12 @@ def test_candidates_cover_levels_and_agents_once(L, A):
     assert "const int lv = tm.t * LEVELS_PER_LANE + j;" in HEADER
     assert "const int a = tm.t + k * tm.T;" in HEADER
     assert HEADER.count("for (int a = tm.t; a < A; a += tm.T)") == 3
-    for c in autotune.candidate_tiles(L, A, hoisted=True):
-        T = c.threads_per_market
+    # ClusterAgents: rank r's thread t starts at r·T + t, strides C·T.
+    assert ("first = cluster_rank() * tm.T + tm.t;\n"
+            "    stride = cluster_ctas() * tm.T;") in HEADER
+    assert "for (int a = first; a < A; a += stride)" in HEADER
+    for c in autotune.candidate_tiles(L, A, hoisted=True, max_ctas=16):
+        T, C = c.threads_per_market, c.ctas_per_market
         levels = sorted(4 * t + j for t in range(T) for j in range(4)
                         if 4 * t + j < L)
         assert levels == list(range(L)), c
@@ -140,12 +170,14 @@ def test_candidates_cover_levels_and_agents_once(L, A):
             agents = [t + k * T for t in range(T) for k in range(8)
                       if t + k * T < A]
         else:
-            agents = [a for t in range(T) for a in range(t, A, T)]
+            agents = [a for r in range(C) for t in range(T)
+                      for a in range(r * T + t, A, C * T)]
         assert sorted(agents) == list(range(A)), c
         assert c.threads_per_cta <= autotune.MAX_CTA_THREADS
         per_team = autotune.team_smem_bytes(L, A, c.agents == "shared")
-        assert c.smem_bytes(True) == c.markets_per_cta * per_team \
-            <= autotune.MAX_DYNAMIC_SMEM
+        # A cluster's CTA holds two parity buffers of bins.
+        assert c.smem_bytes(True) == c.markets_per_cta * per_team * (
+            2 if C > 1 else 1) <= autotune.MAX_DYNAMIC_SMEM
 
 
 @pytest.mark.parametrize("hoisted", [True, False])
@@ -156,6 +188,81 @@ def test_pinned_agents_is_kept(mode, hoisted):
     assert cands[0] == autotune.auto_tile(128, 256)._replace(agents=mode)
     with pytest.raises(ValueError, match="agents"):
         autotune.candidate_tiles(128, 256, hoisted=hoisted, agents="disk")
+
+
+@pytest.mark.parametrize("L,M,sms,cap,want", [
+    (128, 1, 132, 16, 16), (128, 10, 132, 16, 16), (128, 16, 132, 16, 16),
+    (128, 17, 132, 16, 8), (128, 33, 132, 16, 4), (128, 66, 132, 16, 2),
+    (128, 128, 132, 16, 2), (128, 131, 132, 16, 2), (128, 132, 132, 16, 1),
+    (128, 528, 132, 16, 1), (128, 4096, 132, 16, 1), (128, 10, 132, 8, 8),
+    (128, 10, 132, 1, 1), (128, 10, 114, 16, 16), (128, 15, 114, 16, 8),
+    (1024, 1, 132, 16, 16), (1024, 16, 132, 16, 16), (1024, 66, 132, 16, 2),
+    (1024, 132, 132, 16, 1), (32, 10, 132, 16, 16)])
+def test_rule_takes_the_smallest_cluster_that_fills_the_sms(L, M, sms, cap,
+                                                            want):
+    """In the fresh mode the rule takes the smallest C whose grid reaches
+    the SMs (C = 1 at its own markets a CTA, a cluster at one), at most
+    the card's limit; the count of SMs and the limit are parameters."""
+    A = 10 ** 5
+    base = autotune.auto_tile(L, A)
+    got = autotune.auto_tile(L, A, M, sms=sms, max_ctas=cap)
+    assert base.agents == "fresh" and base.ctas_per_market == 1
+    assert got.ctas_per_market == want
+    if want == 1:
+        assert got == base
+    else:
+        assert got == base._replace(markets_per_cta=1, ctas_per_market=want)
+        assert got.grid(M) == M * want
+        assert got.grid(M) >= sms or want == cap
+        assert want == 2 or M * want // 2 < sms   # the smallest such C
+        assert autotune.check_tile(got, L, A, True) is got
+        with pytest.raises(ValueError, match="cluster"):
+            autotune.check_tile(got, L, A, False)
+    assert got.smem_bytes(True) == base.smem_bytes(True) // \
+        base.markets_per_cta * (2 if want > 1 else base.markets_per_cta)
+
+
+@pytest.mark.parametrize("A", [16, 256, 1024, 46080])
+def test_rule_keeps_one_cta_a_market_below_the_fresh_mode(A):
+    """Registers and shared modes never take a cluster, however few the
+    markets; nor does the rule without a market count."""
+    for M in (1, 10, 132):
+        assert autotune.auto_tile(128, A, M, sms=132, max_ctas=16) == \
+            autotune.auto_tile(128, A)
+    assert autotune.auto_tile(128, 50000).ctas_per_market == 1
+    assert autotune.auto_tile(128, 50000, 1, sms=132,
+                              max_ctas=16).ctas_per_market == 16
+
+
+def test_card_limits_without_a_card(monkeypatch):
+    """A process without a card counts the H100's 132 SMs and clusters of
+    up to 16 CTAs, and asks no library."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert autotune.card_limits(128, 50000, 1) == (132, 16)
+    assert autotune.auto_tile(128, 50000, 10) == autotune.auto_tile(
+        128, 50000, 10, sms=132, max_ctas=16)
+
+
+def test_shards_pick_their_own_cluster(monkeypatch):
+    """On a mesh, the rule's tile is each shard's rows' own: 65 markets of
+    a fresh population over 2 shards are 33 and 32 rows, one cluster of 4
+    and one of 8 CTAs a market (132 SMs)."""
+    from repro_torch.launch import set_host_device_count
+
+    monkeypatch.setattr(autotune, "card_limits", lambda *a: (132, 16))
+    prev = set_host_device_count(2)
+    try:
+        cfg = MarketConfig(num_markets=65, num_agents=46081, num_levels=128,
+                           num_steps=4, seed=3)
+        with Engine("cuda-kinetic", devices=2, autotune=False,
+                    chunk_size=4, **CPU).open(cfg) as s:
+            runner = s._runner
+            g = s.metrics.snapshot()["gauges"]
+    finally:
+        set_host_device_count(prev)
+    assert [t.ctas_per_market for t in runner.shard_tiles] == [4, 8]
+    assert runner.tile == runner.shard_tiles[0]
+    assert g["tile_ctas_per_market"] == 4
 
 
 def test_keys_are_distinct_per_configuration():
@@ -170,6 +277,13 @@ def test_keys_are_distinct_per_configuration():
     keys.add(autotune.tune_key(128, 256, 1, device="cpu", **base))
     keys.add(autotune.tune_key(64, 256, 64, device="cpu", **base))
     assert len(keys) == 7
+    # The runner's keys carry the rule's cluster size: shapes that differ
+    # in C never share a winner.
+    by_c = {autotune.tune_key(128, 50000, 64, device="cpu",
+                              ctas_per_market=C, **base)
+            for C in autotune.CTAS_PER_MARKET}
+    assert len(by_c) == len(autotune.CTAS_PER_MARKET)
+    assert not by_c & keys
     key = autotune.tune_key(128, 256, 64, device="cpu", **base)
     assert key[:4] == ("cpu", 128, 256, 64)
     # Sorted context, as repro's: the order of the keywords does not matter.

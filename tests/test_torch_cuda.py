@@ -347,6 +347,44 @@ def test_trainer_launches_once_per_env_step_and_equals_torch_scan(
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("C", autotune.CTAS_PER_MARKET[1:])
+@pytest.mark.parametrize("W,L", [(1, 128), (2, 64), (4, 128), (8, 1024)])
+def test_market_cluster_equals_plain(cuda, W, L, C):
+    """Kernels 1 and 3 with each market on a cluster of C CTAs (fresh, one
+    team a CTA) equal their plain versions: paths and stats, external
+    orders, a shock, ring-coupled arbitrageurs, a partial chunk; the
+    launch runs as a cluster (the card holds at least one)."""
+    A = 3001
+    tile = autotune.TileChoice(L, A, W, 1, "fresh", C)
+    assert kc.resident_ctas(False, tile) >= 1
+    spec = _spec(3, A, L, S=12)
+    M = spec.num_markets
+    state = initial_state(spec, cuda)
+    params = params_mod.pack_params(spec.params, cuda)
+    gen = torch.Generator().manual_seed(C * 100 + W)
+    eb, ea = ((torch.randint(0, 3, (M, L), generator=gen)
+               * (torch.rand((M, L), generator=gen) < 0.2))
+              .to(torch.float32).to(cuda) for _ in range(2))
+    for stats_only in (False, True):
+        kw = dict(cfg=spec, chunk=10, params=params, stats_only=stats_only,
+                  stats=init_stats(M, cuda) if stats_only else None)
+        got = kc.kinetic_clearing_chunk(*state, 3, 9, eb, ea, tile=tile,
+                                        **kw)
+        want = kc.kinetic_clearing_chunk_plain(*state, 3, 9, eb, ea, **kw)
+        torch.cuda.synchronize()
+        flat = (lambda out: list(out[:4]) + list(out[4])) if stats_only \
+            else (lambda out: list(out[:4]) + [p[:, :9] for p in out[4:]])
+        for g, w in zip(flat(got), flat(want)):
+            assert torch.equal(g, w)
+    cfg = _legacy_cfg(5, A, L, S=9)
+    lstate = initial_state(cfg, cuda)
+    lgot = kc.kinetic_clearing(*lstate, cfg=cfg, tile=tile)
+    lwant = kc.kinetic_clearing_plain(*lstate, cfg=cfg)
+    torch.cuda.synchronize()
+    for g, w in zip(lgot, lwant):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize(
     "tile", autotune.candidate_tiles(128, 256, hoisted=True),
     ids=lambda t: f"W{t.warps_per_market}-MPC{t.markets_per_cta}-{t.agents}")

@@ -353,9 +353,7 @@ NOT_PORTED = {
     "kernels.autotune:TileChoice.mb": _TPU,
     "kernels.autotune:TileChoice.agent_chunk": _TPU,
     "kernels.autotune:TileChoice.m_padded": _TPU,
-    "kernels.autotune:auto_tile(num_markets)": _TPU,
     "kernels.autotune:auto_tile(target)": _TPU,
-    "kernels.autotune:candidate_tiles(num_markets)": _TPU,
     "kernels.autotune:candidate_tiles(target)": _TPU,
     "kernels.autotune:autotune_tile(num_markets)": _TPU,
     "kernels.autotune:candidate_tiles(agent_chunk)": _TILE,

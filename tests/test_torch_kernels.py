@@ -13,6 +13,7 @@ import torch
 from repro.core import stats as j_stats
 from repro.core.config import MarketConfig as JConfig
 from repro.core.params import EnsembleSpec as JSpec
+from repro.core.engine import simulate as j_simulate
 from repro.core.step import initial_state as j_initial_state
 from repro.kernels.kinetic_clearing import \
     kinetic_clearing_chunk as j_chunk
@@ -21,8 +22,9 @@ from repro_torch.core import params as params_mod
 from repro_torch.core import stats
 from repro_torch.core.config import MAKER, NOISE, MarketConfig
 from repro_torch.core.step import initial_state
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 from repro_torch.kernels import kinetic_clearing as kc
+from repro_torch.kernels import naive_clearing as nc
 
 
 def _specs():
@@ -148,6 +150,69 @@ def test_build_flags_keep_ieee_rounding():
     repo = pkg.parents[2]
     ignored = (repo / ".gitignore").read_text().split()
     assert str(_build.BUILD_DIR.relative_to(repo)) + "/" in ignored
+
+
+@pytest.mark.parametrize("C", autotune.CTAS_PER_MARKET[1:])
+def test_entries_take_a_cluster_tile(C):
+    """A market-cluster tile (fresh, one team a CTA, C CTAs a market) is a
+    launch shape the chunk and legacy entries take; on the CPU they run the
+    plain version, whose bits do not change, and the per-step entries,
+    which run one CTA a market, refuse it."""
+    jspec, tspec = _specs()
+    M, A, L = tspec.num_markets, tspec.num_agents, tspec.num_levels
+    eb, ea = (torch.from_numpy(x) for x in _ext(M, L))
+    state = initial_state(tspec, "cpu")
+    tiles = [autotune.TileChoice(L, A, W, 1, "fresh", C) for W in (1, 8)]
+    kw = dict(cfg=tspec, chunk=8)
+    want = kc.kinetic_clearing_chunk(*state, 2, 6, eb, ea, **kw)
+    for tile in tiles:
+        assert autotune.check_tile(tile, L, A, True) is tile
+        assert tile.grid(M) == M * C and tile.as_c_args()[3] == C
+        got = kc.kinetic_clearing_chunk(*state, 2, 6, eb, ea, tile=tile,
+                                        **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        with pytest.raises(ValueError, match="cluster"):
+            nc.naive_clearing_chunk(*state, 2, 6, eb, ea, tile=tile, **kw)
+    cfg = MarketConfig(num_markets=3, num_agents=A, num_levels=L,
+                       num_steps=7, seed=9, alpha_arbitrageur=0.2)
+    lstate = initial_state(cfg, "cpu")
+    want = kc.kinetic_clearing(*lstate, cfg=cfg)
+    for tile in tiles:
+        got = kc.kinetic_clearing(*lstate, cfg=cfg, tile=tile)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        with pytest.raises(ValueError, match="cluster"):
+            nc.naive_clearing(*lstate, cfg=cfg, tile=tile)
+    # Not a cluster: several markets a CTA, another agent mode, another C.
+    for bad in (autotune.TileChoice(L, A, 1, 2, "fresh", C),
+                autotune.TileChoice(L, A, 1, 1, "shared", C),
+                autotune.TileChoice(L, A, 1, 1, "registers", C),
+                autotune.TileChoice(L, A, 1, 1, "fresh", C + 1),
+                autotune.TileChoice(L, A, 1, 1, "fresh", 2 * 16)):
+        with pytest.raises(ValueError):
+            kc.kinetic_clearing_chunk(*state, 2, 6, eb, ea, tile=bad, **kw)
+
+
+def test_a_population_past_shared_memory_takes_a_cluster():
+    """Two markets of 46,081 agents (past shared memory at L=128): the
+    rule spreads each over a cluster of 16 CTAs (132 SMs, no card here),
+    and the entries' plain versions equal the JAX package's ``numpy``
+    reference field by field."""
+    kw = dict(num_markets=2, num_agents=46081, num_levels=128, num_steps=3,
+              seed=17)
+    rule = autotune.auto_tile(128, 46081, 2, sms=132, max_ctas=16)
+    assert (rule.agents, rule.markets_per_cta, rule.ctas_per_market) == \
+        ("fresh", 1, 16) and rule.grid(2) == 32
+    want = j_simulate(JConfig(**kw), backend="numpy").to_numpy()
+    cfg = MarketConfig(**kw)
+    state = initial_state(cfg, "cpu")
+    legacy = kc.kinetic_clearing(*state, cfg=cfg)
+    chunk = kc.kinetic_clearing_chunk(*state, 0, 3, cfg=cfg, chunk=3)
+    for got in (legacy, chunk[:6]):
+        for f, g, w in zip(want._fields, got, want):
+            assert (g.numpy() == w).all(), f
+    assert want.volume_path.sum() > 0
 
 
 def test_plain_path_on_cpu_never_counts_a_launch():

@@ -88,7 +88,7 @@ def test_the_paper_shapes(L, A):
     assert shape.warps_per_market == want_warps
     assert shape.markets_per_cta == (4 if want_warps == 1 else 1)
     assert shape.agents == "registers"
-    assert shape.as_c_args() == (want_warps, shape.markets_per_cta, 1)
+    assert shape.as_c_args() == (want_warps, shape.markets_per_cta, 1, 1)
 
 
 def test_large_populations_move_to_shared_memory():
@@ -116,7 +116,8 @@ def test_population_ceiling(L, ceiling):
     """The shared-memory ceiling the module docstring states: up to it a
     market's keys and type bytes fill at most one CTA's shared memory; one
     agent more (and any population beyond) takes the fresh mode, which
-    keeps only the bins there and so fits four one-warp teams again."""
+    keeps only the bins there; there a market hashes every agent at every
+    step, so it takes the widest team, one a CTA."""
     shape = autotune.auto_tile(L, ceiling)
     if ceiling < 10 ** 5:
         assert shape.agents == "shared"
@@ -124,8 +125,8 @@ def test_population_ceiling(L, ceiling):
         assert shape.smem_bytes(True) == autotune.MAX_DYNAMIC_SMEM
     beyond = autotune.auto_tile(L, ceiling + 1)
     assert beyond.agents == "fresh"
-    assert beyond.as_c_args() == (max(1, L // 128), beyond.markets_per_cta, 2)
-    assert beyond.markets_per_cta == (4 if L <= 128 else 1)
+    assert beyond.as_c_args() == (8, 1, 2, 1)
+    assert beyond.markets_per_cta == 1
     assert beyond.smem_bytes(True) == beyond.smem_bytes(False) == \
         beyond.markets_per_cta * 8 * L
 
@@ -140,6 +141,8 @@ def test_constants_are_the_headers():
     assert int(define("REG_AGENTS")) == autotune.REG_AGENTS
     assert int(define("MAX_CTA_THREADS")) == autotune.MAX_CTA_THREADS
     assert eval(define("MAX_DYNAMIC_SMEM")) == autotune.MAX_DYNAMIC_SMEM
+    assert int(define("MAX_CLUSTER_CTAS")) == autotune.CTAS_PER_MARKET[-1]
+    assert int(define("PORTABLE_CLUSTER_CTAS")) == 8
     # The C side's shared-memory formula is the Python one.
     assert "2 * L + (agents_in_smem ? A + (A + 3) / 4 : 0)" in HEADER
     # The agent mode codes are the C enum's, in order.
@@ -163,4 +166,4 @@ def test_one_warp_teams_cross_no_cta_barrier():
                 or "if (tm.W == 1) __syncwarp(); else" in head), body[:80]
     for t in (autotune.auto_tile(L, A) for L in (4, 32, 128)
               for A in AGENTS):
-        assert t.warps_per_market == 1
+        assert t.warps_per_market == (8 if t.agents == "fresh" else 1)

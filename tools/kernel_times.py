@@ -2,7 +2,8 @@
 """Time the port's four clearing kernels on one CUDA card, for the
 ``repro_torch`` of a given source tree.
 
-    python3 tools/kernel_times.py [--src DIR] [--label X]
+    python3 tools/kernel_times.py [--src DIR] [--label X] [--matrix]
+                                  [--fresh-only]
 
 ``--src`` (default: this checkout's ``src``) selects the tree, so two
 commits, or a commit and a variant of it, can be compared in one call on
@@ -20,7 +21,17 @@ steps each, CUDA events over several calls after a warm-up):
     A=256, L=128, S=64;
   * the main path: ``Session.run(500)`` of ``cuda-kinetic`` at M=8192,
     A=256, L=128 (chunk 64, the rule's launch shape on a tree that has a
-    tile sweep), its wall around the run and a ``torch.cuda.synchronize``.
+    tile sweep), its wall around the run and a ``torch.cuda.synchronize``;
+  * the fresh agent mode (populations past shared memory, ``FRESH``):
+    kernels 1 and 3 at one CTA a market (``auto_tile(L, A)``, C = 1) and,
+    on a tree with market clusters, at the rule's cluster for the markets
+    (``auto_tile(L, A, M)``), in turns (C = 1, rule, rule, C = 1), each
+    output equal to the other's; device times (calls queued behind a
+    sleeping kernel, so the wrappers' host work does not count), with
+    the bound, the share of the SMs the grid can occupy and the
+    agent-events/s. ``--matrix`` adds kernel
+    1 at every fresh candidate shape (``candidate_tiles``: warps a
+    market, markets a CTA, CTAs a market) of each shape.
 
 Prints one JSON line per shape, then the card's name and power limit.
 Imports nothing of JAX or of the JAX package.
@@ -39,6 +50,12 @@ LEGACY = (8192, 256, 128)
 STEPS = 64
 SEED = 20260611
 RUN500_REPS = 7
+#: Fresh-mode shapes (M, A, L, steps): the ``edges`` phase's two (10
+#: markets, 6 steps) and the ``population`` phase's P1-P3.
+FRESH = [(10, 50000, 128, 6), (10, 45000, 1024, 6), (1, 100000, 128, 16),
+         (16, 50000, 1024, 32), (128, 50000, 128, 32)]
+FRESH_REPS = 5
+QUEUE_SLEEP_CYCLES = 200_000_000
 
 
 def time_ms(fn, reps: int) -> float:
@@ -53,6 +70,32 @@ def time_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device time of one ``fn`` call: ``reps`` calls queued behind a
+    sleeping kernel, so the host's work between launches does not count.
+    Raises if the host did not finish queueing before the sleep ended."""
+    import time
+
+    import torch
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    fn()
+    torch.cuda.synchronize()
+    events[0].record()
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    events[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    queued = (time.perf_counter() - t0) * 1e3
+    events[2].record()
+    torch.cuda.synchronize()
+    if queued >= events[0].elapsed_time(events[1]):
+        raise RuntimeError(f"queueing took {queued} ms, longer than the "
+                           "sleep it hides behind")
+    return events[1].elapsed_time(events[2]) / reps
 
 
 def session_run_ms(shape, device) -> float:
@@ -81,11 +124,86 @@ def session_run_ms(shape, device) -> float:
         return (time.perf_counter() - t0) * 1e3
 
 
+def fresh_times(device, base: dict, matrix: bool) -> None:
+    """One JSON line per ``FRESH`` shape: kernels 1 and 3 at C = 1 and at
+    the rule's C (see the module docstring)."""
+    import torch
+    from repro_torch.core import params as params_mod
+    from repro_torch.core.config import MarketConfig
+    from repro_torch.core.params import EnsembleSpec
+    from repro_torch.core.step import initial_state
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import kinetic_clearing as kc
+    from repro_torch.launch import bound
+
+    clusters = "ctas_per_market" in autotune.TileChoice._fields
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for M, A, L, S in FRESH:
+        cfg = MarketConfig(num_markets=M, num_agents=A, num_levels=L,
+                           num_steps=S, seed=SEED)
+        spec = EnsembleSpec.homogeneous(cfg)
+        state = tuple(initial_state(spec, device))
+        kw = dict(cfg=spec, chunk=S,
+                  params=params_mod.pack_params(spec.params, device))
+        one = autotune.auto_tile(L, A)
+        rule = autotune.auto_tile(L, A, M) if clusters else one
+
+        def k1(tile):
+            return kc.kinetic_clearing_chunk(*state, 0, S, tile=tile, **kw)
+
+        def k3(tile):
+            return kc.kinetic_clearing(*state, cfg=cfg, tile=tile)
+
+        same = True
+        for fn in (k1, k3):
+            a, b = fn(one), fn(rule)
+            same = same and all(bool(torch.equal(x, y))
+                                for x, y in zip(a, b))
+        mix = kc.agent_mix(spec.params, A)
+        b1 = bound(kc.op_count(M, A, L, S, mix),
+                   kc.byte_count(M, L, S, ext=False, stats_only=False))
+        b3 = bound(kc.op_count(M, A, L, S, mix),
+                   kc.legacy_byte_count(M, L, S))
+        out = dict(base, markets=M, agents=A, levels=L, steps=S,
+                   rule=list(rule), sms=sms, equal=same)
+        for name, fn, b in (("kernel1", k1, b1), ("kernel3", k3, b3)):
+            runs = {"one": [], "rule": []}
+            for which in ("one", "rule", "rule", "one"):
+                tile = one if which == "one" else rule
+                runs[which].append(queued_ms(lambda: fn(tile), FRESH_REPS))
+            for which, tile in (("one", one), ("rule", rule)):
+                ms = statistics.median(runs[which])
+                grid = tile.grid(M)
+                out[f"{name}_{which}"] = dict(
+                    ms=ms, ms_runs=runs[which], grid=grid,
+                    sm_share=min(grid, sms) / sms,
+                    bound_ms=b["bound_ms"], bound_share=b["bound_ms"] / ms,
+                    agent_events_per_s=M * A * S / (ms * 1e-3))
+        print(json.dumps(out), flush=True)
+        if not (matrix and clusters):
+            continue
+        want = k1(one)
+        cells = []
+        for cand in autotune.candidate_tiles(L, A, M, hoisted=True):
+            if cand.agents != "fresh":
+                continue
+            got = k1(cand)
+            ok = all(bool(torch.equal(x, y)) for x, y in zip(got, want))
+            cells.append(dict(tile=list(cand[2:]), equal=ok,
+                              ms=queued_ms(lambda: k1(cand), FRESH_REPS)))
+        print(json.dumps(dict(base, markets=M, agents=A, levels=L, steps=S,
+                              matrix=cells)), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
                                          / "src"))
     ap.add_argument("--label", default="")
+    ap.add_argument("--matrix", action="store_true",
+                    help="also time kernel 1 at every fresh candidate shape")
+    ap.add_argument("--fresh-only", action="store_true",
+                    help="time the fresh agent mode's shapes alone")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
 
@@ -112,6 +230,9 @@ def main() -> int:
             **_build.ptxas_report(nc._LIB_NAME)})),
             flush=True)
 
+    if args.fresh_only:
+        fresh_times(device, base, args.matrix)
+        return 0
     for M, A, L in SWEEP:
         spec = EnsembleSpec.homogeneous(MarketConfig(
             num_markets=M, num_agents=A, num_levels=L, num_steps=500,
@@ -155,6 +276,7 @@ def main() -> int:
         base, markets=LEGACY[0], agents=LEGACY[1], levels=LEGACY[2],
         steps=500, run500_wall_ms=statistics.median(run500),
         run500_wall_ms_runs=run500)), flush=True)
+    fresh_times(device, base, args.matrix)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
