@@ -12,10 +12,10 @@ line:
   build    build the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
            ``nvcc`` per source, all started together; each kernel's
            registers and spills from ptxas (``-Xptxas -v``), the persistent
-           kernels once per agent mode at one CTA a market (``<0, false>``
-           shared, ``<1, false>`` registers, ``<2, false>`` fresh) and in
-           the fresh mode on a market cluster (``<2, true>``); any spill
-           fails.
+           kernels once per agent mode (``<0, ...>`` shared, ``<1, ...>``
+           registers, ``<2, ...>`` fresh) at one CTA a market
+           (``<code, false>``) and on a market cluster (``<code, true>``);
+           any spill fails.
   kernel   ``kinetic_clearing_chunk`` (CUDA) == its plain PyTorch version,
            field by field, at the paper's width A=256, L=128 on a
            heterogeneous ensemble populating all eight archetypes: a chunk
@@ -23,23 +23,28 @@ line:
            ``stats_only``, and ``scan="hillis-steele"``.
   edges    the same check at L=1024, A=300, at L=8, A=5 and at L=4, A=16,
            the last two with 15 markets (a ragged last CTA); then kernels 1
-           and 3 in the fresh agent mode (populations past shared memory:
-           L=128, A=50,000 and L=1024, A=45,000, 10 markets, 6 steps)
-           against their plain versions at one CTA a market and on the
-           rule's market cluster (16 CTAs a market), with each shape's
-           ``TileChoice``, grid, resident clusters and times.
-  population  large populations through the main path, all in the fresh
-           mode: P1 one market of 100,000 agents (L=128, S=16), P2 16
-           markets of 50,000 (L=1024, S=32), P3 128 markets of 50,000
-           (L=128, S=32), every archetype, a shock, ring-coupled
-           arbitrageurs. For each, ``Engine("cuda-kinetic").open(spec)
-           .run(S)`` in one chunk (its tile sweep included) and the legacy
-           ``kinetic_clearing``, each with the counts at 0, == their plain
-           versions on the card (P1 also == the host ``numpy`` reference);
-           then kernels 1 and 3 at one CTA a market (C = 1, pinned) and at
-           the rule's market cluster, in turns: ms, the bound and its
-           share, the grid, its share of the SMs, the resident clusters
-           and agent-events/s.
+           and 3 on a few large markets (10 markets, 6 steps: L=128,
+           A=50,000 and L=1024, A=45,000 past shared memory; B1 L=128,
+           A=46,080, the last population one CTA's shared memory holds; B2
+           L=1024, A=20,000) against their plain versions at one CTA a
+           market, at the earlier rule's shape (pinned in ``FRESH_SHAPES``)
+           and on the rule's market cluster (16 CTAs a market), with
+           each shape's ``TileChoice`` (mode, W, C), grid and its share of
+           the SMs, resident clusters, times and share of the bound.
+  population  large populations through the main path: P1 one market of
+           100,000 agents (L=128, S=16), P2 16 markets of 50,000 (L=1024,
+           S=32), P3 128 markets of 50,000 (L=128, S=32), Q1 one market of
+           40,000, Q2 64 of 30,000 and Q3 264 of 30,000 (L=128, S=32),
+           every archetype, a shock, ring-coupled arbitrageurs. For each,
+           ``Engine("cuda-kinetic").open(spec).run(S)`` in one chunk (its
+           tile sweep included) and the legacy ``kinetic_clearing``, each
+           with the counts at 0, == their plain versions on the card (P1
+           also == the host ``numpy`` reference); then kernels 1 and 3 at
+           one CTA a market (C = 1, pinned), at the earlier rule's shape
+           (pinned in ``POPULATION``) and at the rule's shape, each == the
+           plain versions, in turns: ms, the
+           bound and its share, the mode, W and C, the grid, its share of
+           the SMs, the resident clusters and agent-events/s.
   naive    ``naive_clearing_chunk`` (one launch per step) == its plain
            version over the five cases of ``kernel``.
   legacy   the legacy one-shot ``kinetic_clearing`` and ``naive_clearing``
@@ -298,17 +303,30 @@ CROSS_SHAPE = (4096, 64, 64, 100)
 CROSS_SEED = 11
 PRODUCT_SWEEP = {"alpha_momentum": (0.15, 0.3, 0.5, 0.7),
                  "p_marketable": (0.1, 0.2)}
-# The edges phase's fresh agent mode: (M per block of small_spec, A, L)
-# past shared memory at L=128 and L=1024, and the steps of each call.
-FRESH_SHAPES = ((2, 50000, 128), (2, 45000, 1024))
+# The edges phase's large markets: (M per block of small_spec, A, L, the
+# earlier rule's shape) past shared memory at L=128 and L=1024, B1 the
+# last population one CTA's shared memory holds at L=128, B2 a wide book;
+# and the steps of each call. The earlier rule's shape (warps a market,
+# markets a CTA, agent mode, CTAs a market) is what the rule launched for
+# these markets (10) on an H100 before the hoisted agent modes took market
+# clusters, pinned beside the rule's.
+FRESH_SHAPES = ((2, 50000, 128, (8, 1, "fresh", 16)),
+                (2, 45000, 1024, (8, 1, "fresh", 16)),
+                (2, 46080, 128, (1, 1, "shared", 1)),
+                (2, 20000, 1024, (8, 1, "shared", 1)))
 FRESH_STEPS = 6
-#: The population phase's shapes (label, M, A, L, S), all past shared
-#: memory (the fresh mode): one deep market, a few assets with wide books,
-#: and as many markets as the card has SMs. A·8·S stays below 2^24 in each
-#: (whales add 2% of agents at 32 lots every 4th step), so books, bins and
-#: scans stay exact-integer float32.
-POPULATION = (("P1", 1, 100000, 128, 16), ("P2", 16, 50000, 1024, 32),
-              ("P3", 128, 50000, 128, 32))
+#: The population phase's shapes (label, M, A, L, S, the earlier rule's
+#: shape as in ``FRESH_SHAPES``): past shared memory one deep market, a few
+#: assets with wide books, and as many markets as the card has SMs; within
+#: it one exchange, half the SMs' markets and two markets an SM. A·8·S
+#: stays below 2^24 in each (whales add 2% of agents at 32 lots every 4th
+#: step), so books, bins and scans stay exact-integer float32.
+POPULATION = (("P1", 1, 100000, 128, 16, (8, 1, "fresh", 16)),
+              ("P2", 16, 50000, 1024, 32, (8, 1, "fresh", 16)),
+              ("P3", 128, 50000, 128, 32, (8, 1, "fresh", 2)),
+              ("Q1", 1, 40000, 128, 32, (1, 1, "shared", 1)),
+              ("Q2", 64, 30000, 128, 32, (1, 1, "shared", 1)),
+              ("Q3", 264, 30000, 128, 32, (1, 1, "shared", 1)))
 POPULATION_MIX = dict(alpha_fundamentalist=0.1, alpha_whale=0.02,
                       whale_period=4, alpha_hft=0.1, alpha_informed=0.05,
                       alpha_arbitrageur=0.1, shock_intensity=0.3,
@@ -551,14 +569,13 @@ def phase_build():
     nc._load_library()
     ptxas = {**_build.ptxas_report("kinetic_clearing"),
              **_build.ptxas_report("naive_clearing")}
-    # The persistent kernels once per agent mode (<code, false>: the
-    # AGENT_MODES index, one CTA a market) and the fresh mode on a market
-    # cluster (<2, true>).
-    fresh = autotune.AGENT_MODES.index("fresh")
-    kernels = tuple(f"kinetic_{k}_kernel<{code}, false>"
+    # The persistent kernels once per agent mode (the AGENT_MODES index) at
+    # one CTA a market (<code, false>) and on a market cluster
+    # (<code, true>).
+    kernels = tuple(f"kinetic_{k}_kernel<{code}, {cluster}>"
                     for k in ("chunk", "legacy")
-                    for code in range(len(autotune.AGENT_MODES))) + tuple(
-        f"kinetic_{k}_kernel<{fresh}, true>" for k in ("chunk", "legacy")) + (
+                    for code in range(len(autotune.AGENT_MODES))
+                    for cluster in ("false", "true")) + (
         "naive_chunk_step_kernel", "naive_legacy_step_kernel")
     for name in kernels:
         got = ptxas.get(name, {})
@@ -593,10 +610,10 @@ def phase_kernel(device, B, entry="kinetic"):
 
 
 def phase_edges(device):
-    """Kernel 1 at the launch rule's edges, then kernels 1 and 3 in the
-    fresh agent mode (populations past shared memory) against their plain
-    versions, bit for bit, at one CTA a market and on the rule's market
-    cluster, with their times."""
+    """Kernel 1 at the launch rule's edges, then kernels 1 and 3 on a few
+    large markets (``FRESH_SHAPES``) against their plain versions, bit for
+    bit, at one CTA a market, at the earlier rule's shape and on the rule's
+    market cluster, with their times."""
     import torch
     from repro_torch.core import params as params_mod
     from repro_torch.core.config import MarketConfig
@@ -616,14 +633,17 @@ def phase_edges(device):
         e, _ = kernel_vs_plain(f"edge L={L} A={A} stats", spec, device,
                                step0=2, n_valid=12, chunk=12, stats_only=True)
         errs.append(e)
-    fresh = []
-    for M, A, L in FRESH_SHAPES:
+    large = []
+    for M, A, L, earlier in FRESH_SHAPES:
         spec = small_spec(M, A, L, num_steps=20)
         n = spec.num_markets
-        one, rule = autotune.auto_tile(L, A), autotune.auto_tile(L, A, n)
-        if one.agents != "fresh" or rule.ctas_per_market == 1:
+        rule = autotune.auto_tile(L, A, n)
+        if rule.ctas_per_market == 1:
             raise Mismatch(f"L={L}, A={A}, M={n}: the rule took {rule}, "
-                           f"not a fresh market cluster")
+                           f"not a market cluster")
+        tiles = (("one_cta", autotune.auto_tile(L, A)),
+                 ("parent", autotune.TileChoice(L, A, *earlier)),
+                 ("rule", rule))
         cfg = MarketConfig(num_markets=n, num_agents=A, num_levels=L,
                            num_steps=FRESH_STEPS, seed=SEED,
                            alpha_arbitrageur=0.2, alpha_whale=0.1,
@@ -642,18 +662,17 @@ def phase_edges(device):
         row = dict(markets=n, agents=A, levels=L, steps=FRESH_STEPS,
                    chunk_bound=chunk_bound, legacy_bound=legacy_bound,
                    launch=launch_facts(n, A, L))
-        for name, tile in (("one_cta", one), ("rule", rule)):
-            e, _ = kernel_vs_plain(f"fresh {name} L={L} A={A}", spec, device,
+        for name, tile in tiles:
+            e, _ = kernel_vs_plain(f"large {name} L={L} A={A}", spec, device,
                                    step0=4, n_valid=FRESH_STEPS,
                                    chunk=FRESH_STEPS, ext=True, tile=tile)
             got = list(kc.kinetic_clearing(*state, cfg=cfg, tile=tile))
             torch.cuda.synchronize()
-            e = max(e, compare(f"fresh {name} legacy L={L} A={A}", got,
+            e = max(e, compare(f"large {name} legacy L={L} A={A}", got,
                                want))
             errs.append(e)
             # Device times (the calls queued behind a sleep: at a tenth
-            # of a millisecond the wrappers' host work would count), C = 1
-            # then the rule's C.
+            # of a millisecond the wrappers' host work would count).
             chunk_ms = _queued_ms(lambda: kc.kinetic_clearing_chunk(
                 *cstate, 0, FRESH_STEPS, tile=tile, **kw), 5)
             legacy_ms = _queued_ms(lambda: kc.kinetic_clearing(
@@ -665,8 +684,11 @@ def phase_edges(device):
                     "chunk": chunk_bound["bound_ms"] / chunk_ms,
                     "legacy": legacy_bound["bound_ms"] / legacy_ms},
                 **cluster_facts(tile, n))
-        fresh.append(row)
-    emit("edges", ok=True, shapes=[list(x) for x in shapes], fresh=fresh,
+        row["parent_over_rule"] = {
+            "chunk": row["parent"]["chunk_ms"] / row["rule"]["chunk_ms"],
+            "legacy": row["parent"]["legacy_ms"] / row["rule"]["legacy_ms"]}
+        large.append(row)
+    emit("edges", ok=True, shapes=[list(x) for x in shapes], large=large,
          max_abs_err=max(errs))
     return max(errs)
 
@@ -688,14 +710,14 @@ def population_case(M, A, L, S):
 
 
 def phase_population(device):
-    """Large populations (the fresh mode) at full width through the main
-    path: for each of P1-P3, ``Engine("cuda-kinetic").open(spec).run(S)``
-    in one chunk (the runner's sweep included) and the legacy
+    """Large populations at full width through the main path: for each of
+    ``POPULATION``, ``Engine("cuda-kinetic").open(spec).run(S)`` in one
+    chunk (the runner's sweep included) and the legacy
     ``kinetic_clearing``, each with the counts at 0, equal bit for bit to
     their plain versions on the card (P1 also to the host ``numpy``
-    reference); then kernels 1 and 3 timed on the device at one CTA a
-    market (C = 1, pinned) and at the rule's market cluster, in turns,
-    against the bound.
+    reference); then kernels 1 and 3 at one CTA a market (C = 1), at the
+    earlier rule's shape and at the rule's shape, each pinned and equal to
+    the plain versions, timed on the device in turns against the bound.
     Returns the launches and the worst error."""
     import time
 
@@ -708,11 +730,13 @@ def phase_population(device):
 
     launches = {name: 0 for name in counters()}
     rows, worst = [], 0.0
-    for label, M, A, L, S in POPULATION:
+    for label, M, A, L, S, earlier in POPULATION:
         cfg, spec = population_case(M, A, L, S)
-        one, rule = autotune.auto_tile(L, A), autotune.auto_tile(L, A, M)
-        if one.agents != "fresh":
-            raise Mismatch(f"population {label}: mode {one.agents}")
+        tiles = {"one_cta": autotune.auto_tile(L, A),
+                 "parent": autotune.TileChoice(L, A, *earlier),
+                 "rule": autotune.auto_tile(L, A, M)}
+        if tiles["one_cta"].agents == "registers":
+            raise Mismatch(f"population {label}: mode registers")
         # The main path: a session over the horizon in one chunk.
         reset_counts()
         t0 = time.perf_counter()
@@ -743,12 +767,10 @@ def phase_population(device):
         torch.cuda.synchronize()
         lcounts = expect_counts(f"population {label} legacy",
                                 {"kinetic_clearing": 1})
-        err = max(err, compare(f"population {label} legacy", legacy,
-                               list(kc.kinetic_clearing_plain(*state,
-                                                              cfg=cfg))))
+        lwant = list(kc.kinetic_clearing_plain(*state, cfg=cfg))
+        err = max(err, compare(f"population {label} legacy", legacy, lwant))
         for name in launches:
             launches[name] += counts[name] + lcounts[name]
-        worst = max(worst, err)
         price, volume = got[4], got[5]
         if not (bool(torch.isfinite(torch.stack([price, volume])).all())
                 and float(volume.sum()) > 0):
@@ -761,9 +783,22 @@ def phase_population(device):
             params_mod.params_from_config(cfg, M), A)),
             kc.legacy_byte_count(M, L, S))
         cstate = opening(spec, device)
+        # Each pinned shape == the plain versions (kernel 1 from the same
+        # opening books as the session), uncounted.
+        for name, tile in tiles.items():
+            k1 = kc.kinetic_clearing_chunk(*cstate, 0, S, cfg=spec, chunk=S,
+                                           params=params, tile=tile)
+            k3 = kc.kinetic_clearing(*state, cfg=cfg, tile=tile)
+            torch.cuda.synchronize()
+            err = max(err, compare(f"population {label} {name}",
+                                   list(k1), want),
+                      compare(f"population {label} {name} legacy",
+                              list(k3), lwant))
+        worst = max(worst, err)
         times = {}
-        for name, tile in (("one_cta", one), ("rule", rule), ("rule", rule),
-                           ("one_cta", one)):
+        order = ("one_cta", "parent", "rule", "rule", "parent", "one_cta")
+        for name in order:
+            tile = tiles[name]
             # Device times: the calls queued behind a sleep.
             k1 = _queued_ms(lambda: kc.kinetic_clearing_chunk(
                 *cstate, 0, S, cfg=spec, chunk=S, params=params,
@@ -778,7 +813,7 @@ def phase_population(device):
                    launches={k: n for k, n in counts.items() if n},
                    chunk_bound=b1, legacy_bound=b3, max_abs_err=err,
                    traded_volume=float(volume.sum()))
-        for name, tile in (("one_cta", one), ("rule", rule)):
+        for name, tile in tiles.items():
             k1 = statistics.median(t[0] for t in times[name])
             k3 = statistics.median(t[1] for t in times[name])
             row[name] = dict(
@@ -790,9 +825,10 @@ def phase_population(device):
                              "legacy": b3["bound_ms"] / k3},
                 agent_events_per_s={"chunk": M * A * S / (k1 * 1e-3),
                                     "legacy": M * A * S / (k3 * 1e-3)})
-        row["rule_over_one_cta"] = {
-            "chunk": row["rule"]["chunk_ms"] / row["one_cta"]["chunk_ms"],
-            "legacy": row["rule"]["legacy_ms"] / row["one_cta"]["legacy_ms"]}
+        for name in ("one_cta", "parent"):
+            row[f"rule_over_{name}"] = {
+                k: row["rule"][f"{k}_ms"] / row[name][f"{k}_ms"]
+                for k in ("chunk", "legacy")}
         rows.append(row)
     emit("population", ok=True, shapes=rows, max_abs_err=worst)
     return launches, worst

@@ -14,25 +14,34 @@ unit is a *market team* and not a sublane tile (``csrc/kinetic_step.cuh``):
   * agent ``a`` is handled by thread ``a mod T``. The persistent kernels
     compute each agent's step-invariant hash round and type once per call
     and keep them in registers while a thread has at most ``REG_AGENTS``
-    agents (``agents="registers"``), else in the team's shared memory
+    agents (``agents="registers"``), else in the CTA's shared memory
     after its bins (``"shared"``). A market whose keys and type bytes (5
     bytes an agent) do not fit one CTA's shared memory beside the 8·L
     bytes of bins, past 46,080 agents at L=128 (44,646 at L=1024), has
     them recomputed at every step (``"fresh"``), as the per-step kernels
     always do: its books still stay on chip for the chunk. So the rule
     takes any population, as the JAX package's agent chunking does;
-  * in the fresh mode a persistent kernel may spread one market over a
-    thread-block cluster of ``ctas_per_market`` = C CTAs (C in
-    ``CTAS_PER_MARKET``, one team a CTA): CTA rank ``r`` hashes the agents
-    ``a ≡ r·T + t (mod C·T)`` into its own bins, and the C CTAs sum their
-    bins through distributed shared memory, each clearing its own copy of
-    the book. A few markets of a large population then fill the card's
-    SMs, where one CTA a market would leave most of them idle.
+  * a persistent kernel may spread one market over a thread-block cluster
+    of ``ctas_per_market`` = C CTAs (C in ``CTAS_PER_MARKET``, one team a
+    CTA), in any agent mode: CTA rank ``r`` handles the agents
+    ``a ≡ r·T + t (mod C·T)``, holds only their keys and types
+    (:func:`agent_slots` of them in the shared mode, ``REG_AGENTS`` a
+    thread in registers), bins them into its own bins, and the C CTAs sum
+    their bins through distributed shared memory, each clearing its own
+    copy of the book. A few markets of a large population then fill the
+    card's SMs, where one CTA a market would leave most of them idle, and
+    a population past one CTA's shared memory can keep its keys on chip.
 
 :func:`auto_tile` is the rule: ``W = max(1, L / 128)``, four one-warp
-teams a CTA, and the first agent mode that fits; in the fresh mode a team
-of ``MAX_TEAM_WARPS`` warps, one a CTA, and, given the number of markets,
-the smallest C whose grid reaches the card's SMs (:func:`cluster_ctas`).
+teams a CTA, agents in registers while they fit; past that the first
+agent mode that fits one CTA, at a team of ``MAX_TEAM_WARPS`` warps, one
+a CTA, wherever shared memory holds fewer than ``MARKETS_PER_CTA``
+one-warp teams (always in the fresh mode); and, given the number of
+markets, where they leave SMs idle, the smallest C whose grid reaches
+the card's SMs; at that C (and at C = 1 for the widest team) the mode
+of ``RULE_MODES`` whose grid takes the fewest waves (:func:`waves`, over
+what the card holds at once: :func:`card_holds`, the H100's
+:func:`h100_holds` without a card), the first on a tie.
 :func:`check_shape` repeats the C side's domain check, and
 :func:`candidate_tiles` lists every shape in it. :func:`autotune_tile`
 times candidates once (the runner's ``time_candidate``) and caches the
@@ -45,6 +54,7 @@ repeat ``kinetic_step.cuh``.
 """
 from __future__ import annotations
 
+import math
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -66,10 +76,13 @@ MAX_DYNAMIC_SMEM = 232448 - 1024
 #: Where a persistent kernel keeps the agents' keys and types, in the order
 #: of the C side's ``AgentMode`` codes (``kinetic_step.cuh``).
 AGENT_MODES = ("shared", "registers", "fresh")
-#: CTAs a market may take as a thread-block cluster (the fresh mode of the
-#: persistent kernels only); past the portable 8 a cluster is non-portable,
-#: and Hopper's limit is 16.
+#: CTAs a market may take as a thread-block cluster (the persistent kernels
+#: only); past the portable 8 a cluster is non-portable, and Hopper's limit
+#: is 16.
 CTAS_PER_MARKET = (1, 2, 4, 8, 16)
+#: The agent modes the rule weighs for a team of ``MAX_TEAM_WARPS`` warps,
+#: the first preferred where they take as many waves.
+RULE_MODES = ("registers", "shared", "fresh")
 #: SMs of the card the port is built for (an H100 SXM): the rule's count
 #: where the process has no card (:func:`card_limits`).
 TARGET_SMS = 132
@@ -82,8 +95,8 @@ _TUNE_CACHE: Dict[Tuple, "TileChoice"] = {}
 #: One record per real sweep (cache misses only), newest last; the chaos
 #: harness reads these to assert that an OOM-shaped sweep fell back.
 _SWEEP_REPORTS: List["SweepReport"] = []
-#: :func:`card_limits` per (card, L, A, W).
-_CARD_LIMITS: Dict[Tuple, Tuple[int, int]] = {}
+#: :func:`card_holds` per (card, tile).
+_CARD_HOLDS: Dict[Tuple, int] = {}
 
 # Substrings of an out-of-memory-shaped failure: the JAX package's markers
 # (XLA's RESOURCE_EXHAUSTED, Mosaic's VMEM) and the card's spellings
@@ -102,7 +115,7 @@ class TileChoice(NamedTuple):
     warps_per_market: int
     markets_per_cta: int
     agents: str    # persistent kernels: one of AGENT_MODES
-    ctas_per_market: int = 1   # > 1: a market's cluster (fresh mode only)
+    ctas_per_market: int = 1   # > 1: a market's cluster (persistent only)
 
     @property
     def threads_per_market(self) -> int:
@@ -120,11 +133,12 @@ class TileChoice(NamedTuple):
     def smem_bytes(self, hoisted: bool) -> int:
         """Dynamic shared memory per CTA: each team's int bins (2·L, two
         such buffers in a cluster) and, for a persistent kernel
-        (``hoisted``) in the ``"shared"`` mode, A keys and A type bytes."""
+        (``hoisted``) in the ``"shared"`` mode, the CTA's keys and type
+        bytes (:func:`team_smem_bytes`)."""
         return self.markets_per_cta * team_smem_bytes(
             self.num_levels, self.num_agents,
-            hoisted and self.agents == "shared") * (
-                2 if self.ctas_per_market > 1 else 1)
+            hoisted and self.agents == "shared", self.threads_per_market,
+            self.ctas_per_market)
 
     def as_c_args(self) -> Tuple[int, int, int, int]:
         """``(warps_per_market, markets_per_cta, agent mode code,
@@ -144,12 +158,27 @@ class SweepReport(NamedTuple):
     times: Tuple[Tuple[TileChoice, float], ...] = ()  # seconds, the timed ones
 
 
-def team_smem_bytes(num_levels: int, num_agents: int,
-                    agents_in_smem: bool) -> int:
-    """One team's dynamic shared memory (``team_smem_words`` × 4)."""
-    words = 2 * num_levels
+def agent_slots(num_agents: int, threads_per_market: int,
+                ctas_per_market: int = 1) -> int:
+    """Agent slots K of one CTA's key area (``agent_slots`` of the C side):
+    the market's A agents at one CTA a market; at C > 1 a cluster CTA's
+    share, ⌈A / (C·T)⌉·T."""
+    A, T, C = int(num_agents), int(threads_per_market), int(ctas_per_market)
+    return A if C == 1 else -(-A // (C * T)) * T
+
+
+def team_smem_bytes(num_levels: int, num_agents: int, agents_in_smem: bool,
+                    threads_per_market: int = 32,
+                    ctas_per_market: int = 1) -> int:
+    """One team's dynamic shared memory (``team_smem_words`` × 4): its
+    bins (2·L words; two parity buffers, 4·L, on a market cluster) and,
+    with ``agents_in_smem``, K = :func:`agent_slots` keys and K type
+    bytes. ``threads_per_market`` matters only on a cluster."""
+    C = int(ctas_per_market)
+    words = (4 if C > 1 else 2) * num_levels
     if agents_in_smem:
-        words += num_agents + -(-num_agents // 4)
+        K = agent_slots(num_agents, threads_per_market, C)
+        words += K + -(-K // 4)
     return 4 * words
 
 
@@ -170,7 +199,8 @@ def check_shape(num_levels: int, num_agents: int, warps_per_market: int,
     this shape takes, or ``ValueError`` for a shape the kernels refuse. A
     per-step kernel (``hoisted=False``) keeps no agents, so it checks the
     shape in the fresh mode, as its C entry does; it runs one CTA a
-    market, so only a persistent kernel takes a cluster."""
+    market, so only a persistent kernel takes a cluster (in any mode, the
+    registers mode holding ``REG_AGENTS`` agents a thread of it)."""
     L, A = _check_domain(num_levels, num_agents)
     W, mpc = int(warps_per_market), int(markets_per_cta)
     C = int(ctas_per_market)
@@ -186,17 +216,18 @@ def check_shape(num_levels: int, num_agents: int, warps_per_market: int,
         raise ValueError(f"markets_per_cta={mpc} at warps_per_market={W}: "
                          f"several markets a CTA only at one warp a market, "
                          f"at most {MAX_CTA_THREADS} threads")
-    if mode == "registers" and A > REG_AGENTS * 32 * W:
-        raise ValueError(f"agents='registers' holds at most "
-                         f"{REG_AGENTS * 32 * W} agents at W={W}, got A={A}")
     if C not in CTAS_PER_MARKET:
         raise ValueError(f"ctas_per_market must be one of "
                          f"{CTAS_PER_MARKET}, got {C}")
-    if C > 1 and not (hoisted and mode == "fresh" and mpc == 1):
+    if mode == "registers" and A > REG_AGENTS * 32 * W * C:
+        raise ValueError(f"agents='registers' holds at most "
+                         f"{REG_AGENTS * 32 * W * C} agents at W={W}, "
+                         f"C={C}, got A={A}")
+    if C > 1 and not (hoisted and mpc == 1):
         raise ValueError(f"ctas_per_market={C}: a market spans a cluster "
-                         f"only in a persistent kernel's fresh mode, at "
-                         f"one market a CTA")
-    smem = mpc * team_smem_bytes(L, A, mode == "shared") * (2 if C > 1 else 1)
+                         f"only in a persistent kernel, at one market a "
+                         f"CTA")
+    smem = mpc * team_smem_bytes(L, A, mode == "shared", 32 * W, C)
     if smem > MAX_DYNAMIC_SMEM:
         raise ValueError(f"launch shape needs {smem} bytes of shared memory "
                          f"over the limit of {MAX_DYNAMIC_SMEM}")
@@ -228,87 +259,187 @@ def estimate_smem_bytes(tile: TileChoice, num_levels: int, num_agents: int,
         hoisted)
 
 
-def card_limits(num_levels: int, num_agents: int,
-                warps_per_market: int) -> Tuple[int, int]:
-    """``(SMs, largest C)`` the rule counts on for a fresh team of
-    ``warps_per_market`` warps: the current card's SM count and the largest
-    C of ``CTAS_PER_MARKET`` at which it holds a cluster of both persistent
-    kernels (``cudaOccupancyMaxActiveClusters`` >= 1); in a process without
-    a card, the H100's (``TARGET_SMS``, 16). Cached per card and shape."""
+#: Registers a thread of each persistent instance takes on the H100 (the
+#: larger of the chunk and legacy kernels'), as ``ptxas`` reports them for
+#: sm_90a (``chip_smoke.py``'s ``build`` line): (agent mode, on a
+#: cluster) -> registers.
+H100_REGISTERS = {("shared", False): 83, ("registers", False): 95,
+                  ("fresh", False): 84, ("shared", True): 90,
+                  ("registers", True): 144, ("fresh", True): 80}
+#: Clusters of C CTAs the H100 holds at once where an SM holds k of their
+#: CTAs (``cudaOccupancyMaxActiveClusters``, read by
+#: ``tools/kernel_times.py --holds`` and ``--matrix``): (C, k) ->
+#: clusters. A cluster takes CTAs of one GPC, and the 132 SMs lie in GPCs
+#: of unequal size, so this is not k·132/C.
+H100_CLUSTERS = {
+    (2, 1): 66, (2, 2): 132, (2, 3): 198, (2, 6): 396, (2, 8): 528,
+    (4, 1): 30, (4, 2): 62, (4, 3): 92, (4, 4): 124, (4, 5): 154,
+    (4, 6): 186, (4, 8): 248,
+    (8, 1): 15, (8, 2): 30, (8, 3): 45, (8, 5): 77, (8, 6): 92, (8, 8): 124,
+    (16, 1): 7, (16, 2): 14, (16, 3): 21, (16, 5): 35, (16, 6): 42,
+    (16, 8): 58}
+#: An SM of the H100: four sub-partitions of 16K registers each (a warp
+#: takes its registers in one), 228 KB of shared memory (1 KB of it
+#: reserved a CTA), 2,048 threads and 32 CTAs, and no more than 8 CTAs of
+#: clusters (read by ``--holds``: every cluster shape of more CTAs an SM
+#: holds what 8 hold).
+H100_SM = dict(partitions=4, partition_registers=16384, smem=233472,
+               reserved=1024, threads=2048, ctas=32, cluster_ctas=8)
+#: Static shared memory of a persistent CTA: ``TeamScratch``'s eight
+#: arrays of ``MAX_TEAM_WARPS`` words.
+STATIC_SMEM = 8 * 4 * MAX_TEAM_WARPS
+
+
+def h100_holds(tile: TileChoice) -> int:
+    """What an H100 holds of ``tile`` at once for the persistent kernels,
+    as :func:`card_holds` reads it on the card: k CTAs an SM from each
+    thread's registers (``H100_REGISTERS``, 8 at a time, a warp's in one
+    sub-partition), the CTA's shared memory (128 bytes at a time) and its
+    threads; at C > 1 the clusters of ``H100_CLUSTERS`` (where the card
+    was not asked at that k, those of the nearest k below it, scaled)."""
+    sm = H100_SM
+    regs = -(-H100_REGISTERS[(tile.agents, tile.ctas_per_market > 1)]
+             // 8) * 8
+    warps = sm["partitions"] * (sm["partition_registers"] // (32 * regs))
+    smem = -(-(tile.smem_bytes(True) + STATIC_SMEM + sm["reserved"])
+             // 128) * 128
+    k = min(warps // (tile.threads_per_cta // 32), sm["smem"] // smem,
+            sm["threads"] // tile.threads_per_cta, sm["ctas"])
+    C = tile.ctas_per_market
+    if C == 1 or k == 0:
+        return k
+    k = min(k, sm["cluster_ctas"])
+    near = max(j for j in range(1, k + 1) if (C, j) in H100_CLUSTERS)
+    return H100_CLUSTERS[(C, near)] * k // near
+
+
+def card_holds(tile: TileChoice) -> int:
+    """What the current card holds of ``tile`` at once, for both
+    persistent kernels (the fewer): at C > 1 the clusters
+    (``cudaOccupancyMaxActiveClusters``; 0: it cannot place one), else the
+    CTAs an SM; in a process without a card, the H100's
+    (:func:`h100_holds`). Cached per card and tile: the modes' shared
+    memory and registers differ."""
     import torch
 
     if not torch.cuda.is_available():
-        return TARGET_SMS, CTAS_PER_MARKET[-1]
-    card = torch.cuda.current_device()
-    key = (card, int(num_levels), int(num_agents), int(warps_per_market))
-    if key not in _CARD_LIMITS:
+        return h100_holds(tile)
+    key = (torch.cuda.current_device(), tile)
+    if key not in _CARD_HOLDS:
         from repro_torch.kernels import kinetic_clearing as kc
 
-        cap = 1
-        for C in CTAS_PER_MARKET[1:]:
-            shape = TileChoice(key[1], key[2], key[3], 1, "fresh", C)
-            if min(kc.resident_ctas(legacy, shape)
-                   for legacy in (False, True)) < 1:
-                break
-            cap = C
-        _CARD_LIMITS[key] = (
-            torch.cuda.get_device_properties(card).multi_processor_count, cap)
-    return _CARD_LIMITS[key]
+        _CARD_HOLDS[key] = min(kc.resident_ctas(legacy, tile)
+                               for legacy in (False, True))
+    return _CARD_HOLDS[key]
 
 
-def cluster_ctas(tile: TileChoice, num_markets: int, sms: int,
-                 max_ctas: int) -> int:
-    """The rule's C for a fresh ``tile`` (one CTA a market) over
-    ``num_markets``: the smallest C of ``CTAS_PER_MARKET`` up to
-    ``max_ctas`` whose grid reaches ``sms`` SMs (C = 1 at the tile's own
-    markets a CTA, C > 1 at one), else the largest admitted."""
-    best = 1
-    for C in CTAS_PER_MARKET:
-        if C > max_ctas:
+def card_sms() -> int:
+    """The current card's SMs; the H100's ``TARGET_SMS`` without one."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return TARGET_SMS
+    return torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+
+
+def card_limits(num_levels: int, num_agents: int, warps_per_market: int,
+                agents: str = "fresh") -> Tuple[int, int]:
+    """``(SMs, largest C)`` the rule counts on for a cluster of teams of
+    ``warps_per_market`` warps in the agent mode ``agents``: the current
+    card's SM count and the largest C of ``CTAS_PER_MARKET`` up to which
+    the card holds a cluster at every C the mode admits
+    (:func:`card_holds` >= 1); in a process without a card, the H100's
+    (``TARGET_SMS``, and C as :func:`h100_holds` answers)."""
+    L, A, W = int(num_levels), int(num_agents), int(warps_per_market)
+    cap = 1
+    for C in CTAS_PER_MARKET[1:]:
+        shape = TileChoice(L, A, W, 1, agents, C)
+        try:
+            check_tile(shape, L, A, True)
+        except ValueError:
+            continue                # not a shape of this mode
+        if card_holds(shape) < 1:
             break
-        best = C
-        grid = tile.grid(num_markets) if C == 1 else num_markets * C
-        if grid >= sms:
-            break
-    return best
+        cap = C
+    return card_sms(), cap
+
+
+def waves(tile: TileChoice, num_markets: int, sms: int,
+          holds: Callable[[TileChoice], int] = card_holds) -> float:
+    """Waves in which the card runs ``tile``'s grid over ``num_markets``:
+    the markets over the clusters it holds at once (``holds(tile)``) at
+    C > 1, else the grid over the CTAs that ``holds(tile)`` CTAs an SM on
+    ``sms`` SMs make; ``inf`` where it holds none."""
+    held, M = holds(tile), int(num_markets)
+    if held < 1:
+        return math.inf
+    if tile.ctas_per_market > 1:
+        return float(-(-M // held))
+    return float(-(-tile.grid(M) // (held * int(sms))))
+
+
+def _fits(L: int, A: int, W: int, mode: str, C: int) -> bool:
+    try:
+        check_shape(L, A, W, 1, mode, True, C)
+    except ValueError:
+        return False
+    return True
 
 
 def auto_tile(num_levels: int, num_agents: int,
               num_markets: Optional[int] = None, *,
-              sms: Optional[int] = None,
-              max_ctas: Optional[int] = None) -> TileChoice:
+              sms: Optional[int] = None, max_ctas: Optional[int] = None,
+              holds: Optional[Callable[[TileChoice], int]] = None
+              ) -> TileChoice:
     """The launch rule for ``num_levels`` (a power of two in [4, 1024]) and
     ``num_agents`` (>= 1); raises ``ValueError`` outside that domain.
 
-    In the fresh mode, given ``num_markets``, a market spans a cluster of
-    :func:`cluster_ctas` CTAs (one team a CTA), counting ``sms`` SMs and at
-    most ``max_ctas`` CTAs a cluster (default: :func:`card_limits`). Without
-    ``num_markets``, and in every other mode, C = 1."""
+    While a thread of ``max(1, L / 128)`` warps holds its agents in
+    registers, that team, four a CTA at one warp, and C = 1. Past that, the
+    first mode one CTA holds, at one CTA a market of ``MAX_TEAM_WARPS``
+    warps wherever shared memory holds fewer than ``MARKETS_PER_CTA``
+    one-warp teams. Given ``num_markets`` whose grid leaves SMs idle, a
+    market cluster of the smallest C whose M·C CTAs reach the SMs,
+    counting ``sms`` SMs and at most ``max_ctas`` CTAs a cluster (default:
+    :func:`card_limits` of the fresh mode). At that C, and at C = 1 for a
+    team of ``MAX_TEAM_WARPS`` warps, the mode of ``RULE_MODES`` that fits
+    a CTA and whose grid takes the fewest :func:`waves` (over ``holds``,
+    default :func:`card_holds`), the first on a tie: a hoisted mode that
+    takes more shared memory or registers than the card can give as many
+    CTAs as the fresh mode's runs in more waves, slower than recomputing
+    the keys in fewer."""
     L, A = _check_domain(num_levels, num_agents)
     W = max(1, L // LEVELS_PER_WARP)
     if A <= REG_AGENTS * 32 * W:
-        agents = "registers"
-    elif team_smem_bytes(L, A, True) <= MAX_DYNAMIC_SMEM:
-        agents = "shared"
-    else:
-        agents = "fresh"
-        # A fresh market hashes its A > 44,646 agents at every step: the
-        # widest team hashes them MAX_TEAM_WARPS times as fast as one warp.
+        return TileChoice(L, A, W, MARKETS_PER_CTA if W == 1 else 1,
+                          "registers")
+    per_market = team_smem_bytes(L, A, True)
+    agents = "shared" if per_market <= MAX_DYNAMIC_SMEM else "fresh"
+    # A thread of a one-warp team past the registers mode handles more
+    # than REG_AGENTS agents a step; where a CTA holds fewer than four
+    # such teams an SM runs one or two warps, and the widest team hashes
+    # MAX_TEAM_WARPS times as fast.
+    if agents == "fresh" or MARKETS_PER_CTA * per_market > MAX_DYNAMIC_SMEM:
         W = MAX_TEAM_WARPS
-    per_market = team_smem_bytes(L, A, agents == "shared")
-    mpc = MARKETS_PER_CTA if W == 1 else 1
-    while mpc > 1 and mpc * per_market > MAX_DYNAMIC_SMEM:
-        mpc //= 2
-    tile = TileChoice(L, A, W, mpc, agents)
-    if agents != "fresh" or num_markets is None:
+    tile = TileChoice(L, A, W, MARKETS_PER_CTA if W == 1 else 1, agents)
+    if num_markets is None:
         return tile
-    if sms is None or max_ctas is None:
-        card_sms, card_cap = card_limits(L, A, W)
-        sms = card_sms if sms is None else sms
-        max_ctas = card_cap if max_ctas is None else max_ctas
-    C = cluster_ctas(tile, int(num_markets), int(sms), int(max_ctas))
-    return tile if C == 1 else tile._replace(markets_per_cta=1,
-                                             ctas_per_market=C)
+    M = int(num_markets)
+    sms = card_sms() if sms is None else int(sms)
+    if max_ctas is None:
+        max_ctas = card_limits(L, A, MAX_TEAM_WARPS)[1]
+    C = 1
+    if tile.grid(M) < sms:
+        for C in (c for c in CTAS_PER_MARKET[1:] if c <= max_ctas):
+            if M * C >= sms:
+                break
+    if C == 1 and W != MAX_TEAM_WARPS:
+        return tile
+    holds = card_holds if holds is None else holds
+    cands = [TileChoice(L, A, MAX_TEAM_WARPS, 1, mode, C)
+             for mode in RULE_MODES if _fits(L, A, MAX_TEAM_WARPS, mode, C)]
+    return min(cands, key=lambda t: waves(t, M, sms, holds))
 
 
 def candidate_tiles(num_levels: int, num_agents: int,
@@ -317,10 +448,11 @@ def candidate_tiles(num_levels: int, num_agents: int,
                     ) -> List[TileChoice]:
     """Every launch shape :func:`check_shape` accepts for ``(L, A)`` at one
     CTA a market, the rule's (for ``num_markets``) first, then by warps a
-    market, markets a CTA and agent mode; then, where the population is
-    past shared memory (the rule's mode is fresh) and the kernel is
-    persistent, each fresh team size on a cluster of every C > 1 of
-    ``CTAS_PER_MARKET`` up to ``max_ctas`` (default: :func:`card_limits`).
+    market, markets a CTA and agent mode; then, for a persistent kernel
+    where the rule takes a market cluster (without ``num_markets``: where
+    it may, past the registers mode), each team size and agent mode on a
+    cluster of every C > 1 of ``CTAS_PER_MARKET`` up to ``max_ctas``
+    (default: :func:`card_limits`) that the mode admits.
 
     A persistent kernel (``hoisted``) sweeps the agent modes valid for
     ``(L, A)``; a per-step kernel keeps none, so only ``(W, MPC)`` is swept
@@ -331,7 +463,8 @@ def candidate_tiles(num_levels: int, num_agents: int,
     rule = auto_tile(num_levels, num_agents,
                      num_markets if hoisted else None, max_ctas=max_ctas)
     L, A = rule.num_levels, rule.num_agents
-    clusters = hoisted and rule.agents == "fresh"
+    clusters = hoisted and (rule.ctas_per_market > 1 if num_markets
+                            is not None else rule.agents != "registers")
     if agents is not ...:
         if agents not in AGENT_MODES:
             raise ValueError(f"agents must be one of {AGENT_MODES}, got "
@@ -349,13 +482,15 @@ def candidate_tiles(num_levels: int, num_agents: int,
         pass               # a pinned mode the rule's shape cannot hold
     shapes = [(W, mpc, mode, 1) for W in WARPS_PER_MARKET
               for mpc in MARKETS_PER_CTA_CHOICES for mode in modes]
-    if clusters and "fresh" in modes:
+    if clusters:
         for W in WARPS_PER_MARKET:
             if W * LEVELS_PER_WARP < L:
                 continue
-            cap = card_limits(L, A, W)[1] if max_ctas is None else max_ctas
-            shapes += [(W, 1, "fresh", C) for C in CTAS_PER_MARKET[1:]
-                       if C <= cap]
+            for mode in modes:
+                cap = card_limits(L, A, W, mode)[1] if max_ctas is None \
+                    else max_ctas
+                shapes += [(W, 1, mode, C) for C in CTAS_PER_MARKET[1:]
+                           if C <= cap]
     for W, mpc, mode, C in shapes:
         cand = TileChoice(L, A, W, mpc, mode, C)
         if cand in out:
@@ -387,9 +522,9 @@ def tune_key(num_levels: int, num_agents: int, chunk: int, *, device=None,
     that changes what is timed (kernel, scan, ``stats_only``, a pinned
     ``agents``, the rule's ``ctas_per_market``): distinct kernel
     configurations never share a winner. The number of markets enters
-    through the rule's C, which depends on it in the fresh mode (the
-    runner passes it): markets the rule gives one C share a winner, and
-    shapes that differ in C do not."""
+    through the rule's C, which depends on it past the registers mode
+    (the runner passes it): markets the rule gives one C share a winner,
+    and shapes that differ in C do not."""
     return ((device_kind(device), int(num_levels), int(num_agents),
              int(chunk)) + tuple(sorted(context.items())))
 

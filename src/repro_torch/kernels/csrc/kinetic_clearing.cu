@@ -15,20 +15,20 @@
 // not a column frozen at entry.
 //
 // Layout (kinetic_step.cuh): a team of W = max(1, L/128) warps per market
-// (8 in the fresh mode),
+// (8 past the registers mode where four one-warp teams do not fit a CTA),
 // four levels per thread, the books in registers for all the steps and only
 // the incoming bins in shared memory, so the books touch device memory only
 // at entry and exit. Each agent's step-invariant hash round and type are
 // computed once per call: in registers while a thread has at most 8 agents
-// (AGENTS_REGISTERS), else in the team's shared memory (AGENTS_SHARED);
-// a market whose A keys and type bytes do not fit one CTA's shared memory
-// recomputes them at every step (AGENTS_FRESH), as the per-step kernels
-// do, and keeps only its books and bins on chip. Such a market may also
-// spread its agents over a thread-block cluster of C = ctas_per_market
-// CTAs on neighbouring SMs (kinetic_step.cuh: ClusterAgents, ClusterBins),
-// the instances <AGENTS_FRESH, true>, launched with cudaLaunchKernelEx and
-// a cluster dimension of C; every other shape is a CLUSTER = false
-// instance, launched as before.
+// (AGENTS_REGISTERS), else in the CTA's shared memory (AGENTS_SHARED);
+// where the keys and type bytes do not fit a CTA's shared memory they are
+// recomputed at every step (AGENTS_FRESH), as the per-step kernels do, and
+// only the books and bins stay on chip. In any of the three modes a market
+// may spread its agents over a thread-block cluster of C = ctas_per_market
+// CTAs on neighbouring SMs (kinetic_step.cuh: ClusterBins), each CTA holding
+// its own agents' keys and types: the instances <AGENTS, true>, launched
+// with cudaLaunchKernelEx and a cluster dimension of C. C = 1 is a
+// CLUSTER = false instance, launched as before.
 //
 // What bounds them on this card: operations, not bytes. Per step a market
 // moves nothing through device memory, while every agent draws the
@@ -41,6 +41,8 @@
 // raking scans over four levels a thread, integer bins, and path writes 32
 // steps at a time.
 
+#include <type_traits>
+
 #include "kinetic_step.cuh"
 
 // The two kernels share one body on purpose: everything that makes the
@@ -49,18 +51,16 @@
 // ChunkArgs its C entry fills, never by the kernel. They stay two kernels
 // so each TPU kernel has its own name in the launch counts and ptxas report;
 // a change to one body is a change to both. AGENTS is an AgentMode;
-// CLUSTER (fresh only) spreads a market over a thread-block cluster.
+// CLUSTER spreads a market over a thread-block cluster.
 template <int AGENTS, bool CLUSTER>
 __device__ __forceinline__ void persistent_body(const ChunkArgs& g) {
-  static_assert(!CLUSTER || AGENTS == AGENTS_FRESH, "clusters run fresh");
-  if constexpr (CLUSTER) {
-    persistent_market<ClusterAgents, ClusterBins>(g);
-  } else if constexpr (AGENTS == AGENTS_REGISTERS) {
-    persistent_market<RegAgents, CtaBins>(g);
+  using Bins = std::conditional_t<CLUSTER, ClusterBins, CtaBins>;
+  if constexpr (AGENTS == AGENTS_REGISTERS) {
+    persistent_market<RegAgents, Bins>(g);
   } else if constexpr (AGENTS == AGENTS_SHARED) {
-    persistent_market<SmemAgents, CtaBins>(g);
+    persistent_market<SmemAgents, Bins>(g);
   } else {
-    persistent_market<FreshAgents, CtaBins>(g);
+    persistent_market<FreshAgents, Bins>(g);
   }
 }
 
@@ -130,6 +130,12 @@ static int launch_cluster(K kernel, const ChunkArgs& g, size_t smem,
 template <int AGENTS>
 static int launch_mode(bool legacy, const ChunkArgs& g, size_t smem,
                        void* stream) {
+  if (g.ctas_per_market > 1) {
+    return legacy ? launch_cluster(kinetic_legacy_kernel<AGENTS, true>, g,
+                                   smem, stream)
+                  : launch_cluster(kinetic_chunk_kernel<AGENTS, true>, g,
+                                   smem, stream);
+  }
   return legacy ? launch(kinetic_legacy_kernel<AGENTS>, g, smem, stream)
                 : launch(kinetic_chunk_kernel<AGENTS>, g, smem, stream);
 }
@@ -141,12 +147,6 @@ static int launch_persistent(bool legacy, const ChunkArgs& g, int agents,
                               g.markets_per_cta, agents, g.ctas_per_market,
                               &smem);
   if (bad != 0) return bad;
-  if (g.ctas_per_market > 1) {
-    return legacy ? launch_cluster(kinetic_legacy_kernel<AGENTS_FRESH, true>,
-                                   g, smem, stream)
-                  : launch_cluster(kinetic_chunk_kernel<AGENTS_FRESH, true>,
-                                   g, smem, stream);
-  }
   switch (agents) {
     case AGENTS_REGISTERS:
       return launch_mode<AGENTS_REGISTERS>(legacy, g, smem, stream);
@@ -155,14 +155,6 @@ static int launch_persistent(bool legacy, const ChunkArgs& g, int agents,
     default:
       return launch_mode<AGENTS_FRESH>(legacy, g, smem, stream);
   }
-}
-
-template <int AGENTS>
-static int occupancy_mode(bool legacy, int threads, size_t smem, int* ctas) {
-  return legacy ? resident_ctas(kinetic_legacy_kernel<AGENTS>, threads, smem,
-                                ctas)
-                : resident_ctas(kinetic_chunk_kernel<AGENTS>, threads, smem,
-                                ctas);
 }
 
 // Clusters of `ctas` CTAs of `kernel` the card holds at once
@@ -178,6 +170,23 @@ static int resident_clusters(K kernel, int threads, size_t smem, int ctas,
       nullptr);
   return (int)cudaOccupancyMaxActiveClusters(clusters, (const void*)kernel,
                                              &cfg);
+}
+
+// What the card holds of an AGENTS instance: clusters of C > 1 CTAs, else
+// CTAs per SM.
+template <int AGENTS>
+static int occupancy_mode(bool legacy, int threads, size_t smem, int C,
+                          int* ctas) {
+  if (C > 1) {
+    return legacy ? resident_clusters(kinetic_legacy_kernel<AGENTS, true>,
+                                      threads, smem, C, ctas)
+                  : resident_clusters(kinetic_chunk_kernel<AGENTS, true>,
+                                      threads, smem, C, ctas);
+  }
+  return legacy ? resident_ctas(kinetic_legacy_kernel<AGENTS>, threads, smem,
+                                ctas)
+                : resident_ctas(kinetic_chunk_kernel<AGENTS>, threads, smem,
+                                ctas);
 }
 
 extern "C" {
@@ -235,23 +244,17 @@ int kc_occupancy(int legacy, int A, int L, int warps_per_market,
                               agents, ctas_per_market, &smem);
   if (bad != 0) return bad;
   const int threads = 32 * warps_per_market * markets_per_cta;
+  const int C = ctas_per_market;
   int err;
-  if (ctas_per_market > 1) {
-    err = legacy ? resident_clusters(kinetic_legacy_kernel<AGENTS_FRESH, true>,
-                                     threads, smem, ctas_per_market, ctas)
-                 : resident_clusters(kinetic_chunk_kernel<AGENTS_FRESH, true>,
-                                     threads, smem, ctas_per_market, ctas);
-    return err != 0 ? err : (int)cudaGetLastError();
-  }
   switch (agents) {
     case AGENTS_REGISTERS:
-      err = occupancy_mode<AGENTS_REGISTERS>(legacy, threads, smem, ctas);
+      err = occupancy_mode<AGENTS_REGISTERS>(legacy, threads, smem, C, ctas);
       break;
     case AGENTS_SHARED:
-      err = occupancy_mode<AGENTS_SHARED>(legacy, threads, smem, ctas);
+      err = occupancy_mode<AGENTS_SHARED>(legacy, threads, smem, C, ctas);
       break;
     default:
-      err = occupancy_mode<AGENTS_FRESH>(legacy, threads, smem, ctas);
+      err = occupancy_mode<AGENTS_FRESH>(legacy, threads, smem, C, ctas);
   }
   return err != 0 ? err : (int)cudaGetLastError();
 }

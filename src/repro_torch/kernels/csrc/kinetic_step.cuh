@@ -6,19 +6,22 @@
 // their bid/ask in registers for the whole call; agent a is handled by
 // thread a mod T, so a warp holds 32 consecutive agent ids (mostly one
 // archetype). The launch rule (repro_torch/kernels/autotune.py::auto_tile)
-// takes W = max(1, L / 128): a market is one warp up to L = 128 (four
-// markets per CTA) and 2-8 warps beyond (one market per CTA), and eight
-// warps in the fresh agent mode; the timed sweep there may launch any
-// other shape check_shape below accepts.
+// takes W = max(1, L / 128) while a thread holds its agents in registers:
+// a market is one warp up to L = 128 (four markets per CTA) and 2-8 warps
+// beyond (one market per CTA); past that, eight warps wherever shared
+// memory holds fewer than four one-warp teams a CTA; the timed sweep may
+// launch any other shape check_shape below accepts.
 //
-// A market cluster (the fresh agent mode only, one team a CTA): C CTAs of a
-// thread-block cluster, C in {2, 4, 8, 16}, clear one market together. Each
-// CTA holds its own copy of the market's books in registers and hashes its
-// own agents, a ≡ r·T + t (mod C·T) for CTA rank r. Each bins into its own
-// shared memory; after one cluster barrier a step, every thread sums its
-// own levels' bins over the C CTAs through distributed shared memory, so
-// every copy of the books clears alike and only rank 0 writes the outputs.
-// C = 1 is the one-CTA layout above, compiled without any of this.
+// A market cluster (any agent mode of the persistent kernels, one team a
+// CTA): C CTAs of a thread-block cluster, C in {2, 4, 8, 16}, clear one
+// market together. Each CTA holds its own copy of the market's books in
+// registers and handles its own agents, a ≡ r·T + t (mod C·T) for CTA rank
+// r, whose keys and types it alone holds (in registers, in its own shared
+// memory, or recomputed). Each bins into its own shared memory; after one
+// cluster barrier a step, every thread sums its own levels' bins over the
+// C CTAs through distributed shared memory, so every copy of the books
+// clears alike and only rank 0 writes the outputs. C = 1 is the one-CTA
+// layout above, compiled without any of this.
 //
 // market_step() runs one step of simulate_step (repro_torch.core.step):
 // the scenario shock, best quotes and the book imbalance, the agents'
@@ -324,110 +327,115 @@ __device__ __forceinline__ void team_argmax(const Team& tm, int L, float& v,
 }
 
 // ---------------------------------------------------------------------------
-// Where an agent's step-invariant key and type come from. Each policy hands
-// f(a, key, type) every agent a ≡ t (mod T) below A.
+// Where an agent's step-invariant key and type come from. A thread handles
+// the agents a = first + j·stride below A, j = 0, 1, ...: an AgentSpan,
+// which the bins give (one CTA a market: first = t, stride = T; CTA rank r
+// of a market cluster of C: first = r·T + t, stride = C·T), so a warp holds
+// 32 consecutive agent ids. Each policy hands f(a, key, type) every such
+// agent. The span is passed to each call, never stored: at one CTA a market
+// the walk is then the team's own t + k·T, and the registers mode keeps
+// its 95 registers (a stored copy took it to 104).
 
-// Computed once per call, held in registers: slot k is agent t + k·T.
+struct AgentSpan {
+  int first, stride;
+};
+
+// Computed once per call, held in registers: slot k is agent
+// first + k·stride, so a market holds at most REG_AGENTS·T·C agents.
 struct RegAgents {
   static constexpr bool kSmem = false;
   uint32_t key[REG_AGENTS];
   uint32_t types;  // 4 bits per slot
 
-  __device__ __forceinline__ void init(const Team& tm, const MarketRow& p,
-                                       uint32_t seed_g, uint32_t market,
-                                       int A, int*) {
+  __device__ __forceinline__ void init(const Team&, AgentSpan s,
+                                       const MarketRow& p, uint32_t seed_g,
+                                       uint32_t market, int A, int, int*) {
     types = 0u;
 #pragma unroll
     for (int k = 0; k < REG_AGENTS; ++k) {
-      const int a = tm.t + k * tm.T;
+      const int a = s.first + k * s.stride;
       key[k] = a < A ? agent_key(seed_g, market, A, a) : 0u;
       types |= (uint32_t)agent_type(a, p) << (4 * k);
     }
   }
 
   template <class F>
-  __device__ __forceinline__ void each(const Team& tm, int A, F&& f) const {
+  __device__ __forceinline__ void each(const Team&, AgentSpan s, int A,
+                                       F&& f) const {
 #pragma unroll
     for (int k = 0; k < REG_AGENTS; ++k) {
-      const int a = tm.t + k * tm.T;
+      const int a = s.first + k * s.stride;
       if (a < A) f(a, key[k], (int)((types >> (4 * k)) & 15u));
     }
   }
 };
 
-// Computed once per call, held in the team's shared memory after its bins
-// (A keys, then A type bytes). Each thread reads back only what it wrote.
+// Computed once per call, held in the CTA's shared memory after its bins:
+// K keys, then K type bytes (K = agent_slots below). Agent first + j·stride
+// takes the CTA's slot j·T + t (at one CTA a market, slot a). Each thread
+// reads back only what it wrote.
 struct SmemAgents {
   static constexpr bool kSmem = true;
   uint32_t* key;
   uint8_t* type;
 
-  __device__ __forceinline__ void init(const Team& tm, const MarketRow& p,
-                                       uint32_t seed_g, uint32_t market,
-                                       int A, int* area) {
+  __device__ __forceinline__ void init(const Team& tm, AgentSpan s,
+                                       const MarketRow& p, uint32_t seed_g,
+                                       uint32_t market, int A, int K,
+                                       int* area) {
     key = reinterpret_cast<uint32_t*>(area);
-    type = reinterpret_cast<uint8_t*>(area + A);
-    for (int a = tm.t; a < A; a += tm.T) {
-      key[a] = agent_key(seed_g, market, A, a);
-      type[a] = (uint8_t)agent_type(a, p);
+    type = reinterpret_cast<uint8_t*>(area + K);
+    for (int a = s.first, i = tm.t; a < A; a += s.stride, i += tm.T) {
+      key[i] = agent_key(seed_g, market, A, a);
+      type[i] = (uint8_t)agent_type(a, p);
     }
   }
 
   template <class F>
-  __device__ __forceinline__ void each(const Team& tm, int A, F&& f) const {
-    for (int a = tm.t; a < A; a += tm.T) f(a, key[a], (int)type[a]);
+  __device__ __forceinline__ void each(const Team& tm, AgentSpan s, int A,
+                                       F&& f) const {
+    for (int a = s.first, i = tm.t; a < A; a += s.stride, i += tm.T)
+      f(a, key[i], (int)type[i]);
   }
 };
 
 // Recomputed at every step: the per-step kernels, which keep nothing, and
-// a persistent kernel whose market's keys and types fit neither registers
-// nor shared memory (the books still stay on chip across the chunk).
+// a persistent kernel whose CTA's keys and types fit neither registers nor
+// shared memory (the books still stay on chip across the chunk).
 struct FreshAgents {
   static constexpr bool kSmem = false;
   const MarketRow* p;
   uint32_t seed_g, market;
 
-  __device__ __forceinline__ void init(const Team&, const MarketRow& row,
-                                       uint32_t seed, uint32_t mkt, int,
-                                       int*) {
+  __device__ __forceinline__ void init(const Team&, AgentSpan,
+                                       const MarketRow& row, uint32_t seed,
+                                       uint32_t mkt, int, int, int*) {
     p = &row; seed_g = seed; market = mkt;
   }
 
   template <class F>
-  __device__ __forceinline__ void each(const Team& tm, int A, F&& f) const {
-    for (int a = tm.t; a < A; a += tm.T)
+  __device__ __forceinline__ void each(const Team&, AgentSpan s, int A,
+                                       F&& f) const {
+    for (int a = s.first; a < A; a += s.stride)
       f(a, agent_key(seed_g, market, A, a), agent_type(a, *p));
   }
 };
 
-// FreshAgents spread over a market cluster: CTA rank r holds the agents
-// a ≡ r·T + t (mod C·T), so a warp still holds 32 consecutive agent ids.
-struct ClusterAgents {
-  static constexpr bool kSmem = false;
-  FreshAgents fresh;
-  int first, stride;
+// Agent slots K of a CTA's key area: its market's A agents at one CTA a
+// market; at C > 1 a cluster CTA's share, ⌈A / (C·T)⌉·T, slot j·T + t
+// holding agent first + j·stride.
+static inline __host__ __device__ int agent_slots(int A, int T, int C) {
+  return C > 1 ? (A + C * T - 1) / (C * T) * T : A;
+}
 
-  __device__ __forceinline__ void init(const Team& tm, const MarketRow& row,
-                                       uint32_t seed, uint32_t mkt, int A,
-                                       int* area) {
-    fresh.init(tm, row, seed, mkt, A, area);
-    first = cluster_rank() * tm.T + tm.t;
-    stride = cluster_ctas() * tm.T;
-  }
-
-  template <class F>
-  __device__ __forceinline__ void each(const Team&, int A, F&& f) const {
-    for (int a = first; a < A; a += stride)
-      f(a, agent_key(fresh.seed_g, fresh.market, A, a),
-        agent_type(a, *fresh.p));
-  }
-};
-
-// 32-bit words of one team's dynamic shared memory: buy and sell bins, then
-// (SmemAgents only) A keys and A type bytes.
-static inline __host__ __device__ int team_smem_words(int L, int A,
+// 32-bit words of one team's dynamic shared memory: its buy and sell bins
+// (2L; two parity buffers, 4L, on a market cluster), then (SmemAgents only)
+// K = agent_slots keys and K type bytes.
+static inline __host__ __device__ int team_smem_words(int L, int A, int T,
+                                                      int C,
                                                       bool agents_in_smem) {
-  return 2 * L + (agents_in_smem ? A + (A + 3) / 4 : 0);
+  const int K = agent_slots(A, T, C);
+  return (C > 1 ? 4 : 2) * L + (agents_in_smem ? K + (K + 3) / 4 : 0);
 }
 
 // Where a kernel keeps each agent's step-invariant key and type: the agent
@@ -437,8 +445,9 @@ static inline __host__ __device__ int team_smem_words(int L, int A,
 enum AgentMode { AGENTS_SHARED = 0, AGENTS_REGISTERS = 1, AGENTS_FRESH = 2 };
 
 // 0 when (W, MPC, agents, C) is a launch shape the kernels can run for
-// (L, A), else cudaErrorInvalidValue. C CTAs a market (a cluster) only in
-// the fresh mode and at one team a CTA; a cluster's bins are two buffers.
+// (L, A), else cudaErrorInvalidValue. C CTAs a market (a cluster) in any
+// agent mode, at one team a CTA; the registers mode holds REG_AGENTS
+// agents a thread of the cluster.
 static inline int check_shape(int L, int A, int W, int MPC, int agents,
                               int C, size_t* smem) {
   const bool pow2 = L >= 4 && L <= 1024 && (L & (L - 1)) == 0;
@@ -446,13 +455,13 @@ static inline int check_shape(int L, int A, int W, int MPC, int agents,
   const bool c_ok = C >= 1 && C <= MAX_CLUSTER_CTAS && (C & (C - 1)) == 0;
   if (!pow2 || A < 1 || !w_ok || W * LEVELS_PER_WARP < L || MPC < 1 ||
       (W > 1 && MPC != 1) || 32 * W * MPC > MAX_CTA_THREADS ||
-      agents < AGENTS_SHARED || agents > AGENTS_FRESH ||
-      (agents == AGENTS_REGISTERS && A > REG_AGENTS * 32 * W) || !c_ok ||
-      (C > 1 && (agents != AGENTS_FRESH || MPC != 1))) {
+      agents < AGENTS_SHARED || agents > AGENTS_FRESH || !c_ok ||
+      (agents == AGENTS_REGISTERS && A > REG_AGENTS * 32 * W * C) ||
+      (C > 1 && MPC != 1)) {
     return (int)cudaErrorInvalidValue;
   }
-  *smem = (size_t)MPC * 4 * team_smem_words(L, A, agents == AGENTS_SHARED) *
-          (C > 1 ? 2 : 1);
+  *smem = (size_t)MPC * 4 *
+          team_smem_words(L, A, 32 * W, C, agents == AGENTS_SHARED);
   return *smem <= MAX_DYNAMIC_SMEM ? 0 : (int)cudaErrorInvalidValue;
 }
 
@@ -489,11 +498,11 @@ struct Book {
 };
 
 // Where a step's orders are binned and summed: the team's own bins
-// (CtaBins) or a market cluster's (ClusterBins). add() bins one order,
-// sync() is the barrier after the binning, take() hands a thread the
-// step's totals at its levels lv0 + j (0 past L) and resets what it read
-// for a later step, leader() says whether this CTA writes the outputs, and
-// finish() ends the call.
+// (CtaBins) or a market cluster's (ClusterBins). span() gives a thread its
+// agents, add() bins one order, sync() is the barrier after the binning,
+// take() hands a thread the step's totals at its levels lv0 + j (0 past L)
+// and resets what it read for a later step, leader() says whether this CTA
+// writes the outputs, and finish() ends the call.
 
 // The team's 2L bins in its CTA's shared memory (buy [0, L), sell
 // [L, 2L)), read and reset in place.
@@ -504,6 +513,10 @@ struct CtaBins {
   __device__ __forceinline__ void init(const Team& tm, int* area, int L) {
     b = reinterpret_cast<bin_t*>(area);
     for (int k = tm.t; k < 2 * L; k += tm.T) b[k] = (bin_t)0;
+  }
+  // The team handles every agent of its market.
+  __device__ __forceinline__ AgentSpan span(const Team& tm) const {
+    return AgentSpan{tm.t, tm.T};
   }
   __device__ __forceinline__ void add(int, int bin, int q) const {
     atomicAdd(&b[bin], (bin_t)q);
@@ -544,6 +557,10 @@ struct ClusterBins {
     rank = cluster_rank();
     ranks = cluster_ctas();
     for (int k = tm.t; k < 2 * L2; k += tm.T) b[k] = (bin_t)0;
+  }
+  // CTA rank r handles the agents a ≡ r·T + t (mod C·T).
+  __device__ __forceinline__ AgentSpan span(const Team& tm) const {
+    return AgentSpan{rank * tm.T + tm.t, ranks * tm.T};
   }
   __device__ __forceinline__ bin_t* at(int step) const {
     return b + (step & 1) * L2;
@@ -702,7 +719,7 @@ __device__ __forceinline__ void market_step(
   // warp sees its lanes' bin resets first; a several-warp team saw the
   // other warps' at the reductions' barriers.
   __syncwarp();
-  agents.each(tm, A, [&](int a, uint32_t key, int type) {
+  agents.each(tm, bins.span(tm), A, [&](int a, uint32_t key, int type) {
     int bin;
     const int q = agent_order(p, a, key, type, step, mid, pmid, imb, peer, L,
                               bin);
@@ -863,20 +880,22 @@ __device__ __forceinline__ void store_book(const Team& tm, const Book& bk,
 // in registers, the step-invariant agent keys and types computed once (or,
 // fresh, at every step), and the per-step outputs buffered in warp 0 (lane
 // s mod 32 holds step s) and written 32 steps at a time. With ClusterBins
-// the CTAs of a cluster of g.ctas_per_market clear one market, and rank 0
-// writes its outputs.
+// the CTAs of a cluster of C = g.ctas_per_market clear one market, each
+// holding its own agents' keys and types, and rank 0 writes its outputs.
 template <class Agents, class Bins>
 __device__ __forceinline__ void persistent_market(const ChunkArgs& g) {
   const Team tm = make_team(g.warps_per_market);
+  const int C = Bins::kCluster ? g.ctas_per_market : 1;
   const int m = Bins::kCluster
-                    ? (int)blockIdx.x / g.ctas_per_market
+                    ? (int)blockIdx.x / C
                     : (int)blockIdx.x * g.markets_per_cta + tm.slot;
   // The ragged last CTA: a team past M leaves. Teams share a CTA only when
   // each is one warp, and those never cross __syncthreads(). A cluster is
   // one market, so none is ragged.
   if (m >= g.M) return;
   const int L = g.L, A = g.A;
-  int* area = kc_smem + tm.slot * team_smem_words(L, A, Agents::kSmem);
+  int* area = kc_smem + tm.slot * team_smem_words(L, A, tm.T, C,
+                                                  Agents::kSmem);
   const MarketIn in = market_in(g, m);
   Book bk;
   load_book(tm, bk, g.bid + in.row, g.ask + in.row, L);
@@ -884,7 +903,9 @@ __device__ __forceinline__ void persistent_market(const ChunkArgs& g) {
   bins.init(tm, area, L);
   const bool writes = bins.leader();
   Agents agents;
-  agents.init(tm, in.p, g.seed ^ SEED_GOLDEN, in.market, A, area + 2 * L);
+  agents.init(tm, bins.span(tm), in.p, g.seed ^ SEED_GOLDEN, in.market, A,
+              agent_slots(A, tm.T, C),
+              area + team_smem_words(L, A, tm.T, C, false));
   float last = g.last[m];
   float pmid = g.pmid[m];
   const float peer0 = g.peer_mid != nullptr ? g.peer_mid[m] : 0.f;
@@ -944,9 +965,11 @@ __device__ __forceinline__ void one_step_market(const ChunkArgs& g, int s) {
   Book bk;
   load_book(tm, bk, g.bid + in.row, g.ask + in.row, L);
   CtaBins bins;
-  bins.init(tm, kc_smem + tm.slot * team_smem_words(L, A, false), L);
+  bins.init(tm, kc_smem + tm.slot * team_smem_words(L, A, tm.T, 1, false),
+            L);
   FreshAgents agents;
-  agents.init(tm, in.p, g.seed ^ SEED_GOLDEN, in.market, A, nullptr);
+  agents.init(tm, bins.span(tm), in.p, g.seed ^ SEED_GOLDEN, in.market, A,
+              A, nullptr);
   float last = g.last[m];
   float pmid = g.pmid[m];
   const float peer = g.peer_mid != nullptr ? g.peer_mid[m] : pmid;

@@ -173,9 +173,9 @@ def kinetic_clearing_chunk(
     exact-integer books). The launch shape is ``tile`` (a
     :class:`~repro_torch.kernels.autotune.TileChoice` for the operands' L
     and A, checked here on every device), or ``autotune.auto_tile(L, A,
-    M)`` when None (a market cluster in the fresh mode where the markets
-    alone leave SMs idle); the plain version ignores it, as every shape
-    gives the same bits.
+    M)`` when None (a market cluster past the registers mode where the
+    markets alone leave SMs idle); the plain version ignores it, as every
+    shape gives the same bits.
 
     Returns ``(bid, ask, last, pmid, price_path, volume_path, mid_path)``
     with ``[M, chunk]`` paths of which the first ``n_valid`` columns are

@@ -22,8 +22,8 @@ brackets):
   * ``tile=`` [``mb=``] — pin the launch shape
     (:class:`~repro_torch.kernels.autotune.TileChoice`); no sweep. Without
     it, the rule's shape for the shard's rows (``autotune.auto_tile(L, A,
-    rows)``: in the fresh mode each shard's rows pick their own market
-    cluster) or the sweep's winner.
+    rows)``: past the registers mode each shard's rows pick their own
+    market cluster) or the sweep's winner.
   * ``agents=`` [``agent_chunk=``] — pin the agent mode and sweep the rest.
   * ``autotune="auto"`` — ``"auto"`` sweeps when the runner's device is a
     card, ``True`` on any device (on the CPU it times the plain version),

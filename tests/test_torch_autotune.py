@@ -60,11 +60,20 @@ def _c_accepts(L, A, W, mpc, mode, C=1):
     code = autotune.AGENT_MODES.index(mode)
     if (not pow2 or A < 1 or not w_ok or W * 128 < L or mpc < 1
             or (W > 1 and mpc != 1) or 32 * W * mpc > 256
-            or code < 0 or code > 2 or (code == 1 and A > 8 * 32 * W)
-            or not c_ok or (C > 1 and (code != 2 or mpc != 1))):
+            or code < 0 or code > 2 or not c_ok
+            or (code == 1 and A > 8 * 32 * W * C)
+            or (C > 1 and mpc != 1)):
         return False
-    words = 2 * L + (A + (A + 3) // 4 if code == 0 else 0)
-    return mpc * 4 * words * (2 if C > 1 else 1) <= 232448 - 1024
+    return mpc * 4 * _c_team_words(L, A, 32 * W, C, code == 0) \
+        <= 232448 - 1024
+
+
+def _c_team_words(L, A, T, C, agents_in_smem):
+    """``team_smem_words`` and ``agent_slots`` of ``kinetic_step.cuh``,
+    transcribed (:func:`test_check_shape_is_the_headers` holds the text)."""
+    K = (A + C * T - 1) // (C * T) * T if C > 1 else A
+    return (4 if C > 1 else 2) * L + (K + (K + 3) // 4 if agents_in_smem
+                                      else 0)
 
 
 def test_check_shape_is_the_headers():
@@ -73,13 +82,18 @@ def test_check_shape_is_the_headers():
     for cond in ("W == 1 || W == 2 || W == 4 || W == 8",
                  "W * LEVELS_PER_WARP < L", "MPC < 1",
                  "(W > 1 && MPC != 1)", "32 * W * MPC > MAX_CTA_THREADS",
-                 "(agents == AGENTS_REGISTERS && A > REG_AGENTS * 32 * W)",
+                 "(agents == AGENTS_REGISTERS && A > REG_AGENTS * 32 * W * C)",
                  "C >= 1 && C <= MAX_CLUSTER_CTAS && (C & (C - 1)) == 0",
-                 "(C > 1 && (agents != AGENTS_FRESH || MPC != 1))",
-                 "*smem = (size_t)MPC * 4 * team_smem_words(L, A, "
-                 "agents == AGENTS_SHARED) *\n          (C > 1 ? 2 : 1);",
+                 "(C > 1 && MPC != 1)",
+                 "*smem = (size_t)MPC * 4 *\n          team_smem_words(L, A, "
+                 "32 * W, C, agents == AGENTS_SHARED);",
                  "*smem <= MAX_DYNAMIC_SMEM"):
         assert cond in body, cond
+    for text in ("return C > 1 ? (A + C * T - 1) / (C * T) * T : A;",
+                 "const int K = agent_slots(A, T, C);\n"
+                 "  return (C > 1 ? 4 : 2) * L + (agents_in_smem ? "
+                 "K + (K + 3) / 4 : 0);"):
+        assert text in HEADER, text
     assert "#define MAX_CLUSTER_CTAS 16" in HEADER
     assert autotune.CTAS_PER_MARKET[-1] == 16
     # The per-step kernels check their shape in the fresh mode, one CTA a
@@ -110,9 +124,9 @@ def test_candidates_are_the_c_domain(L, A, hoisted):
     assert cands[0] == autotune.auto_tile(L, A)
     assert len(set(cands)) == len(cands)
     mode = autotune.auto_tile(L, A).agents
-    # Clusters only for a persistent kernel whose population is past shared
-    # memory (the rule's own mode is fresh).
-    sizes = (1, 2, 4, 8, 16) if hoisted and mode == "fresh" else (1,)
+    # Clusters only for a persistent kernel whose population is past the
+    # registers mode (without a market count, where the rule may take one).
+    sizes = (1, 2, 4, 8, 16) if hoisted and mode != "registers" else (1,)
     want = {(W, mpc, m, C) for W in (1, 2, 4, 8) for mpc in (1, 2, 4, 8)
             for m in (autotune.AGENT_MODES if hoisted else (mode,))
             for C in sizes
@@ -134,12 +148,16 @@ def test_candidates_are_the_c_domain(L, A, hoisted):
             assert len(one) == 3  # registers, shared and fresh
     if hoisted and L <= 128 and A <= 256:
         assert len(cands) == 21
-    # A cluster is fresh, one team a CTA, of each W that holds L.
-    clusters = {(c.warps_per_market, c.ctas_per_market) for c in cands
-                if c.ctas_per_market > 1}
+    # A cluster is one team a CTA, of each W that holds L and each mode
+    # that fits its CTAs; the fresh mode always does.
+    clusters = {(c.warps_per_market, c.agents, c.ctas_per_market)
+                for c in cands if c.ctas_per_market > 1}
     if len(sizes) > 1:
-        assert clusters == {(W, C) for W in (1, 2, 4, 8) if 128 * W >= L
-                            for C in (2, 4, 8, 16)}
+        assert {(W, C) for W, m, C in clusters if m == "fresh"} == {
+            (W, C) for W in (1, 2, 4, 8) if 128 * W >= L
+            for C in (2, 4, 8, 16)}
+        assert all(c.markets_per_cta == 1 for c in cands
+                   if c.ctas_per_market > 1)
     else:
         assert not clusters
     # A smaller cluster limit (the card's occupancy query) caps the list.
@@ -155,29 +173,44 @@ def test_candidates_cover_levels_and_agents_once(L, A):
     ``t, t + T, ...``) cover every level and agent of a market once, and a
     CTA's teams take disjoint shared memory within the limit."""
     assert "const int lv = tm.t * LEVELS_PER_LANE + j;" in HEADER
-    assert "const int a = tm.t + k * tm.T;" in HEADER
-    assert HEADER.count("for (int a = tm.t; a < A; a += tm.T)") == 3
-    # ClusterAgents: rank r's thread t starts at r·T + t, strides C·T.
-    assert ("first = cluster_rank() * tm.T + tm.t;\n"
-            "    stride = cluster_ctas() * tm.T;") in HEADER
-    assert "for (int a = first; a < A; a += stride)" in HEADER
+    # Every mode walks the span the bins give: first + j·stride, where
+    # one CTA a market starts thread t at t and strides T, and a cluster's
+    # rank r starts it at r·T + t and strides C·T; slot k of the registers
+    # is agent first + k·stride, and the shared mode keeps agent
+    # first + j·stride in the CTA's slot j·T + t.
+    assert "return AgentSpan{tm.t, tm.T};" in HEADER
+    assert "return AgentSpan{rank * tm.T + tm.t, ranks * tm.T};" in HEADER
+    assert HEADER.count("const int a = s.first + k * s.stride;") == 2
+    assert HEADER.count("for (int a = s.first, i = tm.t; a < A; "
+                        "a += s.stride, i += tm.T)") == 2
+    assert "for (int a = s.first; a < A; a += s.stride)" in HEADER
     for c in autotune.candidate_tiles(L, A, hoisted=True, max_ctas=16):
         T, C = c.threads_per_market, c.ctas_per_market
         levels = sorted(4 * t + j for t in range(T) for j in range(4)
                         if 4 * t + j < L)
         assert levels == list(range(L)), c
+        spans = [(r * T + t, C * T) for r in range(C) for t in range(T)]
         if c.agents == "registers":
-            agents = [t + k * T for t in range(T) for k in range(8)
-                      if t + k * T < A]
+            agents = [f + k * st for f, st in spans for k in range(8)
+                      if f + k * st < A]
         else:
-            agents = [a for r in range(C) for t in range(T)
-                      for a in range(r * T + t, A, C * T)]
+            agents = [a for f, st in spans for a in range(f, A, st)]
         assert sorted(agents) == list(range(A)), c
+        K = autotune.agent_slots(A, T, C)
+        if c.agents == "shared":  # each CTA's slots j·T + t, once, below K
+            for r in range(C):
+                slots = [j * T + t for t in range(T)
+                         for j, _ in enumerate(range(r * T + t, A, C * T))]
+                assert len(set(slots)) == len(slots)
+                assert max(slots, default=0) < K
         assert c.threads_per_cta <= autotune.MAX_CTA_THREADS
-        per_team = autotune.team_smem_bytes(L, A, c.agents == "shared")
-        # A cluster's CTA holds two parity buffers of bins.
-        assert c.smem_bytes(True) == c.markets_per_cta * per_team * (
-            2 if C > 1 else 1) <= autotune.MAX_DYNAMIC_SMEM
+        per_team = autotune.team_smem_bytes(L, A, c.agents == "shared", T, C)
+        # A cluster's CTA holds two parity buffers of bins and its own
+        # agents' keys and types.
+        assert per_team == 4 * ((4 if C > 1 else 2) * L + (
+            K + -(-K // 4) if c.agents == "shared" else 0))
+        assert c.smem_bytes(True) == c.markets_per_cta * per_team \
+            <= autotune.MAX_DYNAMIC_SMEM
 
 
 @pytest.mark.parametrize("hoisted", [True, False])
@@ -211,27 +244,211 @@ def test_rule_takes_the_smallest_cluster_that_fills_the_sms(L, M, sms, cap,
     if want == 1:
         assert got == base
     else:
-        assert got == base._replace(markets_per_cta=1, ctas_per_market=want)
+        # On the cluster the mode of the fewest waves on an H100 (no card
+        # here), the first on a tie.
+        on = base._replace(markets_per_cta=1, ctas_per_market=want)
+        modes = [m for m in autotune.RULE_MODES
+                 if _c_accepts(L, A, 8, 1, m, want)]
+        assert got == min((on._replace(agents=m) for m in modes),
+                          key=lambda t: autotune.waves(
+                              t, M, sms, autotune.h100_holds))
         assert got.grid(M) == M * want
         assert got.grid(M) >= sms or want == cap
         assert want == 2 or M * want // 2 < sms   # the smallest such C
         assert autotune.check_tile(got, L, A, True) is got
         with pytest.raises(ValueError, match="cluster"):
             autotune.check_tile(got, L, A, False)
-    assert got.smem_bytes(True) == base.smem_bytes(True) // \
-        base.markets_per_cta * (2 if want > 1 else base.markets_per_cta)
+    assert got.smem_bytes(True) == autotune.team_smem_bytes(
+        L, A, got.agents == "shared", 256, want)
 
 
 @pytest.mark.parametrize("A", [16, 256, 1024, 46080])
 def test_rule_keeps_one_cta_a_market_below_the_fresh_mode(A):
-    """Registers and shared modes never take a cluster, however few the
+    """Below the fresh mode a market keeps one CTA wherever the grid of
+    the markets reaches the SMs; the registers mode of a team of
+    ``max(1, L / 128)`` warps never takes a cluster, however few the
     markets; nor does the rule without a market count."""
-    for M in (1, 10, 132):
-        assert autotune.auto_tile(128, A, M, sms=132, max_ctas=16) == \
-            autotune.auto_tile(128, A)
+    one = autotune.auto_tile(128, A)
+    assert one.ctas_per_market == 1 and one.agents != "fresh"
+    for M in (132 * one.markets_per_cta, 8192):
+        # A=46,080's shared CTA is alone on its SM, a fresh one is not:
+        # 8192 markets take 63 waves shared and 32 fresh.
+        assert autotune.auto_tile(128, A, M, sms=132, max_ctas=16) == (
+            one._replace(agents="fresh") if (A, M) == (46080, 8192)
+            else one)
+    if one.agents == "registers":
+        for M in (1, 10, 132):
+            assert autotune.auto_tile(128, A, M, sms=132,
+                                      max_ctas=16) == one
+    else:
+        assert autotune.auto_tile(128, A, 10, sms=132,
+                                  max_ctas=16).ctas_per_market == 16
     assert autotune.auto_tile(128, 50000).ctas_per_market == 1
     assert autotune.auto_tile(128, 50000, 1, sms=132,
                               max_ctas=16).ctas_per_market == 16
+
+
+#: The rule's shape (W, markets a CTA, mode, C) on an H100's 132 SMs and
+#: clusters of up to 16, at large populations (M, A, L), beside the rule's
+#: shape there before the hoisted modes took clusters: B1 the last
+#: population one CTA's shared memory holds at L=128, B2 a wide book,
+#: Q1-Q3 one exchange, half the SMs' markets and two markets an SM, P1-P3
+#: and `edges` past one CTA's shared memory, W1-W3 many more markets than
+#: the card holds at once, R1 and R2 a registers-mode cluster the card
+#: holds. A cluster's CTA holds only its own agents' keys, so each past
+#: that memory may keep them in the shared mode; a hoisted grid that takes
+#: more waves than the fresh mode's (Q2, Q3, P2, P3, W2, W3) runs fresh.
+LARGE_RULES = [
+    ("B1", 10, 46080, 128, (8, 1, "shared", 16), (1, 1, "shared", 1)),
+    ("B2", 10, 20000, 1024, (8, 1, "shared", 16), (8, 1, "shared", 1)),
+    ("Q1", 1, 40000, 128, (8, 1, "shared", 16), (1, 1, "shared", 1)),
+    ("Q2", 64, 30000, 128, (8, 1, "fresh", 4), (1, 1, "shared", 1)),
+    ("Q3", 264, 30000, 128, (8, 1, "fresh", 1), (1, 1, "shared", 1)),
+    ("P1", 1, 100000, 128, (8, 1, "shared", 16), (8, 1, "fresh", 16)),
+    ("P2", 16, 50000, 1024, (8, 1, "fresh", 16), (8, 1, "fresh", 16)),
+    ("P3", 128, 50000, 128, (8, 1, "fresh", 2), (8, 1, "fresh", 2)),
+    ("edges-128", 10, 50000, 128, (8, 1, "shared", 16),
+     (8, 1, "fresh", 16)),
+    ("edges-1024", 10, 45000, 1024, (8, 1, "shared", 16),
+     (8, 1, "fresh", 16)),
+    ("W1", 8192, 20000, 1024, (8, 1, "shared", 1), (8, 1, "shared", 1)),
+    ("W2", 2048, 30000, 128, (8, 1, "fresh", 1), (1, 1, "shared", 1)),
+    ("W3", 1024, 40000, 1024, (8, 1, "fresh", 1), (8, 1, "shared", 1)),
+    ("R1", 1, 30000, 128, (8, 1, "registers", 16), (1, 1, "shared", 1)),
+    ("R2", 4, 20000, 1024, (8, 1, "registers", 16), (8, 1, "shared", 1))]
+
+
+@pytest.mark.parametrize("label,M,A,L,want,earlier", LARGE_RULES,
+                         ids=[r[0] for r in LARGE_RULES])
+def test_rule_at_large_populations(label, M, A, L, want, earlier):
+    """Past the registers mode a market takes the widest team where a CTA
+    holds fewer than four one-warp teams, and, where its markets leave SMs
+    idle, the smallest cluster whose M·C CTAs reach them; the rule without
+    a card is the H100's."""
+    got = autotune.auto_tile(L, A, M, sms=132, max_ctas=16)
+    assert (got.warps_per_market, got.markets_per_cta, got.agents,
+            got.ctas_per_market) == want
+    assert autotune.auto_tile(L, A, M) == got
+    C = got.ctas_per_market
+    assert autotune.check_tile(got, L, A, True) is got
+    if C > 1:
+        assert M * C >= 132 or C == 16
+        assert M * C // 2 < 132
+    else:
+        assert got.grid(M) >= 132
+    # The earlier rule gave the shared mode's populations one warp at L=128
+    # (one market a CTA, as shared memory held no more).
+    old = autotune.TileChoice(L, A, *earlier)
+    assert autotune.check_tile(old, L, A, True) is old
+    if old.agents == "shared" and L == 128:
+        assert old.warps_per_market == 1
+
+
+@pytest.mark.parametrize("label,M,A,L,want,earlier", LARGE_RULES,
+                         ids=[r[0] for r in LARGE_RULES])
+def test_rule_takes_the_mode_of_fewest_waves(label, M, A, L, want, earlier):
+    """At its C the rule takes, of the modes a CTA of eight warps fits,
+    the one whose grid the H100 runs in the fewest waves, the first of
+    registers, shared and fresh on a tie: no earlier mode takes as few,
+    and no later one fewer."""
+    got = autotune.auto_tile(L, A, M, sms=132, max_ctas=16)
+    C = got.ctas_per_market
+    fewest = autotune.waves(got, M, 132, autotune.h100_holds)
+    assert fewest >= 1
+    order = autotune.RULE_MODES
+    for mode in order:
+        if mode == got.agents or not _c_accepts(L, A, 8, 1, mode, C):
+            continue
+        other = autotune.waves(got._replace(agents=mode), M, 132,
+                               autotune.h100_holds)
+        if order.index(mode) < order.index(got.agents):
+            assert other > fewest
+        else:
+            assert other >= fewest
+
+
+#: What an H100 (NVIDIA H100 80GB HBM3, 700 W) holds at once of the
+#: persistent kernels' shapes at L=128 (``tools/kernel_times.py --holds``):
+#: (W, mode, A at C = 1) -> the CTAs an SM at C = 1, then the clusters at
+#: C = 2, 4, 8, 16 with A·C agents.
+H100_READINGS = {
+    (1, "registers", 256): (20, 528, 248, 124, 58),
+    (1, "shared", 2000): (18, 528, 248, 124, 58),
+    (1, "shared", 24000): (1, 66, 30, 15, 7),
+    (1, "fresh", 100000): (20, 528, 248, 124, 58),
+    (2, "registers", 512): (10, 396, 186, 92, 42),
+    (2, "shared", 2000): (10, 528, 248, 124, 58),
+    (2, "shared", 24000): (1, 66, 30, 15, 7),
+    (2, "fresh", 100000): (10, 528, 248, 124, 58),
+    (4, "registers", 1024): (5, 198, 92, 45, 21),
+    (4, "shared", 2000): (5, 330, 154, 77, 35),
+    (4, "shared", 24000): (1, 66, 30, 15, 7),
+    (4, "fresh", 100000): (5, 396, 186, 92, 42),
+    (8, "registers", 2048): (2, 66, 30, 15, 7),
+    (8, "shared", 2000): (2, 132, 62, 30, 14),
+    (8, "shared", 24000): (1, 66, 30, 15, 7),
+    (8, "fresh", 100000): (2, 198, 92, 45, 21)}
+
+
+@pytest.mark.parametrize("C", autotune.CTAS_PER_MARKET)
+def test_h100_holds_is_the_cards_reading(C):
+    """Without a card the rule counts what an H100 holds at once
+    (``h100_holds``, from registers, shared memory and threads a CTA and
+    the card's cluster table), and that is what the card read at every
+    team width, mode and C of ``H100_READINGS``."""
+    at = autotune.CTAS_PER_MARKET.index(C)
+    for (W, mode, A), held in H100_READINGS.items():
+        tile = autotune.TileChoice(128, A * C, W, 1, mode, C)
+        assert autotune.h100_holds(tile) == held[at], tile
+        assert autotune.card_holds(tile) == held[at]
+
+
+#: The (A, L) of the ``timing`` and ``agent_sweep`` phases at M=8192, and
+#: the earlier rule's shape (W, markets a CTA, mode, C) there.
+TIMED_SHAPES = [(16, 128, (1, 4, "registers", 1)),
+                (64, 128, (1, 4, "registers", 1)),
+                (256, 128, (1, 4, "registers", 1)),
+                (1024, 128, (1, 4, "shared", 1)),
+                (32, 1024, (8, 1, "registers", 1))]
+
+
+@pytest.mark.parametrize("A,L,earlier", TIMED_SHAPES)
+def test_rule_is_the_parents_at_the_timed_shapes(A, L, earlier):
+    """At M=8192 the rule launches the earlier rule's shape at every timed
+    width: the registers mode, or four one-warp teams a CTA in the shared
+    mode (A=1024), one CTA a market."""
+    for M in (8192, 1024, 264 if A != 1024 else 528):
+        got = autotune.auto_tile(L, A, M, sms=132, max_ctas=16)
+        assert got == autotune.TileChoice(L, A, *earlier) == \
+            autotune.auto_tile(L, A)
+    assert autotune.auto_tile(L, A).ctas_per_market == 1
+
+
+@pytest.mark.parametrize("C", autotune.CTAS_PER_MARKET)
+@pytest.mark.parametrize("mode", autotune.AGENT_MODES)
+def test_smem_is_the_c_formula(mode, C):
+    """``check_shape`` and ``TileChoice.smem_bytes`` take the C side's
+    shared memory (``team_smem_words`` over ``agent_slots``, transcribed
+    in ``_c_team_words``) at every cluster size and mode: a cluster's CTA
+    holds two parity buffers of bins and ⌈A / (C·T)⌉·T keys and type
+    bytes."""
+    for L, A in ((128, 256), (128, 3001), (128, 46080), (1024, 20000),
+                 (128, 100000), (32, 7)):
+        for W in (1, 2, 4, 8):
+            if 128 * W < L:
+                continue
+            tile = autotune.TileChoice(L, A, W, 1, mode, C)
+            words = _c_team_words(L, A, 32 * W, C, mode == "shared")
+            if _c_accepts(L, A, W, 1, mode, C):
+                assert autotune.check_shape(L, A, W, 1, mode, True, C) == \
+                    tile.smem_bytes(True) == 4 * words
+                assert autotune.estimate_smem_bytes(tile, L, A, True) == \
+                    4 * words
+            else:
+                with pytest.raises(ValueError):
+                    autotune.check_shape(L, A, W, 1, mode, True, C)
+            assert tile.smem_bytes(False) == 4 * _c_team_words(
+                L, A, 32 * W, C, False)
 
 
 def test_card_limits_without_a_card(monkeypatch):

@@ -87,6 +87,35 @@ def test_launch_rule_shapes_are_resident(cuda, A, L):
             assert module.resident_ctas(legacy, shape) >= 1
 
 
+#: (M, A, L) of large populations on few and on many markets.
+RULE_SHAPES = [(10, 46080, 128), (10, 20000, 1024), (1, 40000, 128),
+               (64, 30000, 128), (264, 30000, 128), (1, 100000, 128),
+               (16, 50000, 1024), (128, 50000, 128), (8192, 20000, 1024),
+               (2048, 30000, 128), (1024, 40000, 1024), (1, 30000, 128),
+               (4, 20000, 1024)]
+
+
+@pytest.mark.parametrize("W", autotune.WARPS_PER_MARKET)
+def test_h100_holds_is_this_cards(cuda, W):
+    """On an H100 what the rule counts without a card (``h100_holds``) is
+    what the card holds at once, at every agent mode and C of a team of W
+    warps at L=128; and the rule's shape at large populations is the one
+    it takes without a card."""
+    if "H100" not in torch.cuda.get_device_name(cuda):
+        pytest.skip("h100_holds is an H100's table")
+    for C in autotune.CTAS_PER_MARKET:
+        for mode, A in (("registers", 256 * W * C), ("shared", 2000 * C),
+                        ("shared", 24000 * C), ("fresh", 100000 * C)):
+            tile = autotune.TileChoice(128, A, W, 1, mode, C)
+            assert autotune.card_holds(tile) == autotune.h100_holds(tile), \
+                tile
+    if W == autotune.MAX_TEAM_WARPS:
+        for M, A, L in RULE_SHAPES:
+            assert autotune.auto_tile(L, A, M) == autotune.auto_tile(
+                L, A, M, sms=autotune.TARGET_SMS, max_ctas=16,
+                holds=autotune.h100_holds)
+
+
 def test_session_launches_once_per_chunk(cuda):
     spec = _spec(4, 64, 32, S=50)
     chip_smoke.reset_counts()
@@ -347,15 +376,18 @@ def test_trainer_launches_once_per_env_step_and_equals_torch_scan(
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("mode", autotune.AGENT_MODES)
 @pytest.mark.parametrize("C", autotune.CTAS_PER_MARKET[1:])
 @pytest.mark.parametrize("W,L", [(1, 128), (2, 64), (4, 128), (8, 1024)])
-def test_market_cluster_equals_plain(cuda, W, L, C):
-    """Kernels 1 and 3 with each market on a cluster of C CTAs (fresh, one
-    team a CTA) equal their plain versions: paths and stats, external
-    orders, a shock, ring-coupled arbitrageurs, a partial chunk; the
-    launch runs as a cluster (the card holds at least one)."""
-    A = 3001
-    tile = autotune.TileChoice(L, A, W, 1, "fresh", C)
+def test_market_cluster_equals_plain(cuda, W, L, C, mode):
+    """Kernels 1 and 3 with each market on a cluster of C CTAs (one team a
+    CTA, in each agent mode, each CTA holding its own agents' keys) equal
+    their plain versions: paths and stats, external orders, a shock,
+    ring-coupled arbitrageurs, a partial chunk; the launch runs as a
+    cluster (the card holds at least one). The registers mode takes the
+    most agents it holds, 8·32·W·C, up to 3,001."""
+    A = min(3001, 8 * 32 * W * C) if mode == "registers" else 3001
+    tile = autotune.TileChoice(L, A, W, 1, mode, C)
     assert kc.resident_ctas(False, tile) >= 1
     spec = _spec(3, A, L, S=12)
     M = spec.num_markets

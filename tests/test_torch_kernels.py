@@ -154,15 +154,17 @@ def test_build_flags_keep_ieee_rounding():
 
 @pytest.mark.parametrize("C", autotune.CTAS_PER_MARKET[1:])
 def test_entries_take_a_cluster_tile(C):
-    """A market-cluster tile (fresh, one team a CTA, C CTAs a market) is a
-    launch shape the chunk and legacy entries take; on the CPU they run the
-    plain version, whose bits do not change, and the per-step entries,
-    which run one CTA a market, refuse it."""
+    """A market-cluster tile (any agent mode, one team a CTA, C CTAs a
+    market) is a launch shape the chunk and legacy entries take; on the
+    CPU they run the plain version, whose bits do not change, and the
+    per-step entries, which run one CTA a market, refuse it."""
     jspec, tspec = _specs()
     M, A, L = tspec.num_markets, tspec.num_agents, tspec.num_levels
     eb, ea = (torch.from_numpy(x) for x in _ext(M, L))
     state = initial_state(tspec, "cpu")
     tiles = [autotune.TileChoice(L, A, W, 1, "fresh", C) for W in (1, 8)]
+    tiles += [autotune.TileChoice(L, A, 1, 1, mode, C)
+              for mode in ("shared", "registers")]
     kw = dict(cfg=tspec, chunk=8)
     want = kc.kinetic_clearing_chunk(*state, 2, 6, eb, ea, **kw)
     for tile in tiles:
@@ -184,14 +186,23 @@ def test_entries_take_a_cluster_tile(C):
             assert torch.equal(g, w)
         with pytest.raises(ValueError, match="cluster"):
             nc.naive_clearing(*lstate, cfg=cfg, tile=tile)
-    # Not a cluster: several markets a CTA, another agent mode, another C.
+    # Not a cluster: several markets a CTA (in each mode), another C.
     for bad in (autotune.TileChoice(L, A, 1, 2, "fresh", C),
-                autotune.TileChoice(L, A, 1, 1, "shared", C),
-                autotune.TileChoice(L, A, 1, 1, "registers", C),
+                autotune.TileChoice(L, A, 1, 4, "shared", C),
+                autotune.TileChoice(L, A, 1, 2, "registers", C),
                 autotune.TileChoice(L, A, 1, 1, "fresh", C + 1),
                 autotune.TileChoice(L, A, 1, 1, "fresh", 2 * 16)):
         with pytest.raises(ValueError):
             kc.kinetic_clearing_chunk(*state, 2, 6, eb, ea, tile=bad, **kw)
+    # Nor the registers mode past REG_AGENTS agents a thread of the
+    # cluster, 8·T·C, which it holds exactly.
+    for W in (1, 8):
+        cap = 8 * 32 * W * C
+        ok = autotune.TileChoice(L, cap, W, 1, "registers", C)
+        assert autotune.check_tile(ok, L, cap, True) is ok
+        over = ok._replace(num_agents=cap + 1)
+        with pytest.raises(ValueError, match="registers"):
+            autotune.check_tile(over, L, cap + 1, True)
 
 
 def test_a_population_past_shared_memory_takes_a_cluster():
@@ -202,8 +213,73 @@ def test_a_population_past_shared_memory_takes_a_cluster():
     kw = dict(num_markets=2, num_agents=46081, num_levels=128, num_steps=3,
               seed=17)
     rule = autotune.auto_tile(128, 46081, 2, sms=132, max_ctas=16)
+    # One CTA would recompute them (fresh); each CTA of the cluster holds
+    # its own 3,072 agents' keys in its shared memory.
+    assert autotune.auto_tile(128, 46081).agents == "fresh"
     assert (rule.agents, rule.markets_per_cta, rule.ctas_per_market) == \
-        ("fresh", 1, 16) and rule.grid(2) == 32
+        ("shared", 1, 16) and rule.grid(2) == 32
+    want = j_simulate(JConfig(**kw), backend="numpy").to_numpy()
+    cfg = MarketConfig(**kw)
+    state = initial_state(cfg, "cpu")
+    legacy = kc.kinetic_clearing(*state, cfg=cfg)
+    chunk = kc.kinetic_clearing_chunk(*state, 0, 3, cfg=cfg, chunk=3)
+    for got in (legacy, chunk[:6]):
+        for f, g, w in zip(want._fields, got, want):
+            assert (g.numpy() == w).all(), f
+    assert want.volume_path.sum() > 0
+
+
+@pytest.mark.parametrize("mode", ["shared", "registers"])
+def test_entries_take_a_hoisted_cluster_tile(mode):
+    """The chunk and legacy entries take a cluster tile of the shared and
+    registers modes at the rule's widest team (every C the mode holds);
+    their plain versions give the bits of the rule's launch, with external
+    orders, stats and the legacy peer."""
+    jspec, tspec = _specs()
+    M, A, L = tspec.num_markets, tspec.num_agents, tspec.num_levels
+    eb, ea = (torch.from_numpy(x) for x in _ext(M, L))
+    state = initial_state(tspec, "cpu")
+    cfg = MarketConfig(num_markets=3, num_agents=A, num_levels=L,
+                       num_steps=7, seed=9, alpha_arbitrageur=0.2)
+    lstate = initial_state(cfg, "cpu")
+    want = kc.kinetic_clearing_chunk(*state, 1, 7, eb, ea, cfg=tspec,
+                                     chunk=8)
+    swant = kc.kinetic_clearing_chunk(
+        *state, 1, 7, cfg=tspec, chunk=8, stats_only=True,
+        stats=stats.init_stats(M, "cpu"))
+    lwant = kc.kinetic_clearing(*lstate, cfg=cfg)
+    for C in autotune.CTAS_PER_MARKET[1:]:
+        tile = autotune.TileChoice(L, A, 8, 1, mode, C)
+        assert autotune.check_tile(tile, L, A, True) is tile
+        assert tile.smem_bytes(True) == 4 * (4 * L + (
+            256 + 64 if mode == "shared" else 0))
+        got = kc.kinetic_clearing_chunk(*state, 1, 7, eb, ea, cfg=tspec,
+                                        chunk=8, tile=tile)
+        sgot = kc.kinetic_clearing_chunk(
+            *state, 1, 7, cfg=tspec, chunk=8, stats_only=True,
+            stats=stats.init_stats(M, "cpu"), tile=tile)
+        lgot = kc.kinetic_clearing(*lstate, cfg=cfg, tile=tile)
+        for g, w in zip(_flat(got) + _flat(sgot) + list(lgot),
+                        _flat(want) + _flat(swant) + list(lwant)):
+            assert torch.equal(g, w)
+
+
+def test_the_last_shared_population_takes_a_shared_cluster():
+    """Two markets of 46,080 agents at L=128 (B1: the last population one
+    CTA's shared memory holds, which the parent's rule gave one warp): the
+    rule takes a team of eight warps on a cluster of 16 CTAs in the shared
+    mode, each CTA holding 3,072 keys, and the entries' plain versions
+    equal the JAX package's ``numpy`` reference field by field."""
+    kw = dict(num_markets=2, num_agents=46080, num_levels=128, num_steps=3,
+              seed=23, alpha_whale=0.02, whale_period=2,
+              alpha_arbitrageur=0.1)
+    one = autotune.auto_tile(128, 46080)
+    assert (one.agents, one.warps_per_market) == ("shared", 8)
+    assert one.smem_bytes(True) == autotune.MAX_DYNAMIC_SMEM
+    rule = autotune.auto_tile(128, 46080, 2, sms=132, max_ctas=16)
+    assert tuple(rule[2:]) == (8, 1, "shared", 16)
+    assert autotune.agent_slots(46080, 256, 16) == 3072
+    assert rule.smem_bytes(True) == 4 * (4 * 128 + 3072 + 768)
     want = j_simulate(JConfig(**kw), backend="numpy").to_numpy()
     cfg = MarketConfig(**kw)
     state = initial_state(cfg, "cpu")

@@ -40,7 +40,10 @@ def _header_map(pattern: str, count: int):
     the team size ``T`` and the loop counters ``j``, ``k``."""
     found = re.findall(pattern, HEADER)
     assert len(found) == count and len(set(found)) == 1, (pattern, found)
+    # One CTA a market: the bins' span starts thread t at t, strides T.
+    assert "return AgentSpan{tm.t, tm.T};" in HEADER
     expr = (found[0].replace("tm.t", "t").replace("tm.T", "T")
+            .replace("s.first", "t").replace("s.stride", "T")
             .replace("LEVELS_PER_LANE", str(autotune.LEVELS_PER_LANE)))
     return eval(f"lambda t, T, j=0, k=0: {expr}")
 
@@ -64,13 +67,17 @@ def test_shape_covers_levels_and_agents_once(L, A):
         assert levels == sorted(levels)
         assert not levels or levels[-1] - levels[0] == len(levels) - 1
     # Agents: register slots k of RegAgents, else the strided loops of
-    # SmemAgents (init and each) and FreshAgents.
+    # SmemAgents (init and each, slot i = a at one CTA a market) and
+    # FreshAgents.
     if shape.agents == "registers":
-        agent = _header_map(r"const int a = (tm\.t \+ k \* tm\.T);", 2)
+        agent = _header_map(r"const int a = (s\.first \+ k \* s\.stride);",
+                            2)
         mine = {t: [a for k in range(autotune.REG_AGENTS)
                     if (a := agent(t, T, k=k)) < A] for t in range(T)}
     else:
-        assert HEADER.count("for (int a = tm.t; a < A; a += tm.T)") == 3
+        assert HEADER.count("for (int a = s.first, i = tm.t; a < A; "
+                            "a += s.stride, i += tm.T)") == 2
+        assert "for (int a = s.first; a < A; a += s.stride)" in HEADER
         mine = {t: list(range(t, A, T)) for t in range(T)}
     assert sorted(a for t in mine for a in mine[t]) == list(range(A))
     # Lane-strided: a warp holds 32 consecutive agent ids.
@@ -144,7 +151,8 @@ def test_constants_are_the_headers():
     assert int(define("MAX_CLUSTER_CTAS")) == autotune.CTAS_PER_MARKET[-1]
     assert int(define("PORTABLE_CLUSTER_CTAS")) == 8
     # The C side's shared-memory formula is the Python one.
-    assert "2 * L + (agents_in_smem ? A + (A + 3) / 4 : 0)" in HEADER
+    assert ("(C > 1 ? 4 : 2) * L + (agents_in_smem ? K + (K + 3) / 4 : 0)"
+            in HEADER)
     # The agent mode codes are the C enum's, in order.
     assert ("enum AgentMode { AGENTS_SHARED = 0, AGENTS_REGISTERS = 1, "
             "AGENTS_FRESH = 2 };") in HEADER

@@ -3,7 +3,8 @@
 ``repro_torch`` of a given source tree.
 
     python3 tools/kernel_times.py [--src DIR] [--label X] [--matrix]
-                                  [--fresh-only]
+                                  [--fresh-only] [--only LABEL,...]
+                                  [--holds]
 
 ``--src`` (default: this checkout's ``src``) selects the tree, so two
 commits, or a commit and a variant of it, can be compared in one call on
@@ -22,16 +23,26 @@ steps each, CUDA events over several calls after a warm-up):
   * the main path: ``Session.run(500)`` of ``cuda-kinetic`` at M=8192,
     A=256, L=128 (chunk 64, the rule's launch shape on a tree that has a
     tile sweep), its wall around the run and a ``torch.cuda.synchronize``;
-  * the fresh agent mode (populations past shared memory, ``FRESH``):
-    kernels 1 and 3 at one CTA a market (``auto_tile(L, A)``, C = 1) and,
-    on a tree with market clusters, at the rule's cluster for the markets
-    (``auto_tile(L, A, M)``), in turns (C = 1, rule, rule, C = 1), each
-    output equal to the other's; device times (calls queued behind a
-    sleeping kernel, so the wrappers' host work does not count), with
-    the bound, the share of the SMs the grid can occupy and the
-    agent-events/s. ``--matrix`` adds kernel
-    1 at every fresh candidate shape (``candidate_tiles``: warps a
-    market, markets a CTA, CTAs a market) of each shape.
+  * large populations (``POPULATIONS``): the fresh mode's shapes
+    (populations past shared memory) and the hoisted modes' on few
+    markets. Kernels 1 and 3 at one CTA a market (``auto_tile(L, A)``,
+    C = 1) and at the rule's shape for the markets (``auto_tile(L, A,
+    M)``, a market cluster on a tree that has them), in turns (C = 1,
+    rule, rule, C = 1), each output equal to the other's; kernel 2 at its
+    rule where ``NAIVE`` names the shape; device times (calls queued
+    behind a sleeping kernel, so the wrappers' host work does not count),
+    with the bound, the share of the SMs the grid can occupy and the
+    agent-events/s. ``--matrix`` adds kernels 1 and 3 at the rule's shape
+    and at every candidate shape of one team a CTA that the sweep may
+    offer for some number of markets (``candidate_tiles`` without one):
+    every (warps a market, agent mode) at C = 1 and every market cluster,
+    each with what the card holds of it at once (``resident_ctas``:
+    clusters on the card at C > 1, else CTAs an SM). ``--only`` keeps
+    the ``POPULATIONS`` shapes of the given labels;
+  * ``--holds``: what the card holds at once of every persistent agent
+    mode, team width and C at L=128 (``resident_ctas``, the fewer of
+    kernels 1 and 3) beside ``autotune.h100_holds``, the rule's count
+    without a card, on a tree that has it.
 
 Prints one JSON line per shape, then the card's name and power limit.
 Imports nothing of JAX or of the JAX package.
@@ -50,10 +61,37 @@ LEGACY = (8192, 256, 128)
 STEPS = 64
 SEED = 20260611
 RUN500_REPS = 7
-#: Fresh-mode shapes (M, A, L, steps): the ``edges`` phase's two (10
-#: markets, 6 steps) and the ``population`` phase's P1-P3.
-FRESH = [(10, 50000, 128, 6), (10, 45000, 1024, 6), (1, 100000, 128, 16),
-         (16, 50000, 1024, 32), (128, 50000, 128, 32)]
+#: Large-population shapes (label, M, A, L, steps, mix): the ``edges``
+#: phase's two fresh shapes (10 markets, 6 steps) and the ``population``
+#: phase's P1-P3 as homogeneous baseline markets (``mix`` False); then,
+#: with ``MIX``, populations inside shared memory on few markets: B1 the
+#: last population the shared mode holds at one CTA a market, B2 a wide
+#: book, Q1 one exchange, Q2 half the SMs' markets, Q3 two markets an SM;
+#: W1-W3 many more markets than the card holds at once (the hoisted and
+#: fresh modes in many waves), R1 and R2 a registers-mode cluster the card
+#: holds. A·8·S < 2^24 in each, so the books stay exact-integer float32.
+POPULATIONS = [("edges", 10, 50000, 128, 6, False),
+               ("edges", 10, 45000, 1024, 6, False),
+               ("P1", 1, 100000, 128, 16, False),
+               ("P2", 16, 50000, 1024, 32, False),
+               ("P3", 128, 50000, 128, 32, False),
+               ("B1", 10, 46080, 128, 6, True),
+               ("B2", 10, 20000, 1024, 6, True),
+               ("Q1", 1, 40000, 128, 32, True),
+               ("Q2", 64, 30000, 128, 32, True),
+               ("Q3", 264, 30000, 128, 32, True),
+               ("W1", 8192, 20000, 1024, 16, True),
+               ("W2", 2048, 30000, 128, 32, True),
+               ("W3", 1024, 40000, 1024, 16, True),
+               ("R1", 1, 30000, 128, 32, True),
+               ("R2", 4, 20000, 1024, 16, True)]
+#: ``chip_smoke.POPULATION_MIX``: every archetype, whales of 32 lots every
+#: 4th step.
+MIX = dict(alpha_fundamentalist=0.1, alpha_whale=0.02, whale_period=4,
+           alpha_hft=0.1, alpha_informed=0.05, alpha_arbitrageur=0.1,
+           shock_intensity=0.3, shock_cancel=0.5)
+#: Shapes (label, A) at which kernel 2 is timed at its rule beside kernel 1.
+NAIVE = {("edges", 50000), ("B1", 46080), ("P1", 100000)}
 FRESH_REPS = 5
 QUEUE_SLEEP_CYCLES = 200_000_000
 
@@ -124,9 +162,42 @@ def session_run_ms(shape, device) -> float:
         return (time.perf_counter() - t0) * 1e3
 
 
-def fresh_times(device, base: dict, matrix: bool) -> None:
-    """One JSON line per ``FRESH`` shape: kernels 1 and 3 at C = 1 and at
-    the rule's C (see the module docstring)."""
+#: (mode, A at C = 1) of ``--holds``: A grows with C so that each shape
+#: keeps its CTAs' shared memory; the second shared population fills half
+#: an SM's.
+HOLDS = [("registers", 256), ("shared", 2000), ("shared", 24000),
+         ("fresh", 100000)]
+
+
+def holds_line(base: dict) -> None:
+    """One JSON line: [W, mode, A, C, card, h100_holds] for each shape of
+    ``HOLDS`` at every team width and C the kernels take at L=128."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import kinetic_clearing as kc
+
+    static = getattr(autotune, "h100_holds", lambda t: None)
+    rows = []
+    for W in autotune.WARPS_PER_MARKET:
+        for mode, A0 in HOLDS:
+            for C in autotune.CTAS_PER_MARKET:
+                A = A0 * (W if mode == "registers" else 1) * C
+                tile = autotune.TileChoice(128, A, W, 1, mode, C)
+                try:
+                    autotune.check_tile(tile, 128, A, True)
+                except ValueError:
+                    continue
+                rows.append([W, mode, A, C,
+                             min(kc.resident_ctas(legacy, tile)
+                                 for legacy in (False, True)),
+                             static(tile)])
+    print(json.dumps(dict(base, holds=rows)), flush=True)
+
+
+def population_times(device, base: dict, matrix: bool,
+                     only=None) -> None:
+    """One JSON line per ``POPULATIONS`` shape: kernels 1 and 3 at C = 1
+    and at the rule's shape, and kernel 2 at its rule (see the module
+    docstring); with ``matrix`` a second line per shape."""
     import torch
     from repro_torch.core import params as params_mod
     from repro_torch.core.config import MarketConfig
@@ -134,13 +205,16 @@ def fresh_times(device, base: dict, matrix: bool) -> None:
     from repro_torch.core.step import initial_state
     from repro_torch.kernels import autotune
     from repro_torch.kernels import kinetic_clearing as kc
+    from repro_torch.kernels import naive_clearing as nc
     from repro_torch.launch import bound
 
     clusters = "ctas_per_market" in autotune.TileChoice._fields
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    for M, A, L, S in FRESH:
+    for label, M, A, L, S, mixed in POPULATIONS:
+        if only is not None and label not in only:
+            continue
         cfg = MarketConfig(num_markets=M, num_agents=A, num_levels=L,
-                           num_steps=S, seed=SEED)
+                           num_steps=S, seed=SEED, **(MIX if mixed else {}))
         spec = EnsembleSpec.homogeneous(cfg)
         state = tuple(initial_state(spec, device))
         kw = dict(cfg=spec, chunk=S,
@@ -154,18 +228,23 @@ def fresh_times(device, base: dict, matrix: bool) -> None:
         def k3(tile):
             return kc.kinetic_clearing(*state, cfg=cfg, tile=tile)
 
-        same = True
-        for fn in (k1, k3):
-            a, b = fn(one), fn(rule)
-            same = same and all(bool(torch.equal(x, y))
-                                for x, y in zip(a, b))
+        def k2(tile):
+            return nc.naive_clearing_chunk(*state, 0, S, tile=tile, **kw)
+
+        want = {fn: fn(one) for fn in (k1, k3)}
+
+        def equal(fn, tile):
+            return all(bool(torch.equal(x, y))
+                       for x, y in zip(fn(tile), want[fn]))
+
+        same = equal(k1, rule) and equal(k3, rule)
         mix = kc.agent_mix(spec.params, A)
         b1 = bound(kc.op_count(M, A, L, S, mix),
                    kc.byte_count(M, L, S, ext=False, stats_only=False))
         b3 = bound(kc.op_count(M, A, L, S, mix),
                    kc.legacy_byte_count(M, L, S))
-        out = dict(base, markets=M, agents=A, levels=L, steps=S,
-                   rule=list(rule), sms=sms, equal=same)
+        out = dict(base, shape=label, markets=M, agents=A, levels=L,
+                   steps=S, mix=mixed, rule=list(rule), sms=sms, equal=same)
         for name, fn, b in (("kernel1", k1, b1), ("kernel3", k3, b3)):
             runs = {"one": [], "rule": []}
             for which in ("one", "rule", "rule", "one"):
@@ -179,20 +258,42 @@ def fresh_times(device, base: dict, matrix: bool) -> None:
                     sm_share=min(grid, sms) / sms,
                     bound_ms=b["bound_ms"], bound_share=b["bound_ms"] / ms,
                     agent_events_per_s=M * A * S / (ms * 1e-3))
+        if (label, A) in NAIVE:
+            # Kernel 2 runs one CTA a market at its rule, whatever kernel
+            # 1's layout: the ablation's ratio mixes the two.
+            naive = autotune.auto_tile(L, A)
+            got = k2(None)
+            ms = queued_ms(lambda: k2(None), FRESH_REPS)
+            out["kernel2_rule"] = dict(
+                ms=ms, tile=list(naive), grid=naive.grid(M),
+                equal=all(bool(torch.equal(x, y))
+                          for x, y in zip(got, want[k1])),
+                over_kernel1_rule=ms / out["kernel1_rule"]["ms"],
+                over_kernel1_one=ms / out["kernel1_one"]["ms"])
         print(json.dumps(out), flush=True)
-        if not (matrix and clusters):
+        if not matrix:
             continue
-        want = k1(one)
         cells = []
-        for cand in autotune.candidate_tiles(L, A, M, hoisted=True):
-            if cand.agents != "fresh":
-                continue
-            got = k1(cand)
-            ok = all(bool(torch.equal(x, y)) for x, y in zip(got, want))
-            cells.append(dict(tile=list(cand[2:]), equal=ok,
-                              ms=queued_ms(lambda: k1(cand), FRESH_REPS)))
-        print(json.dumps(dict(base, markets=M, agents=A, levels=L, steps=S,
-                              matrix=cells)), flush=True)
+        for cand in [rule] + [
+                c for c in autotune.candidate_tiles(L, A, hoisted=True)
+                if c.markets_per_cta == 1 and c != rule]:
+            cells.append(dict(
+                tile=list(cand[2:]),
+                resident=min(kc.resident_ctas(legacy, cand)
+                             for legacy in (False, True)),
+                equal=equal(k1, cand) and equal(k3, cand),
+                kernel1_ms=queued_ms(lambda: k1(cand), FRESH_REPS),
+                kernel3_ms=queued_ms(lambda: k3(cand), FRESH_REPS)))
+        print(json.dumps(dict(base, shape=label, markets=M, agents=A,
+                              levels=L, steps=S, matrix=cells)), flush=True)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
 
 
 def main() -> int:
@@ -201,9 +302,15 @@ def main() -> int:
                                          / "src"))
     ap.add_argument("--label", default="")
     ap.add_argument("--matrix", action="store_true",
-                    help="also time kernel 1 at every fresh candidate shape")
+                    help="also time kernels 1 and 3 at every candidate "
+                    "shape of one team a CTA of the large populations")
     ap.add_argument("--fresh-only", action="store_true",
-                    help="time the fresh agent mode's shapes alone")
+                    help="time the large populations' shapes alone")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated labels of POPULATIONS to time")
+    ap.add_argument("--holds", action="store_true",
+                    help="print what the card holds at once of each "
+                    "persistent shape at L=128")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
 
@@ -230,8 +337,12 @@ def main() -> int:
             **_build.ptxas_report(nc._LIB_NAME)})),
             flush=True)
 
+    only = None if args.only is None else set(args.only.split(","))
+    if args.holds:
+        holds_line(base)
     if args.fresh_only:
-        fresh_times(device, base, args.matrix)
+        population_times(device, base, args.matrix, only)
+        print(card_line(), flush=True)
         return 0
     for M, A, L in SWEEP:
         spec = EnsembleSpec.homogeneous(MarketConfig(
@@ -276,11 +387,8 @@ def main() -> int:
         base, markets=LEGACY[0], agents=LEGACY[1], levels=LEGACY[2],
         steps=500, run500_wall_ms=statistics.median(run500),
         run500_wall_ms_runs=run500)), flush=True)
-    fresh_times(device, base, args.matrix)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip(), flush=True)
+    population_times(device, base, args.matrix, only)
+    print(card_line(), flush=True)
     return 0
 
 
