@@ -14,8 +14,9 @@ line:
            registers and spills from ptxas (``-Xptxas -v``), the persistent
            kernels once per agent mode (``<0, ...>`` shared, ``<1, ...>``
            registers, ``<2, ...>`` fresh) at one CTA a market
-           (``<code, false>``) and on a market cluster (``<code, true>``);
-           any spill fails.
+           (``<code, false>``) and on a market cluster (``<code, true>``),
+           the per-step kernels likewise (``<false>``, ``<true>``); any
+           spill fails.
   kernel   ``kinetic_clearing_chunk`` (CUDA) == its plain PyTorch version,
            field by field, at the paper's width A=256, L=128 on a
            heterogeneous ensemble populating all eight archetypes: a chunk
@@ -30,7 +31,10 @@ line:
            market, at the earlier rule's shape (pinned in ``FRESH_SHAPES``)
            and on the rule's market cluster (16 CTAs a market), with
            each shape's ``TileChoice`` (mode, W, C), grid and its share of
-           the SMs, resident clusters, times and share of the bound.
+           the SMs, resident clusters, times and share of the bound; and
+           kernel 2 there at one CTA a market and on its own rule's
+           cluster, == its plain version, timed in turns beside kernel 1
+           (the ablation at equal layouts).
   population  large populations through the main path: P1 one market of
            100,000 agents (L=128, S=16), P2 16 markets of 50,000 (L=1024,
            S=32), P3 128 markets of 50,000 (L=128, S=32), Q1 one market of
@@ -44,13 +48,31 @@ line:
            (pinned in ``POPULATION``) and at the rule's shape, each == the
            plain versions, in turns: ms, the
            bound and its share, the mode, W and C, the grid, its share of
-           the SMs, the resident clusters and agent-events/s.
+           the SMs, the resident clusters and agent-events/s. Then the
+           ablation at P1, Q1 and B1 (10 markets of 46,080, L=128, S=6):
+           ``Engine("cuda-naive").open(spec).run(S)`` (S launches of
+           kernel 2 on its rule's market cluster, its sweep included) with
+           the counts at 0, == the plain version (P1 also == the host
+           ``numpy`` reference), the legacy ``naive_clearing`` at P1; and
+           kernel 2 at one CTA a market and on its rule's cluster, timed
+           in turns beside kernel 1: tile, grid, SM share, clusters held,
+           ms, the bound's share and the ratios to kernel 1 at one CTA a
+           market and on both rules' clusters.
+  exact_2_24  exactness past 2^24 (M=2, A=100,000, L=8, S=120: books of
+           3·10^7 a level): ``cuda-kinetic`` and ``cuda-naive`` on their
+           rules' clusters of 16 CTAs equal each other (the gate); where
+           each first differs from its plain version and from the host
+           ``numpy`` reference, and the largest gap (no gate).
   naive    ``naive_clearing_chunk`` (one launch per step) == its plain
-           version over the five cases of ``kernel``.
+           version over the five cases of ``kernel``, then on a market
+           cluster of C = 2, 4, 8, 16 CTAs at A=3,001 (one and eight warps
+           at L=128, eight at L=1024): external orders over the shock, a
+           partial chunk, ``stats_only``.
   legacy   the legacy one-shot ``kinetic_clearing`` and ``naive_clearing``
            == ``ref.simulate_reference`` on the card at M=1024, A=256,
            L=128, S=64 (baseline, arbitrageur, flash-crash, informed) and
-           at the L=1024, L=8 and L=4 edges.
+           at the L=1024, L=8 and L=4 edges; then ``naive_clearing`` on a
+           market cluster of C = 2, 4, 8, 16 CTAs at ``naive``'s shapes.
   session  ``Engine(b).open(spec).run(500)`` in chunks of 64 for the four
            backends: ``cuda-kinetic`` (the main path) == a plain run over
            the same chunks, one launch per chunk; ``cuda-naive`` (one launch
@@ -206,10 +228,12 @@ Each path is driven with every launch count at 0 just before it and read
 just after; the ``kernels`` line's launches are the ``session`` phase's
 (and the ``legacy_path`` phase's), plus the ``train`` phase's 2 updates,
 the ``autotune`` phase's candidate checks and the ``sharded``,
-``roofline`` and ``population`` phases' paths. Every launch is counted
-where it is made, the runners' own tile sweeps included (a
-``cuda-kinetic``/``cuda-naive`` runner opened on the card times each
-candidate once per key, ``autotune.TRIALS`` + 1 calls): each window
+``roofline``, ``population`` and ``exact_2_24`` phases' paths. Every
+launch is counted where it is made, the runners' own tile sweeps
+included (a ``cuda-kinetic``/``cuda-naive`` runner opened on the card
+times each candidate once per key, ``autotune.TRIALS`` + 1 calls, each
+one launch of kernel 1 or one a step of kernel 2, on a market cluster
+too): each window
 expects its path's launches plus those its sweeps record, and a sweep
 that lost a candidate fails the run.
 The ``timing``, ``agent_sweep``, ``legacy_path`` and
@@ -327,6 +351,21 @@ POPULATION = (("P1", 1, 100000, 128, 16, (8, 1, "fresh", 16)),
               ("Q1", 1, 40000, 128, 32, (1, 1, "shared", 1)),
               ("Q2", 64, 30000, 128, 32, (1, 1, "shared", 1)),
               ("Q3", 264, 30000, 128, 32, (1, 1, "shared", 1)))
+#: Team shapes (W, L) at which the naive and legacy phases hold kernels 2
+#: and 4 on a market cluster of every C > 1, at a population past the
+#: registers mode (8·32·W agents).
+STEP_CLUSTERS = ((1, 128), (8, 128), (8, 1024))
+CLUSTER_AGENTS = 3001
+#: Past 2^24: two markets of 100,000 agents at L=8 whose resting books
+#: reach 3.08·10^7 a level in 120 steps (``exact_2_24``).
+EXACT_CONFIG = dict(num_markets=2, num_agents=100000, num_levels=8,
+                    num_steps=120, seed=5, q_max=20, p_marketable=0.0,
+                    initial_quote_qty=1000.0)
+#: The ablation's large populations through ``cuda-naive`` (label, M, A,
+#: L, S): P1 and Q1 as in ``POPULATION``, and B1 (``FRESH_SHAPES``' last
+#: population one CTA's shared memory holds) with ``POPULATION_MIX``.
+NAIVE_POPULATION = (("P1", 1, 100000, 128, 16), ("Q1", 1, 40000, 128, 32),
+                    ("B1", 10, 46080, 128, 6))
 POPULATION_MIX = dict(alpha_fundamentalist=0.1, alpha_whale=0.02,
                       whale_period=4, alpha_hft=0.1, alpha_informed=0.05,
                       alpha_arbitrageur=0.1, shock_intensity=0.3,
@@ -484,7 +523,8 @@ def sweep_launches() -> dict:
     """The launches of the runners' tile sweeps since the counts were
     reset, by kernel: a runner opened on the card times each candidate
     with 1 + ``autotune.TRIALS`` calls of its wrapper, each one launch of
-    kernel 1 or one a step of kernel 2 (the key's chunk)."""
+    kernel 1 or one a step of kernel 2 (the key's chunk), whatever the
+    candidate's CTAs a market."""
     from repro_torch.kernels import autotune
 
     seen = {id(r) for r in _SWEEPS_SEEN}
@@ -571,12 +611,14 @@ def phase_build():
              **_build.ptxas_report("naive_clearing")}
     # The persistent kernels once per agent mode (the AGENT_MODES index) at
     # one CTA a market (<code, false>) and on a market cluster
-    # (<code, true>).
+    # (<code, true>); the per-step kernels at one CTA a market (<false>)
+    # and on a market cluster (<true>).
     kernels = tuple(f"kinetic_{k}_kernel<{code}, {cluster}>"
                     for k in ("chunk", "legacy")
                     for code in range(len(autotune.AGENT_MODES))
-                    for cluster in ("false", "true")) + (
-        "naive_chunk_step_kernel", "naive_legacy_step_kernel")
+                    for cluster in ("false", "true")) + tuple(
+        f"naive_{k}_step_kernel<{cluster}>" for k in ("chunk", "legacy")
+        for cluster in ("false", "true"))
     for name in kernels:
         got = ptxas.get(name, {})
         if "registers" not in got or got.get("spill_stores", 1) or \
@@ -602,26 +644,61 @@ def phase_kernel(device, B, entry="kinetic"):
     for label, kw in CHUNK_CASES:
         errs[label], volumes[label] = kernel_vs_plain(
             f"{entry} {label}", spec, device, entry=entry, **kw)
+    clusters = naive_cluster_cases(device) if entry == "naive" else {}
     emit("kernel" if entry == "kinetic" else entry, ok=True,
          markets=spec.num_markets, agents=256, levels=128,
          cases=list(errs), max_abs_err=max(errs.values()),
-         traded_volume=volumes)
-    return max(errs.values())
+         traded_volume=volumes, clusters=clusters)
+    return max([*errs.values(), *clusters.values()])
+
+
+def step_cluster_tiles():
+    """(W, L, C, tile) of every market cluster at which the naive and
+    legacy phases hold kernels 2 and 4: each team shape of
+    ``STEP_CLUSTERS`` at every C > 1, at ``CLUSTER_AGENTS`` agents."""
+    from repro_torch.kernels import autotune
+
+    A = CLUSTER_AGENTS
+    return [(W, L, C, autotune.TileChoice(
+        L, A, W, 1, autotune.auto_tile(L, A).agents, C))
+        for W, L in STEP_CLUSTERS for C in autotune.CTAS_PER_MARKET[1:]]
+
+
+def naive_cluster_cases(device) -> dict:
+    """Kernel 2 on a market cluster (:func:`step_cluster_tiles`) ==
+    its plain version: a chunk holding the shock step with external
+    orders and a partial tail, and ``stats_only``; max error by case."""
+    errs = {}
+    for W, L, C, tile in step_cluster_tiles():
+        spec = small_spec(3, CLUSTER_AGENTS, L, num_steps=20)
+        for case, kw in (("ext", dict(step0=4, n_valid=9, chunk=12,
+                                      ext=True)),
+                         ("stats", dict(step0=2, n_valid=12, chunk=12,
+                                        stats_only=True))):
+            label = f"W={W} L={L} C={C} {case}"
+            errs[label], _ = kernel_vs_plain(
+                f"naive cluster {label}", spec, device, entry="naive",
+                tile=tile, **kw)
+    return errs
 
 
 def phase_edges(device):
     """Kernel 1 at the launch rule's edges, then kernels 1 and 3 on a few
     large markets (``FRESH_SHAPES``) against their plain versions, bit for
     bit, at one CTA a market, at the earlier rule's shape and on the rule's
-    market cluster, with their times."""
+    market cluster, with their times; and kernel 2 there at one CTA a
+    market and on its own rule's cluster, equal to the plain version and
+    timed in turns beside kernel 1 (:func:`ablation`). Returns the worst
+    error of kernel 1 and of kernel 2."""
     import torch
     from repro_torch.core import params as params_mod
     from repro_torch.core.config import MarketConfig
     from repro_torch.kernels import autotune
     from repro_torch.kernels import kinetic_clearing as kc
+    from repro_torch.kernels import naive_clearing as nc
     from repro_torch.launch import bound
 
-    errs = []
+    errs, naive_errs = [], []
     shapes = ((8, 300, 1024), (3, 5, 8), (3, 16, 4))  # 5·M markets
     for M, A, L in shapes:
         spec = small_spec(M, A, L, num_steps=20)
@@ -687,10 +764,29 @@ def phase_edges(device):
         row["parent_over_rule"] = {
             "chunk": row["parent"]["chunk_ms"] / row["rule"]["chunk_ms"],
             "legacy": row["parent"]["legacy_ms"] / row["rule"]["legacy_ms"]}
+        # Kernel 2 at one CTA a market and on its own rule's cluster.
+        naive = {"one": autotune.auto_tile(L, A),
+                 "rule": autotune.auto_tile(L, A, n, hoisted=False),
+                 "kernel1_rule": rule}
+        if naive["rule"].ctas_per_market == 1:
+            raise Mismatch(f"L={L}, A={A}, M={n}: the per-step rule took "
+                           f"{naive['rule']}, not a market cluster")
+        for name in ("one", "rule"):
+            e, _ = kernel_vs_plain(f"large naive {name} L={L} A={A}", spec,
+                                   device, step0=4, n_valid=FRESH_STEPS,
+                                   chunk=FRESH_STEPS, ext=True,
+                                   tile=naive[name], entry="naive")
+            naive_errs.append(e)
+        row["naive"] = ablation(
+            n, lambda t: kc.kinetic_clearing_chunk(
+                *cstate, 0, FRESH_STEPS, tile=t, **kw),
+            lambda t: nc.naive_clearing_chunk(
+                *cstate, 0, FRESH_STEPS, tile=t, **kw),
+            naive, chunk_bound, 5)
         large.append(row)
     emit("edges", ok=True, shapes=[list(x) for x in shapes], large=large,
-         max_abs_err=max(errs))
-    return max(errs)
+         max_abs_err=max(errs), naive_max_abs_err=max(naive_errs))
+    return max(errs), max(naive_errs)
 
 
 def population_case(M, A, L, S):
@@ -729,7 +825,7 @@ def phase_population(device):
     from repro_torch.launch import bound
 
     launches = {name: 0 for name in counters()}
-    rows, worst = [], 0.0
+    rows, worst, host_refs = [], 0.0, {}
     for label, M, A, L, S, earlier in POPULATION:
         cfg, spec = population_case(M, A, L, S)
         tiles = {"one_cta": autotune.auto_tile(L, A),
@@ -758,6 +854,7 @@ def phase_population(device):
                     spec, chunk_size=S) as host:
                 ref = list(host.run(S))
                 ref = list(host.state) + ref
+            host_refs[label] = ref
             err = max(err, compare(f"population {label} numpy",
                                    [x.cpu() for x in got], ref))
         # The legacy entry, the rule's shape.
@@ -830,8 +927,193 @@ def phase_population(device):
                 k: row["rule"][f"{k}_ms"] / row[name][f"{k}_ms"]
                 for k in ("chunk", "legacy")}
         rows.append(row)
-    emit("population", ok=True, shapes=rows, max_abs_err=worst)
-    return launches, worst
+    naive_rows, naive_worst = [], 0.0
+    for label, M, A, L, S in NAIVE_POPULATION:
+        row, err = naive_population(device, label, M, A, L, S,
+                                    host_refs.get(label), launches)
+        naive_rows.append(row)
+        naive_worst = max(naive_worst, err)
+    emit("population", ok=True, shapes=rows, naive=naive_rows,
+         max_abs_err=worst, naive_max_abs_err=naive_worst)
+    return launches, worst, naive_worst
+
+
+def naive_population(device, label, M, A, L, S, host_ref, launches):
+    """The ablation at a large population through the main path:
+    ``Engine("cuda-naive").open(spec).run(S)`` in one chunk (S launches
+    of kernel 2 on its rule's market cluster, the runner's sweep
+    included) with the counts at 0, equal to the plain version on the
+    card and, given ``host_ref``, to the host ``numpy`` reference; at P1
+    the legacy ``naive_clearing`` likewise; then kernel 2 at one CTA a
+    market and on its rule's cluster, each == the plain version, timed in
+    turns beside kernel 1 (:func:`ablation`). Adds the windows' launches
+    to ``launches``; returns the row and the worst error."""
+    import time
+
+    import torch
+    from repro_torch.core import params as params_mod
+    from repro_torch.core.session import Engine
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import kinetic_clearing as kc
+    from repro_torch.kernels import naive_clearing as nc
+    from repro_torch.launch import bound
+
+    cfg, spec = population_case(M, A, L, S)
+    tiles = {"one": autotune.auto_tile(L, A),
+             "rule": autotune.auto_tile(L, A, M, hoisted=False),
+             "kernel1_rule": autotune.auto_tile(L, A, M)}
+    if tiles["rule"].ctas_per_market == 1:
+        raise Mismatch(f"population {label}: the per-step rule took "
+                       f"{tiles['rule']}, not a market cluster")
+    reset_counts()
+    t0 = time.perf_counter()
+    with Engine("cuda-naive", device=device).open(spec,
+                                                  chunk_size=S) as sess:
+        batch = sess.run(S)
+        got = list(sess.state) + list(batch)
+        session_tile = sess._runner.tile
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = expect_counts(f"population {label} cuda-naive session",
+                           {"naive_clearing_chunk": S})
+    params = params_mod.pack_params(spec.params, device)
+    cstate = opening(spec, device)
+    want = list(kc.kinetic_clearing_chunk_plain(
+        *cstate, 0, S, cfg=spec, chunk=S, params=params))
+    err = compare(f"population {label} cuda-naive session", got, want)
+    if host_ref is not None:
+        err = max(err, compare(f"population {label} cuda-naive numpy",
+                               [x.cpu() for x in got], host_ref))
+    for name in launches:
+        launches[name] += counts[name]
+    if label == "P1":
+        state = opening(cfg, device)
+        reset_counts()
+        legacy = list(nc.naive_clearing(*state, cfg=cfg))
+        torch.cuda.synchronize()
+        lcounts = expect_counts(f"population {label} legacy naive",
+                                {"naive_clearing": S})
+        err = max(err, compare(f"population {label} legacy naive", legacy,
+                               list(kc.kinetic_clearing_plain(*state,
+                                                              cfg=cfg))))
+        for name in launches:
+            launches[name] += lcounts[name]
+    kw = dict(cfg=spec, chunk=S, params=params)
+
+    def k1(tile):
+        return kc.kinetic_clearing_chunk(*cstate, 0, S, tile=tile, **kw)
+
+    def k2(tile):
+        return nc.naive_clearing_chunk(*cstate, 0, S, tile=tile, **kw)
+
+    # Each pinned shape == the plain version, uncounted.
+    for name in ("one", "rule"):
+        out = list(k2(tiles[name]))
+        torch.cuda.synchronize()
+        err = max(err, compare(f"population {label} naive {name}", out,
+                               want))
+    price, volume = got[4], got[5]
+    if not (bool(torch.isfinite(torch.stack([price, volume])).all())
+            and float(volume.sum()) > 0):
+        raise Mismatch(f"population {label} cuda-naive: no finite trading")
+    b = bound(kc.op_count(M, A, L, S, kc.agent_mix(spec.params, A)),
+              kc.byte_count(M, L, S, ext=False, stats_only=False))
+    row = dict(label=label, markets=M, agents=A, levels=L, steps=S,
+               session_wall_s=wall, session_tile=session_tile._asdict(),
+               launches={k: n for k, n in counts.items() if n},
+               chunk_bound=b, max_abs_err=err,
+               traded_volume=float(volume.sum()),
+               **ablation(M, k1, k2, tiles, b, POPULATION_REPS))
+    return row, err
+
+
+def first_gap(got, want, fields) -> dict:
+    """Where two runs' flat outputs (final state, then [M, S] paths) first
+    differ: the first step and path field (the final state's fields
+    where only they differ), and the largest gap over every field; an
+    empty dict when they are equal."""
+    import torch
+
+    first, state_field, worst = None, None, 0.0
+    for name, g, w in zip(fields, got, want):
+        gap = (g.double().cpu() - w.double().cpu()).abs()
+        worst = max(worst, float(gap.max()))
+        if not bool((gap > 0).any()):
+            continue
+        if name.endswith("_path"):
+            step = int(torch.nonzero((gap > 0).any(dim=0))[0])
+            if first is None or step < first[0]:
+                first = (step, name)
+        elif state_field is None:
+            state_field = name
+    if first is None and state_field is None:
+        return {}
+    step, name = first if first is not None else (None, state_field)
+    return {"first_step": step, "first_field": name, "max_gap": worst}
+
+
+def phase_exact(device):
+    """Exactness past 2^24 (``EXACT_CONFIG``: books of 3·10^7 a level):
+    ``cuda-kinetic`` and ``cuda-naive`` on their rules' market clusters
+    of 16 CTAs, one chunk of the whole horizon, with the counts at 0. The
+    gate: the two kernels equal each other bit for bit at the same team
+    width (one device step, int bins, the same reduction order). The
+    measurement, no gate: where each first differs from its plain version
+    on the card and from the host ``numpy`` reference, and the largest
+    gap. Returns the launches."""
+    import torch
+    from repro_torch.core import params as params_mod
+    from repro_torch.core.config import MarketConfig
+    from repro_torch.core.params import EnsembleSpec
+    from repro_torch.core.session import Engine
+    from repro_torch.kernels import kinetic_clearing as kc
+
+    cfg = MarketConfig(**EXACT_CONFIG)
+    spec = EnsembleSpec.homogeneous(cfg)
+    S = cfg.num_steps
+    fields = ("bid", "ask", "last_price", "prev_mid", "price_path",
+              "volume_path", "mid_path")
+    launches = {name: 0 for name in counters()}
+    runs, tiles = {}, {}
+    for backend, kernel, n in (("cuda-kinetic", "kinetic_clearing_chunk", 1),
+                               ("cuda-naive", "naive_clearing_chunk", S)):
+        reset_counts()
+        with Engine(backend, device=device, autotune=False).open(
+                spec, chunk_size=S) as sess:
+            batch = sess.run(S)
+            runs[backend] = list(sess.state) + list(batch)
+            tiles[backend] = sess._runner.tile
+            torch.cuda.synchronize()
+        for name, k in expect_counts(f"exact_2_24 {backend}",
+                                     {kernel: n}).items():
+            launches[name] += k
+        if tiles[backend].ctas_per_market != 16:
+            raise Mismatch(f"exact_2_24 {backend}: tile {tiles[backend]}, "
+                           f"not a cluster of 16")
+    if tiles["cuda-kinetic"].warps_per_market != \
+            tiles["cuda-naive"].warps_per_market:
+        raise Mismatch(f"exact_2_24: team widths differ: {tiles}")
+    compare("exact_2_24 kernel 1 vs kernel 2", runs["cuda-naive"],
+            runs["cuda-kinetic"])
+    plain = list(kc.kinetic_clearing_chunk_plain(
+        *opening(spec, device), 0, S, cfg=spec, chunk=S,
+        params=params_mod.pack_params(spec.params, device)))
+    with Engine("numpy", device="cpu").open(spec, chunk_size=S) as host:
+        batch = host.run(S)
+        numpy_ref = list(host.state) + list(batch)
+    got = runs["cuda-kinetic"]
+    books = max(float(got[0].max()), float(got[1].max()))
+    emit("exact_2_24", ok=True, config=EXACT_CONFIG,
+         tiles={b: t._asdict() for b, t in tiles.items()},
+         launches={k: n for k, n in launches.items() if n},
+         kernels_equal=True, largest_book_level=books,
+         past_2_24=books > 2 ** 24,
+         kernel_vs_plain=first_gap(got, plain, fields),
+         kernel_vs_numpy=first_gap([x.cpu() for x in got], numpy_ref,
+                                   fields),
+         plain_vs_numpy=first_gap([x.cpu() for x in plain], numpy_ref,
+                                  fields))
+    return launches
 
 
 def legacy_configs():
@@ -862,8 +1144,10 @@ def legacy_configs():
 
 
 def phase_legacy(device):
-    """Kernels 3 and 4 against the oracle on the card."""
+    """Kernels 3 and 4 against the oracle on the card; then kernel 4 on a
+    market cluster of every C > 1 (:func:`step_cluster_tiles`)."""
     import torch
+    from repro_torch.core.config import MarketConfig
     from repro_torch.kernels import kinetic_clearing as kc
     from repro_torch.kernels import naive_clearing as nc
     from repro_torch.kernels import ref
@@ -883,9 +1167,28 @@ def phase_legacy(device):
                                f"{per_call}")
             errs.append(compare(f"legacy {label} {fn.__name__}", got, want))
         volumes[label] = float(want[5].sum())
+    # Kernel 4 on a market cluster of every C > 1, past the registers mode.
+    clusters, wants = {}, {}
+    for W, L, C, tile in step_cluster_tiles():
+        cfg = MarketConfig(num_markets=16, num_agents=CLUSTER_AGENTS,
+                           num_levels=L, num_steps=20, seed=SEED + 4,
+                           alpha_arbitrageur=0.2, arb_kappa=0.5,
+                           alpha_whale=0.05, whale_period=3,
+                           shock_step=7, shock_intensity=0.3)
+        if L not in wants:
+            wants[L] = list(ref.simulate_reference(cfg, device=device))
+        state = opening(cfg, device)
+        before = nc.naive_clearing.launches
+        got = list(nc.naive_clearing(*state, cfg=cfg, tile=tile))
+        torch.cuda.synchronize()
+        if nc.naive_clearing.launches - before != cfg.num_steps:
+            raise Mismatch(f"legacy cluster C={C}: naive_clearing launched "
+                           f"{nc.naive_clearing.launches - before} times")
+        label = f"W={W} L={L} C={C}"
+        clusters[label] = compare(f"legacy cluster {label}", got, wants[L])
     emit("legacy", ok=True, configs=list(volumes), max_abs_err=max(errs),
-         traded_volume=volumes)
-    return max(errs)
+         traded_volume=volumes, clusters=clusters)
+    return max([*errs, *clusters.values()])
 
 
 def drive_session(backend, spec, device, chunk, **opts):
@@ -1317,22 +1620,58 @@ def card_sms() -> int:
         torch.device(*CARD)).multi_processor_count
 
 
-def cluster_facts(tile, M) -> dict:
+def cluster_facts(tile, M, hoisted: bool = True) -> dict:
     """A launch shape at M markets: CTAs a market, the grid, the share of
-    the card's SMs it can occupy, and what kernels 1 and 3 hold on the
-    card at once (at C > 1 the clusters on the card, else the CTAs per
-    SM). A cluster the card cannot place fails."""
+    the card's SMs it can occupy, and what kernels 1 and 3 (2 and 4 where
+    not ``hoisted``) hold on the card at once (at C > 1 the clusters on
+    the card, else the CTAs per SM). A cluster the card cannot place
+    fails."""
     from repro_torch.kernels import kinetic_clearing as kc
+    from repro_torch.kernels import naive_clearing as nc
 
     sms, grid = card_sms(), tile.grid(M)
-    held = {"kinetic_clearing_chunk": kc.resident_ctas(False, tile),
-            "kinetic_clearing": kc.resident_ctas(True, tile)}
+    lib, names = (kc, ("kinetic_clearing_chunk", "kinetic_clearing")) \
+        if hoisted else (nc, ("naive_clearing_chunk", "naive_clearing"))
+    held = {name: lib.resident_ctas(legacy, tile)
+            for name, legacy in zip(names, (False, True))}
     if min(held.values()) < 1:
         raise Mismatch(f"the card holds none of {tile}: {held}")
     key = "resident_clusters" if tile.ctas_per_market > 1 else \
         "resident_ctas_per_sm"
     return {"ctas_per_market": tile.ctas_per_market, "grid": grid,
             "sms": sms, "sm_share": min(grid, sms) / sms, key: held}
+
+
+def ablation(M, k1, k2, tiles, b, reps) -> dict:
+    """Kernel 2 (``k2(tile)``, or kernel 4) at one CTA a market
+    (``tiles["one"]``) and on its rule's shape (``tiles["rule"]``), timed
+    in turns beside kernel 1 (kernel 3) at one CTA a market and on kernel
+    1's rule's shape (``tiles["kernel1_rule"]``): device ms (calls queued
+    behind a sleep), each shape's grid, SM share and clusters held, the
+    share of the bound ``b`` and the ratios to kernel 1 at equal layouts:
+    ``over_kernel1_rule`` on both rules' clusters, ``over_kernel1_one`` at
+    one CTA a market."""
+    runs = {"one": [], "rule": []}
+    for which in ("one", "rule", "rule", "one"):
+        tile = tiles[which]
+        beside = tiles["one" if which == "one" else "kernel1_rule"]
+        runs[which].append((_queued_ms(lambda: k2(tile), reps),
+                            _queued_ms(lambda: k1(beside), reps)))
+    out = {}
+    for which in ("one", "rule"):
+        ms = statistics.median(t[0] for t in runs[which])
+        k1_ms = statistics.median(t[1] for t in runs[which])
+        out[which] = dict(
+            tile=tiles[which]._asdict(),
+            **cluster_facts(tiles[which], M, hoisted=False),
+            ms=ms, ms_runs=[t[0] for t in runs[which]],
+            kernel1_ms=k1_ms, kernel1_ms_runs=[t[1] for t in runs[which]],
+            bound_share=b["bound_ms"] / ms)
+    out["kernel1_rule_tile"] = tiles["kernel1_rule"]._asdict()
+    out["over_kernel1_rule"] = out["rule"]["ms"] / out["rule"]["kernel1_ms"]
+    out["over_kernel1_one"] = out["one"]["ms"] / out["one"]["kernel1_ms"]
+    out["one_over_rule"] = out["one"]["ms"] / out["rule"]["ms"]
+    return out
 
 
 def launch_facts(M, A, L) -> dict:
@@ -1770,7 +2109,7 @@ def phase_autotune(device):
                            AUTOTUNE_REPS)
                 resident = (kc if hoisted else nc).resident_ctas(False, c)
                 rows.append(dict(
-                    tile=[c.warps_per_market, c.markets_per_cta, c.agents],
+                    tile=list(c[2:]),
                     ms=ms, bound_share=b["bound_ms"] / ms,
                     resident_ctas_per_sm=resident,
                     smem_bytes=c.smem_bytes(hoisted)))
@@ -3516,9 +3855,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    err_k = max(phase_kernel(device, MARKETS_PER_BLOCK), phase_edges(device))
-    pop_launches, err_pop = phase_population(device)
-    err_n = phase_kernel(device, MARKETS_PER_BLOCK, entry="naive")
+    err_edges, err_edges_n = phase_edges(device)
+    err_k = max(phase_kernel(device, MARKETS_PER_BLOCK), err_edges)
+    pop_launches, err_pop, err_pop_n = phase_population(device)
+    exact_launches = phase_exact(device)
+    err_n = max(phase_kernel(device, MARKETS_PER_BLOCK, entry="naive"),
+                err_edges_n)
     err_l = phase_legacy(device)
     launches, session_errs = phase_session(device, MARKETS_PER_BLOCK)
     _, err_p = phase_parity(device)
@@ -3537,7 +3879,7 @@ def main() -> int:
     check_sweeps("the last phase")
     launches.update(legacy["launches"])
     for extra in (train_launches, tune_launches, shard_launches,
-                  roof_launches, pop_launches):
+                  roof_launches, pop_launches, exact_launches):
         for name, n in extra.items():
             launches[name] += n
     errs = {"kinetic_clearing_chunk":
@@ -3546,11 +3888,11 @@ def main() -> int:
                 serve["max_abs_err"], err_pop),
             "naive_clearing_chunk":
             max(err_n, err_s, session_errs["naive_clearing_chunk"],
-                err_p, err_env, err_train, serve["max_abs_err"]),
+                err_p, err_env, err_train, serve["max_abs_err"], err_pop_n),
             "kinetic_clearing":
             max(err_l, legacy["max_abs_err"]["kinetic_clearing"], err_pop),
             "naive_clearing":
-            max(err_l, legacy["max_abs_err"]["naive_clearing"])}
+            max(err_l, legacy["max_abs_err"]["naive_clearing"], err_pop_n)}
     for extra in (err_tune, err_shard,
                   {"kinetic_clearing_chunk": err_roof}):
         for name, e in extra.items():

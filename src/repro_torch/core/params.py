@@ -458,7 +458,8 @@ class EnsembleSpec:
             if bad.any():
                 raise ValueError(
                     f"params.{f} contains non-finite values (nan/inf) in "
-                    f"markets {np.where(bad[:, 0])[0][:8].tolist()}")
+                    f"markets {np.where(bad[:, 0])[0][:8].tolist()}; "
+                    "parameter operands must be finite")
         for name in ("initial_quote_qty", "initial_spread"):
             arr = np.asarray(getattr(self, name))
             if arr.shape != (M,):
@@ -466,10 +467,13 @@ class EnsembleSpec:
                     f"{name} must have shape ({M},), got {arr.shape}")
         spread = np.asarray(self.initial_spread)
         half = spread // 2 + spread % 2
-        if ((spread < 0) | (half > L // 2 - 1)).any():
+        off_grid = (spread < 0) | (half > L // 2 - 1)
+        if off_grid.any():
             raise ValueError(
                 f"initial_spread must place both opening quotes on the grid "
-                f"(0 <= spread, ceil(spread/2) <= {L // 2 - 1})")
+                f"(0 <= spread, ceil(spread/2) <= {L // 2 - 1} for "
+                f"num_levels={L}); markets "
+                f"{np.where(off_grid)[0][:8].tolist()} violate it")
         if (np.asarray(self.initial_quote_qty) < 0).any():
             raise ValueError("initial_quote_qty must be >= 0")
 
@@ -482,10 +486,12 @@ class EnsembleSpec:
         for name in ("shock_intensity", "shock_cancel", "p_marketable"):
             arr = getattr(p, name)
             check((arr < 0.0) | (arr > 1.0), f"{name} must be in [0, 1]")
-        check(p.q_max < 1.0, "q_max must be >= 1")
+        check(p.q_max < 1.0, "q_max must be >= 1 (qty = 1 + floor(u * q_max) "
+              "would go non-positive)")
         check(p.fundamental < 0.0,
-              f"fundamental must be a resolved price >= 0 (use "
-              f"num_levels // 2 = {L // 2} for the grid midpoint)")
+              f"fundamental must be a resolved price >= 0 (the config's "
+              f"negative-means-midpoint sentinel is applied at build time; "
+              f"use num_levels // 2 = {L // 2} for the grid midpoint)")
         counts = (p.num_makers, p.num_momentum, p.num_fundamentalists,
                   p.num_whales, p.num_hft, p.num_informed,
                   p.num_arbitrageurs)

@@ -21,9 +21,10 @@ unit is a *market team* and not a sublane tile (``csrc/kinetic_step.cuh``):
     them recomputed at every step (``"fresh"``), as the per-step kernels
     always do: its books still stay on chip for the chunk. So the rule
     takes any population, as the JAX package's agent chunking does;
-  * a persistent kernel may spread one market over a thread-block cluster
-    of ``ctas_per_market`` = C CTAs (C in ``CTAS_PER_MARKET``, one team a
-    CTA), in any agent mode: CTA rank ``r`` handles the agents
+  * a kernel may spread one market over a thread-block cluster of
+    ``ctas_per_market`` = C CTAs (C in ``CTAS_PER_MARKET``, one team a
+    CTA): a persistent kernel in any agent mode, a per-step kernel in the
+    fresh mode it always runs. CTA rank ``r`` handles the agents
     ``a ≡ r·T + t (mod C·T)``, holds only their keys and types
     (:func:`agent_slots` of them in the shared mode, ``REG_AGENTS`` a
     thread in registers), bins them into its own bins, and the C CTAs sum
@@ -41,7 +42,9 @@ markets, where they leave SMs idle, the smallest C whose grid reaches
 the card's SMs; at that C (and at C = 1 for the widest team) the mode
 of ``RULE_MODES`` whose grid takes the fewest waves (:func:`waves`, over
 what the card holds at once: :func:`card_holds`, the H100's
-:func:`h100_holds` without a card), the first on a tie.
+:func:`h100_holds` without a card), the first on a tie. The per-step
+kernels' rule (``hoisted=False``) takes the same C, counted with their
+own residency, and no mode: they always run fresh.
 :func:`check_shape` repeats the C side's domain check, and
 :func:`candidate_tiles` lists every shape in it. :func:`autotune_tile`
 times candidates once (the runner's ``time_candidate``) and caches the
@@ -76,9 +79,8 @@ MAX_DYNAMIC_SMEM = 232448 - 1024
 #: Where a persistent kernel keeps the agents' keys and types, in the order
 #: of the C side's ``AgentMode`` codes (``kinetic_step.cuh``).
 AGENT_MODES = ("shared", "registers", "fresh")
-#: CTAs a market may take as a thread-block cluster (the persistent kernels
-#: only); past the portable 8 a cluster is non-portable, and Hopper's limit
-#: is 16.
+#: CTAs a market may take as a thread-block cluster; past the portable 8 a
+#: cluster is non-portable, and Hopper's limit is 16.
 CTAS_PER_MARKET = (1, 2, 4, 8, 16)
 #: The agent modes the rule weighs for a team of ``MAX_TEAM_WARPS`` warps,
 #: the first preferred where they take as many waves.
@@ -115,7 +117,7 @@ class TileChoice(NamedTuple):
     warps_per_market: int
     markets_per_cta: int
     agents: str    # persistent kernels: one of AGENT_MODES
-    ctas_per_market: int = 1   # > 1: a market's cluster (persistent only)
+    ctas_per_market: int = 1   # > 1: a market's cluster
 
     @property
     def threads_per_market(self) -> int:
@@ -198,9 +200,9 @@ def check_shape(num_levels: int, num_agents: int, warps_per_market: int,
     """The C side's ``check_shape``: the dynamic shared memory a CTA of
     this shape takes, or ``ValueError`` for a shape the kernels refuse. A
     per-step kernel (``hoisted=False``) keeps no agents, so it checks the
-    shape in the fresh mode, as its C entry does; it runs one CTA a
-    market, so only a persistent kernel takes a cluster (in any mode, the
-    registers mode holding ``REG_AGENTS`` agents a thread of it)."""
+    shape in the fresh mode, as its C entry does. Either kind takes a
+    cluster at one market a CTA (the registers mode holding
+    ``REG_AGENTS`` agents a thread of it)."""
     L, A = _check_domain(num_levels, num_agents)
     W, mpc = int(warps_per_market), int(markets_per_cta)
     C = int(ctas_per_market)
@@ -223,10 +225,9 @@ def check_shape(num_levels: int, num_agents: int, warps_per_market: int,
         raise ValueError(f"agents='registers' holds at most "
                          f"{REG_AGENTS * 32 * W * C} agents at W={W}, "
                          f"C={C}, got A={A}")
-    if C > 1 and not (hoisted and mpc == 1):
+    if C > 1 and mpc != 1:
         raise ValueError(f"ctas_per_market={C}: a market spans a cluster "
-                         f"only in a persistent kernel, at one market a "
-                         f"CTA")
+                         f"only at one market a CTA")
     smem = mpc * team_smem_bytes(L, A, mode == "shared", 32 * W, C)
     if smem > MAX_DYNAMIC_SMEM:
         raise ValueError(f"launch shape needs {smem} bytes of shared memory "
@@ -266,18 +267,24 @@ def estimate_smem_bytes(tile: TileChoice, num_levels: int, num_agents: int,
 H100_REGISTERS = {("shared", False): 83, ("registers", False): 95,
                   ("fresh", False): 84, ("shared", True): 90,
                   ("registers", True): 144, ("fresh", True): 80}
+#: Registers a thread of each per-step instance takes on the H100 (the
+#: larger of the chunk and legacy step kernels', ``build`` line): on a
+#: cluster -> registers.
+H100_STEP_REGISTERS = {False: 69, True: 64}
 #: Clusters of C CTAs the H100 holds at once where an SM holds k of their
 #: CTAs (``cudaOccupancyMaxActiveClusters``, read by
 #: ``tools/kernel_times.py --holds`` and ``--matrix``): (C, k) ->
 #: clusters. A cluster takes CTAs of one GPC, and the 132 SMs lie in GPCs
 #: of unequal size, so this is not k·132/C.
 H100_CLUSTERS = {
-    (2, 1): 66, (2, 2): 132, (2, 3): 198, (2, 6): 396, (2, 8): 528,
+    (2, 1): 66, (2, 2): 132, (2, 3): 198, (2, 4): 264, (2, 6): 396,
+    (2, 8): 528,
     (4, 1): 30, (4, 2): 62, (4, 3): 92, (4, 4): 124, (4, 5): 154,
     (4, 6): 186, (4, 8): 248,
-    (8, 1): 15, (8, 2): 30, (8, 3): 45, (8, 5): 77, (8, 6): 92, (8, 8): 124,
-    (16, 1): 7, (16, 2): 14, (16, 3): 21, (16, 5): 35, (16, 6): 42,
-    (16, 8): 58}
+    (8, 1): 15, (8, 2): 30, (8, 3): 45, (8, 4): 62, (8, 5): 77, (8, 6): 92,
+    (8, 8): 124,
+    (16, 1): 7, (16, 2): 14, (16, 3): 21, (16, 4): 28, (16, 5): 35,
+    (16, 6): 42, (16, 8): 58}
 #: An SM of the H100: four sub-partitions of 16K registers each (a warp
 #: takes its registers in one), 228 KB of shared memory (1 KB of it
 #: reserved a CTA), 2,048 threads and 32 CTAs, and no more than 8 CTAs of
@@ -290,18 +297,22 @@ H100_SM = dict(partitions=4, partition_registers=16384, smem=233472,
 STATIC_SMEM = 8 * 4 * MAX_TEAM_WARPS
 
 
-def h100_holds(tile: TileChoice) -> int:
-    """What an H100 holds of ``tile`` at once for the persistent kernels,
-    as :func:`card_holds` reads it on the card: k CTAs an SM from each
-    thread's registers (``H100_REGISTERS``, 8 at a time, a warp's in one
-    sub-partition), the CTA's shared memory (128 bytes at a time) and its
-    threads; at C > 1 the clusters of ``H100_CLUSTERS`` (where the card
-    was not asked at that k, those of the nearest k below it, scaled)."""
+def h100_holds(tile: TileChoice, hoisted: bool = True) -> int:
+    """What an H100 holds of ``tile`` at once for the persistent kernels
+    (for the per-step ones, ``hoisted=False``), as :func:`card_holds` reads
+    it on the card: k CTAs an SM from each thread's registers
+    (``H100_REGISTERS``, ``H100_STEP_REGISTERS``; 8 at a time, a warp's in
+    one sub-partition), the CTA's shared memory (128 bytes at a time) and
+    its threads; at C > 1 the clusters of ``H100_CLUSTERS`` (where the
+    card was not asked at that k, those of the nearest k below it,
+    scaled)."""
     sm = H100_SM
-    regs = -(-H100_REGISTERS[(tile.agents, tile.ctas_per_market > 1)]
-             // 8) * 8
+    cluster = tile.ctas_per_market > 1
+    regs = H100_REGISTERS[(tile.agents, cluster)] if hoisted \
+        else H100_STEP_REGISTERS[cluster]
+    regs = -(-regs // 8) * 8
     warps = sm["partitions"] * (sm["partition_registers"] // (32 * regs))
-    smem = -(-(tile.smem_bytes(True) + STATIC_SMEM + sm["reserved"])
+    smem = -(-(tile.smem_bytes(hoisted) + STATIC_SMEM + sm["reserved"])
              // 128) * 128
     k = min(warps // (tile.threads_per_cta // 32), sm["smem"] // smem,
             sm["threads"] // tile.threads_per_cta, sm["ctas"])
@@ -313,22 +324,26 @@ def h100_holds(tile: TileChoice) -> int:
     return H100_CLUSTERS[(C, near)] * k // near
 
 
-def card_holds(tile: TileChoice) -> int:
+def card_holds(tile: TileChoice, hoisted: bool = True) -> int:
     """What the current card holds of ``tile`` at once, for both
-    persistent kernels (the fewer): at C > 1 the clusters
+    persistent kernels (the fewer; both per-step kernels with
+    ``hoisted=False``): at C > 1 the clusters
     (``cudaOccupancyMaxActiveClusters``; 0: it cannot place one), else the
     CTAs an SM; in a process without a card, the H100's
-    (:func:`h100_holds`). Cached per card and tile: the modes' shared
-    memory and registers differ."""
+    (:func:`h100_holds`). Cached per card, kernel kind and tile: the
+    modes' shared memory and registers differ."""
     import torch
 
     if not torch.cuda.is_available():
-        return h100_holds(tile)
-    key = (torch.cuda.current_device(), tile)
+        return h100_holds(tile, hoisted)
+    key = (torch.cuda.current_device(), bool(hoisted), tile)
     if key not in _CARD_HOLDS:
-        from repro_torch.kernels import kinetic_clearing as kc
+        if hoisted:
+            from repro_torch.kernels import kinetic_clearing as lib
+        else:
+            from repro_torch.kernels import naive_clearing as lib
 
-        _CARD_HOLDS[key] = min(kc.resident_ctas(legacy, tile)
+        _CARD_HOLDS[key] = min(lib.resident_ctas(legacy, tile)
                                for legacy in (False, True))
     return _CARD_HOLDS[key]
 
@@ -344,9 +359,11 @@ def card_sms() -> int:
 
 
 def card_limits(num_levels: int, num_agents: int, warps_per_market: int,
-                agents: str = "fresh") -> Tuple[int, int]:
+                agents: str = "fresh", hoisted: bool = True
+                ) -> Tuple[int, int]:
     """``(SMs, largest C)`` the rule counts on for a cluster of teams of
-    ``warps_per_market`` warps in the agent mode ``agents``: the current
+    ``warps_per_market`` warps in the agent mode ``agents`` of a
+    persistent kernel (of a per-step one, ``hoisted=False``): the current
     card's SM count and the largest C of ``CTAS_PER_MARKET`` up to which
     the card holds a cluster at every C the mode admits
     (:func:`card_holds` >= 1); in a process without a card, the H100's
@@ -356,10 +373,10 @@ def card_limits(num_levels: int, num_agents: int, warps_per_market: int,
     for C in CTAS_PER_MARKET[1:]:
         shape = TileChoice(L, A, W, 1, agents, C)
         try:
-            check_tile(shape, L, A, True)
+            check_tile(shape, L, A, hoisted)
         except ValueError:
             continue                # not a shape of this mode
-        if card_holds(shape) < 1:
+        if card_holds(shape, hoisted) < 1:
             break
         cap = C
     return card_sms(), cap
@@ -390,8 +407,8 @@ def _fits(L: int, A: int, W: int, mode: str, C: int) -> bool:
 def auto_tile(num_levels: int, num_agents: int,
               num_markets: Optional[int] = None, *,
               sms: Optional[int] = None, max_ctas: Optional[int] = None,
-              holds: Optional[Callable[[TileChoice], int]] = None
-              ) -> TileChoice:
+              holds: Optional[Callable[[TileChoice], int]] = None,
+              hoisted: bool = True) -> TileChoice:
     """The launch rule for ``num_levels`` (a power of two in [4, 1024]) and
     ``num_agents`` (>= 1); raises ``ValueError`` outside that domain.
 
@@ -408,7 +425,15 @@ def auto_tile(num_levels: int, num_agents: int,
     default :func:`card_holds`), the first on a tie: a hoisted mode that
     takes more shared memory or registers than the card can give as many
     CTAs as the fresh mode's runs in more waves, slower than recomputing
-    the keys in fewer."""
+    the keys in fewer.
+
+    The per-step kernels' rule (``hoisted=False``) is the same up to the
+    choice of C, its limit counted with their own residency (``max_ctas``
+    defaults to :func:`card_limits` of the per-step kernels); they keep
+    no agents and run fresh, so no mode is weighed (``holds`` is not
+    read): on a cluster a team of ``MAX_TEAM_WARPS`` warps in the mode
+    the rule gives without ``num_markets`` (which the kernels do not
+    read), at C = 1 the one-CTA shape."""
     L, A = _check_domain(num_levels, num_agents)
     W = max(1, L // LEVELS_PER_WARP)
     if A <= REG_AGENTS * 32 * W:
@@ -428,14 +453,16 @@ def auto_tile(num_levels: int, num_agents: int,
     M = int(num_markets)
     sms = card_sms() if sms is None else int(sms)
     if max_ctas is None:
-        max_ctas = card_limits(L, A, MAX_TEAM_WARPS)[1]
+        max_ctas = card_limits(L, A, MAX_TEAM_WARPS, "fresh", hoisted)[1]
     C = 1
     if tile.grid(M) < sms:
         for C in (c for c in CTAS_PER_MARKET[1:] if c <= max_ctas):
             if M * C >= sms:
                 break
-    if C == 1 and W != MAX_TEAM_WARPS:
+    if C == 1 and (W != MAX_TEAM_WARPS or not hoisted):
         return tile
+    if not hoisted:
+        return TileChoice(L, A, MAX_TEAM_WARPS, 1, tile.agents, C)
     holds = card_holds if holds is None else holds
     cands = [TileChoice(L, A, MAX_TEAM_WARPS, 1, mode, C)
              for mode in RULE_MODES if _fits(L, A, MAX_TEAM_WARPS, mode, C)]
@@ -448,23 +475,23 @@ def candidate_tiles(num_levels: int, num_agents: int,
                     ) -> List[TileChoice]:
     """Every launch shape :func:`check_shape` accepts for ``(L, A)`` at one
     CTA a market, the rule's (for ``num_markets``) first, then by warps a
-    market, markets a CTA and agent mode; then, for a persistent kernel
-    where the rule takes a market cluster (without ``num_markets``: where
-    it may, past the registers mode), each team size and agent mode on a
-    cluster of every C > 1 of ``CTAS_PER_MARKET`` up to ``max_ctas``
-    (default: :func:`card_limits`) that the mode admits.
+    market, markets a CTA and agent mode; then, where the rule takes a
+    market cluster (without ``num_markets``: where it may, past the
+    registers mode), each team size and agent mode on a cluster of every
+    C > 1 of ``CTAS_PER_MARKET`` up to ``max_ctas`` (default:
+    :func:`card_limits`) that the mode admits.
 
     A persistent kernel (``hoisted``) sweeps the agent modes valid for
-    ``(L, A)``; a per-step kernel keeps none, so only ``(W, MPC)`` is swept
-    and each candidate carries the rule's mode. An explicit ``agents``
-    pins the mode: a caller's choice is never swept away (the counterpart
-    of a pinned ``agent_chunk``).
+    ``(L, A)``; a per-step kernel keeps none, so only ``(W, MPC, C)`` is
+    swept and each candidate carries the rule's mode. An explicit
+    ``agents`` pins the mode: a caller's choice is never swept away (the
+    counterpart of a pinned ``agent_chunk``).
     """
-    rule = auto_tile(num_levels, num_agents,
-                     num_markets if hoisted else None, max_ctas=max_ctas)
+    rule = auto_tile(num_levels, num_agents, num_markets, max_ctas=max_ctas,
+                     hoisted=hoisted)
     L, A = rule.num_levels, rule.num_agents
-    clusters = hoisted and (rule.ctas_per_market > 1 if num_markets
-                            is not None else rule.agents != "registers")
+    clusters = (rule.ctas_per_market > 1 if num_markets is not None
+                else rule.agents != "registers")
     if agents is not ...:
         if agents not in AGENT_MODES:
             raise ValueError(f"agents must be one of {AGENT_MODES}, got "
@@ -487,8 +514,8 @@ def candidate_tiles(num_levels: int, num_agents: int,
             if W * LEVELS_PER_WARP < L:
                 continue
             for mode in modes:
-                cap = card_limits(L, A, W, mode)[1] if max_ctas is None \
-                    else max_ctas
+                cap = card_limits(L, A, W, mode, hoisted)[1] \
+                    if max_ctas is None else max_ctas
                 shapes += [(W, 1, mode, C) for C in CTAS_PER_MARKET[1:]
                            if C <= cap]
     for W, mpc, mode, C in shapes:
@@ -607,9 +634,9 @@ def resolve_tile(tile: Optional[TileChoice], num_levels: int,
                  num_agents: int, hoisted: bool,
                  num_markets: Optional[int] = None) -> TileChoice:
     """The shape a wrapper launches: ``tile`` checked against the operands,
-    or the rule's when ``None`` (for ``num_markets`` in a persistent
-    kernel, which may then take a cluster; one CTA a market otherwise)."""
+    or the rule's when ``None`` (for ``num_markets``, which may then take a
+    cluster; one CTA a market without it)."""
     if tile is None:
-        return auto_tile(num_levels, num_agents,
-                         num_markets if hoisted else None)
+        return auto_tile(num_levels, num_agents, num_markets,
+                         hoisted=hoisted)
     return check_tile(tile, num_levels, num_agents, hoisted)

@@ -82,37 +82,6 @@ static int launch(K kernel, const ChunkArgs& g, size_t smem, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// Lets `kernel` take `smem` bytes and, past the portable 8, a cluster of
-// `ctas` CTAs.
-template <class K>
-static int allow_cluster(K kernel, size_t smem, int ctas) {
-  int err = allow_smem(kernel, smem);
-  if (err == 0 && ctas > PORTABLE_CLUSTER_CTAS) {
-    err = (int)cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  }
-  return err;
-}
-
-// A launch configuration of `grid` CTAs in clusters of `ctas` along x.
-static inline cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr,
-                                                dim3 grid, dim3 cta,
-                                                size_t smem, int ctas,
-                                                void* stream) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = cta;
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = (unsigned)ctas;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
 // M clusters of g.ctas_per_market CTAs. A cluster the card cannot place
 // fails the launch (its error is returned); nothing runs in its stead.
 template <class K>
@@ -155,21 +124,6 @@ static int launch_persistent(bool legacy, const ChunkArgs& g, int agents,
     default:
       return launch_mode<AGENTS_FRESH>(legacy, g, smem, stream);
   }
-}
-
-// Clusters of `ctas` CTAs of `kernel` the card holds at once
-// (cudaOccupancyMaxActiveClusters; 0: it cannot place one).
-template <class K>
-static int resident_clusters(K kernel, int threads, size_t smem, int ctas,
-                             int* clusters) {
-  const int err = allow_cluster(kernel, smem, ctas);
-  if (err != 0) return err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(
-      &attr, dim3((unsigned)ctas), dim3((unsigned)threads), smem, ctas,
-      nullptr);
-  return (int)cudaOccupancyMaxActiveClusters(clusters, (const void*)kernel,
-                                             &cfg);
 }
 
 // What the card holds of an AGENTS instance: clusters of C > 1 CTAs, else

@@ -12,9 +12,9 @@
 // memory holds fewer than four one-warp teams a CTA; the timed sweep may
 // launch any other shape check_shape below accepts.
 //
-// A market cluster (any agent mode of the persistent kernels, one team a
-// CTA): C CTAs of a thread-block cluster, C in {2, 4, 8, 16}, clear one
-// market together. Each CTA holds its own copy of the market's books in
+// A market cluster (any agent mode of the persistent kernels, the fresh
+// mode of the per-step ones; one team a CTA): C CTAs of a thread-block
+// cluster, C in {2, 4, 8, 16}, clear one market together. Each CTA holds its own copy of the market's books in
 // registers and handles its own agents, a ≡ r·T + t (mod C·T) for CTA rank
 // r, whose keys and types it alone holds (in registers, in its own shared
 // memory, or recomputed). Each bins into its own shared memory; after one
@@ -441,7 +441,8 @@ static inline __host__ __device__ int team_smem_words(int L, int A, int T,
 // Where a kernel keeps each agent's step-invariant key and type: the agent
 // mode of the launch shape (autotune.py AGENT_MODES, in this order). The
 // persistent kernels take any of the three; the per-step kernels keep
-// nothing across steps, so they always run AGENTS_FRESH.
+// nothing across steps, so they always run AGENTS_FRESH (at one CTA a
+// market or on a cluster).
 enum AgentMode { AGENTS_SHARED = 0, AGENTS_REGISTERS = 1, AGENTS_FRESH = 2 };
 
 // 0 when (W, MPC, agents, C) is a launch shape the kernels can run for
@@ -487,6 +488,52 @@ static inline int resident_ctas(K kernel, int threads, size_t smem,
         ctas, kernel, threads, smem);
   }
   return err;
+}
+
+// Lets `kernel` take `smem` bytes and, past the portable 8, a cluster of
+// `ctas` CTAs.
+template <class K>
+static inline int allow_cluster(K kernel, size_t smem, int ctas) {
+  int err = allow_smem(kernel, smem);
+  if (err == 0 && ctas > PORTABLE_CLUSTER_CTAS) {
+    err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  return err;
+}
+
+// A launch configuration of `grid` CTAs in clusters of `ctas` along x.
+static inline cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr,
+                                                dim3 grid, dim3 cta,
+                                                size_t smem, int ctas,
+                                                void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = cta;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)ctas;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of `ctas` CTAs of `kernel` the card holds at once
+// (cudaOccupancyMaxActiveClusters; 0: it cannot place one).
+template <class K>
+static inline int resident_clusters(K kernel, int threads, size_t smem,
+                                    int ctas, int* clusters) {
+  const int err = allow_cluster(kernel, smem, ctas);
+  if (err != 0) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      &attr, dim3((unsigned)ctas), dim3((unsigned)threads), smem, ctas,
+      nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, (const void*)kernel,
+                                             &cfg);
 }
 
 // ---------------------------------------------------------------------------
@@ -955,17 +1002,26 @@ __device__ __forceinline__ void persistent_market(const ChunkArgs& g) {
 
 // The per-step body (kernels 2 and 4): step step0 + s from the state in
 // device memory back to device memory. Nothing persists, so the agents'
-// keys and types are recomputed here at every launch.
+// keys and types are recomputed here at every launch. With ClusterBins the
+// CTAs of a cluster of C = g.ctas_per_market clear one market, as in
+// persistent_market: each loads the market's books, bins its own agents,
+// sums the cluster's bins through distributed shared memory, and rank 0
+// writes the outputs. ClusterBins keeps its second parity buffer, which a
+// single step only resets: one shared-memory layout for every cluster.
+template <class Bins>
 __device__ __forceinline__ void one_step_market(const ChunkArgs& g, int s) {
   const Team tm = make_team(g.warps_per_market);
-  const int m = (int)blockIdx.x * g.markets_per_cta + tm.slot;
-  if (m >= g.M) return;  // the ragged last CTA, as above
+  const int C = Bins::kCluster ? g.ctas_per_market : 1;
+  const int m = Bins::kCluster
+                    ? (int)blockIdx.x / C
+                    : (int)blockIdx.x * g.markets_per_cta + tm.slot;
+  if (m >= g.M) return;  // the ragged last CTA; a cluster is never ragged
   const int L = g.L, A = g.A;
   const MarketIn in = market_in(g, m);
   Book bk;
   load_book(tm, bk, g.bid + in.row, g.ask + in.row, L);
-  CtaBins bins;
-  bins.init(tm, kc_smem + tm.slot * team_smem_words(L, A, tm.T, 1, false),
+  Bins bins;
+  bins.init(tm, kc_smem + tm.slot * team_smem_words(L, A, tm.T, C, false),
             L);
   FreshAgents agents;
   agents.init(tm, bins.span(tm), in.p, g.seed ^ SEED_GOLDEN, in.market, A,
@@ -979,22 +1035,25 @@ __device__ __forceinline__ void one_step_market(const ChunkArgs& g, int s) {
               g.ext_ask != nullptr ? g.ext_ask + in.row : nullptr, peer,
               g.step0 + s, A, L, last, pmid, mid, volume);
 
-  store_book(tm, bk, g.bid_out + in.row, g.ask_out + in.row, L);
-  if (tm.t == 0) {
-    g.last_out[m] = last;
-    g.pmid_out[m] = pmid;
-    if (g.stats_in != nullptr) {
-      float st[NUM_STATS];
-      for (int k = 0; k < NUM_STATS; ++k) st[k] = g.stats_in[(size_t)m * NUM_STATS + k];
-      stats_update(st, mid, volume);
-      for (int k = 0; k < NUM_STATS; ++k) g.stats_out[(size_t)m * NUM_STATS + k] = st[k];
-    } else {
-      const size_t o = (size_t)m * g.chunk + s;
-      g.price_path[o] = last;
-      g.volume_path[o] = volume;
-      if (g.mid_path != nullptr) g.mid_path[o] = mid;
+  if (bins.leader()) {
+    store_book(tm, bk, g.bid_out + in.row, g.ask_out + in.row, L);
+    if (tm.t == 0) {
+      g.last_out[m] = last;
+      g.pmid_out[m] = pmid;
+      if (g.stats_in != nullptr) {
+        float st[NUM_STATS];
+        for (int k = 0; k < NUM_STATS; ++k) st[k] = g.stats_in[(size_t)m * NUM_STATS + k];
+        stats_update(st, mid, volume);
+        for (int k = 0; k < NUM_STATS; ++k) g.stats_out[(size_t)m * NUM_STATS + k] = st[k];
+      } else {
+        const size_t o = (size_t)m * g.chunk + s;
+        g.price_path[o] = last;
+        g.volume_path[o] = volume;
+        if (g.mid_path != nullptr) g.mid_path[o] = mid;
+      }
     }
   }
+  bins.finish();
 }
 
 // The launch of `g`'s shape: grid (a cluster's CTAs side by side), CTA

@@ -4,8 +4,9 @@ launches, plain versions.
 :func:`naive_clearing_chunk` takes the operands and returns the outputs of
 :func:`repro_torch.kernels.kinetic_clearing.kinetic_clearing_chunk`, but
 launches one single-step kernel per step (``csrc/naive_clearing.cu``, the
-persistent kernels' device step and launch shapes), so
-the books, scalars and stats cross device memory between steps. It is the
+persistent kernels' device step and launch shapes, a market cluster
+included), so the books, scalars and stats cross device memory between
+steps. It is the
 counterpart of ``repro.kernels.naive_clearing.naive_clearing_chunk`` and
 serves the ``cuda-naive`` session backend. :func:`naive_clearing` is the
 legacy one-shot entry (``repro.kernels.naive_clearing.naive_clearing``):
@@ -39,10 +40,10 @@ _LIB_NAME = "naive_clearing"
 _c_ptr, _c_int, _c_u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 #: C entries of the library and their argument types.
 _ENTRIES = {
-    "kc_naive_clearing_chunk": [_c_ptr] * 24 + [_c_int] * 8 + [_c_u32,
+    "kc_naive_clearing_chunk": [_c_ptr] * 24 + [_c_int] * 9 + [_c_u32,
                                                                _c_ptr],
-    "kc_naive_clearing": [_c_ptr] * 16 + [_c_int] * 6 + [_c_u32, _c_ptr],
-    "kc_occupancy": [_c_int] * 5 + [_c_ptr],
+    "kc_naive_clearing": [_c_ptr] * 16 + [_c_int] * 7 + [_c_u32, _c_ptr],
+    "kc_occupancy": [_c_int] * 6 + [_c_ptr],
 }
 
 #: The plain versions: the same function as the persistent entries'.
@@ -54,14 +55,23 @@ def _load_library() -> ctypes.CDLL:
     return _build.load(_LIB_NAME, _ENTRIES)
 
 
+def _c_shape(shape: autotune.TileChoice) -> Tuple[int, int, int]:
+    """``(warps_per_market, markets_per_cta, ctas_per_market)``: the C
+    entries' shape (no agent mode: a per-step kernel keeps no agents)."""
+    return (shape.warps_per_market, shape.markets_per_cta,
+            shape.ctas_per_market)
+
+
 def resident_ctas(legacy: bool, shape: autotune.TileChoice) -> int:
     """CTAs of the chunk (or legacy) step kernel resident on one SM at
-    ``shape`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    ``shape`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), or at
+    ``ctas_per_market`` > 1 the clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``; 0: it cannot place one)."""
     out = ctypes.c_int(0)
     _build.check_launch(
         _load_library(), _load_library().kc_occupancy(
             int(legacy), shape.num_agents, shape.num_levels,
-            *shape.as_c_args()[:2], ctypes.byref(out)), "kc_occupancy")
+            *_c_shape(shape), ctypes.byref(out)), "kc_occupancy")
     return out.value
 
 
@@ -83,7 +93,8 @@ def naive_clearing_chunk(
     orders join the first step, the peer column is frozen once per call,
     and ``stats_only`` carries the six stats through every launch. ``tile``
     is the launch shape (its agent mode is not read: a per-step kernel
-    keeps no agents), default ``autotune.auto_tile(L, A)``. With
+    keeps no agents), default ``autotune.auto_tile(L, A, M,
+    hoisted=False)``, which may spread a market over a cluster. With
     ``n_valid == 0`` nothing is launched and the state comes back as
     copies; the caller's tensors are never written.
     """
@@ -95,7 +106,7 @@ def naive_clearing_chunk(
                 market_ids=market_ids, params=params, peer_mid=peer_mid,
                 stats=stats, stats_only=stats_only)
     shape = autotune.resolve_tile(tile, bid.shape[1], cfg.num_agents,
-                                  hoisted=False)
+                                  hoisted=False, num_markets=bid.shape[0])
     M, L = bid.shape
     with roofline.kernel_call("naive_clearing_chunk", bid.device, lambda: (
             op_count(M, cfg.num_agents, L, n_valid,
@@ -159,7 +170,7 @@ def _launch_chunk(state, stats_in, ext_buy, ext_ask, step0, n_valid, *, cfg,
             ptr(peer_mid), ptr(floats), ptr(ints), ptr(stats_in),
             *map(ptr, out), ptr(stats_out), *map(ptr, tmp), ptr(stats_tmp),
             *map(ptr, paths), M, cfg.num_agents, L, chunk, step0, n_valid,
-            *shape.as_c_args()[:2], int(cfg.seed) & 0xFFFFFFFF,
+            *_c_shape(shape), int(cfg.seed) & 0xFFFFFFFF,
             torch.cuda.current_stream(bid.device).cuda_stream)
     _build.check_launch(lib, rc, "naive_clearing_chunk")
     return out, stats_out, paths
@@ -174,13 +185,14 @@ def naive_clearing(bid: torch.Tensor, ask: torch.Tensor, last: torch.Tensor,
 
     Market ids are the rows, and arbitrageurs see their own market's
     previous mid at every step. ``tile`` (the counterpart of ``mb``) is the
-    launch shape, default ``autotune.auto_tile(L, A)``. Returns ``(bid,
+    launch shape, default ``autotune.auto_tile(L, A, M, hoisted=False)``.
+    Returns ``(bid,
     ask, last, pmid, price_path, volume_path)`` with ``[M, S]`` paths.
     """
     kc.check_legacy_operands("naive_clearing", bid, ask, last, pmid,
                              cfg=cfg, scan=scan)
     shape = autotune.resolve_tile(tile, bid.shape[1], cfg.num_agents,
-                                  hoisted=False)
+                                  hoisted=False, num_markets=bid.shape[0])
     M, L = bid.shape
     S = cfg.num_steps
     with roofline.kernel_call("naive_clearing", bid.device, lambda: (
@@ -215,7 +227,7 @@ def _launch_legacy(state, paths, cfg, shape):
     with torch.cuda.device(bid.device):
         rc = lib.kc_naive_clearing(
             *map(_build.ptr, state + [params.floats, params.ints] + out + tmp
-                 + paths), M, cfg.num_agents, L, S, *shape.as_c_args()[:2],
+                 + paths), M, cfg.num_agents, L, S, *_c_shape(shape),
             int(cfg.seed) & 0xFFFFFFFF,
             torch.cuda.current_stream(bid.device).cuda_stream)
     _build.check_launch(lib, rc, "naive_clearing")

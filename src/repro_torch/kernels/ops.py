@@ -22,8 +22,9 @@ brackets):
   * ``tile=`` [``mb=``] — pin the launch shape
     (:class:`~repro_torch.kernels.autotune.TileChoice`); no sweep. Without
     it, the rule's shape for the shard's rows (``autotune.auto_tile(L, A,
-    rows)``: past the registers mode each shard's rows pick their own
-    market cluster) or the sweep's winner.
+    rows)``, the per-step kernel's with ``hoisted=False``: past the
+    registers mode each shard's rows pick their own market cluster) or the
+    sweep's winner.
   * ``agents=`` [``agent_chunk=``] — pin the agent mode and sweep the rest.
   * ``autotune="auto"`` — ``"auto"`` sweeps when the runner's device is a
     card, ``True`` on any device (on the CPU it times the plain version),
@@ -154,10 +155,10 @@ class ClearingChunkRunner(session.ChunkRunner):
 
     # ---- launch shape ----
     def _rule(self, rows: int, agents) -> autotune.TileChoice:
-        """The rule's shape for ``rows`` markets (a persistent kernel's
-        may be a market cluster), in a pinned agent mode if one is given."""
+        """The rule's shape for ``rows`` markets (which may be a market
+        cluster), in a pinned agent mode if one is given."""
         L, A = self.spec.num_levels, self.spec.num_agents
-        rule = autotune.auto_tile(L, A, rows if self.hoisted else None)
+        rule = autotune.auto_tile(L, A, rows, hoisted=self.hoisted)
         if agents is not None and agents != rule.agents:
             rule = autotune.auto_tile(L, A)._replace(agents=agents)
         return rule

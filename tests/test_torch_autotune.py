@@ -96,10 +96,11 @@ def test_check_shape_is_the_headers():
         assert text in HEADER, text
     assert "#define MAX_CLUSTER_CTAS 16" in HEADER
     assert autotune.CTAS_PER_MARKET[-1] == 16
-    # The per-step kernels check their shape in the fresh mode, one CTA a
-    # market.
-    assert "AGENTS_FRESH, 1, &smem" in (_build.CSRC
-                                        / "naive_clearing.cu").read_text()
+    # The per-step kernels check their shape in the fresh mode, at the
+    # launch's C (one CTA a market or a market cluster).
+    naive = (_build.CSRC / "naive_clearing.cu").read_text()
+    assert "AGENTS_FRESH, C, &smem" in naive
+    assert "AGENTS_FRESH, ctas_per_market, &smem" in naive
     for L in (4, 64, 128, 512, 1024):
         for A in (1, 300, 2048, 2049, 46080, 46081):
             for W in range(0, 10):
@@ -116,6 +117,26 @@ def test_check_shape_is_the_headers():
                                 (L, A, W, mpc, mode, C)
 
 
+@pytest.mark.parametrize("mode", autotune.AGENT_MODES)
+def test_per_step_check_shape_is_the_fresh_domain(mode):
+    """A per-step kernel checks every shape, whatever mode it carries, as
+    its C entries do: ``check_shape`` in the fresh mode at the launch's C,
+    a market cluster included."""
+    for L in (4, 128, 1024):
+        for A in (1, 300, 46081):
+            for W in range(0, 10):
+                for mpc in range(0, 10):
+                    for C in (0, 1, 2, 3, 4, 8, 16, 32):
+                        try:
+                            autotune.check_shape(L, A, W, mpc, mode, False,
+                                                 C)
+                            ok = True
+                        except ValueError:
+                            ok = False
+                        assert ok == _c_accepts(L, A, W, mpc, "fresh", C), \
+                            (L, A, W, mpc, mode, C)
+
+
 @pytest.mark.parametrize("hoisted", [True, False])
 @pytest.mark.parametrize("L", LEVELS)
 @pytest.mark.parametrize("A", AGENTS)
@@ -124,9 +145,9 @@ def test_candidates_are_the_c_domain(L, A, hoisted):
     assert cands[0] == autotune.auto_tile(L, A)
     assert len(set(cands)) == len(cands)
     mode = autotune.auto_tile(L, A).agents
-    # Clusters only for a persistent kernel whose population is past the
+    # Clusters for either kind of kernel whose population is past the
     # registers mode (without a market count, where the rule may take one).
-    sizes = (1, 2, 4, 8, 16) if hoisted and mode != "registers" else (1,)
+    sizes = (1, 2, 4, 8, 16) if mode != "registers" else (1,)
     want = {(W, mpc, m, C) for W in (1, 2, 4, 8) for mpc in (1, 2, 4, 8)
             for m in (autotune.AGENT_MODES if hoisted else (mode,))
             for C in sizes
@@ -153,7 +174,9 @@ def test_candidates_are_the_c_domain(L, A, hoisted):
     clusters = {(c.warps_per_market, c.agents, c.ctas_per_market)
                 for c in cands if c.ctas_per_market > 1}
     if len(sizes) > 1:
-        assert {(W, C) for W, m, C in clusters if m == "fresh"} == {
+        # A per-step kernel's clusters carry the rule's mode and run fresh.
+        fresh = "fresh" if hoisted else mode
+        assert {(W, C) for W, m, C in clusters if m == fresh} == {
             (W, C) for W in (1, 2, 4, 8) if 128 * W >= L
             for C in (2, 4, 8, 16)}
         assert all(c.markets_per_cta == 1 for c in cands
@@ -223,14 +246,18 @@ def test_pinned_agents_is_kept(mode, hoisted):
         autotune.candidate_tiles(128, 256, hoisted=hoisted, agents="disk")
 
 
-@pytest.mark.parametrize("L,M,sms,cap,want", [
+#: (L, M, SMs, the card's largest C, the C the rule takes) at A=10^5.
+SM_FILLING = [
     (128, 1, 132, 16, 16), (128, 10, 132, 16, 16), (128, 16, 132, 16, 16),
     (128, 17, 132, 16, 8), (128, 33, 132, 16, 4), (128, 66, 132, 16, 2),
     (128, 128, 132, 16, 2), (128, 131, 132, 16, 2), (128, 132, 132, 16, 1),
     (128, 528, 132, 16, 1), (128, 4096, 132, 16, 1), (128, 10, 132, 8, 8),
     (128, 10, 132, 1, 1), (128, 10, 114, 16, 16), (128, 15, 114, 16, 8),
     (1024, 1, 132, 16, 16), (1024, 16, 132, 16, 16), (1024, 66, 132, 16, 2),
-    (1024, 132, 132, 16, 1), (32, 10, 132, 16, 16)])
+    (1024, 132, 132, 16, 1), (32, 10, 132, 16, 16)]
+
+
+@pytest.mark.parametrize("L,M,sms,cap,want", SM_FILLING)
 def test_rule_takes_the_smallest_cluster_that_fills_the_sms(L, M, sms, cap,
                                                             want):
     """In the fresh mode the rule takes the smallest C whose grid reaches
@@ -256,10 +283,74 @@ def test_rule_takes_the_smallest_cluster_that_fills_the_sms(L, M, sms, cap,
         assert got.grid(M) >= sms or want == cap
         assert want == 2 or M * want // 2 < sms   # the smallest such C
         assert autotune.check_tile(got, L, A, True) is got
-        with pytest.raises(ValueError, match="cluster"):
-            autotune.check_tile(got, L, A, False)
+        # The per-step kernels take the cluster too (in the fresh mode).
+        assert autotune.check_tile(got, L, A, False) is got
     assert got.smem_bytes(True) == autotune.team_smem_bytes(
         L, A, got.agents == "shared", 256, want)
+
+
+@pytest.mark.parametrize("L,M,sms,cap,want", SM_FILLING)
+def test_per_step_rule_takes_the_same_cluster(L, M, sms, cap, want):
+    """The per-step kernels' rule takes the persistent rule's C, the
+    smallest whose grid reaches the SMs (at most the card's limit), and
+    weighs no mode: the kernels run fresh. On a cluster a team of eight
+    warps, one a CTA, in the mode the rule gives without a market count;
+    at C = 1 the one-CTA shape it gave before."""
+    A = 10 ** 5
+    base = autotune.auto_tile(L, A)
+    got = autotune.auto_tile(L, A, M, sms=sms, max_ctas=cap, hoisted=False)
+    assert got.ctas_per_market == want == autotune.auto_tile(
+        L, A, M, sms=sms, max_ctas=cap).ctas_per_market
+    assert got == (base if want == 1 else base._replace(
+        warps_per_market=8, markets_per_cta=1, ctas_per_market=want))
+    assert autotune.check_tile(got, L, A, False) is got
+    assert got.smem_bytes(False) == 4 * (4 if want > 1 else 2) * L
+
+
+#: The per-step rule's shape (W, markets a CTA, mode, C) on an H100's 132
+#: SMs: Table IV and the timed agent sweep keep four one-warp teams a CTA;
+#: a few markets of a large population (P1, Q1, B1, `edges`, the M=2
+#: population past 2^24) take a cluster of 16; many markets keep one CTA
+#: a market. The mode is the one the rule gives without a market count.
+PER_STEP_RULES = [
+    ("table-iv", 8192, 256, 128, (1, 4, "registers", 1)),
+    ("a16", 8192, 16, 128, (1, 4, "registers", 1)),
+    ("a1024", 8192, 1024, 128, (1, 4, "shared", 1)),
+    ("l1024", 8192, 32, 1024, (8, 1, "registers", 1)),
+    ("P1", 1, 100000, 128, (8, 1, "fresh", 16)),
+    ("Q1", 1, 40000, 128, (8, 1, "shared", 16)),
+    ("B1", 10, 46080, 128, (8, 1, "shared", 16)),
+    ("edges-128", 10, 50000, 128, (8, 1, "fresh", 16)),
+    ("edges-1024", 10, 45000, 1024, (8, 1, "fresh", 16)),
+    ("exact", 2, 100000, 8, (8, 1, "fresh", 16)),
+    ("Q2", 64, 30000, 128, (8, 1, "shared", 4)),
+    ("Q3", 264, 30000, 128, (8, 1, "shared", 1)),
+    ("W1", 8192, 20000, 1024, (8, 1, "shared", 1))]
+
+
+@pytest.mark.parametrize("label,M,A,L,want", PER_STEP_RULES,
+                         ids=[r[0] for r in PER_STEP_RULES])
+def test_per_step_rule_on_an_h100(label, M, A, L, want):
+    """Without a card the per-step rule counts an H100's SMs and the
+    largest cluster it holds of the per-step kernels (``h100_holds(tile,
+    False)``); at Table IV it is the launch shape it was before clusters,
+    and its candidates take a cluster exactly where the rule does."""
+    got = autotune.auto_tile(L, A, M, hoisted=False)
+    assert (got.warps_per_market, got.markets_per_cta, got.agents,
+            got.ctas_per_market) == want
+    assert got == autotune.auto_tile(L, A, M, sms=132, max_ctas=16,
+                                     hoisted=False)
+    if want[3] == 1:
+        assert got == autotune.auto_tile(L, A)
+    cands = autotune.candidate_tiles(L, A, M, hoisted=False)
+    assert cands[0] == got
+    sizes = {c.ctas_per_market for c in cands}
+    assert sizes == ({1} if want[3] == 1 else {1, 2, 4, 8, 16})
+    assert all(c.agents == got.agents for c in cands)
+    for c in cands:
+        assert autotune.check_tile(c, L, A, False) is c
+    if label == "table-iv":
+        assert cands == autotune.candidate_tiles(L, A, hoisted=False)
 
 
 @pytest.mark.parametrize("A", [16, 256, 1024, 46080])
@@ -390,6 +481,14 @@ H100_READINGS = {
     (8, "fresh", 100000): (2, 198, 92, 45, 21)}
 
 
+#: What the H100 holds at once of the per-step kernels (``tools/
+#: kernel_times.py --holds``, the same card): W -> the CTAs an SM at
+#: C = 1, then the clusters at C = 2, 4, 8, 16. They keep no agents, so
+#: the population does not change it.
+H100_STEP_READINGS = {1: (28, 528, 248, 124, 58), 2: (14, 528, 248, 124, 58),
+                      4: (7, 528, 248, 124, 58), 8: (3, 264, 124, 62, 28)}
+
+
 @pytest.mark.parametrize("C", autotune.CTAS_PER_MARKET)
 def test_h100_holds_is_the_cards_reading(C):
     """Without a card the rule counts what an H100 holds at once
@@ -401,6 +500,13 @@ def test_h100_holds_is_the_cards_reading(C):
         tile = autotune.TileChoice(128, A * C, W, 1, mode, C)
         assert autotune.h100_holds(tile) == held[at], tile
         assert autotune.card_holds(tile) == held[at]
+    # The per-step kernels, whatever mode the tile carries.
+    for W, held in H100_STEP_READINGS.items():
+        for mode, A in (("fresh", 100000), ("shared", 2000),
+                        ("registers", 256 * W)):
+            tile = autotune.TileChoice(128, A * C, W, 1, mode, C)
+            assert autotune.h100_holds(tile, False) == held[at], tile
+            assert autotune.card_holds(tile, hoisted=False) == held[at]
 
 
 #: The (A, L) of the ``timing`` and ``agent_sweep`` phases at M=8192, and

@@ -10,7 +10,7 @@ from repro.core.session import ExternalOrders as JOrders
 from repro_torch.core import engine, torch_backend
 from repro_torch.core.config import MarketConfig
 from repro_torch.core.session import Engine, ExternalOrders, backend_available
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import autotune, ops, ref
 from test_torch_session import _jspec, _port, _same
 
 PORT_BACKENDS = ("torch-scan", "torch-per-step", "cuda-naive")
@@ -34,6 +34,31 @@ def test_backend_matches_its_counterpart_and_numpy(backend, numpy_result):
     _same(got.to_numpy(), want.to_numpy())
     _same(got.to_numpy(), numpy_result.to_numpy())
     assert np.asarray(want.volume_path).sum() > 0
+
+
+@pytest.fixture(scope="module")
+def pallas_naive_result():
+    return JEngine("pallas-naive").open(_jspec(), chunk_size=5) \
+        .run_to_result()
+
+
+@pytest.mark.parametrize("C", autotune.CTAS_PER_MARKET[1:])
+def test_cuda_naive_on_a_cluster_matches_pallas_naive_and_numpy(
+        C, numpy_result, pallas_naive_result):
+    """``cuda-naive`` pinned to a market cluster of C CTAs (one team a CTA;
+    on the CPU its plain version) equals ``repro``'s ``pallas-naive`` in
+    interpret mode and its ``numpy`` reference, field by field."""
+    jspec = _jspec()
+    L, A = jspec.num_levels, jspec.num_agents
+    tile = autotune.TileChoice(L, A, 1, 1, autotune.auto_tile(L, A).agents,
+                               C)
+    assert autotune.check_tile(tile, L, A, False) is tile
+    sess = Engine("cuda-naive", device="cpu", tile=tile).open(
+        _port(jspec), chunk_size=5)
+    assert sess._runner.tile == tile
+    got = sess.run_to_result().to_numpy()
+    _same(got, pallas_naive_result.to_numpy())
+    _same(got, numpy_result.to_numpy())
 
 
 @pytest.mark.parametrize("backend", PORT_BACKENDS)

@@ -3,6 +3,9 @@
 Inputs are made with numpy from a seed and handed to both packages; the
 port runs its plain PyTorch code on the CPU.
 """
+import dataclasses
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -266,3 +269,45 @@ def test_decide_with_agent_ids_matches(ids):
         plain = agents.decide(tspec, cols, _t(mid), _t(prev), 4, _t(mids))
         for g, w in zip(plain, got):
             assert torch.equal(g, w)
+
+
+#: Spec edits that trip one of ``EnsembleSpec.validate``'s checks each,
+#: with ``repro``'s own wording of that check (``src/repro/core/params.py``).
+INVALID_SPECS = [
+    ("non_finite", dict(noise_delta=[1.0, np.nan, 1.0]),
+     "params.noise_delta contains non-finite values (nan/inf) in markets "
+     "[1]; parameter operands must be finite"),
+    ("initial_spread", dict(initial_spread=[2, 20, 2]),
+     "initial_spread must place both opening quotes on the grid "
+     "(0 <= spread, ceil(spread/2) <= 7 for num_levels=16); markets [1] "
+     "violate it"),
+    ("q_max", dict(q_max=[1.0, 1.0, 0.5]),
+     "q_max must be >= 1 (qty = 1 + floor(u * q_max) would go "
+     "non-positive); markets [2] violate it"),
+    ("fundamental", dict(fundamental=-1.0),
+     "fundamental must be a resolved price >= 0 (the config's "
+     "negative-means-midpoint sentinel is applied at build time; use "
+     "num_levels // 2 = 8 for the grid midpoint); markets [0, 1, 2] "
+     "violate it")]
+
+
+@pytest.mark.parametrize("edit,wording", [c[1:] for c in INVALID_SPECS],
+                         ids=[c[0] for c in INVALID_SPECS])
+def test_validation_texts_are_repros(edit, wording):
+    """The same invalid spec raises the same ``ValueError`` in both
+    packages, worded as ``repro`` words it."""
+    kw = dict(num_markets=3, num_agents=8, num_levels=16, num_steps=4,
+              seed=1)
+    specs = (JSpec.homogeneous(JConfig(**kw)),
+             params_mod.EnsembleSpec.homogeneous(
+                 params_mod.MarketConfig(**kw)))
+    texts = []
+    for spec in specs:
+        with pytest.raises(ValueError, match=re.escape(wording)) as err:
+            if "initial_spread" in edit:
+                dataclasses.replace(spec, initial_spread=np.asarray(
+                    edit["initial_spread"], np.int32))
+            else:
+                spec.with_values(**edit)
+        texts.append(str(err.value))
+    assert texts[0] == texts[1] == wording

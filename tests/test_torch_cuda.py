@@ -99,8 +99,9 @@ RULE_SHAPES = [(10, 46080, 128), (10, 20000, 1024), (1, 40000, 128),
 def test_h100_holds_is_this_cards(cuda, W):
     """On an H100 what the rule counts without a card (``h100_holds``) is
     what the card holds at once, at every agent mode and C of a team of W
-    warps at L=128; and the rule's shape at large populations is the one
-    it takes without a card."""
+    warps at L=128, for the persistent and the per-step kernels; and the
+    rules' shapes at large populations are the ones they take without a
+    card."""
     if "H100" not in torch.cuda.get_device_name(cuda):
         pytest.skip("h100_holds is an H100's table")
     for C in autotune.CTAS_PER_MARKET:
@@ -109,11 +110,16 @@ def test_h100_holds_is_this_cards(cuda, W):
             tile = autotune.TileChoice(128, A, W, 1, mode, C)
             assert autotune.card_holds(tile) == autotune.h100_holds(tile), \
                 tile
+            assert autotune.card_holds(tile, hoisted=False) == \
+                autotune.h100_holds(tile, False), tile
     if W == autotune.MAX_TEAM_WARPS:
         for M, A, L in RULE_SHAPES:
             assert autotune.auto_tile(L, A, M) == autotune.auto_tile(
                 L, A, M, sms=autotune.TARGET_SMS, max_ctas=16,
                 holds=autotune.h100_holds)
+            assert autotune.auto_tile(L, A, M, hoisted=False) == \
+                autotune.auto_tile(L, A, M, sms=autotune.TARGET_SMS,
+                                   max_ctas=16, hoisted=False)
 
 
 def test_session_launches_once_per_chunk(cuda):
@@ -412,6 +418,48 @@ def test_market_cluster_equals_plain(cuda, W, L, C, mode):
     lstate = initial_state(cfg, cuda)
     lgot = kc.kinetic_clearing(*lstate, cfg=cfg, tile=tile)
     lwant = kc.kinetic_clearing_plain(*lstate, cfg=cfg)
+    torch.cuda.synchronize()
+    for g, w in zip(lgot, lwant):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("C", autotune.CTAS_PER_MARKET[1:])
+@pytest.mark.parametrize("W,L", [(1, 128), (2, 64), (8, 128), (8, 1024)])
+def test_step_kernels_on_a_cluster_equal_plain(cuda, W, L, C):
+    """Kernels 2 and 4 with each market on a cluster of C CTAs (one team a
+    CTA, past the registers mode) equal their plain versions: paths and
+    stats, external orders, a shock, ring-coupled arbitrageurs, a partial
+    chunk, and the legacy entry's own-mid peer; the launch runs as a
+    cluster (the card holds at least one)."""
+    A = 3001
+    tile = autotune.TileChoice(L, A, W, 1, autotune.auto_tile(L, A).agents,
+                               C)
+    assert all(nc.resident_ctas(legacy, tile) >= 1
+               for legacy in (False, True))
+    spec = _spec(3, A, L, S=12)
+    M = spec.num_markets
+    state = initial_state(spec, cuda)
+    params = params_mod.pack_params(spec.params, cuda)
+    gen = torch.Generator().manual_seed(C * 100 + W)
+    eb, ea = ((torch.randint(0, 3, (M, L), generator=gen)
+               * (torch.rand((M, L), generator=gen) < 0.2))
+              .to(torch.float32).to(cuda) for _ in range(2))
+    for stats_only in (False, True):
+        kw = dict(cfg=spec, chunk=10, params=params, stats_only=stats_only,
+                  stats=init_stats(M, cuda) if stats_only else None)
+        before = nc.naive_clearing_chunk.launches
+        got = nc.naive_clearing_chunk(*state, 3, 9, eb, ea, tile=tile, **kw)
+        want = nc.naive_clearing_chunk_plain(*state, 3, 9, eb, ea, **kw)
+        torch.cuda.synchronize()
+        assert nc.naive_clearing_chunk.launches - before == 9
+        flat = (lambda out: list(out[:4]) + list(out[4])) if stats_only \
+            else (lambda out: list(out[:4]) + [p[:, :9] for p in out[4:]])
+        for g, w in zip(flat(got), flat(want)):
+            assert torch.equal(g, w)
+    cfg = _legacy_cfg(5, A, L, S=9)
+    lstate = initial_state(cfg, cuda)
+    lgot = nc.naive_clearing(*lstate, cfg=cfg, tile=tile)
+    lwant = nc.naive_clearing_plain(*lstate, cfg=cfg)
     torch.cuda.synchronize()
     for g, w in zip(lgot, lwant):
         assert torch.equal(g, w)

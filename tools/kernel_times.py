@@ -20,19 +20,23 @@ steps each, CUDA events over several calls after a warm-up):
     and at M=8192, A=32, L=1024;
   * kernels 3 and 4 (``kinetic_clearing``, ``naive_clearing``) at M=8192,
     A=256, L=128, S=64;
-  * the main path: ``Session.run(500)`` of ``cuda-kinetic`` at M=8192,
-    A=256, L=128 (chunk 64, the rule's launch shape on a tree that has a
-    tile sweep), its wall around the run and a ``torch.cuda.synchronize``;
+  * the main path: ``Session.run(500)`` of ``cuda-kinetic`` and of
+    ``cuda-naive`` at M=8192, A=256, L=128 (chunk 64, the rule's launch
+    shape on a tree that has a tile sweep), its wall around the run and a
+    ``torch.cuda.synchronize``;
   * large populations (``POPULATIONS``): the fresh mode's shapes
     (populations past shared memory) and the hoisted modes' on few
     markets. Kernels 1 and 3 at one CTA a market (``auto_tile(L, A)``,
     C = 1) and at the rule's shape for the markets (``auto_tile(L, A,
     M)``, a market cluster on a tree that has them), in turns (C = 1,
-    rule, rule, C = 1), each output equal to the other's; kernel 2 at its
-    rule where ``NAIVE`` names the shape; device times (calls queued
-    behind a sleeping kernel, so the wrappers' host work does not count),
-    with the bound, the share of the SMs the grid can occupy and the
-    agent-events/s. ``--matrix`` adds kernels 1 and 3 at the rule's shape
+    rule, rule, C = 1), each output equal to the other's; where ``NAIVE``
+    names the shape, kernels 2 and 4 likewise at C = 1 and at their own
+    rule's shape (``auto_tile(L, A, M, hoisted=False)``, a market cluster
+    on a tree whose per-step kernels have one), each equal to kernel 1's
+    (kernel 3's) output, with their ratios to kernels 1 and 3 at equal
+    layouts; device times (calls queued behind a sleeping kernel, so the
+    wrappers' host work does not count), with the bound, the share of the
+    SMs the grid can occupy and the agent-events/s. ``--matrix`` adds kernels 1 and 3 at the rule's shape
     and at every candidate shape of one team a CTA that the sweep may
     offer for some number of markets (``candidate_tiles`` without one):
     every (warps a market, agent mode) at C = 1 and every market cluster,
@@ -42,7 +46,8 @@ steps each, CUDA events over several calls after a warm-up):
   * ``--holds``: what the card holds at once of every persistent agent
     mode, team width and C at L=128 (``resident_ctas``, the fewer of
     kernels 1 and 3) beside ``autotune.h100_holds``, the rule's count
-    without a card, on a tree that has it.
+    without a card, on a tree that has it; then the same of the per-step
+    kernels (the fewer of kernels 2 and 4) at every team width and C.
 
 Prints one JSON line per shape, then the card's name and power limit.
 Imports nothing of JAX or of the JAX package.
@@ -50,6 +55,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import statistics
 import subprocess
@@ -90,8 +96,9 @@ POPULATIONS = [("edges", 10, 50000, 128, 6, False),
 MIX = dict(alpha_fundamentalist=0.1, alpha_whale=0.02, whale_period=4,
            alpha_hft=0.1, alpha_informed=0.05, alpha_arbitrageur=0.1,
            shock_intensity=0.3, shock_cancel=0.5)
-#: Shapes (label, A) at which kernel 2 is timed at its rule beside kernel 1.
-NAIVE = {("edges", 50000), ("B1", 46080), ("P1", 100000)}
+#: Shapes (label, A) at which kernels 2 and 4 are timed beside kernels 1
+#: and 3.
+NAIVE = {("edges", 50000), ("B1", 46080), ("P1", 100000), ("Q1", 40000)}
 FRESH_REPS = 5
 QUEUE_SLEEP_CYCLES = 200_000_000
 
@@ -136,9 +143,8 @@ def queued_ms(fn, reps: int) -> float:
     return events[1].elapsed_time(events[2]) / reps
 
 
-def session_run_ms(shape, device) -> float:
-    """Wall of one ``cuda-kinetic`` ``Session.run(500)``, ms."""
-    import inspect
+def session_run_ms(shape, device, backend="cuda-kinetic") -> float:
+    """Wall of one ``Session.run(500)`` of ``backend``, ms."""
     import time
 
     import torch
@@ -153,7 +159,7 @@ def session_run_ms(shape, device) -> float:
         seed=SEED))
     knobs = inspect.signature(ops.open_kinetic_runner).parameters
     opts = {"autotune": False} if "autotune" in knobs else {}
-    with Engine("cuda-kinetic", device=device, chunk_size=64,
+    with Engine(backend, device=device, chunk_size=64,
                 **opts).open(spec) as sess:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -174,8 +180,9 @@ def holds_line(base: dict) -> None:
     ``HOLDS`` at every team width and C the kernels take at L=128."""
     from repro_torch.kernels import autotune
     from repro_torch.kernels import kinetic_clearing as kc
+    from repro_torch.kernels import naive_clearing as nc
 
-    static = getattr(autotune, "h100_holds", lambda t: None)
+    static = getattr(autotune, "h100_holds", lambda t, hoisted=True: None)
     rows = []
     for W in autotune.WARPS_PER_MARKET:
         for mode, A0 in HOLDS:
@@ -191,13 +198,65 @@ def holds_line(base: dict) -> None:
                                  for legacy in (False, True)),
                              static(tile)])
     print(json.dumps(dict(base, holds=rows)), flush=True)
+    # The per-step kernels: fresh, so A does not change what they hold.
+    steps = []
+    step_rule = "hoisted" in inspect.signature(autotune.auto_tile).parameters
+    for W in autotune.WARPS_PER_MARKET:
+        for C in autotune.CTAS_PER_MARKET if step_rule else (1,):
+            tile = autotune.TileChoice(128, 100000 * C, W, 1, "fresh", C)
+            steps.append([W, "step", tile.num_agents, C,
+                          min(nc.resident_ctas(legacy, tile)
+                              for legacy in (False, True)),
+                          static(tile, False) if step_rule else None])
+    print(json.dumps(dict(base, step_holds=steps)), flush=True)
+
+
+def naive_times(out: dict, M: int, A: int, L: int, fns, want,
+                one) -> None:
+    """Kernels 2 and 4 at one CTA a market (``one``) and at their rule's
+    shape (a cluster where the tree's per-step kernels take one), in turns
+    beside kernels 1 and 3 at ``one`` and at their own rule's shape, into
+    ``out``: ms, each output equal to kernel 1's (kernel 3's), and the
+    ratios to kernels 1 and 3 (at equal layouts where both rules take the
+    same cluster)."""
+    import torch
+    from repro_torch.kernels import autotune
+
+    k1, k2, k3, k4 = fns
+    step_rule = "hoisted" in inspect.signature(autotune.auto_tile).parameters
+    rule = autotune.auto_tile(L, A, M, hoisted=False) if step_rule else one
+    # Beside it, kernels 1 and 3 at their own rule's shape.
+    kin = autotune.auto_tile(L, A, M)
+    for name, fn, ref, base in (("kernel2", k2, k1, k1),
+                                ("kernel4", k4, k3, k3)):
+        runs = {}
+        for which in ("one", "rule", "rule", "one"):
+            tile, ktile = (one, one) if which == "one" else (rule, kin)
+            runs.setdefault(which, []).append(
+                (queued_ms(lambda: fn(tile), FRESH_REPS),
+                 queued_ms(lambda: base(ktile), FRESH_REPS)))
+        for which, tile in (("one", one), ("rule", rule)):
+            ms = statistics.median(t[0] for t in runs[which])
+            base_ms = statistics.median(t[1] for t in runs[which])
+            grid = tile.grid(M)
+            out[f"{name}_{which}"] = dict(
+                ms=ms, ms_runs=[t[0] for t in runs[which]],
+                tile=list(tile), grid=grid,
+                beside=base_ms, beside_runs=[t[1] for t in runs[which]],
+                over_beside=ms / base_ms,
+                equal=all(bool(torch.equal(x, y))
+                          for x, y in zip(fn(tile), want[ref])))
+        out[name] = dict(
+            over_kernel1_rule=out[f"{name}_rule"]["over_beside"],
+            over_kernel1_one=out[f"{name}_one"]["over_beside"])
 
 
 def population_times(device, base: dict, matrix: bool,
                      only=None) -> None:
     """One JSON line per ``POPULATIONS`` shape: kernels 1 and 3 at C = 1
-    and at the rule's shape, and kernel 2 at its rule (see the module
-    docstring); with ``matrix`` a second line per shape."""
+    and at the rule's shape, and where ``NAIVE`` names the shape kernels 2
+    and 4 (:func:`naive_times`; see the module docstring); with ``matrix``
+    a second line per shape."""
     import torch
     from repro_torch.core import params as params_mod
     from repro_torch.core.config import MarketConfig
@@ -231,6 +290,9 @@ def population_times(device, base: dict, matrix: bool,
         def k2(tile):
             return nc.naive_clearing_chunk(*state, 0, S, tile=tile, **kw)
 
+        def k4(tile):
+            return nc.naive_clearing(*state, cfg=cfg, tile=tile)
+
         want = {fn: fn(one) for fn in (k1, k3)}
 
         def equal(fn, tile):
@@ -259,17 +321,7 @@ def population_times(device, base: dict, matrix: bool,
                     bound_ms=b["bound_ms"], bound_share=b["bound_ms"] / ms,
                     agent_events_per_s=M * A * S / (ms * 1e-3))
         if (label, A) in NAIVE:
-            # Kernel 2 runs one CTA a market at its rule, whatever kernel
-            # 1's layout: the ablation's ratio mixes the two.
-            naive = autotune.auto_tile(L, A)
-            got = k2(None)
-            ms = queued_ms(lambda: k2(None), FRESH_REPS)
-            out["kernel2_rule"] = dict(
-                ms=ms, tile=list(naive), grid=naive.grid(M),
-                equal=all(bool(torch.equal(x, y))
-                          for x, y in zip(got, want[k1])),
-                over_kernel1_rule=ms / out["kernel1_rule"]["ms"],
-                over_kernel1_one=ms / out["kernel1_one"]["ms"])
+            naive_times(out, M, A, L, (k1, k2, k3, k4), want, one)
         print(json.dumps(out), flush=True)
         if not matrix:
             continue
@@ -379,14 +431,16 @@ def main() -> int:
         base, markets=M, agents=A, levels=L, steps=STEPS,
         kernel3_ms=statistics.median(k3), kernel3_ms_runs=k3,
         kernel4_ms=statistics.median(k4), kernel4_ms_runs=k4)), flush=True)
-    run500 = []
-    for _ in range(RUN500_REPS + 1):
-        run500.append(session_run_ms(LEGACY, device))
-    run500 = run500[1:]                   # the first run warms up
-    print(json.dumps(dict(
-        base, markets=LEGACY[0], agents=LEGACY[1], levels=LEGACY[2],
-        steps=500, run500_wall_ms=statistics.median(run500),
-        run500_wall_ms_runs=run500)), flush=True)
+    for backend in ("cuda-kinetic", "cuda-naive"):
+        run500 = []
+        for _ in range(RUN500_REPS + 1):
+            run500.append(session_run_ms(LEGACY, device, backend))
+        run500 = run500[1:]                   # the first run warms up
+        print(json.dumps(dict(
+            base, backend=backend, markets=LEGACY[0], agents=LEGACY[1],
+            levels=LEGACY[2], steps=500,
+            run500_wall_ms=statistics.median(run500),
+            run500_wall_ms_runs=run500)), flush=True)
     population_times(device, base, args.matrix, only)
     print(card_line(), flush=True)
     return 0
