@@ -121,39 +121,50 @@ line:
            steps through ``torch-scan`` on the CPU, with the host's CPU
            model, cores, NumPy's version and torch's threads; then the two
            chunk kernels alone at M=8192, A=32, L=1024 (books beyond L2).
-  env      the RL environment (``repro_torch.env``) at the Table IV width:
-           a zero-action rollout of 64 steps on ``cuda-kinetic`` (64
-           launches of kernel 1) == ``Session.run(64)`` (one launch), paths
-           and books; the scripted maker's closed loop for 64 steps with
-           composite observations (market, book window, portfolio, stats)
-           and a summed reward on ``cuda-kinetic``, ``cuda-naive`` and
-           ``torch-scan``, equal in obs, reward, done, fills, paths and
-           final state, kernel 1 (kernel 2) launched once per env step and
-           no runner built for a second env; auto-reset at horizon 16 over
-           40 steps, every episode replaying the first; a checkpoint at
-           step 24 restored into a fresh env, continuing as the straight
-           rollout; then 500 timed maker steps: steps/s, agent-events/s,
-           kernel 1 at ``chunk=1`` (its device time, CUDA events around
-           launches queued behind a sleep; and the wrapper's time a call
-           back to back), the card's busy share, the ratio to
-           ``Session.run(500)``, and a ``torch.profiler`` window of 50
-           steps (CUDA kernels and device time a step).
+  env      the RL environment (``repro_torch.env``) at the Table IV width,
+           every rollout run twice from one state: the first call of its
+           key (the eager body, captured into a CUDA graph) and a replay,
+           equal bit for bit, with the counts at 0 before each (one launch
+           of kernel 1 or 2 a step at replay): a zero-action rollout of 64
+           steps on ``cuda-kinetic`` == ``Session.run(64)`` (one launch),
+           paths and books; the scripted maker's closed loop for 64 steps
+           with composite observations (market, book window, portfolio,
+           stats) and a summed reward on ``cuda-kinetic``, ``cuda-naive``,
+           ``torch-scan`` and ``torch-per-step``, equal in obs, reward,
+           done, fills, paths and final state, and again over ring-coupled
+           markets with arbitrageurs (and ``cuda-kinetic`` uncoupled); no
+           runner built and one graph captured for a second env; auto-reset
+           at horizon 16 over 40 steps, every episode replaying the first;
+           a checkpoint at step 24 restored into a fresh env, continuing as
+           the straight rollout; a first 500-step call captures one graph
+           (its wall and the bytes it keeps) and a warm one captures nothing
+           under torch's sync debug mode at error; then 500 maker steps,
+           the graph and the eager body (the host loop) in turns: steps/s,
+           agent-events/s, kernel 1 at ``chunk=1`` (its device time, CUDA
+           events around launches queued behind a sleep; and the wrapper's
+           time a call back to back), the card's busy share, the ratio to
+           ``Session.run(500)``, and ``torch.profiler`` windows of 50 steps
+           of each (CUDA kernels and device time a step).
   train    the PPO trainer (``repro_torch.train``) at the Table IV width
            over 4096 ``flash-crash`` and 4096 ``high-vol`` markets (rollout
-           64, 2 epochs of 8 minibatches, hidden (32, 32)): 2 updates on
-           ``cuda-kinetic``, ``cuda-naive`` and ``torch-scan``, equal in
-           params, Adam state, key, metrics and final env state, kernel 1
-           (kernel 2) launched once per env step, nothing built, and no
-           synchronizing call inside ``train()`` on the kernel backends
-           (torch's sync debug mode set to error); 2 updates, a checkpoint
-           restored into a fresh trainer and 2 more == 4 straight updates;
-           the flagship gate at ``benchmarks/train_bench.py --full``'s
-           shape on ``torch-scan`` (the learned maker must beat the
-           scripted one on the held-out mixture); then 8 timed updates:
-           env (market-)steps/s, agent-events/s, the wall of rollout, GAE
-           and update, ``torch.profiler`` windows over one update and one
-           rollout (busy share, CUDA kernels a step), and the learned
-           against the scripted maker at full width (reported).
+           64, 2 epochs of 8 minibatches, hidden (32, 32)): on
+           ``cuda-kinetic``, ``cuda-naive`` and ``torch-scan`` 2 updates
+           (the first captures the update's CUDA graph) and 2 warm ones
+           (replays, nothing captured, torch's sync debug mode at error),
+           equal to the eager body's 2 + 2 in params, Adam state, key,
+           metrics and final env state, the backends equal, kernel 1
+           (kernel 2) launched once per env step; 2 updates, a checkpoint
+           restored into a fresh trainer and into the warm one (no capture)
+           and 2 more == 4 straight updates; at most two graphs a trainer
+           (its update and its greedy rollout); the flagship gate at
+           ``benchmarks/train_bench.py --full``'s shape on ``torch-scan``
+           (the learned maker must beat the scripted one on the held-out
+           mixture); then 8 timed updates, the graph and the eager body in
+           turns: env (market-)steps/s, agent-events/s, the eager wall of
+           rollout, GAE and update, ``torch.profiler`` windows over one
+           update (graph and eager) and one rollout (busy share, CUDA
+           kernels a step), and the learned against the scripted maker at
+           full width (reported).
   serve    the serving gateway (``repro_torch.serve.Gateway``) over an
            8192-slot template at A=256, L=128, chunk 64: 256 clients
            round-robin over the nine presets, 8 more at chunk 6 (after the
@@ -199,8 +210,9 @@ line:
            observation, reward and info) equal to their closed form to the
            byte; a 2-shard env checkpoint restored onto 1 and 3 shards
            continues the straight rollout; the maker's env at Table IV on
-           1, 2 and 3 shards: steps/s, CUDA kernels and bytes moved a
-           step; ``DeviceLoss(devices_after=1)``
+           1, 2 and 3 shards (one shard a CUDA graph, the meshes the host
+           loop): steps/s, CUDA kernels and bytes moved a step;
+           ``DeviceLoss(devices_after=1)``
            from 2 shards in ``run_plan`` and under a gateway of 8 clients,
            bitwise; ``devices=2`` on one card raises the mesh's
            ``ValueError``; each shard's rows on its device after every
@@ -218,15 +230,18 @@ line:
            over the run's wall; the same run on a mesh naming the card
            twice: per-device totals summing to the unsharded ones, the
            ring's and the joins' bytes equal to their closed form; then one
-           64-step ``torch-scan`` chunk, 50 maker env steps and one trainer
-           update (torch's sync debug mode at error) under the recorder,
-           each equal to its unrecorded run: aten ops a step, flops, bytes
-           and the bound, beside ``torch.profiler``'s CUDA kernels a step;
-           the update's backward dots 1.5-2x its forward dots.
+           64-step ``torch-scan`` chunk, 50 maker env steps (the first call,
+           the eager body, and a replay of its graph recording the same
+           kernels, aten ops and bytes) and one trainer update (a replay,
+           torch's sync debug mode at error) under the recorder, each equal
+           to its unrecorded run: aten ops a step, flops, bytes and the
+           bound, beside ``torch.profiler``'s CUDA kernels a step; the
+           update's backward dots 1.5-2x its forward dots.
 
 Each path is driven with every launch count at 0 just before it and read
 just after; the ``kernels`` line's launches are the ``session`` phase's
-(and the ``legacy_path`` phase's), plus the ``train`` phase's 2 updates,
+(and the ``legacy_path`` phase's), plus the ``train`` phase's 2 warm
+updates (replays of the update's CUDA graph),
 the ``autotune`` phase's candidate checks and the ``sharded``,
 ``roofline``, ``population`` and ``exact_2_24`` phases' paths. Every
 launch is counted where it is made, the runners' own tile sweeps
@@ -247,6 +262,7 @@ package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import signal
@@ -2295,7 +2311,9 @@ def phase_sharded(device):
     launches = shards x chunks (x steps for kernel 2);
     ``DeviceLoss(devices_after=1)`` from two shards in ``run_plan`` and
     under the gateway, bitwise; ``devices=2`` on one card raises; the wall
-    of a sharded ``run(500)`` against the unsharded one."""
+    of a sharded ``run(500)`` against the unsharded one. The meshes' envs
+    and trainers keep the host loop (a CUDA graph belongs to one device),
+    as before; the unsharded runs they are held against take graphs."""
     import tempfile
     import time
 
@@ -2379,6 +2397,9 @@ def phase_sharded(device):
     env1 = Engine("cuda-kinetic", device=device).env(ring)
     envs = {n: Engine("cuda-kinetic", device=device, mesh=meshes[n])
             .env(ring) for n in (2, 3)}
+    if any(env._graphed for env in envs.values()):
+        raise Mismatch("a sharded env took the CUDA graph path, not the "
+                       "host loop")
     straight = rollout(env1, maker, ENV_STEPS)
     want = env_outputs(*straight)
     env_checks = {}
@@ -2635,7 +2656,7 @@ def phase_sharded(device):
          env_resident_checks=env_checks, env_moves=env_moved,
          env_moves_per_step={k: v / ENV_PROFILED_STEPS
                              for k, v in env_moved.items()},
-         env_rates=env_rates,
+         env_rates=env_rates, host_loop_on_meshes=True,
          serve=dict(clients=SHARDED_CLIENTS, chunks=SHARDED_SERVE_CHUNKS,
                     steps=lost.steps, recoveries=lost.recoveries))
     return errs, launches
@@ -2701,8 +2722,9 @@ def phase_roofline(device):
     to the launches and to ``op_count``/``byte_count`` over the chunks, and
     its bound against the run's wall; the same over a mesh naming the card
     twice (per-device sums, the cut's closed form); then one ``torch-scan``
-    chunk, 50 maker env steps and one trainer update (no synchronizing
-    call under the recorder), each with its aten ops a step beside
+    chunk, 50 maker env steps (the eager body's records equal to its
+    graph's at replay) and one trainer update (no synchronizing call
+    under the recorder at replay), each with its aten ops a step beside
     ``torch.profiler``'s CUDA kernels a step."""
     import time
 
@@ -2810,23 +2832,38 @@ def phase_roofline(device):
     eager_line = dict(_per_step(eager_sum, chunk, eager_runs["plain"][1]),
                       profile=eager_runs["profiled"][0])
 
+    # The env: its first call (the eager body, captured) and a replay of
+    # its graph record the same kernels and aten ops.
     env = eng.env(spec)
     maker = make_market_maker(L)
     state0, _ = env.reset()
-    rollout(env, maker, 8, state=state0)    # warm
+
+    def env_run():
+        return env_outputs(*rollout(env, maker, ENV_PROFILED_STEPS,
+                                    state=state0))
+
+    env_first, first_sum, _ = _record(
+        "roofline env first call", env_run,
+        {"kinetic_clearing_chunk": ENV_PROFILED_STEPS})
+    launches += ENV_PROFILED_STEPS
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    env_plain = env_outputs(*rollout(env, maker, ENV_PROFILED_STEPS,
-                                     state=state0))
+    env_plain = env_run()
     torch.cuda.synchronize()
     env_wall = time.perf_counter() - t0
     env_got, env_sum, _ = _record(
-        "roofline env", lambda: env_outputs(*rollout(
-            env, maker, ENV_PROFILED_STEPS, state=state0)),
-        {"kinetic_clearing_chunk": ENV_PROFILED_STEPS})
+        "roofline env", env_run,
+        {"kinetic_clearing_chunk": ENV_PROFILED_STEPS}, sync_error=True)
     launches += ENV_PROFILED_STEPS
     errs.append(compare("roofline env recorded vs plain", env_got,
                         env_plain))
+    errs.append(compare("roofline env replay vs first call", env_got,
+                        env_first))
+    for key in ("kernels", "aten_calls", "operations", "hbm_bytes"):
+        if env_sum[key] != first_sum[key]:
+            raise Mismatch(f"roofline env: a replay records {key} "
+                           f"{env_sum[key]}, the eager body "
+                           f"{first_sum[key]}")
     env_line = dict(_per_step(env_sum, ENV_PROFILED_STEPS, env_wall),
                     profile=profile_window(lambda: rollout(
                         env, maker, ENV_PROFILED_STEPS, state=state0),
@@ -2943,8 +2980,10 @@ def env_mesh_rates(device, spec) -> dict:
     ``SHARDED_ENV_TURNS`` (after an 8-step warm rollout each), CUDA
     kernels and device ms a step over ``ENV_PROFILED_STEPS`` steps
     (``torch.profiler``), and the bytes moved a step (a ``Roofline``
-    window of as many steps). Public API only, so it measures any tree of
-    the port; its kernel-1 launches are ``env_rate_launches()``."""
+    window of as many steps). One shard runs the rollout's CUDA graph (a
+    warm-up of each length captures it), two and three the host loop.
+    Public API only, so it measures any tree of the port; its kernel-1
+    launches are ``env_rate_launches()``."""
     import time
 
     import torch
@@ -2963,8 +3002,9 @@ def env_mesh_rates(device, spec) -> dict:
     def run(n, steps):
         return rollout(envs[n], maker, steps, state=starts[n])
 
-    for n in shards:
-        run(n, 8)
+    for n in shards:    # one shard captures these keys' graphs here
+        run(n, SHARDED_ENV_STEPS)
+        run(n, ENV_PROFILED_STEPS)
     rates = {n: [] for n in shards}
     for n in SHARDED_ENV_TURNS:
         torch.cuda.synchronize()
@@ -2995,7 +3035,7 @@ def env_rate_launches() -> int:
     """Kernel-1 launches of ``env_mesh_rates``: a launch a shard and step
     of every rollout it runs (warm, timed, profiled, recorded)."""
     shards = sorted(set(SHARDED_ENV_TURNS))
-    return (sum(shards) * (8 + 2 * ENV_PROFILED_STEPS)
+    return (sum(shards) * (SHARDED_ENV_STEPS + 3 * ENV_PROFILED_STEPS)
             + sum(SHARDED_ENV_TURNS) * SHARDED_ENV_STEPS)
 
 
@@ -3019,17 +3059,67 @@ def env_rates_child(src: str) -> int:
     return 0
 
 
+@contextlib.contextmanager
+def eager_body(env, on: bool = True):
+    """The env's rollouts (and its trainer's updates) run as the host loop
+    on the card inside the block (with ``on``): the eager body its CUDA
+    graphs are held against and timed beside."""
+    graphed = env._graphed
+    env._graphed = graphed and not on
+    try:
+        yield
+    finally:
+        env._graphed = graphed
+
+
+def memory_now():
+    """(reserved, allocated) device bytes with the allocator's free cache
+    released, so that what a CUDA graph's private pool keeps shows in the
+    reserved bytes (a capture releases the cache itself)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+
+
+def memory_since(reserved, allocated) -> dict:
+    """The growth of ``memory_now()``'s two counts since a reading."""
+    now = memory_now()
+    return dict(reserved=now[0] - reserved, allocated=now[1] - allocated)
+
+
+def graph_vs_eager(label, fn, want_launches, errs):
+    """``fn()`` (a rollout or training call) as the first call of its key
+    (the eager body, captured) and again (a replay), each with the counts
+    at 0 and ``want_launches`` expected, equal bit for bit; returns the
+    first call's result and the replay's counts."""
+    import torch
+
+    reset_counts()
+    first = fn()
+    torch.cuda.synchronize()
+    expect_counts(label, want_launches)
+    reset_counts()
+    again = fn()
+    torch.cuda.synchronize()
+    counts = expect_counts(f"{label} replay", want_launches)
+    errs.append(compare(f"{label}: graph vs eager body", again[0], first[0]))
+    return first, counts
+
+
 def phase_env(device):
     """``repro_torch.env`` at the Table IV width (the ``fixed_workload``
     mix): a zero-action rollout == ``Session.run``; the maker's closed loop
-    on ``cuda-kinetic``, ``cuda-naive`` and ``torch-scan`` with composite
-    observations and rewards, equal, and again over ring-coupled markets
-    with arbitrageurs; auto-reset; a checkpoint restored into a fresh env;
-    one launch of kernel 1 per env step and no wait for the card inside
-    the loop; then timing."""
+    on ``cuda-kinetic``, ``cuda-naive``, ``torch-scan`` and
+    ``torch-per-step`` with composite observations and rewards, each
+    rollout's CUDA graph == its eager body, the backends equal, and again
+    over ring-coupled markets with arbitrageurs and without; auto-reset; a
+    checkpoint restored into a fresh env; one launch of kernel 1 a step at
+    replay, one graph captured by a first call and no synchronizing call
+    in a warm one; then the eager body and the graph timed in turns."""
     import tempfile
     import time
-    import warnings
 
     import torch
     from repro_torch.checkpoint.manager import CheckpointManager
@@ -3053,13 +3143,25 @@ def phase_env(device):
     reward = Sum((PnLReward(), SpreadCapture(), InventoryPenalty(0.01)))
     eng = Engine("cuda-kinetic", device=device)
     errs = []
+    backends = (("cuda-kinetic", {"kinetic_clearing_chunk": ENV_STEPS}),
+                ("cuda-naive", {"naive_clearing_chunk": ENV_STEPS}),
+                ("torch-scan", {}), ("torch-per-step", {}))
+
+    def closed_loop(label, env, policy, want):
+        """(eager body, replay's counts) of a maker rollout from reset."""
+        state0, _ = env.reset()
+        (out, _), counts = graph_vs_eager(
+            label, lambda: (env_outputs(*rollout(
+                env, policy, ENV_STEPS, state=state0)), None), want, errs)
+        return out, counts
 
     # 1. Zero actions: ENV_STEPS launches == one Session.run launch.
-    reset_counts()
-    final, batch = rollout(eng.env(spec, auto_reset=False), None, ENV_STEPS)
-    torch.cuda.synchronize()
-    zero_counts = expect_counts("env zero-action rollout",
-                                {"kinetic_clearing_chunk": ENV_STEPS})
+    zenv = eng.env(spec, auto_reset=False)
+    zstate, _ = zenv.reset()
+    (zero, _), zero_counts = graph_vs_eager(
+        "env zero-action rollout",
+        lambda: (env_outputs(*rollout(zenv, None, ENV_STEPS, state=zstate)),
+                 None), {"kinetic_clearing_chunk": ENV_STEPS}, errs)
     reset_counts()
     with eng.open(spec, chunk_size=ENV_STEPS) as sess:
         ref = sess.run(ENV_STEPS)
@@ -3067,67 +3169,59 @@ def phase_env(device):
     torch.cuda.synchronize()
     expect_counts("env reference run", {"kinetic_clearing_chunk": 1})
     errs.append(compare("env zero actions vs Session.run",
-                        list(batch[3:6]) + list(final.market),
-                        list(ref) + run_state))
+                        zero[3:6] + zero[8:12], list(ref) + run_state))
 
-    # 2-3, 6. The maker's closed loop on three backends, composite obs and
-    # rewards; kernel 1 (kernel 2) launched once per env step.
+    # 2-3, 6. The maker's closed loop on four backends, composite obs and
+    # rewards: each graph == its eager body, one launch of kernel 1
+    # (kernel 2) a step at replay, the backends equal.
     builds = eng.trace_count
     runs, counts = {}, {}
-    for backend, want in (
-            ("cuda-kinetic", {"kinetic_clearing_chunk": ENV_STEPS}),
-            ("cuda-naive", {"naive_clearing_chunk": ENV_STEPS}),
-            ("torch-scan", {})):
+    for backend, want in backends:
         e = eng if backend == "cuda-kinetic" else Engine(backend,
                                                          device=device)
-        env = e.env(spec, obs=obs, reward=reward)
-        reset_counts()
-        runs[backend] = rollout(env, maker, ENV_STEPS)
-        torch.cuda.synchronize()
-        counts[backend] = expect_counts(f"env maker {backend}", want)
-    if eng.trace_count != builds:
+        runs[backend], counts[backend] = closed_loop(
+            f"env maker {backend}", e.env(spec, obs=obs, reward=reward),
+            maker, want)
+    if eng.trace_count != builds + 1:
         raise Mismatch(f"a second env of one shape built "
-                       f"{eng.trace_count - builds} more runners")
-    want = env_outputs(*runs["torch-scan"])
-    for backend in ("cuda-kinetic", "cuda-naive"):
-        errs.append(compare(f"env maker {backend} vs torch-scan",
-                            env_outputs(*runs[backend]), want))
-        if runs[backend][0].t != runs["torch-scan"][0].t:
-            raise Mismatch(f"env maker {backend}: cursor differs")
-    mbatch = runs["cuda-kinetic"][1]
-    fills = float(mbatch.fill_buy.sum() + mbatch.fill_ask.sum())
-    finite = bool(torch.isfinite(mbatch.obs).all()) and \
-        bool(torch.isfinite(mbatch.reward).all())
-    if not finite or fills <= 0 or tuple(mbatch.obs.shape) != (
+                       f"{eng.trace_count - builds - 1} more runners or "
+                       "graphs than its one capture")
+    want = runs["torch-scan"]
+    for backend, _ in backends:
+        if backend != "torch-scan":
+            errs.append(compare(f"env maker {backend} vs torch-scan",
+                                runs[backend], want))
+    mbatch = runs["cuda-kinetic"]
+    fills = float(mbatch[6].sum() + mbatch[7].sum())
+    finite = bool(torch.isfinite(mbatch[0]).all()) and \
+        bool(torch.isfinite(mbatch[1]).all())
+    if not finite or fills <= 0 or tuple(mbatch[0].shape) != (
             ENV_STEPS, M, obs.size(spec)):
         raise Mismatch(f"env maker output malformed: finite={finite} "
-                       f"fills={fills} obs={tuple(mbatch.obs.shape)}")
+                       f"fills={fills} obs={tuple(mbatch[0].shape)}")
 
     # The coupling freeze: ring-coupled markets with arbitrageurs read their
-    # peer's mid of the step before at every env step, on every backend.
+    # peer's mid of the step before at every env step, on every backend,
+    # in the graph as in the eager body; and without the coupling.
     cspec = coupled_ensemble(EnsembleSpec.homogeneous(MarketConfig(
         num_markets=M, num_agents=A, num_levels=L, num_steps=ENV_TIMED_STEPS,
         seed=SEED, alpha_arbitrageur=0.2, arb_kappa=0.5)),
         CouplingSpec.ring(M))
     coupled = {}
-    for backend, want in (
-            ("cuda-kinetic", {"kinetic_clearing_chunk": ENV_STEPS}),
-            ("cuda-naive", {"naive_clearing_chunk": ENV_STEPS}),
-            ("torch-scan", {})):
+    for backend, want in backends:
         e = eng if backend == "cuda-kinetic" else Engine(backend,
                                                          device=device)
-        reset_counts()
-        coupled[backend] = env_outputs(*rollout(e.env(cspec), maker,
-                                                ENV_STEPS))
-        torch.cuda.synchronize()
-        counts[f"coupled {backend}"] = expect_counts(
-            f"env coupled maker {backend}", want)
-    for backend in ("cuda-kinetic", "cuda-naive"):
-        errs.append(compare(f"env coupled maker {backend} vs torch-scan",
-                            coupled[backend], coupled["torch-scan"]))
-    _, uncoupled = rollout(eng.env(CouplingSpec.none(M).apply(cspec)), maker,
-                           ENV_STEPS)
-    if bool((uncoupled.price == coupled["cuda-kinetic"][3]).all()):
+        coupled[backend], counts[f"coupled {backend}"] = closed_loop(
+            f"env coupled maker {backend}", e.env(cspec), maker, want)
+    for backend, _ in backends:
+        if backend != "torch-scan":
+            errs.append(compare(f"env coupled maker {backend} vs "
+                                "torch-scan", coupled[backend],
+                                coupled["torch-scan"]))
+    uncoupled, counts["uncoupled cuda-kinetic"] = closed_loop(
+        "env uncoupled maker", eng.env(CouplingSpec.none(M).apply(cspec)),
+        maker, backends[0][1])
+    if bool((uncoupled[3] == coupled["cuda-kinetic"][3]).all()):
         raise Mismatch("env coupled maker: the coupling was inert")
 
     # 4. Auto-reset at ENV_HORIZON: every episode replays the first.
@@ -3161,36 +3255,48 @@ def phase_env(device):
         [p[:, cut:] for p in want[3:8]] + want[8:]
     errs.append(compare("env checkpoint continuation", got, want))
 
-    # Nothing waits for the card inside the loop: the lines of the
-    # synchronizing calls torch reports over a maker rollout (its reset
-    # outside).
+    # A first call captures one graph; a warm one captures nothing and
+    # makes no synchronizing call (torch's sync debug mode at "error").
     env = eng.env(spec)
     state0, _ = env.reset()
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            rollout(env, maker, ENV_STEPS, state=state0)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    # torch's one-time notice that the mode is a prototype is not a sync.
-    syncs = [f"{Path(w.filename).name}:{w.lineno}: {w.message}"
-             for w in caught if "synchroniz" in str(w.message).lower()
-             and "prototype" not in str(w.message)]
-    if syncs:
-        raise Mismatch(f"env rollout waited for the card: {syncs}")
-
-    # 7. Timing: the maker's closed loop against Session.run on the card.
-    rollout(env, maker, 8)  # warm-up
-    torch.cuda.synchronize()
-    reset_counts()
+    keys = len(eng.graph_keys())
+    reserved, allocated = memory_now()
     t0 = time.perf_counter()
-    rollout(env, maker, ENV_TIMED_STEPS)
+    first = rollout(env, maker, ENV_TIMED_STEPS, state=state0)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    timed_counts = expect_counts("env timed rollout",
-                                 {"kinetic_clearing_chunk": ENV_TIMED_STEPS})
+    first_wall = time.perf_counter() - t0
+    del first
+    graph_bytes = memory_since(reserved, allocated)
+    captured = len(eng.graph_keys()) - keys
+    if captured != 1:
+        raise Mismatch(f"env: a first call captured {captured} graphs")
+    builds = eng.trace_count
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rollout(env, maker, ENV_TIMED_STEPS, state=state0)
+    except RuntimeError as exc:
+        raise Mismatch(f"a warm env rollout waited for the card: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if eng.trace_count != builds:
+        raise Mismatch("a warm env rollout captured again")
+
+    # 7. Timing: the maker's closed loop, the graph and the eager body in
+    # turns, against Session.run on the card.
+    walls = {"graph": [], "eager": []}
+    for mode in ("graph", "eager", "eager", "graph"):
+        with eager_body(env, mode == "eager"):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            rollout(env, maker, ENV_TIMED_STEPS, state=state0)
+            torch.cuda.synchronize()
+            walls[mode].append(time.perf_counter() - t0)
+            timed_counts = expect_counts(
+                f"env timed {mode}",
+                {"kinetic_clearing_chunk": ENV_TIMED_STEPS})
+    wall = statistics.median(walls["graph"])
+    eager_wall = statistics.median(walls["eager"])
     with eng.open(spec) as sess:  # a warm run, then the timed one
         sess.run(ENV_TIMED_STEPS)
     torch.cuda.synchronize()
@@ -3213,23 +3319,33 @@ def phase_env(device):
 
     kernel_ms = _queued_ms(kernel, 50)
     wrapper_ms = _time(kernel, 200)
+    rollout(env, maker, ENV_PROFILED_STEPS, state=state0)  # its capture
+    profiles = {}
+    for mode in ("graph", "eager"):
+        with eager_body(env, mode == "eager"):
+            profiles[mode] = profile_window(
+                lambda: rollout(env, maker, ENV_PROFILED_STEPS,
+                                state=state0), ENV_PROFILED_STEPS)
     steps_per_s = ENV_TIMED_STEPS / wall
     timing = dict(
         steps=ENV_TIMED_STEPS, wall_s=wall, steps_per_s=steps_per_s,
+        graph_steps_per_s=[ENV_TIMED_STEPS / w for w in walls["graph"]],
+        eager_steps_per_s=[ENV_TIMED_STEPS / w for w in walls["eager"]],
+        graph_over_eager=eager_wall / wall,
         agent_events_per_s=M * A * steps_per_s,
+        first_call_s=first_wall, capture_s=first_wall - eager_wall,
+        graph_bytes=graph_bytes,
         kernel_ms_chunk1=kernel_ms, wrapper_ms_chunk1=wrapper_ms,
         busy_share=kernel_ms * 1e-3 * ENV_TIMED_STEPS / wall,
+        eager_busy_share=kernel_ms * 1e-3 * ENV_TIMED_STEPS / eager_wall,
         session_run_wall_s=run_wall, over_session_run=wall / run_wall,
-        launches=timed_counts["kinetic_clearing_chunk"],
-        profile=profile_window(
-            lambda: rollout(env, maker, ENV_PROFILED_STEPS, state=state0),
-            ENV_PROFILED_STEPS))
+        launches=timed_counts["kinetic_clearing_chunk"], profile=profiles)
     emit("env", ok=True, markets=M, agents=A, levels=L,
          launches={"zero_action_rollout": zero_counts["kinetic_clearing_chunk"],
-                   "maker": {b: {k: n for k, n in c.items() if n}
-                             for b, c in counts.items()}},
-         fills=fills, synchronizing_calls=syncs, max_abs_err=max(errs),
-         timing=timing)
+                   "maker_replay": {b: {k: n for k, n in c.items() if n}
+                                    for b, c in counts.items()}},
+         graphs_captured_by_first_call=captured, sync_debug_mode="error",
+         fills=fills, max_abs_err=max(errs), timing=timing, card=card_line())
     return max(errs)
 
 
@@ -3294,10 +3410,14 @@ def flagship_gate(device) -> dict:
 
 
 def phase_train(device):
-    """``repro_torch.train`` at the Table IV width over the TRAIN_MIX: equal
-    trainers on three backends, no synchronizing call inside ``train()``,
-    one launch a step, a checkpointed resume equal to straight updates, the
-    flagship gate at the reference's bench shape, then timing."""
+    """``repro_torch.train`` at the Table IV width over the TRAIN_MIX: on
+    three backends the update's CUDA graph == its eager body over 2 + 2
+    updates, one launch a step at replay, one graph captured and no
+    synchronizing call in a warm ``train()``, the backends equal; a
+    checkpointed resume equal to straight updates, into a fresh trainer
+    and into a warm one (no new capture); at most two graphs a trainer;
+    the flagship gate at the reference's bench shape; then the eager body
+    and the graph timed in turns."""
     import tempfile
     import time
 
@@ -3320,56 +3440,82 @@ def phase_train(device):
     def trainer(eng):
         return eng.trainer(spec, cfg, reward=reward, obs=MarketFeatures())
 
-    # 1. Equal trainers: 2 updates on each backend, kernel 1 (kernel 2)
-    # launched once per env step, nothing built, no synchronizing call.
+    # 1. On each backend: 2 updates (the first the eager body, captured;
+    # the second a replay) and 2 warm ones under torch's sync debug mode
+    # "error", capturing nothing, against the eager body's 2 + 2 on the
+    # card; kernel 1 (kernel 2) launched once per env step.
     errs, runs, counts = [], {}, {}
+    first_s, warm_s, graph_bytes = {}, {}, {}
     for backend, counter in (("cuda-kinetic", "kinetic_clearing_chunk"),
                              ("cuda-naive", "naive_clearing_chunk"),
                              ("torch-scan", None)):
         eng = Engine(backend, device=device)
         tr = trainer(eng)
         ts = tr.init()
-        torch.cuda.synchronize()
+        want = {counter: 2 * T} if counter else {}
         builds = eng.trace_count
+        reserved, allocated = memory_now()
         reset_counts()
-        if counter is not None:
-            torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        ts2, m2 = tr.train(ts, 2)
+        torch.cuda.synchronize()
+        first_s[backend] = time.perf_counter() - t0
+        graph_bytes[backend] = memory_since(reserved, allocated)
+        expect_counts(f"train {backend}", want)
+        if eng.trace_count != builds + 1:
+            raise Mismatch(f"train {backend}: the first train() captured "
+                           f"{eng.trace_count - builds} graphs, not 1")
+        reset_counts()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
         try:
-            ts, metrics = tr.train(ts, 2)
+            ts4, m4 = tr.train(ts2, 2)
         except RuntimeError as exc:
-            if "synchroniz" not in str(exc):
-                raise
             raise Mismatch(f"train on {backend} waited for the card: {exc}")
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-        counts[backend] = expect_counts(
-            f"train {backend}", {counter: 2 * T} if counter else {})
-        if eng.trace_count != builds:
-            raise Mismatch(f"train {backend} built "
-                           f"{eng.trace_count - builds} runners")
-        runs[backend] = (eng, tr, ts, metrics)
-    want = train_outputs(*runs["torch-scan"][2:])
+        warm_s[backend] = time.perf_counter() - t0
+        counts[backend] = expect_counts(f"train {backend} replay", want)
+        if eng.trace_count != builds + 1:
+            raise Mismatch(f"a warm train() on {backend} captured again")
+        with eager_body(tr.env):
+            e2, em2 = tr.train(ts, 2)
+            e4, em4 = tr.train(e2, 2)
+        errs.append(compare(f"train {backend}: graph vs eager body, 2",
+                            train_outputs(ts2, m2), train_outputs(e2, em2)))
+        errs.append(compare(f"train {backend}: graph vs eager body, 2 + 2",
+                            train_outputs(ts4, m4), train_outputs(e4, em4)))
+        runs[backend] = (eng, tr, ts2, m2, ts4, m4)
+    want = train_outputs(*runs["torch-scan"][2:4])
     for backend in ("cuda-kinetic", "cuda-naive"):
         errs.append(compare(f"train {backend} vs torch-scan",
-                            train_outputs(*runs[backend][2:]), want))
-    eng, tr, ts2, metrics = runs["cuda-kinetic"]
+                            train_outputs(*runs[backend][2:4]), want))
+    eng, tr, ts2, metrics, ts4, m4 = runs["cuda-kinetic"]
+    trainer_builds = eng.trace_count
     loss = metrics["loss"]
     if tuple(loss.shape) != (2,) or not bool(torch.isfinite(
             torch.stack(list(metrics.values()))).all()):
         raise Mismatch(f"train metrics malformed: {metrics}")
-    builds = eng.trace_count
 
     # 2. A checkpoint after 2 updates restored into a fresh trainer on a
-    # fresh engine: 2 more updates equal 4 straight ones.
-    ts4, m4 = tr.train(ts2, 2)
+    # fresh engine, and into the warm trainer (a replay, no capture): 2
+    # more updates equal 4 straight ones.
     with tempfile.TemporaryDirectory() as tmp:
         save_train_checkpoint(CheckpointManager(tmp, async_write=False), tr,
                               ts2)
         fresh = trainer(Engine("cuda-kinetic", device=device))
         restored = restore_train_checkpoint(CheckpointManager(tmp), fresh)
+        warm = restore_train_checkpoint(CheckpointManager(tmp), tr)
     resumed, m_resumed = fresh.train(restored, 2)
     errs.append(compare("train resume 2 + 2 vs 4",
+                        train_outputs(resumed, m_resumed),
+                        train_outputs(ts4, m4)))
+    builds = eng.trace_count
+    resumed, m_resumed = tr.train(warm, 2)
+    if eng.trace_count != builds:
+        raise Mismatch("a restored checkpoint captured the update again")
+    errs.append(compare("train warm resume 2 + 2 vs 4",
                         train_outputs(resumed, m_resumed),
                         train_outputs(ts4, m4)))
 
@@ -3379,16 +3525,21 @@ def phase_train(device):
         raise Mismatch(f"the learned maker does not beat the scripted maker "
                        f"at the bench shape: {gate}")
 
-    # 4. Timing at full width: a warm update, then TRAIN_TIMED_UPDATES.
-    ts, _ = tr.train(ts4, 1)
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    ts, metrics = tr.train(ts, TRAIN_TIMED_UPDATES)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    timed_counts = expect_counts("train timed", {
-        "kinetic_clearing_chunk": TRAIN_TIMED_UPDATES * T})
+    # 4. Timing at full width: TRAIN_TIMED_UPDATES updates, the graph and
+    # the eager body in turns.
+    ts = ts4
+    walls = {"graph": [], "eager": []}
+    for mode in ("graph", "eager", "eager", "graph"):
+        with eager_body(tr.env, mode == "eager"):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            ts, metrics = tr.train(ts, TRAIN_TIMED_UPDATES)
+            torch.cuda.synchronize()
+            walls[mode].append(time.perf_counter() - t0)
+            timed_counts = expect_counts(f"train timed {mode}", {
+                "kinetic_clearing_chunk": TRAIN_TIMED_UPDATES * T})
+    wall = statistics.median(walls["graph"])
     split = dict(rollout_s=0.0, gae_s=0.0, update_s=0.0)
     for _ in range(TRAIN_TIMED_UPDATES):
         t0 = time.perf_counter()
@@ -3406,33 +3557,54 @@ def phase_train(device):
         split["rollout_s"] += t1 - t0
         split["gae_s"] += t2 - t1
         split["update_s"] += t3 - t2
-    profile = dict(update=profile_window(lambda: tr.train(ts, 1), T),
-                   rollout=profile_window(lambda: tr.collect(ts), T))
+    profile = dict(rollout_eager=profile_window(lambda: tr.collect(ts), T))
+    for mode in ("graph", "eager"):
+        with eager_body(tr.env, mode == "eager"):
+            profile[f"update_{mode}"] = profile_window(
+                lambda: tr.train(ts, 1), T)
     env_steps = TRAIN_TIMED_UPDATES * T * M
-    # The learned maker against the scripted one on the held-out mixture at
-    # full width (reported, not gated).
+    # The greedy rollout on the trainer's env (its second graph), then
+    # the learned maker against the scripted one on the held-out mixture
+    # at full width (reported, not gated).
+    reset_counts()
+    tr.evaluate(ts.params, n_steps=T)
+    tr.evaluate(ts.params, n_steps=T)
+    expect_counts("train evaluate", {"kinetic_clearing_chunk": 2 * T})
+    graphs = len(tr.graphs())
+    if graphs > 2:
+        raise Mismatch(f"the trainer holds {graphs} graphs, more than its "
+                       "update and its greedy rollout")
     held = eng.env(train_spec(HELDOUT_MIX, TRAIN_BLOCK, A, L, T,
                               TRAIN_CONFIG["seed"]),
                    reward=SpreadCapture(), obs=MarketFeatures())
     reset_counts()
     learned = float(tr.evaluate(ts.params, env=held, n_steps=T)
                     .reward.mean())
-    eval_counts = expect_counts("train evaluate",
+    eval_counts = expect_counts("train evaluate held-out",
                                 {"kinetic_clearing_chunk": T})
     scripted = float(rollout(held, make_market_maker(L), T)[1].reward.mean())
-    if eng.trace_count != builds:
-        raise Mismatch(f"the trainer built {eng.trace_count - builds} "
-                       "runners after its first train()")
+    if eng.trace_count != trainer_builds + 3:
+        raise Mismatch(f"after its first train() the trainer's engine built "
+                       f"{eng.trace_count - trainer_builds} runners or graphs"
+                       ", not the 3 rollouts' graphs (greedy, held-out "
+                       "greedy, held-out scripted)")
     emit("train", ok=True, markets=M, agents=A, levels=L,
          config=TRAIN_CONFIG, launches={
-             "train_2_updates": {b: {k: n for k, n in c.items() if n}
-                                 for b, c in counts.items()},
+             "train_2_warm_updates": {b: {k: n for k, n in c.items() if n}
+                                      for b, c in counts.items()},
              "timed": timed_counts["kinetic_clearing_chunk"],
              "evaluate": eval_counts["kinetic_clearing_chunk"]},
-         sync_debug_mode={"cuda-kinetic": "error", "cuda-naive": "error"},
+         sync_debug_mode="error", trainer_graphs=graphs,
+         first_2_updates_s=first_s, warm_2_updates_s=warm_s,
+         graph_bytes=graph_bytes,
          max_abs_err=max(errs), gate=gate,
          timing=dict(
              updates=TRAIN_TIMED_UPDATES, wall_s=wall,
+             graph_s_per_update=[w / TRAIN_TIMED_UPDATES
+                                 for w in walls["graph"]],
+             eager_s_per_update=[w / TRAIN_TIMED_UPDATES
+                                 for w in walls["eager"]],
+             graph_over_eager=statistics.median(walls["eager"]) / wall,
              env_steps_per_s=env_steps / wall,
              agent_events_per_s=env_steps * A / wall,
              s_per_update=wall / TRAIN_TIMED_UPDATES,

@@ -235,8 +235,9 @@ def assign_agent_types(num_agents: int, num_makers, num_momentum,
     out = torch.full_like(a, NOISE)
     # Fold highest threshold first so each earlier block overrides later ones.
     for tid, upper in reversed(uppers):
-        out = torch.where(a < upper, torch.tensor(tid, dtype=torch.int32,
-                                                  device=device), out)
+        # A Python scalar, not a tensor made from it: no host copy, so a
+        # CUDA graph can capture the lattice.
+        out = torch.where(a < upper, tid, out)
     return out
 
 

@@ -168,6 +168,15 @@ def with_host_ints(packed: PackedParams, host: np.ndarray) -> PackedParams:
     return packed
 
 
+def carry_host_ints(src: torch.Tensor, dst: torch.Tensor) -> None:
+    """Record the host copy of ``src`` (if it has one) as ``dst``'s: ``dst``
+    is a copy of a packed int32 block, as a CUDA graph's static input and a
+    replay's returned clone are."""
+    host = _HOST_INTS.get(src)
+    if host is not None:
+        _HOST_INTS[dst] = host
+
+
 def host_ints(packed: PackedParams) -> np.ndarray:
     """The host copy of ``packed.ints`` (int32 ``[M, 11]``, columns in
     :data:`INT_FIELDS` order), read without touching the device: the

@@ -57,7 +57,10 @@ def mix32(x: torch.Tensor) -> torch.Tensor:
 def kinetic_hash32(seed, gid, step, channel) -> torch.Tensor:
     """Pure function of (seed, gid, step, channel) -> uint32 (as int64).
 
-    ``gid`` wraps modulo 2**32 like the JAX package's int32 product.
+    ``gid`` wraps modulo 2**32 like the JAX package's int32 product. Each
+    argument is a Python int or an integer tensor with the same bits: a
+    0-dim int64 device tensor is how a CUDA graph reads a counter (the
+    trainer's update index) at every replay, where an int is baked in.
     """
     # 0-dim host tensors combine with tensors on any device.
     seed, gid, step, channel = (_u32(v) for v in (seed, gid, step, channel))

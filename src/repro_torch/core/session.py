@@ -32,8 +32,15 @@
   * Every session carries a
     :class:`~repro_torch.ops.metrics.MetricsRegistry` unless opened with
     ``metrics=False``; ``Engine.trace_count`` counts the runners an engine
-    built and the kernel libraries they compiled or loaded, so a warm
-    engine that builds nothing more keeps it unchanged.
+    built, the kernel libraries they compiled or loaded, and the CUDA
+    graphs it captured, so a warm engine that builds nothing more keeps it
+    unchanged.
+  * On one card an engine keeps the CUDA graphs of its envs' rollouts and
+    its trainers' updates (:mod:`repro_torch.core.graphs`), one per key:
+    the first call of a key captures, later calls replay.
+    :meth:`Engine.clear_cache` drops them, and so does a
+    ``kernels._build.forget()`` (a graph holds kernel handles of the
+    libraries it unloads).
 
 The horizon ``num_steps`` is the default run length; ``run()``/``stream()``
 with no argument raise once the cursor has reached it.
@@ -57,6 +64,7 @@ from repro_torch.core.params import EnsembleSpec, MarketParams, PackedParams
 from repro_torch.core.result import SimResult, to_host
 from repro_torch.core.stats import MarketStats, init_stats
 from repro_torch.core.step import MarketState, initial_state
+from repro_torch.kernels import _build
 from repro_torch.launch import sharding
 
 #: Default chunk length (steps per kernel launch) for streaming runs.
@@ -123,6 +131,13 @@ class ChunkRunner:
         self.device = device
         self._builds = 1          # this runner; kernel runners add libraries
         self.launched = False     # set by the first run()
+
+    @property
+    def graphable(self) -> bool:
+        """True where an env rollout and a trainer update run as captured
+        CUDA graphs: a runner on one card (a sharded kernel runner says
+        False; the numpy family runs on the CPU)."""
+        return self.device.type == "cuda"
 
     @property
     def trace_count(self) -> int:
@@ -317,16 +332,52 @@ class Engine:
         self.metrics = bool(metrics)
         self.backend_opts = dict(backend_opts)
         self._runners: Dict[Tuple[Any, ...], ChunkRunner] = {}
+        self._graphs: Dict[Tuple[Any, ...], Any] = {}
+        self._captures = 0
+        self._forgets = _build.forget_count()
 
     @property
     def trace_count(self) -> int:
         """Runners built plus kernel libraries compiled or loaded for them
-        (the build detector: 0 more after :meth:`warm` while serving)."""
-        return sum(r.trace_count for r in self._runners.values())
+        plus CUDA graphs captured (the build detector: 0 more after
+        :meth:`warm` while serving, and after a key's first call)."""
+        return sum(r.trace_count for r in self._runners.values()) \
+            + self._captures
 
     def clear_cache(self) -> None:
-        """Drop every cached runner."""
+        """Drop every cached runner and captured graph."""
         self._runners.clear()
+        self._graphs.clear()
+        self._captures = 0
+
+    def graph_keys(self) -> list:
+        """The keys of the CUDA graphs this engine holds (see
+        :meth:`_graph`)."""
+        self._check_forgets()
+        return list(self._graphs)
+
+    def _check_forgets(self) -> None:
+        if self._forgets != _build.forget_count():
+            self._forgets = _build.forget_count()
+            self._graphs.clear()
+
+    def _graph(self, key: Tuple[Any, ...], what: str,
+               body: Callable[[Any], Any], tree) -> Any:
+        """``body(tree)`` through the engine's CUDA graph of ``key``: the
+        first call captures it (returning the eager warm-up's outputs, see
+        :func:`repro_torch.core.graphs.capture`), later calls replay it.
+        ``key`` must hold everything ``body`` bakes, ``tree``'s signature
+        (``graphs.signature``) included."""
+        from repro_torch.core import graphs
+
+        self._check_forgets()
+        graph = self._graphs.get(key)
+        if graph is not None:
+            return graph(tree)
+        out, self._graphs[key] = graphs.capture(what, body, tree,
+                                                self.device)
+        self._captures += 1
+        return out
 
     def _runner(self, spec, chunk: int) -> ChunkRunner:
         spec = EnsembleSpec.coerce(spec)

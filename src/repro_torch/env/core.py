@@ -6,8 +6,10 @@
     final, batch = rollout(env, policy_fn, n_steps)
 
 The JAX package compiles a whole rollout into one ``lax.scan``. PyTorch has
-no ``jit``, ``vmap`` or ``scan``, so here the env and :func:`rollout` are
-host loops on every backend:
+no ``jit``, ``vmap`` or ``scan``: here the env steps in Python, and
+:func:`rollout` runs its body (:func:`_rollout_body`) as one captured CUDA
+graph on one card, replayed with no host work per kernel, and as a host
+loop on the CPU, the numpy family and a mesh:
 
   * :class:`EnvState` holds the engine's ``MarketState`` and
     ``PackedParams``, the portfolio accounting, the step cursor, optional
@@ -58,7 +60,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core import auction
+from repro_torch.core import auction, graphs
 from repro_torch.core import session
 from repro_torch.core.config import MarketConfig
 from repro_torch.core.device import upload
@@ -185,6 +187,9 @@ class MarketEnv:
         # the JAX package's host-loop rollout does.
         self._check_rollout_values = session.is_host_only(
             self._engine.backend)
+        # Rollouts (and a trainer's updates) run as CUDA graphs on one
+        # card; the CPU, the numpy family and a mesh keep the host loop.
+        self._graphed = self._runner.graphable
         # The price grid, one copy on each device of the runner's mesh.
         mesh = getattr(self._runner, "mesh", None)
         levels = [torch.arange(self.spec.num_levels, dtype=torch.float32,
@@ -279,11 +284,19 @@ class MarketEnv:
         M, L = self.spec.num_markets, self.spec.num_levels
         orders = actions_mod.validate_actions(actions, M, L, check_values)
         placed = ExternalOrders(*(
-            self._runner.place(torch.as_tensor(x).reshape(-1).expand(M))
+            self._runner.place(self._on_device(x).reshape(-1).expand(M))
             for x in orders))
         return sharding.per_shard(
             lambda o: actions_mod.lower_actions(o, o.qty.shape[0], L,
                                                 o.qty.device), placed)
+
+    def _on_device(self, x: Any) -> torch.Tensor:
+        """An action field off the host: a device tensor as it is, a host
+        value staged on the env's device (:func:`graphs.stage`: baked into
+        a CUDA graph under capture, as JAX bakes a host constant)."""
+        if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+            return x
+        return graphs.stage(torch.as_tensor(x), self.device)
 
     def _reset_out(self, market: MarketState) -> StepOutput:
         """The zero-volume output describing a freshly reset state."""
@@ -436,7 +449,7 @@ class MarketEnv:
 
 
 # ---------------------------------------------------------------------------
-# Rollouts: a host loop of env steps with the policy in it.
+# Rollouts: one body, run eagerly or captured into a CUDA graph.
 # ---------------------------------------------------------------------------
 
 #: sentinel: distinguishes "no carry" from a legitimate ``None`` carry.
@@ -456,10 +469,22 @@ def rollout(env: MarketEnv, policy_fn: Optional[Callable] = None,
     or None) are stacked into ``batch.extras``, and the return value gains
     the final carry: ``(state, batch, carry)``.
 
+    On one card the whole rollout, env and policy, runs as one CUDA graph,
+    the counterpart of the JAX package's one jitted ``lax.scan``: captured
+    at the first call of its key (the engine's cache, counted by
+    ``Engine.trace_count``) and replayed with no host work per kernel and
+    nothing read back. The key is ``(policy_fn, env, n_steps, carried)``
+    and the signature of the state and the carry, whose Python leaves (the
+    cursor ``state.t``, the runtime seed) are baked, as JAX bakes static
+    arguments; so pass a *stable* ``policy_fn`` (a fresh lambda a call
+    captures anew), and host values a policy returns are baked too. The
+    graph carries no autograd graph. The CPU, the numpy family and a mesh
+    run the same body as a host loop (:func:`_rollout_body`).
+
     ``n_steps`` defaults to the horizon; ``state`` resumes a rollout (else
-    :meth:`MarketEnv.reset` with ``seed``). Returns the final
-    :class:`EnvState` and a :class:`RolloutBatch` whose paths are laid out
-    ``[M, S]``, comparable bit for bit with ``Session.run``.
+    :meth:`MarketEnv.reset` with ``seed``) and is never written. Returns
+    the final :class:`EnvState` and a :class:`RolloutBatch` whose paths
+    are laid out ``[M, S]``, comparable bit for bit with ``Session.run``.
     """
     carried = policy_carry is not _NO_CARRY
     if carried and policy_fn is None:
@@ -470,10 +495,41 @@ def rollout(env: MarketEnv, policy_fn: Optional[Callable] = None,
     if n < 0:
         raise ValueError(f"n_steps must be >= 0, got {n}")
     if state is None:
-        state, obs = env.reset(seed=seed)
-    else:
-        obs = env.observe(state)
+        state, _ = env.reset(seed=seed)
     pc = policy_carry if carried else None
+    if env._graphed and n:
+        # A bound method compares equal to itself, so a trainer's actor
+        # hits; the signature holds the cursor, the seed and the shapes.
+        key = ("rollout", policy_fn, env, n, carried,
+               graphs.signature((state, pc)))
+        with torch.no_grad():
+            state, batch, dones, pc = env.engine._graph(
+                key, f"the rollout of policy {_name(policy_fn)} ({n} steps "
+                f"from t={state.t})",
+                lambda tree: _rollout_body(env, policy_fn, n, carried,
+                                           *tree),
+                (state, pc))
+    else:
+        state, batch, dones, pc = _rollout_body(env, policy_fn, n, carried,
+                                                state, pc)
+    batch = batch._replace(done=upload(torch.tensor(dones, dtype=torch.bool),
+                                       env.device))
+    if carried:
+        return state, batch, pc
+    return state, batch
+
+
+def _name(fn) -> str:
+    return getattr(fn, "__qualname__", None) or repr(fn)
+
+
+def _rollout_body(env: MarketEnv, policy_fn: Optional[Callable], n: int,
+                  carried: bool, state: EnvState, pc: Any):
+    """The ``n``-step body of a rollout: policy, lowering, env step and
+    stacking. Returns ``(state, batch, dones, carry)``: ``batch`` without
+    its ``done`` tensor, ``dones`` the steps' Python done flags (a function
+    of the cursor, known on the host). It writes none of its inputs."""
+    obs = env.observe(state)
     obs_path, rewards, dones, infos, extras = [], [], [], [], []
     for _ in range(n):
         if carried:
@@ -504,15 +560,12 @@ def rollout(env: MarketEnv, policy_fn: Optional[Callable] = None,
 
     batch = RolloutBatch(
         obs=stacked(obs_path, (M, env.obs_size())),
-        reward=stacked(rewards, (M,)),
-        done=upload(torch.tensor(dones, dtype=torch.bool), device),
+        reward=stacked(rewards, (M,)), done=None,
         price=path("price"), volume=path("volume"), mid=path("mid"),
         fill_buy=path("fill_buy"), fill_ask=path("fill_ask"),
         extras=_stack_tree(extras) if extras and extras[0] is not None
         else None)
-    if carried:
-        return state, batch, pc
-    return state, batch
+    return state, batch, dones, pc
 
 
 def _tree_map(fn, tree):

@@ -34,6 +34,9 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 #: Libraries compiled or loaded by :func:`load` in this process (cache
 #: misses): runners add the ones loaded for them to their ``trace_count``.
 _LOADS = [0]
+#: Calls of :func:`forget` so far: a CUDA graph captured before the last
+#: one holds kernel handles of unloaded libraries.
+_FORGETS = [0]
 
 
 def nvcc_path() -> str:
@@ -158,8 +161,16 @@ def load_count() -> int:
 def forget() -> None:
     """Drop the loaded libraries, so the next :func:`load` of each goes
     through the on-disk build again (a restart after a device fault;
-    nothing is recompiled while the source is unchanged)."""
+    nothing is recompiled while the source is unchanged). Every CUDA
+    graph captured before is dropped with them (:func:`forget_count`)."""
     _LOADED.clear()
+    _FORGETS[0] += 1
+
+
+def forget_count() -> int:
+    """Calls of :func:`forget` so far (an engine drops its captured graphs
+    when it changes)."""
+    return _FORGETS[0]
 
 
 def _check_columns(lib: ctypes.CDLL, name: str) -> None:

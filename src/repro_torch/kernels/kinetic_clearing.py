@@ -208,7 +208,9 @@ def kinetic_clearing_chunk(
     return out
 
 
-#: Kernel launches since the count was last reset (CPU calls never count).
+#: Kernel launches since the count was last reset (CPU calls never count;
+#: a CUDA graph's capture counts nothing, each replay its launches:
+#: :mod:`repro_torch.core.graphs`).
 kinetic_clearing_chunk.launches = 0
 
 

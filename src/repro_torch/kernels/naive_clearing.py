@@ -140,7 +140,8 @@ def naive_clearing_chunk(
 
 
 #: Kernel launches since the count was last reset, one per step (CPU calls
-#: never count).
+#: never count; a CUDA graph's capture counts nothing, each replay its
+#: launches: :mod:`repro_torch.core.graphs`).
 naive_clearing_chunk.launches = 0
 
 

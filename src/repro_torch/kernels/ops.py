@@ -14,7 +14,11 @@ frozen at chunk entry inside the wrappers, as on every backend of the JAX
 package. The env step core (:meth:`ClearingChunkRunner.env_step_fn`) is one
 step of ``run``'s path on the engine's chunk-1 runner: one launch of kernel 1
 (or 2) per env step (per shard and step on a mesh, on the env's row-sharded
-state as it is), its peer column resolved at every step.
+state as it is), its peer column resolved at every step. On one card a
+rollout's or an update's CUDA graph holds those launches (the wrappers
+launch on the current stream, the capture's); the tile sweep below runs
+when a runner is built, before any capture, and a mesh keeps the host
+loop (:attr:`ClearingChunkRunner.graphable`).
 
 Knobs (``Engine`` backend options, all composable; ``repro``'s names in
 brackets):
@@ -152,6 +156,12 @@ class ClearingChunkRunner(session.ChunkRunner):
         #: The launch shape of the largest shard's rows, and each shard's.
         self.tile, self.shard_tiles = self._resolve_tile(
             tile, agents, autotune_mode)
+
+    @property
+    def graphable(self) -> bool:
+        """On one card only: a mesh's rollouts and updates keep the host
+        loop (a CUDA graph belongs to one device)."""
+        return super().graphable and not self._sharded
 
     # ---- launch shape ----
     def _rule(self, rows: int, agents) -> autotune.TileChoice:

@@ -57,7 +57,10 @@ kernel call's ``op_count``, a dot's M·N·K fused multiply-adds, one per
 element of any other op. aten ops are counted on the thread that entered
 the recorder and on autograd's threads for its backward (their records
 are marked ``(backward)``); kernel calls and transfers on any thread. The
-recorder reads no device tensor and adds no launch.
+recorder reads no device tensor and adds no launch. A CUDA graph's capture
+records into a tape of its own (:func:`capturing`), and each replay reports
+the tape to the recorders active then (:func:`replay`), so a replayed
+rollout or update records what the same body records run eagerly.
 """
 from __future__ import annotations
 
@@ -219,7 +222,7 @@ class Roofline(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if getattr(_LOCAL, "quiet", 0):
+        if getattr(_LOCAL, "quiet", 0) or self not in _ACTIVE:
             return out
         cost = _cost(func, args, kwargs, out)
         if cost is not None:
@@ -270,6 +273,32 @@ class Roofline(TorchDispatchMode):
                 route = (pos, to)
                 self._routes[route] = self._routes.get(route, 0) + nbytes
             self._charge(pos, device, wire=nbytes, wire_no_link=local)
+
+    def _merge(self, tape: "Roofline") -> None:
+        """Add every record of ``tape`` (a capture's, see :func:`capturing`)
+        to this recorder's."""
+        with tape._lock:
+            aten = {k: list(v) for k, v in tape._aten.items()}
+            kernels = {k: dict(v) for k, v in tape._kernels.items()}
+            devices = {k: dict(v) for k, v in tape._devices.items()}
+            coll, cnt = dict(tape._coll), dict(tape._cnt)
+            routes = dict(tape._routes)
+        with self._lock:
+            for name, e in aten.items():
+                mine = self._aten.setdefault(name, [0, 0, 0, 0])
+                for k, v in enumerate(e):
+                    mine[k] += v
+            for name, e in kernels.items():
+                mine = self._kernels.setdefault(name, dict.fromkeys(e, 0))
+                for k, v in e.items():
+                    mine[k] += v
+            for pos, d in devices.items():
+                self._charge(pos, d.pop("device"), **d)
+            for k in KINDS:
+                self._coll[k] += coll[k]
+                self._cnt[k] += cnt[k]
+            for route, v in routes.items():
+                self._routes[route] = self._routes.get(route, 0) + v
 
     # ---- reading ----
     def analyze(self) -> Dict[str, float]:
@@ -377,6 +406,27 @@ def kernel_call(name: str, device, cost: Callable[[], Tuple[int, int, int]]):
     for rec in list(_ACTIVE):
         rec._kernel(name, str(device), int(ops), int(nbytes), int(launches))
     return _Scope(quiet=True)
+
+
+@contextlib.contextmanager
+def capturing():
+    """Record nothing of the block in the recorders active around it, and
+    yield a fresh :class:`Roofline`, the tape, to enter where the work to
+    record runs: a CUDA graph's capture, whose work runs only at its
+    replays, each of which reports the tape again (:func:`replay`)."""
+    saved = list(_ACTIVE)
+    _ACTIVE.clear()
+    try:
+        yield Roofline()
+    finally:
+        _ACTIVE[:] = saved
+
+
+def replay(tape: Roofline) -> None:
+    """Report the records of ``tape`` (:func:`capturing`) to every active
+    recorder once: one replay of the graph it was taken at."""
+    for rec in list(_ACTIVE):
+        rec._merge(tape)
 
 
 def transfer(kind: str, pos: int, peer, parts, to: Optional[int] = None

@@ -98,7 +98,9 @@ def minibatch_indices(key: int, n: int, num_minibatches: int, *,
     A stable argsort of the counter hash ``kinetic_hash32(key, row, update,
     epoch)`` (whose top 24 bits are ``uniform32``'s draw): a pure function
     of its arguments, the same on the CPU and the card, with no host RNG.
-    Returns int64[num_minibatches, n // num_minibatches].
+    ``update`` is a Python int or a 0-dim int64 tensor (the same
+    permutation; a CUDA graph of the update reads the tensor at every
+    replay). Returns int64[num_minibatches, n // num_minibatches].
     """
     rows = torch.arange(n, dtype=torch.int64, device=device)
     bits = rng.kinetic_hash32(key, rows, update, epoch)

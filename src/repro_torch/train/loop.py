@@ -6,7 +6,11 @@ metrics back *between* spans, and threads the whole :class:`TrainState`
 through ``CheckpointManager`` in the JAX package's wire format: policy and
 optimizer trees beside the env states, under the COMMIT-marker protocol.
 A restore continues the learning curve bit for bit: params, Adam moments,
-key, update counter and every env leaf round-trip exactly. The env states
+key, update counter and every env leaf round-trip exactly. On one card
+every span, and a span after a restore into a warm trainer, replays the
+trainer's update graph: ``update_idx`` stays a Python int in the
+checkpoint and enters the graph as a device tensor, so nothing is
+captured again. The env states
 go through ``MarketEnv.snapshot``/``restore``, so a trainer checkpoint
 taken on one shard count restores into a trainer on another. Either
 package restores the other's trainer checkpoints; the ``key`` leaf is then

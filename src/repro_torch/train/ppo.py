@@ -1,20 +1,24 @@
 """PPO over the market env (the counterpart of ``repro.train.ppo``).
 
 The JAX package compiles rollout, GAE and every minibatched gradient step
-into one executable. PyTorch has no ``jit`` or ``scan``, so here one update
-is a host loop of device work with nothing read back::
+into one executable. PyTorch has no ``jit`` or ``scan``: here one update is
+a Python body of device work with nothing read back, and on one card that
+body is one captured CUDA graph (:meth:`PPOTrainer.update`), replayed once
+an update; the CPU and a mesh run it eagerly::
 
-    update  =  collect: rollout(env, actor, T)        # T env steps
+    update  =  collect: the rollout's body (env, actor, T)   # T env steps
                advantages: gae(...)                   # reverse loop over T
                optimize: epochs x minibatches of { autograd + adam }
 
-  * The rollout goes through :func:`repro_torch.env.rollout` with a carried
-    actor under ``torch.no_grad()``: on ``cuda-kinetic`` one launch of
-    kernel 1 per env step, on ``cuda-naive`` one of kernel 2.
+  * The rollout is :func:`repro_torch.env.rollout`'s body inline, with a
+    carried actor under ``torch.no_grad()``: on ``cuda-kinetic`` one launch
+    of kernel 1 per env step, on ``cuda-naive`` one of kernel 2.
   * Actions are drawn by Gumbel-max over ``uniform32`` keyed by (key,
     update, rollout step, market, action), all T steps' noise in one hash
     per update: no ``torch.multinomial`` and no host RNG, so a draw is a
-    pure function of the train state and nothing waits for the card.
+    pure function of the train state and nothing waits for the card. The
+    update counter enters as a 0-dim device tensor, which a graph reads at
+    every replay; ``TrainState.update_idx`` stays a Python int.
   * The gradient steps run in torch autograd over an :class:`ActorCritic`
     module; the optimizer is a hand-written Adam with the JAX package's
     formula and global-norm clip (:func:`adam_apply`), a pure function of
@@ -44,8 +48,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import rng, session
-from repro_torch.env.core import MarketEnv, rollout
+from repro_torch.core import graphs, rng, session
+from repro_torch.env.core import MarketEnv, _rollout_body, rollout
 from repro_torch.train import buffers
 from repro_torch.train.buffers import tree_leaves, tree_map
 from repro_torch.train.policies import (ActorCritic, QuoteGrid,
@@ -199,9 +203,12 @@ class PPOTrainer:
     mesh's first (``launch.replicated_sharding``): the parameters, GAE and
     Adam live there unsharded, as ``repro``'s ``replicate_tree`` places
     them, on the observations and rewards the env joins there; the env's
-    state stays on its shards. Nothing is built after construction,
-    so a warm engine's ``trace_count`` stays flat across ``train`` calls
-    and trainers over other mixtures of the same shape.
+    state stays on its shards. No runner is built after construction; on
+    one card the first update and the first evaluation of a key capture
+    their graphs (two at a horizon of ``rollout_len``, as the JAX package
+    traces twice a trainer) and later calls replay them, so a warm
+    trainer's ``trace_count`` stays flat across ``train`` calls, restored
+    checkpoints included.
     """
 
     def __init__(self, env: MarketEnv, config: PPOConfig = PPOConfig()):
@@ -254,7 +261,8 @@ class PPOTrainer:
         """Run ``num_updates`` PPO updates.
 
         Returns ``(ts, metrics)`` where metrics is a dict of f32[U] device
-        tensors (:data:`METRICS`). Nothing inside waits for the card.
+        tensors (:data:`METRICS`). Nothing inside waits for the card: on one
+        card it is U replays of the update's graph (:meth:`update`).
         """
         u = self.config.num_updates if num_updates is None \
             else int(num_updates)
@@ -269,20 +277,60 @@ class PPOTrainer:
 
     def update(self, ts: TrainState):
         """One PPO update: :meth:`collect`, :meth:`advantages`,
-        :meth:`optimize`. Returns ``(ts, metrics)`` of 0-dim tensors."""
-        env_state, batch = self.collect(ts)
-        flat = self.advantages(ts, batch)
-        params, opt_state, metrics = self.optimize(ts, flat)
-        metrics["reward"] = batch.reward.mean()
-        metrics["value"] = batch.extras.value.mean()
+        :meth:`optimize`. Returns ``(ts, metrics)`` of 0-dim tensors.
+
+        On one card the whole update (the ``num_envs`` rollouts, GAE, every
+        autograd and Adam step) is one CUDA graph, the counterpart of the
+        JAX package's one executable: captured at the first update of its
+        key, replayed after. The update counter enters it as a 0-dim device
+        tensor, so the key holds only the draw words of ``ts.key``, the env
+        states' cursors and the trees' shapes: at a horizon of
+        ``rollout_len`` one graph serves every update. The CPU and a mesh
+        run the same body eagerly.
+        """
+        words = _words(ts.key)
+        if self.env._graphed:
+            # The update counter enters as a 0-dim int64 device tensor (a
+            # fill, no copy), read at every replay.
+            counter = torch.full((), ts.update_idx, dtype=torch.int64,
+                                 device=self.device)
+            params, opt_state, env_state, metrics = self.env.engine._graph(
+                self.graph_key(ts),
+                f"the PPO update of {self!r} (env cursors "
+                f"{_cursors(ts.env_state)})",
+                lambda tree: self._update_body(*tree, words),
+                (ts.params, ts.opt_state, ts.env_state, counter))
+        else:
+            params, opt_state, env_state, metrics = self._update_body(
+                ts.params, ts.opt_state, ts.env_state, ts.update_idx, words)
         return TrainState(params=params, opt_state=opt_state, key=ts.key,
                           env_state=env_state,
                           update_idx=ts.update_idx + 1), metrics
 
+    def graph_key(self, ts: TrainState) -> Tuple[Any, ...]:
+        """The key of the update graph that :meth:`update` of ``ts`` runs
+        on one card: ``("update", trainer, env, the key's two draw words,
+        the signature of the params, Adam and env state)``, whose Python
+        leaves are each env state's cursor and seed (the counter is not
+        in it). At a horizon H and a rollout length T the updates of one
+        trainer take H / gcd(T, H) keys; at H = T one."""
+        return ("update", self, self.env, _words(ts.key), graphs.signature(
+            (ts.params, ts.opt_state, ts.env_state)))
+
+    def graphs(self) -> list:
+        """The keys of the CUDA graphs the engine holds for this trainer:
+        its updates and its policies' rollouts on its env."""
+        def mine(key):
+            owner = getattr(key[1], "__self__", key[1])
+            return owner is self and key[2] is self.env
+
+        return [k for k in self.env.engine.graph_keys() if mine(k)]
+
     def evaluate(self, params, env: Optional[MarketEnv] = None,
                  n_steps: Optional[int] = None):
         """Greedy (argmax) rollout of the learned policy; returns the
-        RolloutBatch. A held-out env of the same shape builds nothing."""
+        RolloutBatch. A held-out env of the same shape builds nothing; on
+        one card it runs the rollout's graph of ``_eval_step``."""
         env = self.env if env is None else env
         with torch.no_grad():
             _, batch, _ = rollout(env, self._eval_step, n_steps,
@@ -290,21 +338,41 @@ class PPOTrainer:
         return batch
 
     # ---- the three phases of an update ----
+    def _update_body(self, params, opt_state, env_state, update, words):
+        """One update from its leaves: ``(params, opt_state, env_state,
+        metrics)``. ``update`` is the update counter, a Python int or a
+        0-dim int64 tensor (the same draws); ``words`` the two draw words
+        of the key."""
+        with torch.no_grad():
+            noise = self._gumbel(words[0], update)
+        env_state, batch = self._collect(params, env_state, noise)
+        flat = self._advantages(params, batch)
+        params, opt_state, metrics = self._optimize(params, opt_state, flat,
+                                                    words[1], update)
+        metrics["reward"] = batch.reward.mean()
+        metrics["value"] = batch.extras.value.mean()
+        return params, opt_state, env_state, metrics
+
     def collect(self, ts: TrainState):
-        """One rollout per env: ``(env_state, Rollouts)``."""
+        """One rollout per env: ``(env_state, Rollouts)``, run eagerly."""
+        with torch.no_grad():
+            noise = self._gumbel(key_word(ts.key, _ACTIONS), ts.update_idx)
+        return self._collect(ts.params, ts.env_state, noise)
+
+    def _collect(self, params, env_state, noise):
         cfg = self.config
         B, T, M = cfg.num_envs, cfg.rollout_len, self.env.num_markets
         with torch.no_grad():
-            noise = self._gumbel(ts)
-            states = [ts.env_state] if B == 1 else list(ts.env_state)
+            states = [env_state] if B == 1 else list(env_state)
             finals, parts = [], []
             for b, state in enumerate(states):
-                final, batch, _ = rollout(
-                    self.env, self._actor_step, T, state=state,
-                    policy_carry=(ts.params, noise[:, b * M:(b + 1) * M], 0))
+                # The rollout's body inline: inside the update's graph.
+                final, batch, dones, _ = _rollout_body(
+                    self.env, self._actor_step, T, True, state,
+                    (params, noise[:, b * M:(b + 1) * M], 0))
                 finals.append(final)
-                parts.append((batch.extras, batch.reward, batch.done,
-                              batch.obs[-1]))
+                parts.append((batch.extras, batch.reward,
+                              _flags(dones, self.device), batch.obs[-1]))
         extras, reward, done, last_obs = (
             buffers.tree_map(lambda *xs: torch.stack(xs), *leaf)
             for leaf in zip(*parts))
@@ -313,9 +381,12 @@ class PPOTrainer:
 
     def advantages(self, ts: TrainState, batch: Rollouts):
         """GAE over [B, T, M] and the flattened :class:`TrainBatch`."""
+        return self._advantages(ts.params, batch)
+
+    def _advantages(self, params, batch: Rollouts):
         cfg = self.config
         with torch.no_grad():
-            _, last_value = apply_actor_critic(ts.params, batch.last_obs)
+            _, last_value = apply_actor_critic(params, batch.last_obs)
             done_f = batch.done[..., None].to(torch.float32) \
                 .expand(batch.reward.shape)
             adv, ret = buffers.gae(
@@ -335,14 +406,16 @@ class PPOTrainer:
     def optimize(self, ts: TrainState, flat: buffers.TrainBatch):
         """``num_epochs`` x ``num_minibatches`` autograd + Adam steps:
         ``(params, opt_state, metrics)``, the loss metrics averaged."""
+        return self._optimize(ts.params, ts.opt_state, flat,
+                              key_word(ts.key, _MINIBATCHES), ts.update_idx)
+
+    def _optimize(self, params, opt_state, flat, word: int, update):
         cfg = self.config
-        params, opt_state = ts.params, ts.opt_state
-        word = key_word(ts.key, _MINIBATCHES)
         steps = []
         for epoch in range(cfg.num_epochs):
             idx = buffers.minibatch_indices(
                 word, flat.obs.shape[0], cfg.num_minibatches,
-                update=ts.update_idx, epoch=epoch, device=self.device)
+                update=update, epoch=epoch, device=self.device)
             for mb_idx in idx:
                 (_, metrics), grads = loss_and_grads(
                     params, buffers.take(flat, mb_idx),
@@ -357,15 +430,16 @@ class PPOTrainer:
             k: torch.stack([m[k] for m in steps]).mean() for k in steps[0]}
 
     # ---- the policies the rollouts run ----
-    def _gumbel(self, ts: TrainState):
-        """Gumbel noise f32[T, B*M, A] for every draw of one update."""
+    def _gumbel(self, word: int, update):
+        """Gumbel noise f32[T, B*M, A] for every draw of one update, from
+        the actions' draw word and the update counter (a Python int or a
+        0-dim int64 tensor: the same bits)."""
         cfg = self.config
         B, T, A = cfg.num_envs, cfg.rollout_len, self.num_actions
         n = B * self.env.num_markets * A
         gid = torch.arange(n, dtype=torch.int64, device=self.device)
         step = torch.arange(T, dtype=torch.int64, device=self.device)
-        u = rng.uniform32(key_word(ts.key, _ACTIONS), gid[None, :],
-                          ts.update_idx, step[:, None])
+        u = rng.uniform32(word, gid[None, :], update, step[:, None])
         # u == 0 gives -inf: that action is never drawn.
         return (-torch.log(-torch.log(u))).reshape(T, -1, A)
 
@@ -386,3 +460,24 @@ class PPOTrainer:
         orders = self.quote.to_orders(action, obs[:, 0],
                                       self.env.spec.num_levels)
         return params, orders, {"action": action, "value": value}
+
+
+def _words(key) -> Tuple[int, int]:
+    """The two draw words of a ``uint32[2]`` key (read on the host)."""
+    return key_word(key, _ACTIONS), key_word(key, _MINIBATCHES)
+
+
+def _cursors(env_state) -> list:
+    states = env_state if isinstance(env_state, tuple) and not hasattr(
+        env_state, "_fields") else (env_state,)
+    return [s.t for s in states]
+
+
+def _flags(dones, device) -> torch.Tensor:
+    """bool[T] of the steps' Python done flags, made on ``device`` by fills
+    (no host copy, so a CUDA graph can capture it)."""
+    out = torch.zeros(len(dones), dtype=torch.bool, device=device)
+    for k, done in enumerate(dones):
+        if done:
+            out[k:k + 1].fill_(True)
+    return out

@@ -573,3 +573,213 @@ def test_rows_stay_on_their_shards_on_the_card(cuda, shards):
             runs[label] = out
     for g, w in zip(runs["many"], runs["one"]):
         assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# Rollouts and updates as CUDA graphs.
+# ---------------------------------------------------------------------------
+
+GRAPH_BACKENDS = [("cuda-kinetic", kc.kinetic_clearing_chunk),
+                  ("cuda-naive", nc.naive_clearing_chunk),
+                  ("torch-scan", None), ("torch-per-step", None)]
+
+
+def _graph_env(backend, device, horizon=16):
+    from repro_torch.env import (BookWindow, Composite, MarketFeatures,
+                                 PortfolioFeatures, StatsFeatures)
+
+    obs = Composite((MarketFeatures(), BookWindow(4), PortfolioFeatures(),
+                     StatsFeatures()))
+    eng = Engine(backend, device=device)
+    return eng, eng.env(_spec(3, 256, 128, S=40), horizon=horizon, obs=obs)
+
+
+def _leaves(tree):
+    from repro_torch.core import graphs
+
+    return graphs.flatten(tree)[0]
+
+
+@pytest.mark.parametrize("backend,counter", GRAPH_BACKENDS)
+def test_rollout_graph_equals_its_eager_body(cuda, backend, counter):
+    """A maker rollout across two auto-resets: the first call of its key
+    (the eager body, captured), a warm replay under torch's sync debug
+    mode at "error" (capturing nothing) and the host loop all equal bit
+    for bit; each call launches the kernel once a step; a replay's outputs
+    survive the next replay; another start cursor is another graph."""
+    from repro_torch.env import rollout
+    from repro_torch.train import make_market_maker
+
+    eng, env = _graph_env(backend, cuda)
+    maker = make_market_maker(128)
+    state0, _ = env.reset()
+    runs, counts = [], []
+    for warm in (False, True):
+        builds = eng.trace_count
+        chip_smoke.reset_counts()
+        torch.cuda.set_sync_debug_mode("error" if warm else "default")
+        try:
+            runs.append(rollout(env, maker, 40, state=state0))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        counts.append(chip_smoke.read_counts())
+        assert eng.trace_count == builds + (0 if warm else 1)
+    want = {counter.__name__: 40} if counter else {}
+    for c in counts:
+        assert {k: n for k, n in c.items() if n} == want
+    kept = [x.clone() for x in _leaves(runs[1])]
+    rollout(env, maker, 40, state=state0)
+    rollout(env, maker, 40, state=runs[0][0])     # t0 = 8: a new key
+    assert eng.trace_count == builds + 1
+    env._graphed = False
+    host = rollout(env, maker, 40, state=state0)
+    torch.cuda.synchronize()
+    for got, first, again, loop in zip(_leaves(runs[1]), _leaves(runs[0]),
+                                       kept, _leaves(host)):
+        assert torch.equal(got, first) and torch.equal(got, again)
+        assert torch.equal(got, loop)
+
+
+def test_rollout_graph_records_what_its_eager_body_records(cuda):
+    """Under a ``Roofline`` a replay reports the kernel calls and aten ops
+    its capture recorded: the same records as the eager body's first
+    call, and the launch counters agree."""
+    from repro_torch.env import rollout
+    from repro_torch.launch import Roofline
+    from repro_torch.train import make_market_maker
+
+    eng, env = _graph_env("cuda-kinetic", cuda)
+    maker = make_market_maker(128)
+    state0, _ = env.reset()
+    sums = []
+    for _ in range(2):
+        kc.kinetic_clearing_chunk.launches = 0
+        with Roofline() as rf:
+            rollout(env, maker, 20, state=state0)
+        torch.cuda.synchronize()
+        sums.append(rf.summarize())
+        assert kc.kinetic_clearing_chunk.launches == 20
+    first, replay = sums
+    assert replay["kernels"] == first["kernels"]
+    assert replay["kernels"]["kinetic_clearing_chunk"]["launches"] == 20
+    for key in ("aten_calls", "operations", "hbm_bytes", "flops"):
+        assert replay[key] == first[key], key
+
+
+def test_host_values_a_policy_returns_are_baked(cuda):
+    """A policy returning host values (Python scalars, numpy arrays)
+    replays them as the capture saw them: the graph equals the host
+    loop."""
+    import numpy as np
+    from repro_torch.env import rollout
+
+    _, env = _graph_env("cuda-kinetic", cuda)
+    M = env.num_markets
+
+    def policy(obs, t):
+        return (t % 2 == 0, np.full(M, 60 + t % 5), 1.0 + t % 3)
+
+    state0, _ = env.reset()
+    first = rollout(env, policy, 20, state=state0)
+    warm = rollout(env, policy, 20, state=state0)
+    env._graphed = False
+    host = rollout(env, policy, 20, state=state0)
+    torch.cuda.synchronize()
+    for a, b, c in zip(_leaves(first), _leaves(warm), _leaves(host)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert float(warm[1].fill_buy.sum() + warm[1].fill_ask.sum()) > 0
+
+
+def test_a_policy_that_waits_for_the_card_raises(cuda):
+    """A policy that reads a value back cannot be captured: the rollout
+    raises naming the policy at its first such read, and no host loop runs
+    in its place."""
+    from repro_torch.core import graphs
+    from repro_torch.env import rollout
+
+    eng, env = _graph_env("cuda-kinetic", cuda)
+    calls = []
+
+    def reads_back(obs, t):
+        calls.append(t)
+        return (True, int(obs[0, 0].item()), 1.0)
+
+    with pytest.raises(graphs.GraphCaptureError, match="reads_back"):
+        rollout(env, reads_back, 10)
+    assert calls == [0] and eng.graph_keys() == []
+
+
+@pytest.mark.parametrize("backend", ["cuda-kinetic", "cuda-naive",
+                                     "torch-scan"])
+def test_update_graph_equals_the_eager_update_and_resumes(cuda, backend,
+                                                          tmp_path):
+    """2 updates (the first the eager body, captured; the second a replay)
+    and 2 warm ones (replays, under torch's sync debug mode at "error")
+    equal the eager body's 2 + 2; 2 updates, a checkpoint restored into a
+    fresh trainer and into the warm one (no capture), and 2 more equal 4;
+    the trainer holds its update's and its greedy rollout's graphs."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.train import (restore_train_checkpoint,
+                                   save_train_checkpoint)
+
+    tr, ts2, m2 = _train(backend, cuda)
+    eng = tr.env.engine
+    builds = eng.trace_count
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ts4, m4 = tr.train(ts2, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert eng.trace_count == builds
+    tr.env._graphed = False
+    e2, em2 = tr.train(tr.init(), 2)
+    e4, em4 = tr.train(e2, 2)
+    tr.env._graphed = True
+    torch.cuda.synchronize()
+    for got, want in ((chip_smoke.train_outputs(ts2, m2),
+                       chip_smoke.train_outputs(e2, em2)),
+                      (chip_smoke.train_outputs(ts4, m4),
+                       chip_smoke.train_outputs(e4, em4))):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    save_train_checkpoint(CheckpointManager(tmp_path, async_write=False),
+                          tr, ts2)
+    fresh, _, _ = _train(backend, cuda, updates=0)
+    for trainer in (fresh, tr):
+        builds = trainer.env.engine.trace_count
+        ts, m = trainer.train(restore_train_checkpoint(
+            CheckpointManager(tmp_path), trainer), 2)
+        if trainer is tr:
+            assert eng.trace_count == builds
+        for g, w in zip(chip_smoke.train_outputs(ts, m),
+                        chip_smoke.train_outputs(ts4, m4)):
+            assert torch.equal(g, w)
+    tr.evaluate(ts4.params, n_steps=16)
+    tr.evaluate(ts4.params, n_steps=16)
+    assert len(tr.graphs()) == 2
+
+
+@pytest.mark.parametrize("backend,A,tile", [
+    ("cuda-kinetic", 20000, (1, 1, "shared", 1)),    # 101 KB: the opt-in
+    ("cuda-kinetic", 50000, (8, 1, "fresh", 16)),    # a non-portable C
+    ("cuda-naive", 50000, (8, 1, "fresh", 16))])
+def test_rollout_graph_at_shapes_that_set_kernel_attributes(cuda, backend,
+                                                            A, tile):
+    """Launch shapes whose wrappers call ``cudaFuncSetAttribute`` at every
+    launch (past 48 KB of shared memory; a cluster of 16 CTAs) capture and
+    replay equal to the eager body."""
+    from repro_torch.env import rollout
+    from repro_torch.train import make_market_maker
+
+    eng = Engine(backend, device=cuda, autotune=False,
+                 tile=autotune.TileChoice(128, A, *tile))
+    env = eng.env(chip_smoke.homogeneous(2, A, 128, 8), horizon=8)
+    state0, _ = env.reset()
+    maker = make_market_maker(128)
+    first = rollout(env, maker, 6, state=state0)
+    again = rollout(env, maker, 6, state=state0)
+    torch.cuda.synchronize()
+    assert len(eng.graph_keys()) == 1
+    for g, w in zip(_leaves(again), _leaves(first)):
+        assert torch.equal(g, w)

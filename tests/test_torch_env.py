@@ -817,3 +817,147 @@ def test_env_of_a_card_backend_without_a_card_raises():
         MarketEnv(CFG)
     with pytest.raises(ValueError, match="engine="):
         MarketEnv(CFG, engine=_engine("torch-scan"), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# The rollout's body, which a CUDA graph captures on one card.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("backend", ["cuda-kinetic", "cuda-naive",
+                                     "torch-scan"])
+def test_rollout_body_equals_repro_with_carry_and_auto_reset(backend):
+    """The body a graph captures, run eagerly: a carried policy across two
+    auto-resets (horizon 7, 20 steps) equals ``repro``'s env, its done
+    flags included."""
+    from repro_torch.env.core import _rollout_body
+
+    env = _engine(backend).env(CFG, obs=OBS, reward=REWARD, horizon=7)
+    jenv = _jengine("numpy").env(JCFG, obs=J_OBS, reward=J_REWARD, horizon=7)
+    state, _ = env.reset()
+    final, batch, dones, carry = _rollout_body(
+        env, _carried(False), 20, True, state, (0, np.float32(L / 2)))
+    jfinal, jbatch, jcarry = j_rollout(
+        jenv, _carried(True), 20,
+        policy_carry=(np.int32(0), np.float32(L / 2)))
+    jb = jbatch.to_numpy()
+    _same_batch(batch._replace(done=torch.tensor(dones)), jb, backend)
+    assert dones == [bool(d) for d in jb.done]
+    assert sum(dones) == 2 and final.t == int(jfinal.t) == 6
+    _same_tuple(final.market, jfinal.market, "market")
+    _same_tuple(final.portfolio, jfinal.portfolio, "portfolio")
+    assert carry[0] == int(np.asarray(jcarry[0])) == 20
+    _same(batch.extras["mid"].numpy(), np.asarray(jbatch.extras["mid"]))
+
+
+@pytest.mark.parametrize("backend", ["cuda-kinetic", "cuda-naive",
+                                     "torch-scan"])
+def test_rollout_leaves_its_state_unchanged(backend):
+    """A rollout never writes the state it starts from: several rollouts
+    from one state give the same batch."""
+    env = _engine(backend).env(CFG, obs=OBS, reward=REWARD, horizon=7)
+    state0, _ = env.reset()
+    before = [x.clone() for x in _tensor_leaves(state0)]
+    _, first = rollout(env, MAKER, 10, state=state0)
+    _, again = rollout(env, MAKER, 10, state=state0)
+    for got, want in zip(_tensor_leaves(state0), before):
+        assert torch.equal(got, want)
+    _same_batch(again, first.to_numpy(), backend)
+
+
+def _tensor_leaves(tree):
+    from repro_torch.core import graphs
+
+    return graphs.flatten(tree)[0]
+
+
+class _CpuGraph:
+    """A CPU stand-in for a captured graph, with the real one's contract:
+    static input buffers filled by copy, the outputs' Python leaves those
+    of the capture (checked against a rerun of the body on the buffers),
+    clones returned."""
+
+    def __init__(self, body, tree, out):
+        from repro_torch.core import graphs
+
+        leaves, self.structure = graphs.flatten(tree)
+        self.static = [x.clone() for x in leaves]
+        self.body = body
+        self.out_structure = graphs.flatten(out)[1]
+        self.replays = 0
+
+    def __call__(self, tree):
+        from repro_torch.core import graphs
+
+        for dst, src in zip(self.static, graphs.flatten(tree)[0]):
+            dst.copy_(src)
+        out, structure = graphs.flatten(
+            self.body(graphs.unflatten(self.structure, self.static)))
+        assert structure == self.out_structure
+        self.replays += 1
+        return graphs.unflatten(structure, [x.clone() for x in out])
+
+
+@pytest.fixture
+def cpu_graphs(monkeypatch):
+    """``graphs.capture`` replaced by :class:`_CpuGraph`: the engine's cache,
+    keys and counts run on the CPU."""
+    from repro_torch.core import graphs
+
+    made = []
+
+    def capture(what, body, tree, device):
+        out = body(tree)
+        made.append(_CpuGraph(body, tree, out))
+        return out, made[-1]
+
+    monkeypatch.setattr(graphs, "capture", capture)
+    return made
+
+
+@pytest.mark.parametrize("backend", ["cuda-kinetic", "cuda-naive",
+                                     "torch-scan"])
+def test_graph_path_keys_captures_and_replays(backend, cpu_graphs):
+    """The graph path's wiring: a rollout's first call of a key captures
+    (one ``trace_count``), a warm call replays and equals the host loop, a
+    new cursor or length is a new key, the replays' outputs are fresh
+    tensors, and ``clear_cache`` drops the graphs."""
+    eng = Engine(backend, device="cpu")
+    env = eng.env(CFG, obs=OBS, reward=REWARD, horizon=7)
+    state0, _ = env.reset()
+    _, want = rollout(env, MAKER, 10, state=state0)
+    env._graphed = True
+    builds = eng.trace_count
+    first = rollout(env, MAKER, 10, state=state0)
+    warm = rollout(env, MAKER, 10, state=state0)
+    assert eng.trace_count == builds + 1 and len(cpu_graphs) == 1
+    assert cpu_graphs[0].replays == 1
+    for got in (first, warm):
+        _same_batch(got[1], want.to_numpy(), backend)
+        assert got[0].t == 3
+    assert warm[1].obs.data_ptr() != first[1].obs.data_ptr()
+    rollout(env, MAKER, 10, state=first[0])      # t0 = 3: another key
+    rollout(env, MAKER, 11, state=state0)        # another length
+    rollout(env, None, 10, state=state0)         # another policy
+    assert eng.trace_count == builds + 4 == builds + len(eng.graph_keys())
+    eng.clear_cache()
+    assert eng.graph_keys() == []
+
+
+def test_host_loop_where_the_runner_says_so():
+    """The graph path is the runner's call: the CPU (the numpy family runs
+    nowhere else) and a mesh keep the host loop; a card's runner of one
+    shard takes graphs."""
+    from repro_torch.launch import set_host_device_count
+
+    for backend in ("torch-scan", "cuda-kinetic", "numpy"):
+        assert not _engine(backend).env(CFG)._graphed
+    runner = Engine("cuda-kinetic", device="cpu").env(CFG)._runner
+    old = set_host_device_count(2)
+    try:
+        mesh_runner = Engine("cuda-kinetic", device="cpu",
+                             devices=2).env(CFG)._runner
+    finally:
+        set_host_device_count(old)
+    for r in (runner, mesh_runner):
+        r.device = torch.device("cuda", 0)   # as on a card
+    assert runner.graphable and not mesh_runner.graphable

@@ -530,3 +530,38 @@ def test_trainer_update_under_the_recorder_equals_without():
     backward = sum(r[0] for r in rf.top_contributors("flops", 1000)
                    if r[2].startswith("aten.mm") and "backward" in r[2])
     assert backward > 0
+
+
+def test_a_capture_records_on_its_tape_and_each_replay_reports_it():
+    """Under ``roofline.capturing()`` the recorders around see nothing;
+    the tape records the block it is entered around, and each
+    ``roofline.replay(tape)`` adds the tape's records once, kernel calls,
+    aten ops and transfers alike, as a CUDA graph's replays run its
+    capture's work."""
+    from repro_torch.launch import roofline as rl
+
+    def work():
+        x = torch.arange(12, dtype=torch.float32).reshape(3, 4)
+        with rl.kernel_call("k", "cpu", lambda: (7, 11, 2)):
+            (x * 2).sum()
+        rl.transfer("gather", 0, "cpu", [x])
+        return (x + 1).sum()
+
+    with Roofline() as alone:
+        work()
+    with Roofline() as outer:
+        with rl.capturing() as tape:
+            torch.ones(3) + 1            # outside the tape: nowhere
+            with tape:
+                work()
+        assert outer.summarize()["aten_calls"] == 0
+        assert outer.summarize()["kernels"] == {}
+        for _ in range(2):
+            rl.replay(tape)
+    want, got = alone.summarize(), outer.summarize()
+    assert tape.summarize() == want
+    assert got["kernels"] == {"k": dict(calls=2, launches=4, operations=14,
+                                        bytes=22)}
+    for key in ("aten_calls", "flops", "operations", "hbm_bytes",
+                "collective_wire_bytes"):
+        assert got[key] == 2 * want[key], key

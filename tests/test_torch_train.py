@@ -597,6 +597,121 @@ def test_sampling_follows_the_key_and_update():
 
 
 # ---------------------------------------------------------------------------
+# The update as one CUDA graph: its counter, its keys, its wiring.
+# ---------------------------------------------------------------------------
+
+def test_counter_tensor_draws_equal_the_int_path():
+    """The update counter as a 0-dim int64 tensor (what a graph reads at
+    every replay) gives the Python int's bits: the hash, the Gumbel noise
+    and the minibatch permutation."""
+    from repro_torch.core import rng
+    from repro_torch.train.ppo import _ACTIONS, key_word
+
+    gid = torch.arange(50, dtype=torch.int64)
+    for u in (0, 1, 7, 2**31 - 1, 2**32 + 5):
+        counter = torch.tensor(u, dtype=torch.int64)
+        assert torch.equal(rng.kinetic_hash32(11, gid, counter, 3),
+                           rng.kinetic_hash32(11, gid, u, 3))
+        assert torch.equal(
+            buffers.minibatch_indices(5, 64, 4, update=counter, epoch=1),
+            buffers.minibatch_indices(5, 64, 4, update=u, epoch=1))
+    _, tr = _trainer("torch-scan", ONE_ENV)
+    word = key_word(tr.init().key, _ACTIONS)
+    assert torch.equal(tr._gumbel(word, torch.tensor(9)), tr._gumbel(word, 9))
+
+
+@pytest.mark.parametrize("horizon,keys", [(8, 1), (12, 3), (20, 5)])
+def test_update_graph_keys_repeat_with_the_cursor(horizon, keys):
+    """The update graph's key moves only with the env cursor an update
+    starts from: at a horizon H and rollout length T = 8, H / gcd(T, H)
+    keys over a trainer's updates; one where H = T (the train phase's
+    config), the update counter never in it."""
+    eng = Engine("torch-scan", device="cpu")
+    tr = PPOTrainer(eng.env(_mixture(), reward=REWARD, obs=MarketFeatures(),
+                            horizon=horizon), ONE_ENV)
+    ts = tr.init()
+    seen = []
+    for _ in range(2 * keys + 1):
+        seen.append(tr.graph_key(ts))
+        ts, _ = tr.update(ts)
+    assert len(set(seen)) == keys
+    assert seen[keys] == seen[0] and ts.update_idx == 2 * keys + 1
+
+
+class _CpuGraph:
+    """A CPU stand-in for a captured graph, with the real one's contract:
+    static input buffers filled by copy, the outputs' Python leaves those
+    of the capture, clones returned."""
+
+    def __init__(self, body, tree, out):
+        from repro_torch.core import graphs
+
+        leaves, self.structure = graphs.flatten(tree)
+        self.static = [x.clone() for x in leaves]
+        self.body = body
+        self.out_structure = graphs.flatten(out)[1]
+
+    def __call__(self, tree):
+        from repro_torch.core import graphs
+
+        for dst, src in zip(self.static, graphs.flatten(tree)[0]):
+            dst.copy_(src)
+        out, structure = graphs.flatten(
+            self.body(graphs.unflatten(self.structure, self.static)))
+        assert structure == self.out_structure
+        return graphs.unflatten(structure, [x.clone() for x in out])
+
+
+@pytest.fixture
+def cpu_graphs(monkeypatch):
+    from repro_torch.core import graphs
+
+    def capture(what, body, tree, device):
+        out = body(tree)
+        return out, _CpuGraph(body, tree, out)
+
+    monkeypatch.setattr(graphs, "capture", capture)
+
+
+@pytest.mark.parametrize("backend,cfg", [("cuda-kinetic", ONE_ENV),
+                                         ("torch-scan", SMOKE)])
+def test_update_graph_path_equals_eager_and_resumes(backend, cfg, tmp_path,
+                                                    cpu_graphs):
+    """The graph path's wiring on the CPU: a trainer whose env takes graphs
+    trains as the eager one, holds two graphs (its update and its greedy
+    rollout) after ``train`` and ``evaluate`` at a horizon of its rollout
+    length (the train phase's config), and 2 updates, a
+    checkpoint, a restore and 2 more equal 4 straight ones, replayed by a
+    warm trainer with no new capture."""
+    def trainer():
+        eng = Engine(backend, device="cpu")
+        return eng, PPOTrainer(eng.env(_mixture(), reward=REWARD,
+                                       obs=MarketFeatures(), horizon=8), cfg)
+
+    _, eager = trainer()
+    want, want_m = eager.train(eager.init(), 4)
+    eng, tr = trainer()
+    tr.env._graphed = True
+    builds = eng.trace_count
+    ts2, _ = tr.train(tr.init(), 2)
+    ts4, m4 = tr.train(ts2, 2)
+    tr.evaluate(ts4.params, n_steps=8)
+    tr.evaluate(ts4.params, n_steps=8)
+    assert eng.trace_count == builds + 2 and len(tr.graphs()) == 2
+    for got, ref in ((ts4.params, want.params),
+                     (ts4.opt_state, want.opt_state), (m4, {
+                         k: v[2:] for k, v in want_m.items()})):
+        _same_tree(got, ref, backend)
+    save_train_checkpoint(CheckpointManager(tmp_path, async_write=False),
+                          tr, ts2)
+    restored = restore_train_checkpoint(CheckpointManager(tmp_path), tr)
+    again, again_m = tr.train(restored, 2)
+    assert eng.trace_count == builds + 2
+    _same_tree(again.params, want.params, backend)
+    _same_tree(again_m, {k: v[2:] for k, v in want_m.items()}, backend)
+
+
+# ---------------------------------------------------------------------------
 # Nightly: the learned market-maker learns, and beats the scripted one.
 # ---------------------------------------------------------------------------
 
