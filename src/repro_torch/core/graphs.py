@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.core import params as params_mod
 from repro_torch.launch import roofline
+from repro_torch.ops import trace
 
 # Node tags of a flattened tree (see :func:`flatten`).
 _TENSOR, _CONST, _DICT = "tensor", "const", "dict"
@@ -206,15 +207,15 @@ class Graph:
         return clones of the outputs."""
         leaves, _ = flatten(tree)
         with torch.cuda.device(self.device):
-            with roofline.uncounted():
+            with trace.span("graph.copy_in"), roofline.uncounted():
                 for dst, src in zip(self._in, leaves):
                     dst.copy_(src)
-            with roofline.uncounted():
+            with trace.span("graph.launch"), roofline.uncounted():
                 self._graph.replay()
             for fn, n in self._launches:
                 fn.launches += n
             roofline.replay(self._tape)
-            with roofline.uncounted():
+            with trace.span("graph.copy_out"), roofline.uncounted():
                 out = [_copy(t) for t in self._out]
         return unflatten(self._out_structure, out)
 

@@ -50,7 +50,6 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import itertools
-import time
 from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -66,6 +65,8 @@ from repro_torch.core.stats import MarketStats, init_stats
 from repro_torch.core.step import MarketState, initial_state
 from repro_torch.kernels import _build
 from repro_torch.launch import sharding
+from repro_torch.ops import trace
+from repro_torch.ops.metrics import MetricsRegistry
 
 #: Default chunk length (steps per kernel launch) for streaming runs.
 DEFAULT_CHUNK = 64
@@ -76,6 +77,8 @@ _FACTORIES: Dict[str, Callable[..., "ChunkRunner"]] = {}
 _FAILED: Dict[str, str] = {}
 # backends that run on the host only (the numpy reference family)
 _HOST_ONLY: set = set()
+# Session.session_id: the request id of a session's spans
+_SESSION_IDS = itertools.count(1)
 
 
 class StepBatch(NamedTuple):
@@ -90,7 +93,9 @@ class StepBatch(NamedTuple):
         return int(self.price.shape[-1])
 
     def to_numpy(self) -> "StepBatch":
-        return StepBatch(*(to_host(x) for x in self))
+        """Host copies, after one wait for the stream that made them (the
+        spans ``to_host``, ``to_host.wait`` and ``to_host.copy``)."""
+        return StepBatch(*_copy_to_host(self, trace.rid_of(self.price)))
 
     @staticmethod
     def concatenate(batches) -> "StepBatch":
@@ -126,6 +131,9 @@ class ChunkRunner:
     #: the seed is the kernel's launch argument from the spec (as Pallas
     #: bakes it into its trace) or a stateful stream (PCG64).
     env_runtime_seed: bool = False
+    #: The tile sweep this runner's construction ran
+    #: (a ``kernels.autotune.SweepReport``), or None.
+    sweep: Any = None
 
     def __init__(self, device: torch.device) -> None:
         self.device = device
@@ -274,6 +282,20 @@ def _unknown_backend_error(name: str) -> KeyError:
     return KeyError(f"unknown backend {name!r}; have {sorted(_FACTORIES)}")
 
 
+def _copy_to_host(leaves, rid=None) -> list:
+    """Host numpy copies of ``leaves`` (tensors or row shards): one
+    synchronize of the current stream of each card that holds one, then
+    the copies, under the span ``to_host`` (request id ``rid``)."""
+    with trace.span("to_host", rid=rid):
+        with trace.span("to_host.wait"):
+            sharding.wait(leaves)
+        with trace.span("to_host.copy") as sp:
+            out = [sharding.to_host(x) for x in leaves]
+            if sp.on:
+                sp.set(bytes=sum(x.nbytes for x in out))
+    return out
+
+
 def run_runner_to_result(runner: ChunkRunner, spec) -> SimResult:
     """One-session run over ``spec.num_steps`` on a bare runner."""
     if runner.stats_only:
@@ -312,6 +334,14 @@ class Engine:
     any other device. ``backend_opts`` (``scan=``, ``stats_only=``, and
     ``clearing=`` for the numpy family) fold into every runner the engine
     builds.
+
+    ``metrics`` (default True) gives the engine a
+    :class:`~repro_torch.ops.metrics.MetricsRegistry`, ``Engine.metrics``
+    (None when False), and each session it opens one of its own. The
+    engine's registry counts its runners and graphs: counters
+    ``runners_built_total``, ``graph_captures_total``,
+    ``graph_replays_total`` and ``autotune_sweeps_total``, gauge
+    ``runners_cached``, timing ``autotune_seconds``.
     """
 
     def __init__(self, backend: str = "cuda-kinetic", *,
@@ -329,7 +359,8 @@ class Engine:
         self.backend = backend
         self.device = resolve_device(device)
         self.chunk_size = chunk_size
-        self.metrics = bool(metrics)
+        self._session_metrics = bool(metrics)
+        self.metrics = MetricsRegistry() if metrics else None
         self.backend_opts = dict(backend_opts)
         self._runners: Dict[Tuple[Any, ...], ChunkRunner] = {}
         self._graphs: Dict[Tuple[Any, ...], Any] = {}
@@ -373,21 +404,43 @@ class Engine:
         self._check_forgets()
         graph = self._graphs.get(key)
         if graph is not None:
-            return graph(tree)
-        out, self._graphs[key] = graphs.capture(what, body, tree,
-                                                self.device)
+            with trace.span("graph.replay"):
+                out = graph(tree)
+            if self.metrics is not None:
+                self.metrics.inc("graph_replays_total")
+            return out
+        with trace.span("graph.capture"):
+            out, self._graphs[key] = graphs.capture(what, body, tree,
+                                                    self.device)
         self._captures += 1
+        if self.metrics is not None:
+            self.metrics.inc("graph_captures_total")
         return out
 
     def _runner(self, spec, chunk: int) -> ChunkRunner:
         spec = EnsembleSpec.coerce(spec)
         key = spec.static_key() + (chunk,)
-        runner = self._runners.get(key)
-        if runner is None:
-            runner = _FACTORIES[self.backend](spec, chunk, self.device,
-                                              **self.backend_opts)
-            self._runners[key] = runner
+        with trace.span("open.runner") as sp:
+            runner = self._runners.get(key)
+            sp.set(hit=runner is not None)
+            if runner is None:
+                with trace.span("open.runner.build"):
+                    runner = _FACTORIES[self.backend](
+                        spec, chunk, self.device, **self.backend_opts)
+                self._runners[key] = runner
+                self._count_build(runner)
         return runner
+
+    def _count_build(self, runner: ChunkRunner) -> None:
+        m = self.metrics
+        if m is None:
+            return
+        m.inc("runners_built_total")
+        m.gauge("runners_cached", len(self._runners))
+        sweep = runner.sweep
+        if sweep is not None:
+            m.inc("autotune_sweeps_total")
+            m.observe("autotune_seconds", sweep.seconds)
 
     def open(self, spec: Union[EnsembleSpec, MarketConfig], *,
              chunk_size: Optional[int] = None,
@@ -398,13 +451,12 @@ class Engine:
         spec = EnsembleSpec.coerce(spec)
         chunk = chunk_size or self.chunk_size \
             or min(DEFAULT_CHUNK, spec.num_steps)
-        registry = None
-        if self.metrics if metrics is None else metrics:
-            from repro_torch.ops.metrics import MetricsRegistry
-
-            registry = MetricsRegistry()
-        return Session(self, spec, self._runner(spec, max(1, chunk)),
-                       metrics=registry)
+        on = self._session_metrics if metrics is None else metrics
+        registry = MetricsRegistry() if on else None
+        sid = next(_SESSION_IDS)
+        with trace.span("open", rid=sid):
+            return Session(self, spec, self._runner(spec, max(1, chunk)),
+                           metrics=registry, session_id=sid)
 
     def warm(self, specs, *, chunk_sizes=None, include_step: bool = True):
         """Build and launch once every runner ``specs`` will need (see
@@ -445,19 +497,26 @@ class Session:
     """A live simulation: device-resident books + an absolute step cursor.
 
     All advancement APIs (:meth:`run`, :meth:`stream`, :meth:`step`) move
-    the same cursor and interleave freely.
+    the same cursor and interleave freely. ``session_id`` is the request
+    id of the session's spans (:mod:`repro_torch.ops.trace`).
     """
 
     def __init__(self, engine: Engine, spec: EnsembleSpec,
-                 runner: ChunkRunner, metrics=None):
+                 runner: ChunkRunner, metrics=None,
+                 session_id: Optional[int] = None):
         self._engine = engine
         self.spec = spec
+        self.session_id = next(_SESSION_IDS) if session_id is None \
+            else session_id
         self._runner = runner
         self._step_runner: Optional[ChunkRunner] = None
-        self._state = runner.init_state(spec)
-        self._params = runner.params_to_device(spec.params)
+        with trace.span("open.state"):
+            self._state = runner.init_state(spec)
+        with trace.span("open.params"):
+            self._params = runner.params_to_device(spec.params)
         self._aux = runner.init_aux(spec)
-        self._stats = runner.init_stats(spec)
+        with trace.span("open.stats"):
+            self._stats = runner.init_stats(spec)
         self._t = 0
         self._closed = False
         self._active_streams = 0
@@ -495,7 +554,8 @@ class Session:
 
     def close(self) -> None:
         """Release the device-resident state (runners stay cached)."""
-        self._state = self._params = self._stats = self._aux = None
+        with trace.span("close", rid=self.session_id):
+            self._state = self._params = self._stats = self._aux = None
         self._closed = True
 
     def _check_open(self) -> None:
@@ -534,7 +594,7 @@ class Session:
         read from each shard straight to the host."""
         self._check_open()
         return None if self._stats is None else MarketStats(
-            *map(sharding.to_host, self._stats))
+            *_copy_to_host(self._stats, self.session_id))
 
     def _joined_stats(self) -> Optional[MarketStats]:
         """The running statistics on the first device, with no wait for
@@ -570,12 +630,15 @@ class Session:
         m = self.metrics
         if m is not None:
             builds0 = runner.trace_count
-            t0 = time.perf_counter()
-        self._state, batch, self._stats = runner.run(
-            self._state, self._params, self._t, n, ext, self._stats,
-            aux=self._aux)
+        with trace.span("dispatch", rid=self.session_id, metrics=m,
+                        timing=f"{kind}_seconds", kind=kind, steps=n,
+                        chunk=runner.chunk) as sp:
+            self._state, batch, self._stats = runner.run(
+                self._state, self._params, self._t, n, ext, self._stats,
+                aux=self._aux)
+            if sp.on:
+                trace.tag(batch.price, self.session_id)
         if m is not None:
-            m.observe(f"{kind}_seconds", time.perf_counter() - t0)
             m.inc("steps_total", n)
             if kind == "chunk":
                 m.inc("chunks_total")
@@ -601,7 +664,10 @@ class Session:
         batches = list(self._stream(self._resolve_steps(n_steps)))
         if not batches:
             return _empty_batch(self.spec.num_markets, self.device)
-        return StepBatch.concatenate(batches)
+        batch = StepBatch.concatenate(batches)
+        if trace.enabled():
+            trace.tag(batch.price, self.session_id)
+        return batch
 
     def step(self, actions: Optional[Any] = None) -> StepBatch:
         """Advance exactly one step, optionally injecting one external order
@@ -661,29 +727,29 @@ class Session:
                 "apply at chunk boundaries; exhaust or close() the iterator "
                 "first")
         sub = EnsembleSpec.coerce(sub)
-        t0 = time.perf_counter()
-        new_spec = self.spec.replace_markets(slots, sub)  # validates slots
-        idx = np.asarray(slots, dtype=np.int64).reshape(-1)
+        with trace.span("swap", rid=self.session_id, metrics=self.metrics,
+                        timing="swap_seconds"):
+            new_spec = self.spec.replace_markets(slots, sub)  # validates slots
+            idx = np.asarray(slots, dtype=np.int64).reshape(-1)
 
-        def splice(leaves, fresh):
-            return [sharding.splice(leaf, idx, src, self.device)
-                    for leaf, src in zip(leaves, fresh)]
+            def splice(leaves, fresh):
+                return [sharding.splice(leaf, idx, src, self.device)
+                        for leaf, src in zip(leaves, fresh)]
 
-        new_state = self._state
-        if reset_books:
-            new_state = MarketState(*splice(self._state,
-                                            initial_state(sub, "cpu")))
-        new_stats = self._stats
-        if self._stats is not None:
-            new_stats = MarketStats(*splice(self._stats,
-                                            init_stats(idx.size, "cpu")))
-        new_params = sharding.splice_params(
-            self._params, idx, params_mod.pack_params(sub.params, "cpu"),
-            self.device)
-        self._state, self._stats = new_state, new_stats
-        self._params, self.spec = new_params, new_spec
+            new_state = self._state
+            if reset_books:
+                new_state = MarketState(*splice(self._state,
+                                                initial_state(sub, "cpu")))
+            new_stats = self._stats
+            if self._stats is not None:
+                new_stats = MarketStats(*splice(self._stats,
+                                                init_stats(idx.size, "cpu")))
+            new_params = sharding.splice_params(
+                self._params, idx, params_mod.pack_params(sub.params, "cpu"),
+                self.device)
+            self._state, self._stats = new_state, new_stats
+            self._params, self.spec = new_params, new_spec
         if self.metrics is not None:
-            self.metrics.observe("swap_seconds", time.perf_counter() - t0)
             self.metrics.inc("swaps_total", int(idx.size))
 
     def snapshot(self) -> Dict[str, Any]:
@@ -693,7 +759,14 @@ class Session:
         to the host). The copy from the card is synchronous, so the result
         is complete host memory."""
         self._check_open()
-        t0 = time.perf_counter()
+        with trace.span("snapshot", rid=self.session_id, metrics=self.metrics,
+                        timing="snapshot_seconds"):
+            snap = self._snapshot()
+        if self.metrics is not None:
+            self.metrics.inc("snapshots_total")
+        return snap
+
+    def _snapshot(self) -> Dict[str, Any]:
         snap: Dict[str, Any] = {f: sharding.to_host(v) for f, v in
                                 zip(MarketState._fields, self._state)}
         snap["t"] = self._t
@@ -709,9 +782,6 @@ class Session:
                         "spread": np.asarray(self.spec.initial_spread)}
         if self._stats is not None:
             snap["stats"] = dict(zip(MarketStats._fields, self.stats))
-        if self.metrics is not None:
-            self.metrics.observe("snapshot_seconds", time.perf_counter() - t0)
-            self.metrics.inc("snapshots_total")
         return snap
 
     def restore(self, snap: Dict[str, Any]) -> None:
@@ -723,7 +793,13 @@ class Session:
         if self._active_streams:
             raise RuntimeError("restore() during an active stream(): exhaust "
                                "or close() the iterator first")
-        t_start = time.perf_counter()
+        with trace.span("restore", rid=self.session_id, metrics=self.metrics,
+                        timing="restore_seconds"):
+            self._restore(snap)
+        if self.metrics is not None:
+            self.metrics.inc("restores_total")
+
+    def _restore(self, snap: Dict[str, Any]) -> None:
         for field, have, cls in (
                 ("seed", self.spec.seed, ValueError),
                 ("num_agents", self.spec.num_agents,
@@ -784,10 +860,6 @@ class Session:
         self._state, self._t = new_state, int(snap["t"])
         self.spec, self._params, self._stats = new_spec, new_params, new_stats
         self._aux = new_aux
-        if self.metrics is not None:
-            self.metrics.observe("restore_seconds",
-                                 time.perf_counter() - t_start)
-            self.metrics.inc("restores_total")
 
     def save_checkpoint(self, manager, step: Optional[int] = None,
                         *, wait: bool = True) -> int:

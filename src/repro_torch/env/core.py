@@ -74,6 +74,7 @@ from repro_torch.env import actions as actions_mod
 from repro_torch.env.obs import MarketFeatures, ObservationSpec
 from repro_torch.env.rewards import PnLReward, RewardContext, RewardFn
 from repro_torch.launch import sharding
+from repro_torch.ops import trace
 
 
 class Portfolio(NamedTuple):
@@ -258,9 +259,10 @@ class MarketEnv:
             return self.obs_spec.observe(self.spec, market, last_out,
                                          portfolio, stats)
 
-        return sharding.join(sharding.per_shard(
-            features, state.market, state.last_out, state.portfolio,
-            state.stats), self.device)
+        with trace.span("env.obs"):
+            return sharding.join(sharding.per_shard(
+                features, state.market, state.last_out, state.portfolio,
+                state.stats), self.device)
 
     def step(self, state: EnvState, actions: Any = None,
              ) -> Tuple[EnvState, torch.Tensor, torch.Tensor, bool, StepInfo]:
@@ -271,10 +273,16 @@ class MarketEnv:
         included; ``None`` advances the markets untouched, bit for bit as
         :meth:`Session.run` does.
         """
-        eb, ea = self._lower(actions, check_values=True)
-        return self._step_impl(state, eb, ea)
+        return self._advance(state, actions, check_values=True)
 
     # ---- internals ----
+    def _advance(self, state: EnvState, actions: Any, check_values: bool):
+        """:meth:`_lower` and :meth:`_step_impl`, the span ``env.step``."""
+        with trace.span("env.step"):
+            with trace.span("env.actions"):
+                eb, ea = self._lower(actions, check_values)
+            return self._step_impl(state, eb, ea)
+
     def _lower(self, actions: Any, check_values: bool):
         """Validate ``actions`` where they are, place the ``[M]`` order
         triple as the runner holds its rows, and lower it to the
@@ -345,15 +353,17 @@ class MarketEnv:
 
     def _step_impl(self, state: EnvState, eb, ea):
         """The transition shared by :meth:`step` and :func:`rollout`."""
-        market, out, aux = self._step_core(
-            state.market, state.params, state.t, eb, ea, state.seed,
-            state.aux)
+        with trace.span("env.clear"):
+            market, out, aux = self._step_core(
+                state.market, state.params, state.t, eb, ea, state.seed,
+                state.aux)
         t_next = state.t + 1
         done = t_next >= self.horizon
         reset = self.auto_reset and done
-        portfolio, reward, stats, info, last_out = sharding.per_shard(
-            lambda *rows: self._transition(reset, *rows), out,
-            state.portfolio, state.stats, eb, ea, state.reset_market)
+        with trace.span("env.transition"):
+            portfolio, reward, stats, info, last_out = sharding.per_shard(
+                lambda *rows: self._transition(reset, *rows), out,
+                state.portfolio, state.stats, eb, ea, state.reset_market)
         if reset:
             market, t_next = state.reset_market, 0
 
@@ -538,8 +548,8 @@ def _rollout_body(env: MarketEnv, policy_fn: Optional[Callable], n: int,
             actions = policy_fn(obs, state.t) if policy_fn is not None \
                 else None
             ex = None
-        eb, ea = env._lower(actions, env._check_rollout_values)
-        state, obs, reward, done, info = env._step_impl(state, eb, ea)
+        state, obs, reward, done, info = env._advance(
+            state, actions, env._check_rollout_values)
         obs_path.append(obs)
         rewards.append(reward)
         dones.append(done)

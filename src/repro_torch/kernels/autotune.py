@@ -61,6 +61,8 @@ import math
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
+from repro_torch.ops import trace
+
 LEVELS_PER_LANE = 4
 LEVELS_PER_WARP = 32 * LEVELS_PER_LANE
 #: Agent slots a thread of a persistent kernel holds in registers.
@@ -158,6 +160,7 @@ class SweepReport(NamedTuple):
     tried: Tuple[TileChoice, ...]
     failures: Tuple[str, ...]      # one "TileChoice(...): ExcType: msg" each
     times: Tuple[Tuple[TileChoice, float], ...] = ()  # seconds, the timed ones
+    seconds: float = 0.0           # the sweep's wall, every candidate's
 
 
 def agent_slots(num_agents: int, threads_per_market: int,
@@ -568,28 +571,42 @@ def autotune_tile(key: Tuple, time_candidate: Callable[[TileChoice], float],
     first candidate) cached, with ``fell_back=True`` in the report. A
     cache hit sweeps nothing.
     """
+    return sweep_tile(key, time_candidate, cands, fallback)[0]
+
+
+def sweep_tile(key: Tuple, time_candidate: Callable[[TileChoice], float],
+               cands: List[TileChoice],
+               fallback: Optional[TileChoice] = None,
+               ) -> Tuple[TileChoice, Optional[SweepReport]]:
+    """:func:`autotune_tile`, with the report of the sweep it ran (None on
+    a cache hit), under the span ``open.runner.autotune``."""
     cached = _TUNE_CACHE.get(key)
     if cached is not None:
-        return cached
-    best, best_t = None, float("inf")
-    failures, times = [], []
-    for cand in cands:
-        try:
-            t = time_candidate(cand)
-        except Exception as exc:  # a refused or OOM shape disqualifies itself
-            failures.append(f"{cand!r}: {type(exc).__name__}: {exc}")
-            continue
-        times.append((cand, t))
-        if t < best_t:
-            best, best_t = cand, t
-    fell_back = best is None
-    if fell_back:
-        best = fallback if fallback is not None else cands[0]
+        return cached, None
+    with trace.span("open.runner.autotune", candidates=len(cands)) as sp:
+        t0 = time.perf_counter()
+        best, best_t = None, float("inf")
+        failures, times = [], []
+        for cand in cands:
+            try:
+                t = time_candidate(cand)
+            except Exception as exc:  # a refused or OOM shape disqualifies
+                failures.append(f"{cand!r}: {type(exc).__name__}: {exc}")
+                continue
+            times.append((cand, t))
+            if t < best_t:
+                best, best_t = cand, t
+        fell_back = best is None
+        if fell_back:
+            best = fallback if fallback is not None else cands[0]
+        report = SweepReport(
+            key=key, winner=best, fell_back=fell_back, tried=tuple(cands),
+            failures=tuple(failures), times=tuple(times),
+            seconds=time.perf_counter() - t0)
+        sp.set(pick=repr(best), seconds=report.seconds)
     _TUNE_CACHE[key] = best
-    _SWEEP_REPORTS.append(SweepReport(
-        key=key, winner=best, fell_back=fell_back, tried=tuple(cands),
-        failures=tuple(failures), times=tuple(times)))
-    return best
+    _SWEEP_REPORTS.append(report)
+    return best, report
 
 
 def time_call(fn: Callable[[], object],

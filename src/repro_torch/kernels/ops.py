@@ -201,7 +201,7 @@ class ClearingChunkRunner(session.ChunkRunner):
             kernel=self._chunk_fn.__name__, scan=self.scan,
             stats_only=self.stats_only, agents=agents,
             ctas_per_market=rule.ctas_per_market)
-        tile = autotune.autotune_tile(
+        tile, self.sweep = autotune.sweep_tile(
             key, self._timer(rows), cands,
             fallback=rule if rule in cands else cands[0])
         return tile, (tile,) * len(shard_rows)

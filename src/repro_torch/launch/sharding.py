@@ -205,6 +205,19 @@ def join(x, device):
     return x.join(device) if isinstance(x, RowShards) else x
 
 
+def wait(leaves) -> None:
+    """Wait for the current stream of every card that holds a tensor of
+    ``leaves`` (plain tensors, :class:`RowShards` or host values), once a
+    card."""
+    cards = set()
+    for x in leaves:
+        for t in x.parts if isinstance(x, RowShards) else (x,):
+            if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+                cards.add(t.device)
+    for dev in cards:
+        torch.cuda.current_stream(dev).synchronize()
+
+
 def to_host(x) -> np.ndarray:
     """A host numpy copy of a plain tensor or a :class:`RowShards`."""
     return x.to_host() if isinstance(x, RowShards) else result.to_host(x)

@@ -55,7 +55,7 @@ from repro_torch.checkpoint.manager import (CheckpointCorruptError,
                                             CheckpointManager)
 from repro_torch.core.params import EnsembleSpec
 from repro_torch.core.result import to_host
-from repro_torch.core.session import Engine, StepBatch
+from repro_torch.core import session as session_mod
 from repro_torch.kernels import _build
 
 
@@ -140,7 +140,7 @@ class FaultEvent:
 class ChaosReport:
     """Result of :func:`run_plan`."""
 
-    batch: StepBatch             # the full recovered [M, n_steps] stream
+    batch: session_mod.StepBatch  # the full recovered [M, n_steps] stream
     state: Tuple[np.ndarray, ...]  # final MarketState, host-side
     events: Tuple[FaultEvent, ...]
     replay_matched: bool         # every replayed chunk == original, bitwise
@@ -397,14 +397,16 @@ def run_plan(plan: FaultPlan, spec, *, backend: str, ckpt_dir,
     mgr = CheckpointManager(ckpt_dir, async_write=False, keep=keep)
 
     def open_session(engine_opts):
-        eng = Engine(backend, chunk_size=chunk_size, **engine_opts)
+        eng = session_mod.Engine(backend, chunk_size=chunk_size,
+                                 **engine_opts)
         return eng, eng.open(spec)
 
     eng, sess = open_session(opts)
     sess.save_checkpoint(mgr)                 # step 0: the mandatory anchor
     faults = list(plan.faults)
     events: List[FaultEvent] = []
-    collected: Dict[int, StepBatch] = {}      # chunk start step -> batch
+    # chunk start step -> batch
+    collected: Dict[int, session_mod.StepBatch] = {}
     replay_matched = True
     t = 0
     while t < steps:
@@ -474,7 +476,7 @@ def run_plan(plan: FaultPlan, spec, *, backend: str, ckpt_dir,
         if (plan.checkpoint_every and t < steps
                 and t % plan.checkpoint_every == 0):
             sess.save_checkpoint(mgr)
-    full = StepBatch(*(np.concatenate(parts, axis=-1) for parts in
+    full = session_mod.StepBatch(*(np.concatenate(parts, axis=-1) for parts in
                        zip(*(collected[k] for k in sorted(collected)))))
     state = tuple(to_host(x) for x in sess.state)
     sess.close()

@@ -1,16 +1,18 @@
 """Host-side metrics: per-session counters, gauges, timings and windows.
 
-A :class:`MetricsRegistry` is attached to every session ``Engine.open``
-creates (disable with ``Engine(backend, metrics=False)`` or per session
-with ``open(spec, metrics=False)``). Everything it records is sampled on
-the host, outside every kernel launch:
+A :class:`MetricsRegistry` is attached to every engine and to every
+session ``Engine.open`` creates (disable with ``Engine(backend,
+metrics=False)``, or per session with ``open(spec, metrics=False)``).
+Everything it records is sampled on the host, outside every kernel
+launch:
 
   * no value becomes an operand of a launch and no runner is built for
     it, so a metrics-on session builds nothing more and gives the same
     bits as a metrics-off one;
-  * chunk and step timings are dispatch wall times around the existing
-    host calls (no ``torch.cuda.synchronize`` is inserted: a wait would
-    change the latency being observed);
+  * a session's timings are the durations of its spans
+    (:mod:`repro_torch.ops.trace`), host wall times around the existing
+    host calls: a chunk's and a step's are dispatch times, which do not
+    wait for the card;
   * the build counter samples the runner's ``trace_count`` (runners and
     kernel libraries built or loaded) before and after each dispatch.
 
@@ -19,9 +21,20 @@ Recorded by the session (see :class:`repro_torch.core.session.Session`):
   counters  ``steps_total``, ``chunks_total``, ``traces`` (builds during a
             dispatch: 0 on a warm engine), ``snapshots_total``,
             ``restores_total``, ``swaps_total`` (spliced rows)
-  timings   ``chunk_seconds``, ``step_seconds``, ``snapshot_seconds``,
-            ``restore_seconds``, ``swap_seconds`` (count/total/min/max)
-  gauges    ``chunk``, ``num_markets``
+  timings   ``chunk_seconds``, ``step_seconds`` (the ``dispatch`` span),
+            ``snapshot_seconds``, ``restore_seconds``, ``swap_seconds``
+            (their spans), each count/total/min/max
+  gauges    ``chunk``, ``num_markets``, and on the kernel backends
+            ``tile_warps_per_market``, ``tile_markets_per_cta``,
+            ``tile_ctas_per_market``, ``tile_agents``,
+            ``autotune_smem_bytes``
+
+Recorded by the engine (``Engine.metrics``):
+
+  counters  ``runners_built_total``, ``graph_captures_total``,
+            ``graph_replays_total``, ``autotune_sweeps_total``
+  timings   ``autotune_seconds`` (a sweep's wall)
+  gauges    ``runners_cached``
 
 The registry is generic: any consumer may ``inc``/``observe``/``gauge``
 more series. The serving gateway (:mod:`repro_torch.serve`) records:
@@ -129,8 +142,8 @@ class QuantileWindow:
 
 
 class MetricsRegistry:
-    """Per-session metrics: counters, gauges, timing aggregates, and
-    bounded-window quantile summaries.
+    """Counters, gauges, timing aggregates, and bounded-window quantile
+    summaries, of a session, an engine or a gateway.
 
     Thread-safe (one lock around the tiny dict updates) so a streaming
     consumer thread may read :meth:`snapshot` while the session advances.
@@ -182,24 +195,13 @@ class MetricsRegistry:
         with self._lock:
             return self._windows.get(name)
 
-    def steps_per_s(self) -> float:
-        """Derived throughput: steps dispatched per second of chunk wall
-        time (dispatch-side; see module docstring for the async caveat)."""
-        with self._lock:
-            steps = self._counters.get("steps_total", 0)
-            agg = self._timings.get("chunk_seconds")
-            secs = agg.total if agg is not None else 0.0
-        return steps / secs if secs > 0 else 0.0
-
     def snapshot(self) -> Dict[str, Any]:
-        """Plain-python view: {'counters', 'gauges', 'timings', 'windows',
-        'derived'}."""
+        """Plain-python view: {'counters', 'gauges', 'timings',
+        'windows'}."""
         with self._lock:
-            out = {
+            return {
                 "counters": dict(self._counters),
                 "gauges": dict(self._gauges),
                 "timings": {k: v.summary() for k, v in self._timings.items()},
                 "windows": {k: v.summary() for k, v in self._windows.items()},
             }
-        out["derived"] = {"steps_per_s": self.steps_per_s()}
-        return out

@@ -50,6 +50,7 @@ import torch
 
 from repro_torch.core import graphs, rng, session
 from repro_torch.env.core import MarketEnv, _rollout_body, rollout
+from repro_torch.ops import trace
 from repro_torch.train import buffers
 from repro_torch.train.buffers import tree_leaves, tree_map
 from repro_torch.train.policies import (ActorCritic, QuoteGrid,
@@ -267,13 +268,16 @@ class PPOTrainer:
         u = self.config.num_updates if num_updates is None \
             else int(num_updates)
         history: Dict[str, list] = {k: [] for k in METRICS}
-        for _ in range(u):
-            ts, metrics = self.update(ts)
-            for k in METRICS:
-                history[k].append(metrics[k])
-        return ts, {k: (torch.stack(v) if v else
-                        torch.zeros((0,), device=self.device))
-                    for k, v in history.items()}
+        with trace.span("train", rid=ts.update_idx, updates=u):
+            for _ in range(u):
+                ts, metrics = self.update(ts)
+                for k in METRICS:
+                    history[k].append(metrics[k])
+            with trace.span("train.stack"):
+                stacked = {k: (torch.stack(v) if v else
+                               torch.zeros((0,), device=self.device))
+                           for k, v in history.items()}
+        return ts, stacked
 
     def update(self, ts: TrainState):
         """One PPO update: :meth:`collect`, :meth:`advantages`,
@@ -288,24 +292,27 @@ class PPOTrainer:
         ``rollout_len`` one graph serves every update. The CPU and a mesh
         run the same body eagerly.
         """
+        with trace.span("update", rid=ts.update_idx):
+            params, opt_state, env_state, metrics = self._update(ts)
+        return TrainState(params=params, opt_state=opt_state, key=ts.key,
+                          env_state=env_state,
+                          update_idx=ts.update_idx + 1), metrics
+
+    def _update(self, ts: TrainState):
         words = _words(ts.key)
         if self.env._graphed:
             # The update counter enters as a 0-dim int64 device tensor (a
             # fill, no copy), read at every replay.
             counter = torch.full((), ts.update_idx, dtype=torch.int64,
                                  device=self.device)
-            params, opt_state, env_state, metrics = self.env.engine._graph(
+            return self.env.engine._graph(
                 self.graph_key(ts),
                 f"the PPO update of {self!r} (env cursors "
                 f"{_cursors(ts.env_state)})",
                 lambda tree: self._update_body(*tree, words),
                 (ts.params, ts.opt_state, ts.env_state, counter))
-        else:
-            params, opt_state, env_state, metrics = self._update_body(
-                ts.params, ts.opt_state, ts.env_state, ts.update_idx, words)
-        return TrainState(params=params, opt_state=opt_state, key=ts.key,
-                          env_state=env_state,
-                          update_idx=ts.update_idx + 1), metrics
+        return self._update_body(ts.params, ts.opt_state, ts.env_state,
+                                 ts.update_idx, words)
 
     def graph_key(self, ts: TrainState) -> Tuple[Any, ...]:
         """The key of the update graph that :meth:`update` of ``ts`` runs

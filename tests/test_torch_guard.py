@@ -334,6 +334,8 @@ _HLO = ("the port's roofline counts what runs, at run time: PyTorch eager "
 _COMPAT = "a shim for old JAX versions' mesh construction"
 _REIMPORT = ("an incidental re-import of the kernel module's constant, which "
              "the port keeps in kernels.kinetic_clearing")
+_ENQUEUE = ("a rate of steps over dispatch times, which do not wait for the "
+            "card: the port's spans and the benchmark measure the rate")
 
 #: What the port lacks by design, each with its reason (README.md's "Not
 #: ported" list gives the same reasons). Keys: ``module:name``,
@@ -390,6 +392,7 @@ NOT_PORTED = {
     "launch.hlo_analysis:top_contributors(hlo)": _HLO,
     "launch.mesh:make_mesh_compat": _COMPAT,
     "kernels.naive_clearing:NUM_PARAM_OPERANDS": _REIMPORT,
+    "ops.metrics:MetricsRegistry.steps_per_s": _ENQUEUE,
 }
 
 
