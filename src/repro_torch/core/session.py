@@ -94,7 +94,11 @@ class StepBatch(NamedTuple):
 
     def to_numpy(self) -> "StepBatch":
         """Host copies, after one wait for the stream that made them (the
-        spans ``to_host``, ``to_host.wait`` and ``to_host.copy``)."""
+        spans ``to_host``, ``to_host.wait`` and ``to_host.copy``).
+
+        From a card the arrays are page-locked host memory for as long as
+        the caller holds them; the caching host allocator reuses that
+        memory once they are dropped."""
         return StepBatch(*_copy_to_host(self, trace.rid_of(self.price)))
 
     @staticmethod
@@ -285,14 +289,18 @@ def _unknown_backend_error(name: str) -> KeyError:
 def _copy_to_host(leaves, rid=None) -> list:
     """Host numpy copies of ``leaves`` (tensors or row shards): one
     synchronize of the current stream of each card that holds one, then
-    the copies, under the span ``to_host`` (request id ``rid``)."""
+    the copies (:func:`sharding.host_copies`: page-locked from a card),
+    under the span ``to_host`` (request id ``rid``)."""
     with trace.span("to_host", rid=rid):
         with trace.span("to_host.wait"):
             sharding.wait(leaves)
         with trace.span("to_host.copy") as sp:
-            out = [sharding.to_host(x) for x in leaves]
+            out = sharding.host_copies(leaves)
             if sp.on:
-                sp.set(bytes=sum(x.nbytes for x in out))
+                sp.set(bytes=sum(x.nbytes for x in out),
+                       pinned_bytes=sum(
+                           x.nbytes for x in out
+                           if x.size and torch.from_numpy(x).is_pinned()))
     return out
 
 
@@ -591,7 +599,10 @@ class Session:
     @property
     def stats(self) -> Optional[MarketStats]:
         """Host copy of the running statistics (``stats_only``; else None),
-        read from each shard straight to the host."""
+        read from each shard straight to the host. From a card the arrays
+        are page-locked host memory for as long as the caller holds them;
+        the caching host allocator reuses that memory once they are
+        dropped."""
         self._check_open()
         return None if self._stats is None else MarketStats(
             *_copy_to_host(self._stats, self.session_id))
@@ -781,7 +792,8 @@ class Session:
         snap["init"] = {"quote_qty": np.asarray(self.spec.initial_quote_qty),
                         "spread": np.asarray(self.spec.initial_spread)}
         if self._stats is not None:
-            snap["stats"] = dict(zip(MarketStats._fields, self.stats))
+            snap["stats"] = {f: sharding.to_host(v) for f, v in
+                             zip(MarketStats._fields, self._stats)}
         return snap
 
     def restore(self, snap: Dict[str, Any]) -> None:

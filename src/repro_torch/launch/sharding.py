@@ -138,16 +138,8 @@ class RowShards:
     def to_host(self) -> np.ndarray:
         """A host copy: each part copied straight into its rows of one
         (pinned, from cards) host buffer, with no hop through another
-        device; it waits for the copies."""
-        first = self.parts[0]
-        shape = (self.rows[-1].stop,) + tuple(first.shape[1:])
-        cards = {p.device for p in self.parts if p.device.type == "cuda"}
-        out = torch.empty(shape, dtype=first.dtype, pin_memory=bool(cards))
-        for part, r in zip(self.parts, self.rows):
-            out[r].copy_(part.detach(), non_blocking=True)
-        for dev in cards:
-            torch.cuda.current_stream(dev).synchronize()
-        return out.numpy()
+        device; it waits for the copies (:func:`host_copies`)."""
+        return host_copies([self])[0]
 
     def splice(self, idx: np.ndarray, src: torch.Tensor) -> "RowShards":
         """A copy with global rows ``idx`` (distinct ints) replaced by the
@@ -221,6 +213,44 @@ def wait(leaves) -> None:
 def to_host(x) -> np.ndarray:
     """A host numpy copy of a plain tensor or a :class:`RowShards`."""
     return x.to_host() if isinstance(x, RowShards) else result.to_host(x)
+
+
+def host_copies(leaves) -> list:
+    """Host numpy copies of ``leaves`` (plain tensors, :class:`RowShards` or
+    host values), for a result the caller reads and drops; copies that
+    live long (snapshots, checkpoints) take :func:`to_host`, which holds
+    no page-locked memory for plain tensors.
+
+    A leaf with a part on a card lands in one page-locked buffer from
+    PyTorch's caching host allocator, each part copied into its rows
+    without blocking, on its device's current stream; after every copy is
+    queued, one synchronize of each such card. Each array returned is a
+    view that holds its buffer: the allocator hands the block out again
+    only once the array is gone and the copy's recorded event has
+    completed, so call after call reuses the same blocks and no caller's
+    array changes under it. A tensor on the host, or a host value, goes
+    through :func:`repro_torch.core.result.to_host`, and a
+    :class:`RowShards` held on the host lands in one pageable buffer.
+    """
+    out, cards = [], set()
+    for x in leaves:
+        if isinstance(x, RowShards):
+            parts, rows = x.parts, x.rows
+            shape = (rows[-1].stop,) + tuple(parts[0].shape[1:])
+        elif isinstance(x, torch.Tensor) and x.device.type == "cuda":
+            parts, rows, shape = (x,), (Ellipsis,), x.shape
+        else:
+            out.append(result.to_host(x))
+            continue
+        held = {p.device for p in parts if p.device.type == "cuda"}
+        buf = torch.empty(shape, dtype=parts[0].dtype, pin_memory=bool(held))
+        for part, r in zip(parts, rows):
+            buf[r].copy_(part.detach(), non_blocking=True)
+        cards |= held
+        out.append(buf)
+    for dev in cards:
+        torch.cuda.current_stream(dev).synchronize()
+    return [x.numpy() if isinstance(x, torch.Tensor) else x for x in out]
 
 
 def splice(x, idx: np.ndarray, src: torch.Tensor, device):

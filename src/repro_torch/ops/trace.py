@@ -36,7 +36,8 @@ trainer's ``update_idx``):
   ``to_host``               ``StepBatch.to_numpy`` and ``Session.stats``
     ``to_host.wait``        one synchronize of the producing stream (made
                             on or off)
-    ``to_host.copy``        the copy (``bytes``: host bytes written)
+    ``to_host.copy``        the copy (``bytes``: host bytes written;
+                            ``pinned_bytes``: those in page-locked memory)
   ``close``, ``swap``, ``snapshot``, ``restore``  the session's own calls
   ``train``                 ``PPOTrainer.train``
     ``update``              ``PPOTrainer.update``

@@ -6,6 +6,7 @@ card. On the card: ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``.
 """
 import contextlib
+import dataclasses
 
 import pytest
 import torch
@@ -573,6 +574,102 @@ def test_rows_stay_on_their_shards_on_the_card(cuda, shards):
             runs[label] = out
     for g, w in zip(runs["many"], runs["one"]):
         assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# Result copies into page-locked host memory.
+# ---------------------------------------------------------------------------
+
+def _copied(fn):
+    """``fn()`` under a CPU profile, and the attributes of the one
+    ``to_host.copy`` span it recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.ops import trace
+
+    trace.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            out = fn()
+        (copy,) = [r for r in trace.spans() if r.name == "to_host.copy"]
+    finally:
+        trace.clear()
+    return out, copy.attrs
+
+
+def _pinned_and_equal(host, attrs, want):
+    """Every array of ``host`` page-locked and equal to ``want``'s bit for
+    bit, and the copy span's bytes all counted as pinned."""
+    for h, w in zip(host, want, strict=True):
+        assert h.dtype == w.dtype and h.shape == w.shape
+        assert h.tobytes() == w.tobytes()
+        assert torch.from_numpy(h).is_pinned()
+    assert attrs["pinned_bytes"] == attrs["bytes"] \
+        == sum(h.nbytes for h in host) > 0
+
+
+@pytest.mark.parametrize("backend", ["cuda-kinetic", "cuda-naive"])
+@pytest.mark.parametrize("stats_only", [False, True])
+def test_result_copies_are_pinned_and_bit_exact(cuda, backend, stats_only):
+    """``to_numpy()`` and ``stats`` from the card are page-locked arrays
+    equal to ``.cpu().numpy()`` (a snapshot's stats) bit for bit."""
+    eng = Engine(backend, device=cuda, chunk_size=16, stats_only=stats_only)
+    with eng.open(_spec(4, 64, 128, S=40)) as sess:
+        batch = sess.run(40)
+        if stats_only:
+            host, attrs = _copied(lambda: sess.stats)
+            want = list(sess.snapshot()["stats"].values())
+        else:
+            host, attrs = _copied(batch.to_numpy)
+            want = [t.cpu().numpy() for t in batch]
+    _pinned_and_equal(host, attrs, want)
+
+
+@pytest.mark.parametrize("backend", ["cuda-kinetic", "cuda-naive"])
+def test_kept_result_arrays_survive_later_copies(cuda, backend):
+    """Arrays kept from the first ensemble are unchanged after the next
+    ensembles' copies, the second's arrays dropped so that the third's can
+    take their blocks: the allocator reuses no block a caller holds."""
+    eng = Engine(backend, device=cuda, chunk_size=16)
+    cfg = MarketConfig(num_markets=8, num_agents=64, num_levels=128,
+                       num_steps=40, seed=2**31 + 7)
+    first = frozen = None
+    for seed in range(3):
+        spec = EnsembleSpec.homogeneous(
+            dataclasses.replace(cfg, seed=cfg.seed + seed))
+        with eng.open(spec) as sess:
+            host = sess.run(40).to_numpy()
+        if first is None:
+            first, frozen = host, [a.copy() for a in host]
+        else:
+            assert any(a.tobytes() != b.tobytes()
+                       for a, b in zip(host, frozen))
+        del host
+    for a, b in zip(first, frozen):
+        assert torch.from_numpy(a).is_pinned()
+        assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("stats_only", [False, True])
+def test_a_two_shard_session_copies_pinned_and_equal_to_one(cuda,
+                                                            stats_only):
+    """On a mesh naming ``cuda:0`` twice, ``to_numpy()`` and ``stats``
+    (each shard's rows copied into one pinned buffer) equal the unsharded
+    session's bit for bit."""
+    from repro_torch.launch import MarketsMesh
+
+    spec = _spec(20, 64, 128, S=48)
+    runs = {}
+    for label, opts in (("one", {}),
+                        ("two", {"mesh": MarketsMesh.of([cuda, cuda])})):
+        eng = Engine("cuda-kinetic", device=cuda, chunk_size=16,
+                     stats_only=stats_only, **opts)
+        with eng.open(spec) as sess:
+            batch = sess.run(48)
+            runs[label] = _copied(lambda: sess.stats if stats_only
+                                  else batch.to_numpy())
+    _pinned_and_equal(*runs["two"], runs["one"][0])
+    _pinned_and_equal(*runs["one"], runs["two"][0])
 
 
 # ---------------------------------------------------------------------------

@@ -117,6 +117,23 @@ def test_the_stats_copy_counts_its_bytes_and_session():
         == 6 * CFG.num_markets * 4
 
 
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("stats_only", [False, True])
+def test_a_host_session_copies_nothing_into_pinned_memory(backend,
+                                                          stats_only):
+    """On the CPU ``StepBatch.to_numpy`` and ``Session.stats`` keep their
+    host path: the copy span counts its bytes and none of them pinned."""
+    eng = Engine(backend, device="cpu", stats_only=stats_only)
+    sess = eng.open(CFG)
+    batch = sess.run(12)
+    host, _ = profiled(lambda: sess.stats if stats_only
+                       else batch.to_numpy())
+    (copy,) = [r for r in trace.spans() if r.name == "to_host.copy"]
+    assert copy.attrs["bytes"] == sum(x.nbytes for x in host) > 0
+    assert copy.attrs["pinned_bytes"] == 0
+    assert not any(torch.from_numpy(x).is_pinned() for x in host)
+
+
 def test_a_build_shows_on_a_new_seed_only():
     eng = Engine("torch-scan", device="cpu")
 
