@@ -191,6 +191,15 @@ def host_ints(packed: PackedParams) -> np.ndarray:
             "pack_params (or record one with with_host_ints)") from None
 
 
+def coupled_count(peer, first: int = 0) -> int:
+    """Markets with a real peer: rows ``first, first + 1, ...`` whose
+    ``coupling_peer`` (``peer``, host values) is neither ``< 0`` nor the
+    row's own index."""
+    peer = np.asarray(peer).reshape(-1)
+    own = np.arange(first, first + peer.size)
+    return int(np.count_nonzero((peer >= 0) & (peer != own)))
+
+
 def replace_rows(params: MarketParams, slots, rows: MarketParams,
                  ) -> MarketParams:
     """Host row splice: ``params`` with markets ``slots`` replaced by the

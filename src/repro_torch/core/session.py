@@ -138,6 +138,9 @@ class ChunkRunner:
     #: The tile sweep this runner's construction ran
     #: (a ``kernels.autotune.SweepReport``), or None.
     sweep: Any = None
+    #: Chunk-entry peer gathers run so far (the kernel runners: one a
+    #: chunk, a shard's a chunk on a mesh).
+    peer_resolves: int = 0
 
     def __init__(self, device: torch.device) -> None:
         self.device = device
@@ -349,7 +352,11 @@ class Engine:
     engine's registry counts its runners and graphs: counters
     ``runners_built_total``, ``graph_captures_total``,
     ``graph_replays_total`` and ``autotune_sweeps_total``, gauge
-    ``runners_cached``, timing ``autotune_seconds``.
+    ``runners_cached``, timing ``autotune_seconds``; and its sessions'
+    coupling: counter ``peer_resolves_total`` (the runners' chunk-entry
+    peer gathers, :attr:`ChunkRunner.peer_resolves`) and gauge
+    ``coupled_markets`` (the markets with a real peer in the spec last
+    opened).
     """
 
     def __init__(self, backend: str = "cuda-kinetic", *,
@@ -462,6 +469,9 @@ class Engine:
         on = self._session_metrics if metrics is None else metrics
         registry = MetricsRegistry() if on else None
         sid = next(_SESSION_IDS)
+        if self.metrics is not None:
+            self.metrics.gauge("coupled_markets", params_mod.coupled_count(
+                spec.params.coupling_peer))
         with trace.span("open", rid=sid):
             return Session(self, spec, self._runner(spec, max(1, chunk)),
                            metrics=registry, session_id=sid)
@@ -520,7 +530,9 @@ class Session:
         self._step_runner: Optional[ChunkRunner] = None
         with trace.span("open.state"):
             self._state = runner.init_state(spec)
-        with trace.span("open.params"):
+        with trace.span("open.params") as sp:
+            if sp.on:
+                sp.set(scenarios=tuple(dict.fromkeys(spec.scenarios)))
             self._params = runner.params_to_device(spec.params)
         self._aux = runner.init_aux(spec)
         with trace.span("open.stats"):
@@ -641,6 +653,7 @@ class Session:
         m = self.metrics
         if m is not None:
             builds0 = runner.trace_count
+        resolves0 = runner.peer_resolves
         with trace.span("dispatch", rid=self.session_id, metrics=m,
                         timing=f"{kind}_seconds", kind=kind, steps=n,
                         chunk=runner.chunk) as sp:
@@ -656,6 +669,9 @@ class Session:
             built = runner.trace_count - builds0
             if built:
                 m.inc("traces", built)
+        resolves = runner.peer_resolves - resolves0
+        if resolves and self._engine.metrics is not None:
+            self._engine.metrics.inc("peer_resolves_total", resolves)
         self._t += n
         return batch
 

@@ -11,14 +11,16 @@ function with the operands of
 
 On the CPU both run the same plain PyTorch version. The coupling column is
 frozen at chunk entry inside the wrappers, as on every backend of the JAX
-package. The env step core (:meth:`ClearingChunkRunner.env_step_fn`) is one
-step of ``run``'s path on the engine's chunk-1 runner: one launch of kernel 1
-(or 2) per env step (per shard and step on a mesh, on the env's row-sharded
-state as it is), its peer column resolved at every step. On one card a
-rollout's or an update's CUDA graph holds those launches (the wrappers
-launch on the current stream, the capture's); the tile sweep below runs
-when a runner is built, before any capture, and a mesh keeps the host
-loop (:attr:`ClearingChunkRunner.graphable`).
+package; each chunk-entry gather is the span ``dispatch.peer`` and counts in
+:attr:`~repro_torch.core.session.ChunkRunner.peer_resolves`. The env step
+core (:meth:`ClearingChunkRunner.env_step_fn`) is one step of ``run``'s path
+on the engine's chunk-1 runner: one launch of kernel 1 (or 2) per env step
+(per shard and step on a mesh, on the env's row-sharded state as it is), its
+peer column resolved at every step. On one card a rollout's or an update's
+CUDA graph holds those launches (the wrappers launch on the current stream,
+the capture's); the tile sweep below runs when a runner is built, before
+any capture, and a mesh keeps the host loop
+(:attr:`ClearingChunkRunner.graphable`).
 
 Knobs (``Engine`` backend options, all composable; ``repro``'s names in
 brackets):
@@ -84,6 +86,7 @@ from repro_torch.launch import roofline
 from repro_torch.launch.mesh import MarketsMesh, make_markets_mesh
 from repro_torch.launch.sharding import (RowShards, market_sharding,
                                          place_params, shard_params)
+from repro_torch.ops import trace
 
 BACKEND = "cuda-kinetic"
 NAIVE_BACKEND = "cuda-naive"
@@ -313,6 +316,27 @@ class ClearingChunkRunner(session.ChunkRunner):
             return [torch.cat([seen[k][j] for j in range(n)], dim=0)
                     for k in range(n)]
 
+    def _peer_mids(self, mids: torch.Tensor, params: PackedParams,
+                   own: Optional[torch.Tensor] = None,
+                   first: int = 0) -> torch.Tensor:
+        """The chunk-entry gather of each row's peer mid from ``mids``
+        (rows ``first, first + 1, ...`` of the whole column), in the span
+        ``dispatch.peer``: ``rows`` and ``coupled``, the rows with a real
+        peer, read from the params' host copy (None without one) before
+        the span opens, so that its duration is the gather's alone."""
+        coupled = None
+        if trace.enabled():
+            try:
+                coupled = params_mod.coupled_count(
+                    params_mod.host_ints(params)[:, _PEER], first)
+            except LookupError:
+                pass
+        with trace.span("dispatch.peer", rows=params.ints.shape[0],
+                        coupled=coupled):
+            peer = resolve_peer_mids(mids, params.ints[:, _PEER], own)
+        self.peer_resolves += 1
+        return peer
+
     def _launch_shards(self, state: MarketState, params: PackedParams,
                        step0: int, n: int, ext, stats, join: bool) -> Tuple:
         """One call per shard on its resident rows, after the ring; the new
@@ -334,7 +358,7 @@ class ClearingChunkRunner(session.ChunkRunner):
             with roofline.shard(pos, dev):
                 own = torch.arange(rows.start, rows.stop, device=dev)[:, None]
                 p = shard_params(params, pos)
-                peer = resolve_peer_mids(mids[pos], p.ints[:, _PEER], own)
+                peer = self._peer_mids(mids[pos], p, own, rows.start)
                 outs.append(self._call(
                     MarketState(*map(part, state)), p, step0, n,
                     None if ext is None else tuple(map(part, ext)),
@@ -375,7 +399,7 @@ class ClearingChunkRunner(session.ChunkRunner):
             new_state, out = self._launch_shards(state, params, step0, n,
                                                  ext, stats, join)
         else:
-            peer = resolve_peer_mids(state.prev_mid, params.ints[:, _PEER])
+            peer = self._peer_mids(state.prev_mid, params)
             res = self._call(state, params, step0, n, ext, stats,
                              self._market_ids, peer)
             new_state, out = MarketState(*res[:4]), (

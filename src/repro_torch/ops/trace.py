@@ -30,9 +30,13 @@ trainer's ``update_idx``):
         ``open.runner.autotune``  the timed tile sweep (``candidates``,
                                   ``pick``, ``seconds``)
     ``open.state``, ``open.params``, ``open.stats``  the session's books,
-                              packed params and accumulators
+                              packed params (``scenarios``: the spec's
+                              distinct labels, in order) and accumulators
   ``dispatch``              one runner call (``kind``, ``steps``,
                             ``chunk``)
+    ``dispatch.peer``       a kernel runner's chunk-entry peer gather
+                            (``rows``; ``coupled``: the rows with a real
+                            peer, from the params' host copy)
   ``to_host``               ``StepBatch.to_numpy`` and ``Session.stats``
     ``to_host.wait``        one synchronize of the producing stream (made
                             on or off)

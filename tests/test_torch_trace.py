@@ -37,7 +37,11 @@ PARENTS = {"open": None, "open.runner": "open",
            "open.runner.build": "open.runner", "open.state": "open",
            "open.params": "open", "open.stats": "open", "dispatch": None,
            "to_host": None, "to_host.wait": "to_host",
-           "to_host.copy": "to_host", "close": None}
+           "to_host.copy": "to_host", "close": None,
+           "dispatch.peer": "dispatch"}
+#: The spans of a kernel runner's session besides: its chunk-entry peer
+#: gathers.
+KERNEL_SPANS = {"dispatch.peer"}
 
 
 @pytest.fixture(autouse=True)
@@ -67,7 +71,9 @@ def test_a_profiled_session_emits_its_ranges_nested(backend):
     eng = Engine(backend, device="cpu", chunk_size=4)
     (sess, batch, host), prof = profiled(lambda: session_run(eng))
     records = trace.spans()
-    assert {r.name for r in records} == SESSION_SPANS
+    want = SESSION_SPANS | (KERNEL_SPANS if backend == "cuda-kinetic"
+                            else set())
+    assert {r.name for r in records} == want
     for r in records:
         assert r.parent == PARENTS[r.name], r
         assert r.rid == sess.session_id, r
@@ -79,14 +85,15 @@ def test_a_profiled_session_emits_its_ranges_nested(backend):
     (lookup,) = [r for r in records if r.name == "open.runner"]
     assert lookup.attrs == {"hit": False}
     # a child lies inside its parent
-    by_name = {r.name: r for r in records if r.name != "dispatch"}
+    by_name = {r.name: r for r in records
+               if r.name not in ("dispatch", "dispatch.peer")}
     for r in by_name.values():
         if r.parent is not None:
             p = by_name[r.parent]
             assert p.start_ns <= r.start_ns <= r.end_ns <= p.end_ns
     # the profiler's own trace holds the same ranges, nested the same way
     events = [e for e in prof.events() if e.name.startswith(trace.PREFIX)]
-    assert {e.name[len(trace.PREFIX):] for e in events} == SESSION_SPANS
+    assert {e.name[len(trace.PREFIX):] for e in events} == want
     for e in events:
         want = PARENTS[e.name[len(trace.PREFIX):]]
         parent = e.cpu_parent
