@@ -626,13 +626,18 @@ def phase_build():
     ptxas = {**_build.ptxas_report("kinetic_clearing"),
              **_build.ptxas_report("naive_clearing")}
     # The persistent kernels once per agent mode (the AGENT_MODES index) at
-    # one CTA a market (<code, false>) and on a market cluster
-    # (<code, true>); the per-step kernels at one CTA a market (<false>)
-    # and on a market cluster (<true>).
-    kernels = tuple(f"kinetic_{k}_kernel<{code}, {cluster}>"
+    # one CTA a market (<code, false, 4>) and on a market cluster
+    # (<code, true, 4>), four levels a lane, and in the registers mode at
+    # one CTA a market at 8, 16 and 32 levels a lane (<1, false, lpl>);
+    # the per-step kernels at one CTA a market (<false>) and on a market
+    # cluster (<true>).
+    registers = autotune.AGENT_MODES.index("registers")
+    kernels = tuple(f"kinetic_{k}_kernel<{code}, {cluster}, 4>"
                     for k in ("chunk", "legacy")
                     for code in range(len(autotune.AGENT_MODES))
                     for cluster in ("false", "true")) + tuple(
+        f"kinetic_{k}_kernel<{registers}, false, {lpl}>"
+        for k in ("chunk", "legacy") for lpl in (8, 16, 32)) + tuple(
         f"naive_{k}_step_kernel<{cluster}>" for k in ("chunk", "legacy")
         for cluster in ("false", "true"))
     for name in kernels:
@@ -1691,25 +1696,34 @@ def ablation(M, k1, k2, tiles, b, reps) -> dict:
 
 
 def launch_facts(M, A, L) -> dict:
-    """The kernels' launch shape at (M, A, L) and each kernel's resident
-    CTAs per SM there."""
+    """The kernels' launch shape at (M, A, L), one CTA a market (the
+    persistent rule's narrow team where it takes one; the per-step
+    kernels' shape under ``step`` then), and each kernel's resident CTAs
+    per SM there."""
     from repro_torch.kernels import autotune
     from repro_torch.kernels import kinetic_clearing as kc
     from repro_torch.kernels import naive_clearing as nc
 
-    shape = autotune.auto_tile(L, A)
-    return dict(
+    step = autotune.auto_tile(L, A)
+    shape = autotune.auto_tile(L, A, M)
+    if shape.ctas_per_market > 1:
+        shape = step
+    facts = dict(
         warps_per_market=shape.warps_per_market,
         markets_per_cta=shape.markets_per_cta,
+        levels_per_lane=shape.levels_per_lane,
         agents=shape.agents,
         threads_per_cta=shape.threads_per_cta, grid=shape.grid(M),
         smem_bytes={"persistent": shape.smem_bytes(True),
-                    "per_step": shape.smem_bytes(False)},
+                    "per_step": step.smem_bytes(False)},
         resident_ctas_per_sm={
             "kinetic_clearing_chunk": kc.resident_ctas(False, shape),
-            "naive_clearing_chunk": nc.resident_ctas(False, shape),
+            "naive_clearing_chunk": nc.resident_ctas(False, step),
             "kinetic_clearing": kc.resident_ctas(True, shape),
-            "naive_clearing": nc.resident_ctas(True, shape)})
+            "naive_clearing": nc.resident_ctas(True, step)})
+    if step != shape:
+        facts["step"] = list(step[2:])
+    return facts
 
 
 def homogeneous(M, A, L, S):

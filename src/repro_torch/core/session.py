@@ -552,6 +552,7 @@ class Session:
                 metrics.gauge("tile_markets_per_cta", tile.markets_per_cta)
                 metrics.gauge("tile_ctas_per_market", tile.ctas_per_market)
                 metrics.gauge("tile_agents", tile.agents)
+                metrics.gauge("tile_levels_per_lane", tile.levels_per_lane)
                 metrics.gauge("autotune_smem_bytes",
                               autotune.estimate_smem_bytes(
                                   tile, spec.num_levels, spec.num_agents,

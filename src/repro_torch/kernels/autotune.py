@@ -6,8 +6,13 @@ It is the counterpart of ``repro.kernels.autotune`` (``TileChoice``,
 unit is a *market team* and not a sublane tile (``csrc/kinetic_step.cuh``):
 
   * a team of ``warps_per_market`` warps clears one market; thread ``t``
-    owns the ``LEVELS_PER_LANE`` contiguous levels ``[4t, 4t + 4)`` and
-    holds them in registers, so a market needs ``L / 128`` warps at least;
+    owns the :func:`levels_per_lane` = LPL contiguous levels
+    ``[LPL·t, LPL·t + LPL)`` and holds them in registers: four
+    (``LEVELS_PER_LANE``) wherever the team has ``L / 128`` warps or more,
+    as the per-step kernels and every market cluster always do; a
+    persistent kernel in the registers mode at one CTA a market may run a
+    narrower team, up to ``MAX_LEVELS_PER_LANE`` = 32 levels a lane (a
+    one-warp team at L = 1024), where it crosses no block barrier;
   * one CTA holds ``markets_per_cta`` teams: several one-warp teams, or one
     several-warp team (whose barrier is then ``__syncthreads()``); a
     ragged last CTA is masked in the kernel;
@@ -34,7 +39,10 @@ unit is a *market team* and not a sublane tile (``csrc/kinetic_step.cuh``):
     a population past one CTA's shared memory can keep its keys on chip.
 
 :func:`auto_tile` is the rule: ``W = max(1, L / 128)``, four one-warp
-teams a CTA, agents in registers while they fit; past that the first
+teams a CTA, agents in registers while they fit (past L = 128, for a
+persistent kernel's grid that such a team runs in more than one wave,
+the fewest warps whose registers hold the agents, at ``L / (32·W)``
+levels a lane); past that the first
 agent mode that fits one CTA, at a team of ``MAX_TEAM_WARPS`` warps, one
 a CTA, wherever shared memory holds fewer than ``MARKETS_PER_CTA``
 one-warp teams (always in the fresh mode); and, given the number of
@@ -65,6 +73,9 @@ from repro_torch.ops import trace
 
 LEVELS_PER_LANE = 4
 LEVELS_PER_WARP = 32 * LEVELS_PER_LANE
+#: Levels a lane of a persistent team in the registers mode may hold: a
+#: one-warp team at L = 1024.
+MAX_LEVELS_PER_LANE = 32
 #: Agent slots a thread of a persistent kernel holds in registers.
 REG_AGENTS = 8
 #: Teams per CTA the rule takes when a market is one warp.
@@ -129,6 +140,10 @@ class TileChoice(NamedTuple):
     def threads_per_cta(self) -> int:
         return self.threads_per_market * self.markets_per_cta
 
+    @property
+    def levels_per_lane(self) -> int:
+        return levels_per_lane(self.num_levels, self.warps_per_market)
+
     def grid(self, num_markets: int) -> int:
         """CTAs for ``num_markets``: the last may be ragged, and a
         market's cluster is ``ctas_per_market`` CTAs side by side."""
@@ -161,6 +176,14 @@ class SweepReport(NamedTuple):
     failures: Tuple[str, ...]      # one "TileChoice(...): ExcType: msg" each
     times: Tuple[Tuple[TileChoice, float], ...] = ()  # seconds, the timed ones
     seconds: float = 0.0           # the sweep's wall, every candidate's
+
+
+def levels_per_lane(num_levels: int, warps_per_market: int) -> int:
+    """Levels a lane of a team of ``warps_per_market`` warps holds at
+    ``num_levels`` (``levels_per_lane`` of the C side): four up to
+    L = 128·W, else ``L / (32·W)``."""
+    return max(LEVELS_PER_LANE,
+               int(num_levels) // (32 * int(warps_per_market)))
 
 
 def agent_slots(num_agents: int, threads_per_market: int,
@@ -200,12 +223,16 @@ def _check_domain(num_levels: int, num_agents: int) -> Tuple[int, int]:
 def check_shape(num_levels: int, num_agents: int, warps_per_market: int,
                 markets_per_cta: int, agents: str, hoisted: bool,
                 ctas_per_market: int = 1) -> int:
-    """The C side's ``check_shape``: the dynamic shared memory a CTA of
-    this shape takes, or ``ValueError`` for a shape the kernels refuse. A
-    per-step kernel (``hoisted=False``) keeps no agents, so it checks the
-    shape in the fresh mode, as its C entry does. Either kind takes a
-    cluster at one market a CTA (the registers mode holding
-    ``REG_AGENTS`` agents a thread of it)."""
+    """The C side's ``check_persistent_shape`` (``hoisted``) or
+    ``check_shape``: the dynamic shared memory a CTA of this shape takes,
+    or ``ValueError`` for a shape the kernels refuse. A per-step kernel
+    (``hoisted=False``) keeps no agents, so it checks the shape in the
+    fresh mode, as its C entry does, at four levels a lane. Either kind
+    takes a cluster at one market a CTA (the registers mode holding
+    ``REG_AGENTS`` agents a thread of it, four levels a lane); a
+    persistent kernel in the registers mode at one CTA a market takes a
+    team narrower than ``L / 128`` warps, up to ``MAX_LEVELS_PER_LANE``
+    levels a lane."""
     L, A = _check_domain(num_levels, num_agents)
     W, mpc = int(warps_per_market), int(markets_per_cta)
     C = int(ctas_per_market)
@@ -213,9 +240,16 @@ def check_shape(num_levels: int, num_agents: int, warps_per_market: int,
     if agents not in AGENT_MODES:
         raise ValueError(f"agents must be one of {AGENT_MODES}, got "
                          f"{agents!r}")
-    if W not in WARPS_PER_MARKET or W * LEVELS_PER_WARP < L:
+    if W not in WARPS_PER_MARKET:
+        raise ValueError(f"warps_per_market={W} is not one of "
+                         f"{WARPS_PER_MARKET}")
+    lpl = levels_per_lane(L, W)
+    wide_ok = hoisted and mode == "registers" and C == 1
+    if lpl > (MAX_LEVELS_PER_LANE if wide_ok else LEVELS_PER_LANE):
         raise ValueError(f"warps_per_market={W} cannot hold L={L} levels "
-                         f"(one of {WARPS_PER_MARKET} with 128·W >= L)")
+                         f"(128·W >= L, or up to {MAX_LEVELS_PER_LANE} "
+                         f"levels a lane for a persistent kernel in the "
+                         f"registers mode at one CTA a market)")
     if mpc < 1 or (W > 1 and mpc != 1) or \
             32 * W * mpc > MAX_CTA_THREADS:
         raise ValueError(f"markets_per_cta={mpc} at warps_per_market={W}: "
@@ -270,6 +304,10 @@ def estimate_smem_bytes(tile: TileChoice, num_levels: int, num_agents: int,
 H100_REGISTERS = {("shared", False): 83, ("registers", False): 95,
                   ("fresh", False): 84, ("shared", True): 90,
                   ("registers", True): 144, ("fresh", True): 80}
+#: Registers a thread of each persistent registers-mode instance of more
+#: than four levels a lane takes on the H100 (one CTA a market): levels a
+#: lane -> registers, no spills.
+H100_WIDE_REGISTERS = {8: 106, 16: 146, 32: 255}
 #: Registers a thread of each per-step instance takes on the H100 (the
 #: larger of the chunk and legacy step kernels', ``build`` line): on a
 #: cluster -> registers.
@@ -304,15 +342,20 @@ def h100_holds(tile: TileChoice, hoisted: bool = True) -> int:
     """What an H100 holds of ``tile`` at once for the persistent kernels
     (for the per-step ones, ``hoisted=False``), as :func:`card_holds` reads
     it on the card: k CTAs an SM from each thread's registers
-    (``H100_REGISTERS``, ``H100_STEP_REGISTERS``; 8 at a time, a warp's in
+    (``H100_REGISTERS``, ``H100_WIDE_REGISTERS``,
+    ``H100_STEP_REGISTERS``; 8 at a time, a warp's in
     one sub-partition), the CTA's shared memory (128 bytes at a time) and
     its threads; at C > 1 the clusters of ``H100_CLUSTERS`` (where the
     card was not asked at that k, those of the nearest k below it,
     scaled)."""
     sm = H100_SM
     cluster = tile.ctas_per_market > 1
-    regs = H100_REGISTERS[(tile.agents, cluster)] if hoisted \
-        else H100_STEP_REGISTERS[cluster]
+    if not hoisted:
+        regs = H100_STEP_REGISTERS[cluster]
+    elif tile.levels_per_lane > LEVELS_PER_LANE:
+        regs = H100_WIDE_REGISTERS[tile.levels_per_lane]
+    else:
+        regs = H100_REGISTERS[(tile.agents, cluster)]
     regs = -(-regs // 8) * 8
     warps = sm["partitions"] * (sm["partition_registers"] // (32 * regs))
     smem = -(-(tile.smem_bytes(hoisted) + STATIC_SMEM + sm["reserved"])
@@ -416,7 +459,16 @@ def auto_tile(num_levels: int, num_agents: int,
     ``num_agents`` (>= 1); raises ``ValueError`` outside that domain.
 
     While a thread of ``max(1, L / 128)`` warps holds its agents in
-    registers, that team, four a CTA at one warp, and C = 1. Past that, the
+    registers, that team, four a CTA at one warp, and C = 1; but a
+    persistent kernel (``hoisted``) past L = 128 whose ``num_markets``
+    that team runs in more than one wave (:func:`waves` over ``holds`` on
+    ``sms`` SMs) takes the fewest warps whose registers hold the agents
+    (four a CTA at one warp), each lane holding ``L / (32·W)`` levels: a
+    narrow team's step is a longer serial pass, which more markets in
+    flight repay once the wide team's grid no longer fits the card at
+    once (on an H100 at A=32, L=1024: eight warps 0.19 ms and one warp
+    0.24 ms a 64-step call at 264 markets, 0.36 and 0.24 at 528). Past
+    that, the
     first mode one CTA holds, at one CTA a market of ``MAX_TEAM_WARPS``
     warps wherever shared memory holds fewer than ``MARKETS_PER_CTA``
     one-warp teams. Given ``num_markets`` whose grid leaves SMs idle, a
@@ -440,8 +492,15 @@ def auto_tile(num_levels: int, num_agents: int,
     L, A = _check_domain(num_levels, num_agents)
     W = max(1, L // LEVELS_PER_WARP)
     if A <= REG_AGENTS * 32 * W:
-        return TileChoice(L, A, W, MARKETS_PER_CTA if W == 1 else 1,
+        tile = TileChoice(L, A, W, MARKETS_PER_CTA if W == 1 else 1,
                           "registers")
+        if hoisted and W > 1 and num_markets is not None and waves(
+                tile, num_markets, card_sms() if sms is None else sms,
+                card_holds if holds is None else holds) > 1:
+            W = min(w for w in WARPS_PER_MARKET if A <= REG_AGENTS * 32 * w)
+            tile = TileChoice(L, A, W, MARKETS_PER_CTA if W == 1 else 1,
+                              "registers")
+        return tile
     per_market = team_smem_bytes(L, A, True)
     agents = "shared" if per_market <= MAX_DYNAMIC_SMEM else "fresh"
     # A thread of a one-warp team past the registers mode handles more

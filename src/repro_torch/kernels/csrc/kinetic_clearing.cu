@@ -18,7 +18,11 @@
 // (8 past the registers mode where four one-warp teams do not fit a CTA),
 // four levels per thread, the books in registers for all the steps and only
 // the incoming bins in shared memory, so the books touch device memory only
-// at entry and exit. Each agent's step-invariant hash round and type are
+// at entry and exit. In the registers mode at one CTA a market a team may
+// be narrower than L/128 warps: each thread then holds LPL = L / (32·W)
+// levels, 8, 16 or 32 (the instances <AGENTS_REGISTERS, false, LPL>, with
+// SwizzledBins), and a one-warp team clears a book of 1,024 levels with no
+// block barrier. Each agent's step-invariant hash round and type are
 // computed once per call: in registers while a thread has at most 8 agents
 // (AGENTS_REGISTERS), else in the CTA's shared memory (AGENTS_SHARED);
 // where the keys and type bytes do not fit a CTA's shared memory they are
@@ -37,9 +41,9 @@
 // its archetype: mostly 32-bit integer work, which Hopper issues at half
 // the FP32 rate, plus conversions at an eighth of it
 // (kinetic_clearing.py::op_count). The design spends the issue slots on
-// that work alone: no block barriers at L <= 128, shuffle reductions and
-// raking scans over four levels a thread, integer bins, and path writes 32
-// steps at a time.
+// that work alone: no block barriers at L <= 128 (nor at any L for a
+// one-warp team of wide lanes), shuffle reductions and raking scans over a
+// thread's own levels, integer bins, and path writes 32 steps at a time.
 
 #include <type_traits>
 
@@ -51,12 +55,19 @@
 // ChunkArgs its C entry fills, never by the kernel. They stay two kernels
 // so each TPU kernel has its own name in the launch counts and ptxas report;
 // a change to one body is a change to both. AGENTS is an AgentMode;
-// CLUSTER spreads a market over a thread-block cluster.
-template <int AGENTS, bool CLUSTER>
+// CLUSTER spreads a market over a thread-block cluster; LPL is the levels
+// a lane holds (more than four only in the registers mode at one CTA a
+// market).
+template <int AGENTS, bool CLUSTER, int LPL>
 __device__ __forceinline__ void persistent_body(const ChunkArgs& g) {
-  using Bins = std::conditional_t<CLUSTER, ClusterBins, CtaBins>;
+  static_assert(LPL == LEVELS_PER_LANE ||
+                    (AGENTS == AGENTS_REGISTERS && !CLUSTER),
+                "wide lanes: registers mode, one CTA a market");
+  using Bins = std::conditional_t<
+      CLUSTER, ClusterBins,
+      std::conditional_t<(LPL > LEVELS_PER_LANE), SwizzledBins, CtaBins>>;
   if constexpr (AGENTS == AGENTS_REGISTERS) {
-    persistent_market<RegAgents, Bins>(g);
+    persistent_market<RegAgents, Bins, LPL>(g);
   } else if constexpr (AGENTS == AGENTS_SHARED) {
     persistent_market<SmemAgents, Bins>(g);
   } else {
@@ -64,14 +75,14 @@ __device__ __forceinline__ void persistent_body(const ChunkArgs& g) {
   }
 }
 
-template <int AGENTS, bool CLUSTER = false>
+template <int AGENTS, bool CLUSTER = false, int LPL = LEVELS_PER_LANE>
 __global__ void kinetic_chunk_kernel(ChunkArgs g) {
-  persistent_body<AGENTS, CLUSTER>(g);
+  persistent_body<AGENTS, CLUSTER, LPL>(g);
 }
 
-template <int AGENTS, bool CLUSTER = false>
+template <int AGENTS, bool CLUSTER = false, int LPL = LEVELS_PER_LANE>
 __global__ void kinetic_legacy_kernel(ChunkArgs g) {
-  persistent_body<AGENTS, CLUSTER>(g);
+  persistent_body<AGENTS, CLUSTER, LPL>(g);
 }
 
 template <class K>
@@ -109,13 +120,29 @@ static int launch_mode(bool legacy, const ChunkArgs& g, size_t smem,
                 : launch(kinetic_chunk_kernel<AGENTS>, g, smem, stream);
 }
 
+// A registers-mode team of LPL > 4 levels a lane, one CTA a market.
+template <int LPL>
+static int launch_wide(bool legacy, const ChunkArgs& g, size_t smem,
+                       void* stream) {
+  return legacy ? launch(kinetic_legacy_kernel<AGENTS_REGISTERS, false, LPL>,
+                         g, smem, stream)
+                : launch(kinetic_chunk_kernel<AGENTS_REGISTERS, false, LPL>,
+                         g, smem, stream);
+}
+
 static int launch_persistent(bool legacy, const ChunkArgs& g, int agents,
                              void* stream) {
   size_t smem;
-  const int bad = check_shape(g.L, g.A, g.warps_per_market,
-                              g.markets_per_cta, agents, g.ctas_per_market,
-                              &smem);
+  const int bad = check_persistent_shape(
+      g.L, g.A, g.warps_per_market, g.markets_per_cta, agents,
+      g.ctas_per_market, &smem);
   if (bad != 0) return bad;
+  switch (levels_per_lane(g.L, g.warps_per_market)) {
+    case 8: return launch_wide<8>(legacy, g, smem, stream);
+    case 16: return launch_wide<16>(legacy, g, smem, stream);
+    case 32: return launch_wide<32>(legacy, g, smem, stream);
+    default: break;
+  }
   switch (agents) {
     case AGENTS_REGISTERS:
       return launch_mode<AGENTS_REGISTERS>(legacy, g, smem, stream);
@@ -124,6 +151,18 @@ static int launch_persistent(bool legacy, const ChunkArgs& g, int agents,
     default:
       return launch_mode<AGENTS_FRESH>(legacy, g, smem, stream);
   }
+}
+
+// CTAs per SM the card holds of a registers-mode instance of LPL > 4
+// levels a lane.
+template <int LPL>
+static int occupancy_wide(bool legacy, int threads, size_t smem, int* ctas) {
+  return legacy ? resident_ctas(
+                      kinetic_legacy_kernel<AGENTS_REGISTERS, false, LPL>,
+                      threads, smem, ctas)
+                : resident_ctas(
+                      kinetic_chunk_kernel<AGENTS_REGISTERS, false, LPL>,
+                      threads, smem, ctas);
 }
 
 // What the card holds of an AGENTS instance: clusters of C > 1 CTAs, else
@@ -146,9 +185,10 @@ static int occupancy_mode(bool legacy, int threads, size_t smem, int C,
 extern "C" {
 
 // Launches the chunk kernel on `stream` and returns cudaGetLastError() (or
-// cudaErrorInvalidValue for a launch shape check_shape refuses). ext_buy,
-// ext_ask may be null (no external orders). stats_in/stats_out ([M, 6])
-// are non-null exactly in stats_only mode, where the three paths are null.
+// cudaErrorInvalidValue for a launch shape check_persistent_shape
+// refuses). ext_buy, ext_ask may be null (no external orders).
+// stats_in/stats_out ([M, 6]) are non-null exactly in stats_only mode,
+// where the three paths are null.
 int kc_kinetic_clearing_chunk(
     const int* market_ids, const float* bid, const float* ask,
     const float* last, const float* pmid, const float* ext_buy,
@@ -194,21 +234,26 @@ int kc_occupancy(int legacy, int A, int L, int warps_per_market,
                  int markets_per_cta, int agents, int ctas_per_market,
                  int* ctas) {
   size_t smem;
-  const int bad = check_shape(L, A, warps_per_market, markets_per_cta,
-                              agents, ctas_per_market, &smem);
+  const int bad = check_persistent_shape(L, A, warps_per_market,
+                                         markets_per_cta, agents,
+                                         ctas_per_market, &smem);
   if (bad != 0) return bad;
   const int threads = 32 * warps_per_market * markets_per_cta;
   const int C = ctas_per_market;
   int err;
-  switch (agents) {
-    case AGENTS_REGISTERS:
-      err = occupancy_mode<AGENTS_REGISTERS>(legacy, threads, smem, C, ctas);
-      break;
-    case AGENTS_SHARED:
-      err = occupancy_mode<AGENTS_SHARED>(legacy, threads, smem, C, ctas);
-      break;
-    default:
-      err = occupancy_mode<AGENTS_FRESH>(legacy, threads, smem, C, ctas);
+  const int lpl = levels_per_lane(L, warps_per_market);
+  if (lpl == 8) {
+    err = occupancy_wide<8>(legacy, threads, smem, ctas);
+  } else if (lpl == 16) {
+    err = occupancy_wide<16>(legacy, threads, smem, ctas);
+  } else if (lpl == 32) {
+    err = occupancy_wide<32>(legacy, threads, smem, ctas);
+  } else if (agents == AGENTS_REGISTERS) {
+    err = occupancy_mode<AGENTS_REGISTERS>(legacy, threads, smem, C, ctas);
+  } else if (agents == AGENTS_SHARED) {
+    err = occupancy_mode<AGENTS_SHARED>(legacy, threads, smem, C, ctas);
+  } else {
+    err = occupancy_mode<AGENTS_FRESH>(legacy, threads, smem, C, ctas);
   }
   return err != 0 ? err : (int)cudaGetLastError();
 }

@@ -2,15 +2,22 @@
 //
 // Layout: a *market team* of W warps (T = 32·W threads) clears one market,
 // and one CTA holds `markets_per_cta` teams. Thread t of a team owns the
-// LEVELS_PER_LANE = 4 contiguous levels [4t, 4t + 4) ∩ [0, L) and keeps
-// their bid/ask in registers for the whole call; agent a is handled by
-// thread a mod T, so a warp holds 32 consecutive agent ids (mostly one
-// archetype). The launch rule (repro_torch/kernels/autotune.py::auto_tile)
-// takes W = max(1, L / 128) while a thread holds its agents in registers:
-// a market is one warp up to L = 128 (four markets per CTA) and 2-8 warps
-// beyond (one market per CTA); past that, eight warps wherever shared
-// memory holds fewer than four one-warp teams a CTA; the timed sweep may
-// launch any other shape check_shape below accepts.
+// LPL contiguous levels [LPL·t, LPL·t + LPL) ∩ [0, L) and keeps their
+// bid/ask in registers for the whole call; agent a is handled by thread
+// a mod T, so a warp holds 32 consecutive agent ids (mostly one
+// archetype). LPL = levels_per_lane(L, W) = max(4, L / T): four levels a
+// lane wherever the team has L / 128 warps or more (the per-step kernels
+// and every market cluster, always), and in the persistent kernels' own
+// CTA, in the registers mode, up to 32 where a narrower team clears a wide
+// book (a template argument: one instance of each for 8, 16 and 32). The
+// launch rule (repro_torch/kernels/autotune.py::auto_tile) takes
+// W = max(1, L / 128) while a thread holds its agents in registers: a
+// market is one warp up to L = 128 (four markets per CTA) and 2-8 warps
+// beyond (one market per CTA), except that a persistent kernel's grid of
+// many markets past L = 128 takes the fewest warps whose registers hold
+// the agents, at L / (32·W) levels a lane; past the registers mode, eight
+// warps wherever shared memory holds fewer than four one-warp teams a CTA;
+// the timed sweep may launch any other shape check_shape below accepts.
 //
 // A market cluster (any agent mode of the persistent kernels, the fresh
 // mode of the per-step ones; one team a CTA): C CTAs of a thread-block
@@ -28,8 +35,9 @@
 // decisions on the counter hash, integer atomicAdd binning into the team's
 // shared-memory bins, the two raking scans (a serial scan of the lane's
 // own levels, then a shuffle scan of the lane totals), the argmax and the
-// residual books. Quotes, sums, scans and the argmax are warp shuffles;
-// a one-warp team crosses no __syncthreads() at all (__syncwarp orders the
+// residual books. Quotes, sums, scans and the argmax are warp shuffles
+// over each lane's serial pass through its own levels; a one-warp team
+// crosses no __syncthreads() at all, at any L (__syncwarp orders the
 // bins), and a several-warp team adds one barrier per reduction (four a
 // step) to combine the warp totals with a second shuffle tree.
 //
@@ -87,6 +95,7 @@ enum AgentType {
 // The launch rule's constants; repro_torch/kernels/autotune.py repeats them.
 #define LEVELS_PER_LANE 4
 #define LEVELS_PER_WARP (32 * LEVELS_PER_LANE)
+#define MAX_LEVELS_PER_LANE 32  // a persistent one-warp team at L = 1024
 #define MAX_TEAM_WARPS 8
 #define REG_AGENTS 8          // agent slots a thread holds in registers
 #define MAX_CTA_THREADS 256
@@ -445,16 +454,29 @@ static inline __host__ __device__ int team_smem_words(int L, int A, int T,
 // market or on a cluster).
 enum AgentMode { AGENTS_SHARED = 0, AGENTS_REGISTERS = 1, AGENTS_FRESH = 2 };
 
+// Levels a lane of a team of W warps holds at L: four up to L = 128·W,
+// else L / (32·W) (a persistent team in the registers mode at one CTA a
+// market; check_shape refuses it anywhere else).
+static inline __host__ __device__ int levels_per_lane(int L, int W) {
+  const int lpl = L / (32 * W);
+  return lpl > LEVELS_PER_LANE ? lpl : LEVELS_PER_LANE;
+}
+
 // 0 when (W, MPC, agents, C) is a launch shape the kernels can run for
 // (L, A), else cudaErrorInvalidValue. C CTAs a market (a cluster) in any
 // agent mode, at one team a CTA; the registers mode holds REG_AGENTS
-// agents a thread of the cluster.
-static inline int check_shape(int L, int A, int W, int MPC, int agents,
-                              int C, size_t* smem) {
+// agents a thread of the cluster. A lane holds at most `max_lpl` levels:
+// LEVELS_PER_LANE for the per-step kernels (check_shape), up to
+// MAX_LEVELS_PER_LANE for the persistent ones (check_persistent_shape),
+// and more than four only in the registers mode at one CTA a market.
+static inline int check_lanes(int L, int A, int W, int MPC, int agents,
+                              int C, int max_lpl, size_t* smem) {
   const bool pow2 = L >= 4 && L <= 1024 && (L & (L - 1)) == 0;
   const bool w_ok = W == 1 || W == 2 || W == 4 || W == 8;
   const bool c_ok = C >= 1 && C <= MAX_CLUSTER_CTAS && (C & (C - 1)) == 0;
-  if (!pow2 || A < 1 || !w_ok || W * LEVELS_PER_WARP < L || MPC < 1 ||
+  if (!pow2 || A < 1 || !w_ok || levels_per_lane(L, W) > max_lpl ||
+      (levels_per_lane(L, W) > LEVELS_PER_LANE &&
+       (agents != AGENTS_REGISTERS || C != 1)) || MPC < 1 ||
       (W > 1 && MPC != 1) || 32 * W * MPC > MAX_CTA_THREADS ||
       agents < AGENTS_SHARED || agents > AGENTS_FRESH || !c_ok ||
       (agents == AGENTS_REGISTERS && A > REG_AGENTS * 32 * W * C) ||
@@ -464,6 +486,16 @@ static inline int check_shape(int L, int A, int W, int MPC, int agents,
   *smem = (size_t)MPC * 4 *
           team_smem_words(L, A, 32 * W, C, agents == AGENTS_SHARED);
   return *smem <= MAX_DYNAMIC_SMEM ? 0 : (int)cudaErrorInvalidValue;
+}
+
+static inline int check_shape(int L, int A, int W, int MPC, int agents,
+                              int C, size_t* smem) {
+  return check_lanes(L, A, W, MPC, agents, C, LEVELS_PER_LANE, smem);
+}
+
+static inline int check_persistent_shape(int L, int A, int W, int MPC,
+                                         int agents, int C, size_t* smem) {
+  return check_lanes(L, A, W, MPC, agents, C, MAX_LEVELS_PER_LANE, smem);
 }
 
 // Lets `kernel` take `smem` bytes of dynamic shared memory. Without the
@@ -539,17 +571,18 @@ static inline int resident_clusters(K kernel, int threads, size_t smem,
 // ---------------------------------------------------------------------------
 // One step.
 
-// A thread's four levels: resting books between steps, totals within one.
+// A thread's LPL levels: resting books between steps, totals within one.
+template <int LPL = LEVELS_PER_LANE>
 struct Book {
-  float bid[LEVELS_PER_LANE], ask[LEVELS_PER_LANE];
+  float bid[LPL], ask[LPL];
 };
 
 // Where a step's orders are binned and summed: the team's own bins
-// (CtaBins) or a market cluster's (ClusterBins). span() gives a thread its
-// agents, add() bins one order, sync() is the barrier after the binning,
-// take() hands a thread the step's totals at its levels lv0 + j (0 past L)
-// and resets what it read for a later step, leader() says whether this CTA
-// writes the outputs, and finish() ends the call.
+// (CtaBins, SwizzledBins) or a market cluster's (ClusterBins). span() gives
+// a thread its agents, add() bins one order, sync() is the barrier after
+// the binning, take() hands a thread the step's totals at the four levels
+// lv0 + j (0 past L) and resets what it read for a later step, leader()
+// says whether this CTA writes the outputs, and finish() ends the call.
 
 // The team's 2L bins in its CTA's shared memory (buy [0, L), sell
 // [L, 2L)), read and reset in place.
@@ -585,6 +618,32 @@ struct CtaBins {
   }
   __device__ __forceinline__ bool leader() const { return true; }
   __device__ __forceinline__ void finish() const {}
+};
+
+// CtaBins for lanes of more than four levels, where L = LPL·T. Bin i lives
+// at word i ^ ((i >> 5) & 31), a permutation within each row of 32 words:
+// lane t's level j, bin LPL·t + j, would sit in bank (LPL·t + j) mod 32
+// (a 32-way conflict across the warp at 32 levels a lane), and sits in a
+// bank of its own here for every j, in take() and in its resets. The
+// agents' atomicAdd lands where their orders fall, as before.
+struct SwizzledBins : CtaBins {
+  __device__ __forceinline__ static int at(int i) {
+    return i ^ ((i >> 5) & 31);
+  }
+  __device__ __forceinline__ void add(int, int bin, int q) const {
+    atomicAdd(&b[at(bin)], (bin_t)q);
+  }
+  __device__ __forceinline__ void take(const Team&, int, int lv0, int L,
+                                       bin_t* buy, bin_t* sell) const {
+#pragma unroll
+    for (int j = 0; j < LEVELS_PER_LANE; ++j) {
+      const int kb = at(lv0 + j), ks = at(L + lv0 + j);
+      buy[j] = b[kb];
+      sell[j] = b[ks];
+      b[kb] = (bin_t)0;
+      b[ks] = (bin_t)0;
+    }
+  }
 };
 
 // A market cluster's bins: each CTA bins its own agents into its own
@@ -722,26 +781,73 @@ __device__ __forceinline__ int agent_order(
   return (int)qty;
 }
 
+// Steps 8 and 9 of market_step for a lane of LPL > 4 levels, all inside
+// the book, given `after` (the later lanes' demand) and `supply` (the
+// supply of the earlier lanes and this one's). The running sums are not
+// held: walking down from the lane's top level, the cumulative demand at
+// level j is `after` plus the lane's bids at j and above, and the
+// cumulative supply is `supply` less its asks above j; the second walk
+// recomputes them for the residual books. Every term is an integer-valued
+// float below 2^24, so each is the reference's cumulative sum bit for bit.
+// Leaves the team's volume and clearing tick in every thread.
+template <int LPL>
+__device__ __forceinline__ void wide_clear(const Team& tm, Book<LPL>& bk,
+                                           int L, float after, float supply,
+                                           float& volume, int& p_star) {
+  const int lv0 = tm.t * LPL;
+
+  // 8. Executable volume and the clearing tick.
+  float dc = after, sc = supply;
+#pragma unroll
+  for (int j = LPL - 1; j >= 0; --j) {
+    dc += bk.bid[j];
+    const float v = fminf(dc, sc);
+    if (beats(v, lv0 + j, volume, p_star)) {
+      volume = v;
+      p_star = lv0 + j;
+    }
+    sc -= bk.ask[j];
+  }
+  team_argmax(tm, L, volume, p_star);
+
+  // 9. Priority allocation and the residual books: the demand strictly
+  // above level j and the supply strictly below it.
+  float above = after, below = supply;
+#pragma unroll
+  for (int j = LPL - 1; j >= 0; --j) {
+    const float tb = bk.bid[j], ta = bk.ask[j];
+    below -= ta;
+    const float traded_b = fminf(tb, fmaxf(0.f, volume - above));
+    const float traded_s = fminf(ta, fmaxf(0.f, volume - below));
+    bk.bid[j] = tb - traded_b;
+    bk.ask[j] = ta - traded_s;
+    above += tb;
+  }
+}
+
 // One step of simulate_step for the team's market at absolute `step`, on
-// the books in `bk` and the team's `bins` (a CtaBins or ClusterBins, zero
-// where this step bins on entry). `peer` is the arbitrageurs' peer mid;
-// `eb`/`ea` are the market's external order rows (null: none). Advances
-// `last` and `pmid` and leaves the step's mid and cleared volume in every
-// thread of the team.
-template <class Agents, class Bins>
+// the books in `bk` and the team's `bins` (a CtaBins, SwizzledBins or
+// ClusterBins, zero where this step bins on entry). `peer` is the
+// arbitrageurs' peer mid; `eb`/`ea` are the market's external order rows
+// (null: none). Advances `last` and `pmid` and leaves the step's mid and
+// cleared volume in every thread of the team.
+template <int LPL, class Agents, class Bins>
 __device__ __forceinline__ void market_step(
-    const Team& tm, Book& bk, const Bins& bins, const MarketRow& p,
+    const Team& tm, Book<LPL>& bk, const Bins& bins, const MarketRow& p,
     const Agents& agents, const float* eb, const float* ea, float peer,
     int step, int A, int L, float& last, float& pmid, float& mid_out,
     float& volume_out) {
-  const int lv0 = tm.t * LEVELS_PER_LANE;
+  // A lane of more than four levels exists only where L = LPL·T, so every
+  // one of its levels lies inside the book.
+  constexpr bool kFull = LPL > LEVELS_PER_LANE;
+  const int lv0 = tm.t * LPL;
 
   // 1. Scenario shock: withdraw a fraction of every resting bid level.
   if (step == p.shock_step) {
 #pragma unroll
-    for (int j = 0; j < LEVELS_PER_LANE; ++j) {
+    for (int j = 0; j < LPL; ++j) {
       const float v = bk.bid[j];
-      if (lv0 + j < L) bk.bid[j] = v - floorf(v * p.shock_cancel);
+      if (kFull || lv0 + j < L) bk.bid[j] = v - floorf(v * p.shock_cancel);
     }
   }
 
@@ -749,8 +855,8 @@ __device__ __forceinline__ void market_step(
   int bb = -1, ba = L;
   float sb = 0.f, sa = 0.f;
 #pragma unroll
-  for (int j = 0; j < LEVELS_PER_LANE; ++j) {
-    if (lv0 + j < L) {
+  for (int j = 0; j < LPL; ++j) {
+    if (kFull || lv0 + j < L) {
       sb += bk.bid[j];
       sa += bk.ask[j];
       if (bk.bid[j] > 0.f) bb = lv0 + j;
@@ -774,63 +880,83 @@ __device__ __forceinline__ void market_step(
   });
   bins.sync(tm);
 
-  // 6. Totals over resting + incoming flow (+ external orders), in place;
-  // the bins are reset for a later step.
-  bin_t inb[LEVELS_PER_LANE], ina[LEVELS_PER_LANE];
-  bins.take(tm, step, lv0, L, inb, ina);
+  // 6. Totals over resting + incoming flow (+ external orders), in place,
+  // four levels at a time; the bins are reset for a later step. A wide
+  // lane adds the external orders first, in a pass of their own (exact
+  // integers: the same bits); with the bins' pass free of their branches
+  // kernel 1 took 4% less time at L = 1024.
   float lb = 0.f, la = 0.f;
+  if constexpr (kFull) {
+    if (eb != nullptr) {
 #pragma unroll
-  for (int j = 0; j < LEVELS_PER_LANE; ++j) {
-    const int lv = lv0 + j;
-    if (lv < L) {
-      float tb = bk.bid[j] + (float)inb[j];
-      float ta = bk.ask[j] + (float)ina[j];
-      if (eb != nullptr) tb += eb[lv];
-      if (ea != nullptr) ta += ea[lv];
-      bk.bid[j] = tb;
-      bk.ask[j] = ta;
-      lb += tb;
-      la += ta;
+      for (int j = 0; j < LPL; ++j) bk.bid[j] += eb[lv0 + j];
+    }
+    if (ea != nullptr) {
+#pragma unroll
+      for (int j = 0; j < LPL; ++j) bk.ask[j] += ea[lv0 + j];
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < LPL; g += LEVELS_PER_LANE) {
+    bin_t inb[LEVELS_PER_LANE], ina[LEVELS_PER_LANE];
+    bins.take(tm, step, lv0 + g, L, inb, ina);
+#pragma unroll
+    for (int j = 0; j < LEVELS_PER_LANE; ++j) {
+      const int lv = lv0 + g + j;
+      if (kFull || lv < L) {
+        float tb = bk.bid[g + j] + (float)inb[j];
+        float ta = bk.ask[g + j] + (float)ina[j];
+        if (!kFull && eb != nullptr) tb += eb[lv];
+        if (!kFull && ea != nullptr) ta += ea[lv];
+        bk.bid[g + j] = tb;
+        bk.ask[g + j] = ta;
+        lb += tb;
+        la += ta;
+      }
     }
   }
 
   // 7. Raking scans: cumulative demand (suffix) and supply (prefix).
   float after, before;
   team_scan_offsets(tm, lb, la, after, before);
-  float dc[LEVELS_PER_LANE], sc[LEVELS_PER_LANE];
-#pragma unroll
-  for (int j = LEVELS_PER_LANE - 1; j >= 0; --j) {
-    after += bk.bid[j];
-    dc[j] = after;
-  }
-#pragma unroll
-  for (int j = 0; j < LEVELS_PER_LANE; ++j) {
-    before += bk.ask[j];
-    sc[j] = before;
-  }
-
-  // 8. Executable volume and the clearing tick.
   float volume = -1.f;
   int p_star = L;
+  if constexpr (kFull) {
+    wide_clear(tm, bk, L, after, before + la, volume, p_star);
+  } else {
+    float dc[LEVELS_PER_LANE], sc[LEVELS_PER_LANE];
 #pragma unroll
-  for (int j = 0; j < LEVELS_PER_LANE; ++j) {
-    const float v = fminf(dc[j], sc[j]);
-    if (lv0 + j < L && beats(v, lv0 + j, volume, p_star)) {
-      volume = v;
-      p_star = lv0 + j;
+    for (int j = LEVELS_PER_LANE - 1; j >= 0; --j) {
+      after += bk.bid[j];
+      dc[j] = after;
     }
-  }
-  team_argmax(tm, L, volume, p_star);
-
-  // 9. Priority allocation and the residual books.
 #pragma unroll
-  for (int j = 0; j < LEVELS_PER_LANE; ++j) {
-    if (lv0 + j < L) {
-      const float tb = bk.bid[j], ta = bk.ask[j];
-      const float traded_b = fminf(tb, fmaxf(0.f, volume - (dc[j] - tb)));
-      const float traded_s = fminf(ta, fmaxf(0.f, volume - (sc[j] - ta)));
-      bk.bid[j] = tb - traded_b;
-      bk.ask[j] = ta - traded_s;
+    for (int j = 0; j < LEVELS_PER_LANE; ++j) {
+      before += bk.ask[j];
+      sc[j] = before;
+    }
+
+    // 8. Executable volume and the clearing tick.
+#pragma unroll
+    for (int j = 0; j < LEVELS_PER_LANE; ++j) {
+      const float v = fminf(dc[j], sc[j]);
+      if (lv0 + j < L && beats(v, lv0 + j, volume, p_star)) {
+        volume = v;
+        p_star = lv0 + j;
+      }
+    }
+    team_argmax(tm, L, volume, p_star);
+
+    // 9. Priority allocation and the residual books.
+#pragma unroll
+    for (int j = 0; j < LEVELS_PER_LANE; ++j) {
+      if (lv0 + j < L) {
+        const float tb = bk.bid[j], ta = bk.ask[j];
+        const float traded_b = fminf(tb, fmaxf(0.f, volume - (dc[j] - tb)));
+        const float traded_s = fminf(ta, fmaxf(0.f, volume - (sc[j] - ta)));
+        bk.bid[j] = tb - traded_b;
+        bk.ask[j] = ta - traded_s;
+      }
     }
   }
   last = volume > 0.f ? (float)p_star : last;
@@ -903,33 +1029,37 @@ __device__ __forceinline__ MarketIn market_in(const ChunkArgs& g, int m) {
   return in;
 }
 
-__device__ __forceinline__ void load_book(const Team& tm, Book& bk,
+template <int LPL>
+__device__ __forceinline__ void load_book(const Team& tm, Book<LPL>& bk,
                                           const float* bid, const float* ask,
                                           int L) {
 #pragma unroll
-  for (int j = 0; j < LEVELS_PER_LANE; ++j) {
-    const int lv = tm.t * LEVELS_PER_LANE + j;
+  for (int j = 0; j < LPL; ++j) {
+    const int lv = tm.t * LPL + j;
     bk.bid[j] = lv < L ? bid[lv] : 0.f;
     bk.ask[j] = lv < L ? ask[lv] : 0.f;
   }
 }
 
-__device__ __forceinline__ void store_book(const Team& tm, const Book& bk,
-                                           float* bid, float* ask, int L) {
+template <int LPL>
+__device__ __forceinline__ void store_book(const Team& tm,
+                                           const Book<LPL>& bk, float* bid,
+                                           float* ask, int L) {
 #pragma unroll
-  for (int j = 0; j < LEVELS_PER_LANE; ++j) {
-    const int lv = tm.t * LEVELS_PER_LANE + j;
+  for (int j = 0; j < LPL; ++j) {
+    const int lv = tm.t * LPL + j;
     if (lv < L) { bid[lv] = bk.bid[j]; ask[lv] = bk.ask[j]; }
   }
 }
 
 // The persistent body (kernels 1 and 3): up to `chunk` steps with the books
-// in registers, the step-invariant agent keys and types computed once (or,
-// fresh, at every step), and the per-step outputs buffered in warp 0 (lane
-// s mod 32 holds step s) and written 32 steps at a time. With ClusterBins
-// the CTAs of a cluster of C = g.ctas_per_market clear one market, each
-// holding its own agents' keys and types, and rank 0 writes its outputs.
-template <class Agents, class Bins>
+// in registers, LPL levels a lane, the step-invariant agent keys and types
+// computed once (or, fresh, at every step), and the per-step outputs
+// buffered in warp 0 (lane s mod 32 holds step s) and written 32 steps at a
+// time. With ClusterBins the CTAs of a cluster of C = g.ctas_per_market
+// clear one market, each holding its own agents' keys and types, and rank
+// 0 writes its outputs.
+template <class Agents, class Bins, int LPL = LEVELS_PER_LANE>
 __device__ __forceinline__ void persistent_market(const ChunkArgs& g) {
   const Team tm = make_team(g.warps_per_market);
   const int C = Bins::kCluster ? g.ctas_per_market : 1;
@@ -944,7 +1074,7 @@ __device__ __forceinline__ void persistent_market(const ChunkArgs& g) {
   int* area = kc_smem + tm.slot * team_smem_words(L, A, tm.T, C,
                                                   Agents::kSmem);
   const MarketIn in = market_in(g, m);
-  Book bk;
+  Book<LPL> bk;
   load_book(tm, bk, g.bid + in.row, g.ask + in.row, L);
   Bins bins;
   bins.init(tm, area, L);
@@ -1018,7 +1148,7 @@ __device__ __forceinline__ void one_step_market(const ChunkArgs& g, int s) {
   if (m >= g.M) return;  // the ragged last CTA; a cluster is never ragged
   const int L = g.L, A = g.A;
   const MarketIn in = market_in(g, m);
-  Book bk;
+  Book<> bk;
   load_book(tm, bk, g.bid + in.row, g.ask + in.row, L);
   Bins bins;
   bins.init(tm, kc_smem + tm.slot * team_smem_words(L, A, tm.T, C, false),

@@ -27,7 +27,7 @@ Recorded by the session (see :class:`repro_torch.core.session.Session`):
   gauges    ``chunk``, ``num_markets``, and on the kernel backends
             ``tile_warps_per_market``, ``tile_markets_per_cta``,
             ``tile_ctas_per_market``, ``tile_agents``,
-            ``autotune_smem_bytes``
+            ``tile_levels_per_lane``, ``autotune_smem_bytes``
 
 Recorded by the engine (``Engine.metrics``):
 

@@ -51,15 +51,17 @@ def fresh_cache():
 # The candidates: the C entries' domain, in a fixed order.
 # ---------------------------------------------------------------------------
 
-def _c_accepts(L, A, W, mpc, mode, C=1):
-    """``check_shape`` of ``kinetic_step.cuh``, transcribed condition by
-    condition (:func:`test_check_shape_is_the_headers` holds the text)."""
+def _c_accepts(L, A, W, mpc, mode, C=1, max_lpl=32):
+    """``check_lanes`` of ``kinetic_step.cuh`` (``check_persistent_shape``;
+    ``check_shape`` at ``max_lpl=4``), transcribed condition by condition
+    (:func:`test_check_shape_is_the_headers` holds the text)."""
     pow2 = 4 <= L <= 1024 and (L & (L - 1)) == 0
     w_ok = W in (1, 2, 4, 8)
     c_ok = 1 <= C <= 16 and (C & (C - 1)) == 0
     code = autotune.AGENT_MODES.index(mode)
-    if (not pow2 or A < 1 or not w_ok or W * 128 < L or mpc < 1
-            or (W > 1 and mpc != 1) or 32 * W * mpc > 256
+    if (not pow2 or A < 1 or not w_ok or max(4, L // (32 * W)) > max_lpl
+            or (max(4, L // (32 * W)) > 4 and (code != 1 or C != 1))
+            or mpc < 1 or (W > 1 and mpc != 1) or 32 * W * mpc > 256
             or code < 0 or code > 2 or not c_ok
             or (code == 1 and A > 8 * 32 * W * C)
             or (C > 1 and mpc != 1)):
@@ -77,10 +79,12 @@ def _c_team_words(L, A, T, C, agents_in_smem):
 
 
 def test_check_shape_is_the_headers():
-    body = re.search(r"static inline int check_shape\(.*?\n}\n", HEADER,
+    body = re.search(r"static inline int check_lanes\(.*?\n}\n", HEADER,
                      re.S).group(0)
     for cond in ("W == 1 || W == 2 || W == 4 || W == 8",
-                 "W * LEVELS_PER_WARP < L", "MPC < 1",
+                 "!w_ok || levels_per_lane(L, W) > max_lpl",
+                 "(levels_per_lane(L, W) > LEVELS_PER_LANE &&\n"
+                 "       (agents != AGENTS_REGISTERS || C != 1))", "MPC < 1",
                  "(W > 1 && MPC != 1)", "32 * W * MPC > MAX_CTA_THREADS",
                  "(agents == AGENTS_REGISTERS && A > REG_AGENTS * 32 * W * C)",
                  "C >= 1 && C <= MAX_CLUSTER_CTAS && (C & (C - 1)) == 0",
@@ -89,7 +93,16 @@ def test_check_shape_is_the_headers():
                  "32 * W, C, agents == AGENTS_SHARED);",
                  "*smem <= MAX_DYNAMIC_SMEM"):
         assert cond in body, cond
-    for text in ("return C > 1 ? (A + C * T - 1) / (C * T) * T : A;",
+    # The per-step kernels' check keeps four levels a lane, the persistent
+    # kernels' takes up to MAX_LEVELS_PER_LANE; levels_per_lane is
+    # max(4, L / (32·W)).
+    for text in ("return check_lanes(L, A, W, MPC, agents, C, "
+                 "LEVELS_PER_LANE, smem);",
+                 "return check_lanes(L, A, W, MPC, agents, C, "
+                 "MAX_LEVELS_PER_LANE, smem);",
+                 "const int lpl = L / (32 * W);\n"
+                 "  return lpl > LEVELS_PER_LANE ? lpl : LEVELS_PER_LANE;",
+                 "return C > 1 ? (A + C * T - 1) / (C * T) * T : A;",
                  "const int K = agent_slots(A, T, C);\n"
                  "  return (C > 1 ? 4 : 2) * L + (agents_in_smem ? "
                  "K + (K + 3) / 4 : 0);"):
@@ -101,6 +114,10 @@ def test_check_shape_is_the_headers():
     naive = (_build.CSRC / "naive_clearing.cu").read_text()
     assert "AGENTS_FRESH, C, &smem" in naive
     assert "AGENTS_FRESH, ctas_per_market, &smem" in naive
+    assert "check_persistent_shape" not in naive
+    kinetic = (_build.CSRC / "kinetic_clearing.cu").read_text()
+    assert kinetic.count("check_persistent_shape(") == 2
+    assert "check_shape(" not in kinetic
     for L in (4, 64, 128, 512, 1024):
         for A in (1, 300, 2048, 2049, 46080, 46081):
             for W in range(0, 10):
@@ -133,7 +150,8 @@ def test_per_step_check_shape_is_the_fresh_domain(mode):
                             ok = True
                         except ValueError:
                             ok = False
-                        assert ok == _c_accepts(L, A, W, mpc, "fresh", C), \
+                        assert ok == _c_accepts(L, A, W, mpc, "fresh", C,
+                                                max_lpl=4), \
                             (L, A, W, mpc, mode, C)
 
 
@@ -163,10 +181,19 @@ def test_candidates_are_the_c_domain(L, A, hoisted):
     if L <= 128:
         assert len(pairs) == 7      # W in {1,2,4,8}; MPC in {1,2,4,8} at W=1
     if L == 1024:
-        assert pairs == {(8, 1)}
-        assert len(one) <= (3 if hoisted else 1)
-        if hoisted and A <= 2048:
-            assert len(one) == 3  # registers, shared and fresh
+        # A persistent kernel's narrower teams hold L/(32·W) levels a lane
+        # in the registers mode; a per-step kernel keeps eight warps.
+        narrow = {(W, mpc) for W, mpc in ((1, 1), (1, 2), (1, 4), (1, 8),
+                                          (2, 1), (4, 1))
+                  if hoisted and A <= 8 * 32 * W}
+        assert pairs == {(8, 1)} | narrow
+        eight = [c for c in one if c.warps_per_market == 8]
+        assert len(one) == len(narrow) + len(eight)
+        assert len(eight) <= (3 if hoisted else 1)
+        assert all(c.agents == "registers" for c in one
+                   if c.warps_per_market < 8)
+        if hoisted and A <= 2048:   # registers, shared and fresh
+            assert {c.agents for c in eight} == set(autotune.AGENT_MODES)
     if hoisted and L <= 128 and A <= 256:
         assert len(cands) == 21
     # A cluster is one team a CTA, of each W that holds L and each mode
@@ -189,13 +216,14 @@ def test_candidates_are_the_c_domain(L, A, hoisted):
 
 
 @pytest.mark.parametrize("L,A", [(4, 16), (32, 5), (128, 256), (128, 1024),
-                                 (1024, 300), (128, 50000)])
+                                 (1024, 300), (128, 50000), (1024, 32),
+                                 (512, 256)])
 def test_candidates_cover_levels_and_agents_once(L, A):
     """At every candidate's team size the kernel's index maps (levels
-    ``[4t, 4t + 4)``, register slots ``t + k·T``, strided agents
+    ``[LPL·t, LPL·t + LPL)``, register slots ``t + k·T``, strided agents
     ``t, t + T, ...``) cover every level and agent of a market once, and a
     CTA's teams take disjoint shared memory within the limit."""
-    assert "const int lv = tm.t * LEVELS_PER_LANE + j;" in HEADER
+    assert "const int lv = tm.t * LPL + j;" in HEADER
     # Every mode walks the span the bins give: first + j·stride, where
     # one CTA a market starts thread t at t and strides T, and a cluster's
     # rank r starts it at r·T + t and strides C·T; slot k of the registers
@@ -208,9 +236,10 @@ def test_candidates_cover_levels_and_agents_once(L, A):
                         "a += s.stride, i += tm.T)") == 2
     assert "for (int a = s.first; a < A; a += s.stride)" in HEADER
     for c in autotune.candidate_tiles(L, A, hoisted=True, max_ctas=16):
-        T, C = c.threads_per_market, c.ctas_per_market
-        levels = sorted(4 * t + j for t in range(T) for j in range(4)
-                        if 4 * t + j < L)
+        T, C, lpl = c.threads_per_market, c.ctas_per_market, \
+            c.levels_per_lane
+        levels = sorted(lpl * t + j for t in range(T) for j in range(lpl)
+                        if lpl * t + j < L)
         assert levels == list(range(L)), c
         spans = [(r * T + t, C * T) for r in range(C) for t in range(T)]
         if c.agents == "registers":
@@ -481,6 +510,27 @@ H100_READINGS = {
     (8, "fresh", 100000): (2, 198, 92, 45, 21)}
 
 
+#: What the H100 (the same card) holds at once of the persistent
+#: registers-mode teams narrower than L / 128 warps
+#: (``tools/kernel_times.py --wide``): (L, W, markets a CTA) -> CTAs an SM.
+H100_WIDE_READINGS = {(1024, 1, 1): 8, (1024, 1, 2): 4, (1024, 1, 4): 2,
+                      (1024, 2, 1): 6, (1024, 4, 1): 4, (512, 1, 1): 12,
+                      (512, 1, 2): 6, (512, 1, 4): 3, (512, 2, 1): 8,
+                      (256, 1, 1): 16, (256, 1, 2): 8, (256, 1, 4): 4}
+
+
+def test_h100_holds_the_narrow_teams_as_the_card_read():
+    """Without a card the rule counts the narrow teams' residency from
+    ``H100_WIDE_REGISTERS`` (255, 146 and 106 registers at 32, 16 and 8
+    levels a lane), which is what the card read."""
+    for (L, W, mpc), held in H100_WIDE_READINGS.items():
+        for A in (1, 32, 256 * W):
+            tile = autotune.TileChoice(L, A, W, mpc, "registers")
+            assert tile.levels_per_lane > 4
+            assert autotune.h100_holds(tile) == held, tile
+            assert autotune.card_holds(tile) == held
+
+
 #: What the H100 holds at once of the per-step kernels (``tools/
 #: kernel_times.py --holds``, the same card): W -> the CTAs an SM at
 #: C = 1, then the clusters at C = 2, 4, 8, 16. They keep no agents, so
@@ -521,13 +571,136 @@ TIMED_SHAPES = [(16, 128, (1, 4, "registers", 1)),
 @pytest.mark.parametrize("A,L,earlier", TIMED_SHAPES)
 def test_rule_is_the_parents_at_the_timed_shapes(A, L, earlier):
     """At M=8192 the rule launches the earlier rule's shape at every timed
-    width: the registers mode, or four one-warp teams a CTA in the shared
-    mode (A=1024), one CTA a market."""
-    for M in (8192, 1024, 264 if A != 1024 else 528):
+    width of L=128: the registers mode, or four one-warp teams a CTA in
+    the shared mode (A=1024), one CTA a market. At A=32, L=1024 (the
+    ``wide_book`` cell) the persistent rule gives a grid that eight warps
+    a market run in more than one wave one warp a market, four a CTA, at
+    32 levels a lane, and one wave the earlier eight warps; the per-step
+    rule keeps eight warps at any grid."""
+    wide_from = 2 * 132 + 1    # two CTAs of eight warps an SM: 264 a wave
+    edges = (wide_from, wide_from - 1) if L > 128 else ()
+    for M in (8192, 1024, 264 if A != 1024 else 528) + edges:
         got = autotune.auto_tile(L, A, M, sms=132, max_ctas=16)
-        assert got == autotune.TileChoice(L, A, *earlier) == \
-            autotune.auto_tile(L, A)
+        want = autotune.TileChoice(L, A, *earlier)
+        if L > 128 and M >= wide_from:
+            want = want._replace(warps_per_market=1, markets_per_cta=4)
+            assert got.levels_per_lane == 32
+        assert got == want
+        assert autotune.auto_tile(L, A, M, sms=132, max_ctas=16,
+                                  hoisted=False) == \
+            autotune.TileChoice(L, A, *earlier)
+    assert autotune.auto_tile(L, A) == autotune.TileChoice(L, A, *earlier)
     assert autotune.auto_tile(L, A).ctas_per_market == 1
+
+
+#: The persistent rule past L = 128 on an H100's 132 SMs: (label, M, A, L,
+#: the shape (W, markets a CTA, mode, C), levels a lane). A grid that the
+#: team of L / 128 warps runs in more than one wave (past 264 markets at
+#: L = 1024, two CTAs of eight warps an SM) takes the fewest warps whose
+#: registers hold its agents (8·32·W >= A); one wave, and L <= 128, keep
+#: the earlier shapes.
+NARROW_RULES = [
+    ("wide_book", 8192, 32, 1024, (1, 4, "registers", 1), 32),
+    ("ragged", 8191, 32, 1024, (1, 4, "registers", 1), 32),
+    ("a1", 8192, 1, 1024, (1, 4, "registers", 1), 32),
+    ("a300", 8192, 300, 1024, (2, 1, "registers", 1), 16),
+    ("a1024", 8192, 1024, 1024, (4, 1, "registers", 1), 8),
+    ("a2048", 8192, 2048, 1024, (8, 1, "registers", 1), 4),
+    ("a2049", 8192, 2049, 1024, (8, 1, "shared", 1), 4),
+    ("l256", 8192, 32, 256, (1, 4, "registers", 1), 8),
+    ("l512-a256", 8192, 256, 512, (1, 4, "registers", 1), 16),
+    ("l512-a257", 8192, 257, 512, (2, 1, "registers", 1), 8),
+    ("small-M", 132, 32, 1024, (8, 1, "registers", 1), 4),
+    ("one-wave", 264, 32, 1024, (8, 1, "registers", 1), 4),
+    ("two-waves", 265, 32, 1024, (1, 4, "registers", 1), 32),
+    ("l256-one-wave", 1320, 32, 256, (2, 1, "registers", 1), 4),
+    ("l256-two-waves", 1321, 32, 256, (1, 4, "registers", 1), 8),
+    ("l128", 8192, 256, 128, (1, 4, "registers", 1), 4)]
+
+
+@pytest.mark.parametrize("label,M,A,L,want,lpl", NARROW_RULES,
+                         ids=[r[0] for r in NARROW_RULES])
+def test_persistent_rule_takes_the_narrowest_team_past_l128(label, M, A, L,
+                                                            want, lpl):
+    """Past L = 128, where the agents fit the registers mode and the team
+    of L / 128 warps would run the grid in more than one wave on an
+    H100, a persistent kernel takes the fewest warps whose registers hold
+    the agents, four teams a CTA at one warp, each lane holding
+    L / (32·W) levels; the per-step kernels, the rule without a market
+    count and a grid of one wave keep the team of L / 128 warps."""
+    got = autotune.auto_tile(L, A, M, sms=132, max_ctas=16)
+    assert (got.warps_per_market, got.markets_per_cta, got.agents,
+            got.ctas_per_market) == want
+    assert got.levels_per_lane == lpl
+    assert autotune.auto_tile(L, A, M) == got   # the H100's count here
+    assert autotune.check_tile(got, L, A, True) is got
+    four = autotune.auto_tile(L, A)
+    assert four.levels_per_lane == 4
+    assert autotune.auto_tile(L, A, M, sms=132, max_ctas=16,
+                              hoisted=False) == four
+    # The SMs and what an SM holds are the rule's parameters: where the
+    # four-level team's grid is one wave, it stays.
+    assert autotune.auto_tile(L, A, M, sms=M, max_ctas=16) == four
+    held = autotune.auto_tile(L, A, M, sms=132, max_ctas=16,
+                              holds=lambda t: M)
+    assert held == four or four.agents != "registers" or L <= 128
+    if lpl > 4:
+        assert autotune.waves(four, M, 132, autotune.h100_holds) > 1
+        assert want[0] == min(w for w in autotune.WARPS_PER_MARKET
+                              if A <= 8 * 32 * w) < four.warps_per_market
+
+
+def test_check_tile_takes_narrow_teams_only_where_the_kernels_have_them():
+    """A team narrower than L / 128 warps is a launch shape of the
+    persistent kernels in the registers mode at one CTA a market (the
+    instances of 8, 16 and 32 levels a lane), and of nothing else: not of
+    the per-step kernels, not in the shared or fresh mode, not on a
+    cluster, and not past the registers its warps have."""
+    assert [autotune.levels_per_lane(L, W) for L, W in (
+        (128, 1), (256, 1), (512, 1), (1024, 1), (1024, 2), (1024, 4),
+        (1024, 8), (256, 8), (4, 1))] == [4, 8, 16, 32, 16, 8, 4, 4, 4]
+    narrow = autotune.TileChoice(1024, 32, 1, 4, "registers")
+    assert narrow.levels_per_lane == 32
+    assert autotune.check_tile(narrow, 1024, 32, True) is narrow
+    assert autotune.check_shape(1024, 32, 1, 4, "registers", True) == \
+        4 * 4 * 2 * 1024     # the bins alone, as at eight warps
+    with pytest.raises(ValueError, match="cannot hold"):
+        autotune.check_tile(narrow, 1024, 32, False)
+    for mode in ("shared", "fresh"):
+        with pytest.raises(ValueError, match="cannot hold"):
+            autotune.check_tile(narrow._replace(agents=mode), 1024, 32,
+                                True)
+    with pytest.raises(ValueError, match="cannot hold"):
+        autotune.check_tile(narrow._replace(markets_per_cta=1,
+                                            ctas_per_market=2), 1024, 32,
+                            True)
+    with pytest.raises(ValueError, match="registers"):
+        autotune.check_tile(autotune.TileChoice(1024, 300, 1, 1,
+                                                "registers"), 1024, 300,
+                            True)
+    two = autotune.TileChoice(1024, 300, 2, 1, "registers")
+    assert autotune.check_tile(two, 1024, 300, True).levels_per_lane == 16
+
+
+def test_candidates_at_l1024_list_the_narrow_teams():
+    """At A=32, L=1024 a persistent kernel's sweep offers the rule's one
+    warp a market first, then one warp at 1, 2 and 8 markets a CTA, two
+    and four warps (16 and 8 levels a lane), and eight warps in each
+    mode; a per-step kernel offers eight warps alone; at A=300 one warp's
+    registers cannot hold the agents."""
+    cands = autotune.candidate_tiles(1024, 32, 8192, hoisted=True)
+    assert [tuple(c[2:]) for c in cands] == [
+        (1, 4, "registers", 1), (1, 1, "registers", 1),
+        (1, 2, "registers", 1), (1, 8, "registers", 1),
+        (2, 1, "registers", 1), (4, 1, "registers", 1),
+        (8, 1, "shared", 1), (8, 1, "registers", 1), (8, 1, "fresh", 1)]
+    assert [c.levels_per_lane for c in cands] == [32, 32, 32, 32, 16, 8, 4,
+                                                  4, 4]
+    assert autotune.candidate_tiles(1024, 32, 8192, hoisted=False) == [
+        autotune.TileChoice(1024, 32, 8, 1, "registers")]
+    wider = autotune.candidate_tiles(1024, 300, 8192, hoisted=True)
+    assert wider[0] == autotune.TileChoice(1024, 300, 2, 1, "registers")
+    assert min(c.warps_per_market for c in wider) == 2
 
 
 @pytest.mark.parametrize("C", autotune.CTAS_PER_MARKET)
@@ -903,9 +1076,26 @@ def test_session_tile_gauges(backend, hoisted):
     assert g["tile_warps_per_market"] == tile.warps_per_market
     assert g["tile_markets_per_cta"] == tile.markets_per_cta
     assert g["tile_agents"] == tile.agents
+    assert g["tile_levels_per_lane"] == tile.levels_per_lane == 4
     assert g["autotune_smem_bytes"] == tile.smem_bytes(hoisted)
     with Engine("torch-scan", chunk_size=4, **CPU).open(CFG) as s:
         assert "tile_agents" not in s.metrics.snapshot()["gauges"]
+
+
+@pytest.mark.parametrize("backend,want", [
+    ("cuda-kinetic", (1, 4, "registers", 32)),
+    ("cuda-naive", (8, 1, "registers", 4))])
+def test_session_gauges_show_a_narrow_team(backend, want):
+    """A persistent session of 265 markets at L=1024 (two waves of eight
+    warps a market on an H100) opens on one warp a market, 32 levels a
+    lane; a per-step one keeps eight warps, four levels a lane."""
+    cfg = MarketConfig(num_markets=265, num_agents=8, num_levels=1024,
+                       num_steps=2, seed=3)
+    with Engine(backend, chunk_size=2, **CPU).open(cfg) as s:
+        g = s.metrics.snapshot()["gauges"]
+        s.run(2)
+    assert (g["tile_warps_per_market"], g["tile_markets_per_cta"],
+            g["tile_agents"], g["tile_levels_per_lane"]) == want
 
 
 # ---------------------------------------------------------------------------

@@ -39,15 +39,18 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _spec(M, A, L, S=40):
-    blocks = [MarketConfig(num_markets=M, num_agents=A, num_levels=L,
+def _spec(M, A, L, S=40, sizes=None):
+    """Five blocks of M markets (of ``sizes`` markets, if given), one an
+    archetype's, ring-coupled."""
+    mixes = ({"alpha_fundamentalist": 0.2},
+             {"alpha_whale": 0.2, "whale_period": 3},
+             {"alpha_hft": 0.2, "hft_threshold": 0.1},
+             {"alpha_informed": 0.2, "shock_step": 6,
+              "shock_intensity": 0.5, "shock_cancel": 0.5},
+             {"alpha_arbitrageur": 0.3})
+    blocks = [MarketConfig(num_markets=n, num_agents=A, num_levels=L,
                            num_steps=S, seed=2**31 + L, **mix)
-              for mix in ({"alpha_fundamentalist": 0.2},
-                          {"alpha_whale": 0.2, "whale_period": 3},
-                          {"alpha_hft": 0.2, "hft_threshold": 0.1},
-                          {"alpha_informed": 0.2, "shock_step": 6,
-                           "shock_intensity": 0.5, "shock_cancel": 0.5},
-                          {"alpha_arbitrageur": 0.3})]
+              for n, mix in zip(sizes or (M,) * len(mixes), mixes)]
     spec = EnsembleSpec.concatenate([EnsembleSpec.homogeneous(b)
                                      for b in blocks])
     n = spec.num_markets
@@ -77,6 +80,102 @@ def test_kernel_equals_plain(cuda, M, A, L, stats_only):
         assert torch.equal(g, w)
 
 
+#: (W, markets a CTA, A, L) of the persistent kernels' teams narrower than
+#: L / 128 warps whose registers hold A agents: one warp at one, two and
+#: four teams a CTA, two and four warps.
+NARROW = [(W, mpc, A, L) for L in (256, 512, 1024) for A in (1, 32, 256)
+          for W, mpc in ((1, 1), (1, 2), (1, 4), (2, 1), (4, 1))
+          if W < L // 128 and A <= 8 * 32 * W]
+
+
+def _chunk_outputs(out, n, stats_only):
+    return list(out[:4]) + (list(out[4]) if stats_only
+                            else [p[:, :n] for p in out[4:]])
+
+
+@pytest.mark.parametrize("W,mpc,A,L", NARROW,
+                         ids=[f"W{w}-MPC{m}-A{a}-L{l}"
+                              for w, m, a, l in NARROW])
+def test_narrow_team_equals_plain_and_four_levels(cuda, W, mpc, A, L):
+    """Kernels 1 and 3 at a team narrower than L / 128 warps (L / (32·W)
+    levels a lane, swizzled bins) equal their plain versions and the
+    four-level team of L / 128 warps forced through ``tile=``: paths and
+    stats, external orders over a shock step, ring-coupled arbitrageurs,
+    a partial chunk; 15 markets (5 for kernel 3) leave the last CTA
+    ragged at two and four teams a CTA."""
+    tile = autotune.TileChoice(L, A, W, mpc, "registers")
+    four = autotune.TileChoice(L, A, L // 128, 1, "registers")
+    assert tile.levels_per_lane == L // (32 * W) > 4
+    assert kc.resident_ctas(False, tile) >= 1
+    spec = _spec(3, A, L, S=12)
+    M = spec.num_markets
+    state = initial_state(spec, cuda)
+    params = params_mod.pack_params(spec.params, cuda)
+    gen = torch.Generator().manual_seed(L + A + W)
+    eb, ea = ((torch.randint(0, 3, (M, L), generator=gen)
+               * (torch.rand((M, L), generator=gen) < 0.2))
+              .to(torch.float32).to(cuda) for _ in range(2))
+    for stats_only in (False, True):
+        kw = dict(cfg=spec, chunk=10, params=params, stats_only=stats_only,
+                  stats=init_stats(M, cuda) if stats_only else None)
+        got, ref = (kc.kinetic_clearing_chunk(*state, 3, 9, eb, ea, tile=t,
+                                              **kw) for t in (tile, four))
+        want = kc.kinetic_clearing_chunk_plain(*state, 3, 9, eb, ea, **kw)
+        torch.cuda.synchronize()
+        for g, r, w in zip(*(_chunk_outputs(o, 9, stats_only)
+                             for o in (got, ref, want))):
+            assert torch.equal(g, w) and torch.equal(r, w)
+    cfg = _legacy_cfg(5, A, L, S=9)
+    lstate = initial_state(cfg, cuda)
+    lgot, lref = (kc.kinetic_clearing(*lstate, cfg=cfg, tile=t)
+                  for t in (tile, four))
+    lwant = kc.kinetic_clearing_plain(*lstate, cfg=cfg)
+    torch.cuda.synchronize()
+    for g, r, w in zip(lgot, lref, lwant):
+        assert torch.equal(g, w) and torch.equal(r, w)
+
+
+def test_rule_at_a_ragged_wide_book_equals_plain(cuda):
+    """The rule's own shape at A=32, L=1024 on 8,191 markets (one warp a
+    market, 32 levels a lane, 2,048 CTAs of four teams, the last holding
+    three): kernel 1 with paths and in ``stats_only``, external orders
+    over a shock step and ring-coupled peers, and kernel 3, equal their
+    plain versions and the four-level team's."""
+    A, L = 32, 1024
+    spec = _spec(0, A, L, S=12, sizes=(1639, 1638, 1638, 1638, 1638))
+    M = spec.num_markets
+    assert M == 8191
+    rule = autotune.auto_tile(L, A, M)
+    assert (rule.warps_per_market, rule.markets_per_cta,
+            rule.levels_per_lane) == (1, 4, 32) and rule.grid(M) == 2048
+    four = autotune.TileChoice(L, A, 8, 1, "registers")
+    state = initial_state(spec, cuda)
+    params = params_mod.pack_params(spec.params, cuda)
+    gen = torch.Generator().manual_seed(8191)
+    eb, ea = ((torch.randint(0, 3, (M, L), generator=gen)
+               * (torch.rand((M, L), generator=gen) < 0.05))
+              .to(torch.float32).to(cuda) for _ in range(2))
+    for stats_only in (False, True):
+        kw = dict(cfg=spec, chunk=10, params=params, stats_only=stats_only,
+                  stats=init_stats(M, cuda) if stats_only else None)
+        got = kc.kinetic_clearing_chunk(*state, 3, 9, eb, ea, **kw)
+        ref = kc.kinetic_clearing_chunk(*state, 3, 9, eb, ea, tile=four,
+                                        **kw)
+        want = kc.kinetic_clearing_chunk_plain(*state, 3, 9, eb, ea, **kw)
+        torch.cuda.synchronize()
+        for g, r, w in zip(*(_chunk_outputs(o, 9, stats_only)
+                             for o in (got, ref, want))):
+            assert torch.equal(g, w) and torch.equal(r, w)
+    cfg = _legacy_cfg(M, A, L, S=9)
+    lstate = initial_state(cfg, cuda)
+    lgot = kc.kinetic_clearing(*lstate, cfg=cfg)
+    lref = kc.kinetic_clearing(*lstate, cfg=cfg, tile=four)
+    lwant = kc.kinetic_clearing_plain(*lstate, cfg=cfg)
+    torch.cuda.synchronize()
+    for g, r, w in zip(lgot, lref, lwant):
+        assert torch.equal(g, w) and torch.equal(r, w)
+
+
 @pytest.mark.parametrize("L", [4, 128, 1024])
 @pytest.mark.parametrize("A", [16, 1024, 4096, 50000])
 def test_launch_rule_shapes_are_resident(cuda, A, L):
@@ -93,16 +192,18 @@ RULE_SHAPES = [(10, 46080, 128), (10, 20000, 1024), (1, 40000, 128),
                (64, 30000, 128), (264, 30000, 128), (1, 100000, 128),
                (16, 50000, 1024), (128, 50000, 128), (8192, 20000, 1024),
                (2048, 30000, 128), (1024, 40000, 1024), (1, 30000, 128),
-               (4, 20000, 1024)]
+               (4, 20000, 1024), (8192, 32, 1024), (264, 32, 1024),
+               (265, 32, 1024), (8192, 300, 1024), (1321, 32, 256)]
 
 
 @pytest.mark.parametrize("W", autotune.WARPS_PER_MARKET)
 def test_h100_holds_is_this_cards(cuda, W):
     """On an H100 what the rule counts without a card (``h100_holds``) is
     what the card holds at once, at every agent mode and C of a team of W
-    warps at L=128, for the persistent and the per-step kernels; and the
-    rules' shapes at large populations are the ones they take without a
-    card."""
+    warps at L=128, for the persistent and the per-step kernels, and of
+    every registers-mode team of W warps narrower than L / 128 at L = 256,
+    512 and 1024; and the rules' shapes at large populations and at the
+    narrow teams' edges are the ones they take without a card."""
     if "H100" not in torch.cuda.get_device_name(cuda):
         pytest.skip("h100_holds is an H100's table")
     for C in autotune.CTAS_PER_MARKET:
@@ -113,6 +214,12 @@ def test_h100_holds_is_this_cards(cuda, W):
                 tile
             assert autotune.card_holds(tile, hoisted=False) == \
                 autotune.h100_holds(tile, False), tile
+    for L in (256, 512, 1024):
+        for mpc in ((1, 2, 4) if W == 1 else (1,)):
+            if W < L // 128:
+                tile = autotune.TileChoice(L, 32, W, mpc, "registers")
+                assert autotune.card_holds(tile) == \
+                    autotune.h100_holds(tile), tile
     if W == autotune.MAX_TEAM_WARPS:
         for M, A, L in RULE_SHAPES:
             assert autotune.auto_tile(L, A, M) == autotune.auto_tile(

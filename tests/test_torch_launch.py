@@ -34,38 +34,48 @@ def test_shape_fits_a_cta(L, A):
     assert shape.grid(10 ** 4 + 1) * shape.markets_per_cta >= 10 ** 4 + 1
 
 
-def _header_map(pattern: str, count: int):
+def _header_map(pattern: str, count: int,
+                lpl: int = autotune.LEVELS_PER_LANE):
     """The index expression that ``pattern`` captures in kinetic_step.cuh
     (found ``count`` times), as a Python function of the team thread ``t``,
-    the team size ``T`` and the loop counters ``j``, ``k``."""
+    the team size ``T`` and the loop counters ``j``, ``k``, at ``lpl``
+    levels a lane."""
     found = re.findall(pattern, HEADER)
     assert len(found) == count and len(set(found)) == 1, (pattern, found)
     # One CTA a market: the bins' span starts thread t at t, strides T.
     assert "return AgentSpan{tm.t, tm.T};" in HEADER
     expr = (found[0].replace("tm.t", "t").replace("tm.T", "T")
             .replace("s.first", "t").replace("s.stride", "T")
-            .replace("LEVELS_PER_LANE", str(autotune.LEVELS_PER_LANE)))
+            .replace("LEVELS_PER_LANE", str(autotune.LEVELS_PER_LANE))
+            .replace("LPL", str(lpl)))
     return eval(f"lambda t, T, j=0, k=0: {expr}")
 
 
 @pytest.mark.parametrize("L", LEVELS)
 @pytest.mark.parametrize("A", AGENTS)
-def test_shape_covers_levels_and_agents_once(L, A):
+@pytest.mark.parametrize("markets", [None, 8192])
+def test_shape_covers_levels_and_agents_once(L, A, markets):
     """The kernel's own index maps (read from the header) cover, at the
-    rule's team size, every level and every agent exactly once."""
-    shape = autotune.auto_tile(L, A)
-    T = shape.threads_per_market
+    rule's team size (without a market count, and for a grid of 8,192
+    markets, where a persistent registers-mode team past L = 128 is
+    narrower), every level and every agent exactly once."""
+    shape = autotune.auto_tile(L, A, markets, sms=132, max_ctas=16)
+    T, lpl = shape.threads_per_market, shape.levels_per_lane
     assert "tm.T = 32 * W;" in HEADER and "% tm.T;" in HEADER
-    # Levels: load_book, store_book and the step's lv0 agree.
-    level = _header_map(r"const int lv = (tm\.t \* LEVELS_PER_LANE \+ j);",
-                        2)
-    assert "const int lv0 = tm.t * LEVELS_PER_LANE;" in HEADER
-    own = {t: [lv for j in range(autotune.LEVELS_PER_LANE)
-               if (lv := level(t, T, j=j)) < L] for t in range(T)}
+    # Levels: load_book, store_book, the step's lv0 and wide_clear's agree.
+    level = _header_map(r"const int lv = (tm\.t \* LPL \+ j);", 2, lpl)
+    assert HEADER.count("const int lv0 = tm.t * LPL;") == 2
+    own = {t: [lv for j in range(lpl) if (lv := level(t, T, j=j)) < L]
+           for t in range(T)}
     assert sorted(lv for t in own for lv in own[t]) == list(range(L))
-    for levels in own.values():  # contiguous, at most LEVELS_PER_LANE
+    for levels in own.values():  # contiguous, at most lpl
         assert levels == sorted(levels)
         assert not levels or levels[-1] - levels[0] == len(levels) - 1
+    # A lane of more than four levels has every one inside the book, as
+    # market_step's kFull assumes (L = LPL·T).
+    if lpl > autotune.LEVELS_PER_LANE:
+        assert "constexpr bool kFull = LPL > LEVELS_PER_LANE;" in HEADER
+        assert L == lpl * T and all(len(v) == lpl for v in own.values())
     # Agents: register slots k of RegAgents, else the strided loops of
     # SmemAgents (init and each, slot i = a at one CTA a market) and
     # FreshAgents.
@@ -145,6 +155,8 @@ def test_constants_are_the_headers():
 
     assert int(define("LEVELS_PER_LANE")) == autotune.LEVELS_PER_LANE
     assert define("LEVELS_PER_WARP") == "(32 * LEVELS_PER_LANE)"
+    assert int(define("MAX_LEVELS_PER_LANE")) == \
+        autotune.MAX_LEVELS_PER_LANE
     assert int(define("REG_AGENTS")) == autotune.REG_AGENTS
     assert int(define("MAX_CTA_THREADS")) == autotune.MAX_CTA_THREADS
     assert eval(define("MAX_DYNAMIC_SMEM")) == autotune.MAX_DYNAMIC_SMEM
@@ -175,3 +187,8 @@ def test_one_warp_teams_cross_no_cta_barrier():
     for t in (autotune.auto_tile(L, A) for L in (4, 32, 128)
               for A in AGENTS):
         assert t.warps_per_market == (8 if t.agents == "fresh" else 1)
+    # Past L = 128 a persistent grid of many markets whose agents one
+    # warp's registers hold is one warp a market too, at any L.
+    for L in (256, 512, 1024):
+        t = autotune.auto_tile(L, 32, 8192, sms=132, max_ctas=16)
+        assert (t.warps_per_market, t.markets_per_cta) == (1, 4)

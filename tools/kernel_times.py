@@ -4,7 +4,7 @@
 
     python3 tools/kernel_times.py [--src DIR] [--label X] [--matrix]
                                   [--fresh-only] [--only LABEL,...]
-                                  [--holds]
+                                  [--holds] [--wide]
 
 ``--src`` (default: this checkout's ``src``) selects the tree, so two
 commits, or a commit and a variant of it, can be compared in one call on
@@ -47,7 +47,15 @@ steps each, CUDA events over several calls after a warm-up):
     mode, team width and C at L=128 (``resident_ctas``, the fewer of
     kernels 1 and 3) beside ``autotune.h100_holds``, the rule's count
     without a card, on a tree that has it; then the same of the per-step
-    kernels (the fewer of kernels 2 and 4) at every team width and C.
+    kernels (the fewer of kernels 2 and 4) at every team width and C;
+  * ``--wide`` (alone): kernel 1 at the persistent kernels' narrow teams
+    past L = 128 (``WIDE``: A in {32, 256}, L in {256, 512, 1024}, M=8192,
+    64 steps, ``stats_only``), each (W, markets a CTA) of ``WIDE_WARPS``
+    beside the four-level team of L/128 warps, in turns, each output
+    equal to the four-level team's, with what the card holds of it at
+    once and its levels a lane; then, at A=32, L=1024, the narrow shape
+    against eight warps a market over ``WIDE_MARKETS`` grids, and kernel
+    3 at the narrow shape against eight warps at M=8192.
 
 Prints one JSON line per shape, then the card's name and power limit.
 Imports nothing of JAX or of the JAX package.
@@ -100,6 +108,13 @@ MIX = dict(alpha_fundamentalist=0.1, alpha_whale=0.02, whale_period=4,
 #: and 3.
 NAIVE = {("edges", 50000), ("B1", 46080), ("P1", 100000), ("Q1", 40000)}
 FRESH_REPS = 5
+#: ``--wide``: (A, L) of the narrow teams at M=8192, and the (W, markets a
+#: CTA) timed beside the four-level team of L/128 warps.
+WIDE = [(A, L) for A in (32, 256) for L in (256, 512, 1024)]
+WIDE_WARPS = [(1, 1), (1, 2), (1, 4), (2, 1), (4, 1)]
+#: ``--wide``: grids at A=32, L=1024 where the narrow shape is timed
+#: beside eight warps a market.
+WIDE_MARKETS = (132, 264, 528, 1056, 2112, 4224, 8192)
 QUEUE_SLEEP_CYCLES = 200_000_000
 
 
@@ -340,6 +355,78 @@ def population_times(device, base: dict, matrix: bool,
                               levels=L, steps=S, matrix=cells)), flush=True)
 
 
+def wide_times(device, base: dict) -> None:
+    """One JSON line per ``WIDE`` shape and per ``WIDE_MARKETS`` grid, and
+    one of kernel 3 (see the module docstring): device ms of one 64-step
+    call, in turns (the four-level team first, then the reverse order)."""
+    import torch
+    from repro_torch.core import params as params_mod
+    from repro_torch.core.config import MarketConfig
+    from repro_torch.core.params import EnsembleSpec
+    from repro_torch.core.stats import init_stats
+    from repro_torch.core.step import initial_state
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import kinetic_clearing as kc
+
+    def chunk_call(M, A, L):
+        spec = EnsembleSpec.homogeneous(MarketConfig(
+            num_markets=M, num_agents=A, num_levels=L, num_steps=500,
+            seed=SEED))
+        state = tuple(initial_state(spec, device))
+        kw = dict(cfg=spec, chunk=STEPS, stats_only=True,
+                  stats=init_stats(M, device),
+                  params=params_mod.pack_params(spec.params, device))
+        return lambda tile: kc.kinetic_clearing_chunk(*state, 0, STEPS,
+                                                      tile=tile, **kw)
+
+    def stats_flat(out):
+        return list(out[:4]) + list(out[4])
+
+    def rows(fn, tiles, L, flat=stats_flat):
+        want = flat(fn(tiles[0]))
+        runs = {t: [] for t in tiles}
+        for order in (tiles, tiles[::-1]):
+            for t in order:
+                runs[t].append(queued_ms(lambda: fn(t), FRESH_REPS))
+        return [dict(tile=list(t[2:]),
+                     levels_per_lane=autotune.levels_per_lane(
+                         L, t.warps_per_market),
+                     resident=min(kc.resident_ctas(legacy, t)
+                                  for legacy in (False, True)),
+                     ms=statistics.median(runs[t]), ms_runs=runs[t],
+                     equal=all(bool(torch.equal(x, y))
+                               for x, y in zip(flat(fn(t)), want)))
+                for t in tiles]
+
+    M = 8192
+    for A, L in WIDE:
+        four = autotune.TileChoice(L, A, L // 128, 1, "registers")
+        tiles = [four] + [autotune.TileChoice(L, A, W, mpc, "registers")
+                          for W, mpc in WIDE_WARPS if W < L // 128
+                          and A <= autotune.REG_AGENTS * 32 * W]
+        print(json.dumps(dict(base, wide=dict(markets=M, agents=A, levels=L,
+                                              steps=STEPS),
+                              rows=rows(chunk_call(M, A, L), tiles, L))),
+              flush=True)
+    A, L = 32, 1024
+    eight = autotune.TileChoice(L, A, 8, 1, "registers")
+    narrow = autotune.TileChoice(L, A, 1, autotune.MARKETS_PER_CTA,
+                                 "registers")
+    for m in WIDE_MARKETS:
+        print(json.dumps(dict(base, wide_markets=dict(
+            markets=m, agents=A, levels=L, steps=STEPS,
+            rule=list(autotune.auto_tile(L, A, m)[2:])),
+            rows=rows(chunk_call(m, A, L), [eight, narrow], L))),
+            flush=True)
+    cfg = MarketConfig(num_markets=M, num_agents=A, num_levels=L,
+                       num_steps=STEPS, seed=SEED)
+    state = tuple(initial_state(cfg, device))
+    print(json.dumps(dict(base, wide_kernel3=dict(
+        markets=M, agents=A, levels=L, steps=STEPS),
+        rows=rows(lambda t: kc.kinetic_clearing(*state, cfg=cfg, tile=t),
+                  [eight, narrow], L, flat=list))), flush=True)
+
+
 def card_line() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -363,6 +450,8 @@ def main() -> int:
     ap.add_argument("--holds", action="store_true",
                     help="print what the card holds at once of each "
                     "persistent shape at L=128")
+    ap.add_argument("--wide", action="store_true",
+                    help="time kernel 1's narrow teams past L = 128 alone")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
 
@@ -392,6 +481,10 @@ def main() -> int:
     only = None if args.only is None else set(args.only.split(","))
     if args.holds:
         holds_line(base)
+    if args.wide:
+        wide_times(device, base)
+        print(card_line(), flush=True)
+        return 0
     if args.fresh_only:
         population_times(device, base, args.matrix, only)
         print(card_line(), flush=True)
