@@ -23,9 +23,11 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
 
 
 def upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """``t`` (a CPU tensor) on ``device``. To the card it goes through pinned
-    memory without blocking, so the copy is queued on the current stream
-    behind the work already there instead of waiting for it."""
+    """``t`` (a CPU tensor) on ``device``: the port's one host-to-card copy.
+    To the card it goes through pinned memory without blocking, so the copy
+    is queued on the current stream behind the work already there instead
+    of waiting for it. ``params.pack_params`` alone keeps a pageable
+    ``.to(device)``, whose host time the ``open.params`` span measures."""
     if device.type == "cpu":
         return t
     return t.pin_memory().to(device, non_blocking=True)

@@ -42,6 +42,7 @@ from typing import Any, Callable, List, Tuple
 import torch
 
 from repro_torch.core import params as params_mod
+from repro_torch.core.device import upload
 from repro_torch.launch import roofline
 from repro_torch.ops import trace
 
@@ -108,7 +109,7 @@ def signature(tree) -> Any:
 
 def stage(host: torch.Tensor, device: torch.device) -> torch.Tensor:
     """A host tensor on ``device``: a one-element tensor made there by a
-    fill, any other copied through pinned memory without blocking. Under a
+    fill, any other by :func:`~repro_torch.core.device.upload`. Under a
     capture no copy is recorded: the warm-up's copy of the same value
     (checked on the host) is the graph's constant, kept with it, as JAX
     bakes a host constant into its trace."""
@@ -128,7 +129,7 @@ def stage(host: torch.Tensor, device: torch.device) -> torch.Tensor:
                 "a host value differs between the warm-up and the capture: "
                 "a policy's host values must be a function of its inputs")
         return placed
-    placed = host.pin_memory().to(device, non_blocking=True)
+    placed = upload(host, device)
     if staged is not None:
         staged.append((host.clone(), placed))
     return placed

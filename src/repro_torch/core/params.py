@@ -35,6 +35,7 @@ from repro_torch.core.config import (
     seed_books,
 )
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.core.result import to_host
 
 
 class MarketParams(NamedTuple):
@@ -68,7 +69,7 @@ class MarketParams(NamedTuple):
         return np.int32 if field in INT_FIELDS else np.float32
 
     def to_numpy(self) -> "MarketParams":
-        return MarketParams(*(_host(x) for x in self))
+        return MarketParams(*(to_host(x) for x in self))
 
     def asarray(self, device=DEFAULT_DEVICE) -> "MarketParams":
         """Dtype-preserving placement of every column on ``device``: the
@@ -76,7 +77,7 @@ class MarketParams(NamedTuple):
         scalar columns and the kernels' spec fallback share."""
         device = resolve_device(device)
         return MarketParams(*(
-            torch.from_numpy(np.array(_host(leaf),
+            torch.from_numpy(np.array(to_host(leaf),
                                       dtype=MarketParams.field_dtype(f)))
             .to(device) for f, leaf in zip(MarketParams._fields, self)))
 
@@ -116,12 +117,6 @@ INERT_PARAM_VALUES: Dict[str, float] = {
     "hft_threshold": 0.0, "informed_horizon": 0, "arb_kappa": 0.0,
     "coupling_peer": -1,
 }
-
-
-def _host(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
 
 
 class PackedParams(NamedTuple):
@@ -218,8 +213,8 @@ def replace_rows(params: MarketParams, slots, rows: MarketParams,
         raise ValueError(f"slots {idx.tolist()} out of range [0, {M})")
     out = []
     for f, leaf, src in zip(MarketParams._fields, params, rows):
-        leaf = np.array(_host(leaf), dtype=MarketParams.field_dtype(f))
-        leaf[idx] = np.asarray(_host(src), dtype=leaf.dtype)
+        leaf = np.array(to_host(leaf), dtype=MarketParams.field_dtype(f))
+        leaf[idx] = np.asarray(to_host(src), dtype=leaf.dtype)
         out.append(leaf)
     return MarketParams(*out)
 
@@ -233,7 +228,8 @@ def params_from_dict(values: Dict[str, Any], num_markets: int,
     for f in MarketParams._fields:
         dt = MarketParams.field_dtype(f)
         if f in values:
-            leaves.append(np.asarray(_host(values[f]), dtype=dt).reshape(M, 1))
+            leaves.append(np.asarray(to_host(values[f]),
+                                     dtype=dt).reshape(M, 1))
         else:
             fill = (float(num_levels // 2) if f == "fundamental"
                     else INERT_PARAM_VALUES[f])

@@ -163,9 +163,13 @@ class ChunkRunner:
     def init_state(self, spec: EnsembleSpec) -> MarketState:
         return initial_state(spec, self.device)
 
-    def to_device(self, state: MarketState) -> MarketState:
-        return MarketState(*(torch.as_tensor(to_host(x), dtype=torch.float32)
-                             .to(self.device) for x in state))
+    def to_device(self, state):
+        """``state``, a namedtuple of host or device columns (a
+        :class:`MarketState` or a :class:`MarketStats`, say a snapshot's),
+        as the runner holds it: each column float32 through :meth:`place`.
+        """
+        return type(state)(*(self.place(torch.as_tensor(
+            to_host(x), dtype=torch.float32)) for x in state))
 
     def params_to_device(self, params: MarketParams) -> PackedParams:
         """Pack the per-market params into the two device tensors."""
@@ -179,10 +183,6 @@ class ChunkRunner:
     def init_stats(self, spec: EnsembleSpec) -> Optional[MarketStats]:
         return init_stats(spec.num_markets, self.device) \
             if self.stats_only else None
-
-    def stats_to_device(self, stats: MarketStats) -> MarketStats:
-        return MarketStats(*(torch.as_tensor(to_host(x), dtype=torch.float32)
-                             .to(self.device) for x in stats))
 
     # ---- stateful-RNG hooks (identity for counter-based backends) ----
     def init_aux(self, spec: EnsembleSpec) -> Any:
@@ -292,13 +292,13 @@ def _unknown_backend_error(name: str) -> KeyError:
 def _copy_to_host(leaves, rid=None) -> list:
     """Host numpy copies of ``leaves`` (tensors or row shards): one
     synchronize of the current stream of each card that holds one, then
-    the copies (:func:`sharding.host_copies`: page-locked from a card),
+    the copies (:class:`sharding.HostCopy`: page-locked from a card),
     under the span ``to_host`` (request id ``rid``)."""
     with trace.span("to_host", rid=rid):
         with trace.span("to_host.wait"):
             sharding.wait(leaves)
         with trace.span("to_host.copy") as sp:
-            out = sharding.host_copies(leaves)
+            out = sharding.HostCopy(leaves).result()
             if sp.on:
                 sp.set(bytes=sum(x.nbytes for x in out),
                        pinned_bytes=sum(
@@ -883,7 +883,7 @@ class Session:
         new_stats = self._stats
         if self._runner.stats_only:
             stats = snap.get("stats")
-            new_stats = (self._runner.stats_to_device(
+            new_stats = (self._runner.to_device(
                 MarketStats(*(stats[f] for f in MarketStats._fields)))
                 if stats is not None else self._runner.init_stats(new_spec))
         self._state, self._t = new_state, int(snap["t"])

@@ -25,7 +25,7 @@ loop on the CPU, the numpy family and a mesh:
     reaches the host inside the loop on the card. A second env of the same
     shape reuses the runner, so ``Engine.trace_count`` stays flat.
   * The state is placed through the runner's hooks (``init_state``,
-    ``params_to_device``, ``place``, ``to_device``, ``stats_to_device``),
+    ``params_to_device``, ``place``, ``to_device``),
     as the JAX package's env is. On a mesh every ``[M, ...]`` leaf (books,
     scalars, params, the last output, the portfolio, the stats) is a
     :class:`~repro_torch.launch.sharding.RowShards`, each shard's rows on
@@ -412,26 +412,22 @@ class MarketEnv:
                     f"snapshot was taken under {field}={int(got)} but this "
                     f"env's executable is compiled for {field}={have}")
 
-        def f32(cls, d):
-            return cls(*(torch.as_tensor(np.asarray(d[f], np.float32))
-                         for f in cls._fields))
-
         def placed(cls, d):
-            return cls(*map(runner.place, f32(cls, d)))
+            return runner.to_device(cls(*(np.asarray(d[f], np.float32)
+                                          for f in cls._fields)))
 
         stats = None
         if snap.get("stats") is not None:
-            stats = runner.stats_to_device(f32(MarketStats, snap["stats"]))
+            stats = placed(MarketStats, snap["stats"])
         elif self.obs_spec.needs_stats:
             raise ValueError(
                 "snapshot carries no MarketStats accumulators but this "
                 "env's observation spec needs them")
         rng, seed = snap.get("rng"), snap.get("seed")
         return EnvState(
-            market=runner.to_device(f32(MarketState, snap["market"])),
+            market=placed(MarketState, snap["market"]),
             last_out=placed(StepOutput, snap["last_out"]),
-            reset_market=runner.to_device(
-                f32(MarketState, snap["reset_market"])),
+            reset_market=placed(MarketState, snap["reset_market"]),
             params=runner.params_to_device(params_from_dict(
                 snap["params"], self.spec.num_markets,
                 self.spec.num_levels)),

@@ -45,8 +45,8 @@ brackets):
     :class:`~repro_torch.launch.MarketsMesh` (default: a mesh of the one
     device, a single shard). One controller drives it, as JAX drives a
     mesh, and the placement is ``repro``'s: on more than one shard the
-    placement hooks (``init_state``, ``to_device``, ``params_to_device``,
-    ``init_stats``, ``stats_to_device``) return
+    placement hooks (``init_state``, ``params_to_device``, ``init_stats``,
+    and ``place``, through which ``to_device`` goes) return
     :class:`~repro_torch.launch.sharding.RowShards`, each shard's rows of
     the books, scalars, packed params (with their host copy) and
     ``stats_only`` accumulators on its device
@@ -76,7 +76,7 @@ from repro_torch.core import stats as stats_mod
 from repro_torch.core.device import resolve_device
 from repro_torch.core.params import (INT_FIELDS, EnsembleSpec, MarketParams,
                                      PackedParams)
-from repro_torch.core.result import SimResult, to_host
+from repro_torch.core.result import SimResult
 from repro_torch.core.step import (MarketState, StepOutput, initial_state,
                                    resolve_peer_mids)
 from repro_torch.kernels import _build, autotune
@@ -258,12 +258,6 @@ class ClearingChunkRunner(session.ChunkRunner):
             return super().init_state(spec)
         return MarketState(*map(self.place, initial_state(spec, "cpu")))
 
-    def to_device(self, state: MarketState) -> MarketState:
-        if not self._sharded:
-            return super().to_device(state)
-        return MarketState(*(self.place(torch.as_tensor(
-            to_host(x), dtype=torch.float32)) for x in state))
-
     def params_to_device(self, params: MarketParams) -> PackedParams:
         if not self._sharded:
             return super().params_to_device(params)
@@ -274,12 +268,6 @@ class ClearingChunkRunner(session.ChunkRunner):
             return super().init_stats(spec)
         return stats_mod.MarketStats(*map(self.place, stats_mod.init_stats(
             spec.num_markets, "cpu")))
-
-    def stats_to_device(self, stats):
-        if not self._sharded:
-            return super().stats_to_device(stats)
-        return stats_mod.MarketStats(*(self.place(torch.as_tensor(
-            to_host(x), dtype=torch.float32)) for x in stats))
 
     # ---- execution ----
     def _call(self, state: MarketState, params: PackedParams, step0: int,

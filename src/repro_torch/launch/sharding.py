@@ -23,7 +23,7 @@ not counted again as aten ops.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Sequence, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -135,11 +135,19 @@ class RowShards:
             return torch.cat([p.to(device, non_blocking=True)
                               for p in parts], dim=0)
 
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """The canonical tensor's shape."""
+        return (self.rows[-1].stop,) + tuple(self.parts[0].shape[1:])
+
     def to_host(self) -> np.ndarray:
-        """A host copy: each part copied straight into its rows of one
-        (pinned, from cards) host buffer, with no hop through another
-        device; it waits for the copies (:func:`host_copies`)."""
-        return host_copies([self])[0]
+        """A pageable host copy: each part copied straight into its rows of
+        one host array, with no hop through another device, waiting for
+        each copy."""
+        buf = torch.empty(self.shape, dtype=self.parts[0].dtype)
+        for part, r in zip(self.parts, self.rows):
+            buf[r].copy_(part.detach())
+        return buf.numpy()
 
     def splice(self, idx: np.ndarray, src: torch.Tensor) -> "RowShards":
         """A copy with global rows ``idx`` (distinct ints) replaced by the
@@ -211,46 +219,86 @@ def wait(leaves) -> None:
 
 
 def to_host(x) -> np.ndarray:
-    """A host numpy copy of a plain tensor or a :class:`RowShards`."""
+    """A pageable host numpy copy of a plain tensor or a
+    :class:`RowShards`, for copies that live long (snapshots,
+    checkpoints)."""
     return x.to_host() if isinstance(x, RowShards) else result.to_host(x)
 
 
-def host_copies(leaves) -> list:
-    """Host numpy copies of ``leaves`` (plain tensors, :class:`RowShards` or
-    host values), for a result the caller reads and drops; copies that
-    live long (snapshots, checkpoints) take :func:`to_host`, which holds
-    no page-locked memory for plain tensors.
+def _parts(x) -> Tuple[Sequence[torch.Tensor], Sequence[Any]]:
+    """``x``'s parts and the rows each fills: a :class:`RowShards`' own, a
+    tensor whole, nothing for a host value or ``None``."""
+    if isinstance(x, RowShards):
+        return x.parts, x.rows
+    if isinstance(x, torch.Tensor):
+        return (x,), (Ellipsis,)
+    return (), ()
+
+
+class HostCopy:
+    """Host numpy copies of ``leaves`` (plain tensors, :class:`RowShards`,
+    host values or ``None``, which passes through), queued at construction
+    and read by :meth:`result`: the port's one device-to-host copy, for
+    results the caller reads and drops. Copies that live long (snapshots,
+    checkpoints) take :func:`to_host`, which holds no page-locked memory.
 
     A leaf with a part on a card lands in one page-locked buffer from
     PyTorch's caching host allocator, each part copied into its rows
-    without blocking, on its device's current stream; after every copy is
-    queued, one synchronize of each such card. Each array returned is a
-    view that holds its buffer: the allocator hands the block out again
-    only once the array is gone and the copy's recorded event has
-    completed, so call after call reuses the same blocks and no caller's
-    array changes under it. A tensor on the host, or a host value, goes
-    through :func:`repro_torch.core.result.to_host`, and a
-    :class:`RowShards` held on the host lands in one pageable buffer.
+    without blocking. Each array returned is a view that holds its buffer:
+    the allocator hands the block out again only once the array is gone
+    and the copy's recorded event has completed, so call after call reuses
+    the same blocks and no caller's array changes under it. Any other leaf
+    goes through :func:`to_host`.
+
+    Without ``stream`` each copy goes on its part's current stream, and
+    :meth:`result` synchronizes that stream once a card. With ``stream`` (a
+    copy stream of the one card that holds the parts) the stream first
+    waits for that card's current stream, every source is recorded on it,
+    an event follows the copies, and :meth:`result` waits for that event
+    alone, so the copy overlaps the work queued after it; the sources are
+    held until then.
     """
-    out, cards = [], set()
-    for x in leaves:
-        if isinstance(x, RowShards):
-            parts, rows = x.parts, x.rows
-            shape = (rows[-1].stop,) + tuple(parts[0].shape[1:])
-        elif isinstance(x, torch.Tensor) and x.device.type == "cuda":
-            parts, rows, shape = (x,), (Ellipsis,), x.shape
+
+    def __init__(self, leaves, stream: Optional["torch.cuda.Stream"] = None
+                 ) -> None:
+        self._src, self._event = list(leaves), None
+        self._cards = {p.device for x in self._src for p in _parts(x)[0]
+                       if p.is_cuda}
+        if stream is not None:
+            if self._cards - {stream.device}:
+                raise ValueError(f"a copy stream of {stream.device} cannot "
+                                 f"copy from {sorted(map(str, self._cards))}")
+            for dev in self._cards:
+                stream.wait_stream(torch.cuda.current_stream(dev))
+        self._out = []
+        with torch.cuda.stream(stream):
+            for x in self._src:
+                parts, rows = _parts(x)
+                if not any(p.is_cuda for p in parts):
+                    self._out.append(None if x is None else to_host(x))
+                    continue
+                buf = torch.empty(x.shape, dtype=parts[0].dtype,
+                                  pin_memory=True)
+                for part, r in zip(parts, rows):
+                    if stream is not None:
+                        part.record_stream(stream)
+                    buf[r].copy_(part.detach(), non_blocking=True)
+                self._out.append(buf)
+            if stream is not None:
+                self._event = torch.cuda.Event()
+                self._event.record(stream)
+
+    def result(self) -> list:
+        """The numpy arrays, after this copy's event (with a stream) or one
+        synchronize of each card's current stream (without)."""
+        if self._event is not None:
+            self._event.synchronize()
         else:
-            out.append(result.to_host(x))
-            continue
-        held = {p.device for p in parts if p.device.type == "cuda"}
-        buf = torch.empty(shape, dtype=parts[0].dtype, pin_memory=bool(held))
-        for part, r in zip(parts, rows):
-            buf[r].copy_(part.detach(), non_blocking=True)
-        cards |= held
-        out.append(buf)
-    for dev in cards:
-        torch.cuda.current_stream(dev).synchronize()
-    return [x.numpy() if isinstance(x, torch.Tensor) else x for x in out]
+            for dev in self._cards:
+                torch.cuda.current_stream(dev).synchronize()
+        self._src = None
+        return [x.numpy() if isinstance(x, torch.Tensor) else x
+                for x in self._out]
 
 
 def splice(x, idx: np.ndarray, src: torch.Tensor, device):

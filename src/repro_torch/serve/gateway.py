@@ -11,7 +11,7 @@ marginal cost of a client is a slot assignment, never a build:
   * the hot loop — a dedicated single engine thread makes every launch,
     copy and event of the session (the current CUDA stream is per thread),
     chunk after chunk; each chunk's outputs start for the host in a
-    :class:`~repro_torch.serve.pipeline.HostCopy` right after its launch,
+    :class:`~repro_torch.launch.sharding.HostCopy` right after its launch,
     and a lag-one :class:`~repro_torch.serve.pipeline.DoubleBuffer` reads
     chunk ``k-1`` while chunk ``k`` computes, so streaming never blocks the
     next launch (``stats_only`` stats take the same copy);
@@ -71,10 +71,11 @@ from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.params import EnsembleSpec
 from repro_torch.core.session import Engine, Session, StepBatch
 from repro_torch.core.stats import MarketStats
+from repro_torch.launch.sharding import HostCopy
 from repro_torch.serve.bus import FrameBus, Subscription
 from repro_torch.serve.frames import Event, Frame, slice_frames
 from repro_torch.serve.journal import SpliceEntry, SpliceJournal
-from repro_torch.serve.pipeline import DoubleBuffer, HostCopy
+from repro_torch.serve.pipeline import DoubleBuffer
 from repro_torch.serve.slots import (GatewayDegraded,  # noqa: F401
                                      GatewayFull, GatewayRecovering,
                                      SlotScheduler)

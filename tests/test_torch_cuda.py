@@ -779,6 +779,69 @@ def test_a_two_shard_session_copies_pinned_and_equal_to_one(cuda,
     _pinned_and_equal(*runs["one"], runs["two"][0])
 
 
+def _snapshot_arrays(snap):
+    """A session snapshot's arrays by name: the state, params and stats."""
+    out = {f: snap[f] for f in ("bid", "ask", "last_price", "prev_mid")}
+    for group in ("params", "stats"):
+        out.update({f"{group}.{k}": v
+                    for k, v in (snap.get(group) or {}).items()})
+    return out
+
+
+@pytest.mark.parametrize("stats_only", [False, True])
+def test_a_two_shard_snapshot_is_pageable_and_equal_to_one(cuda,
+                                                          stats_only):
+    """A snapshot lives long (a checkpoint writer may hold it), so a
+    two-shard session's snapshot holds no page-locked memory, and it
+    equals the unsharded session's bit for bit."""
+    import numpy as np
+
+    from repro_torch.launch import MarketsMesh
+
+    spec = _spec(20, 64, 128, S=48)
+    snaps = {}
+    for label, opts in (("one", {}),
+                        ("two", {"mesh": MarketsMesh.of([cuda, cuda])})):
+        eng = Engine("cuda-kinetic", device=cuda, chunk_size=16,
+                     stats_only=stats_only, **opts)
+        with eng.open(spec) as sess:
+            sess.run(48)
+            snaps[label] = _snapshot_arrays(sess.snapshot())
+    assert snaps["two"].keys() == snaps["one"].keys()
+    assert any(k.startswith("stats.") for k in snaps["two"]) == stats_only
+    for name, got in snaps["two"].items():
+        want = snaps["one"][name]
+        assert isinstance(got, np.ndarray), name
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        assert got.tobytes() == want.tobytes(), name
+        assert not torch.from_numpy(got).is_pinned(), name
+
+
+def test_a_copy_on_a_stream_equals_the_plain_copies(cuda):
+    """The gateway's copy (``HostCopy(leaves, stream)``) of a plain tensor
+    and of a two-shard ``RowShards``, each just written on the card, equals
+    the session's copy (``HostCopy(leaves)``) and ``sharding.to_host`` bit
+    for bit; both land page-locked, and ``None`` passes through."""
+    from repro_torch.launch import MarketsMesh, sharding
+
+    gen = torch.Generator().manual_seed(5)
+    plain = torch.randn(9, 33, generator=gen).to(cuda).mul(3).cumsum(1)
+    shards = sharding.per_shard(
+        lambda p: p.cumsum(1, dtype=torch.int32), sharding.RowShards.place(
+            torch.randint(-50, 50, (9, 7), generator=gen, dtype=torch.int32),
+            MarketsMesh.of([cuda, cuda])))
+    leaves = [plain, None, shards]
+    on_stream = sharding.HostCopy(leaves, torch.cuda.Stream(cuda)).result()
+    queued = sharding.HostCopy(leaves).result()
+    assert on_stream[1] is None and queued[1] is None
+    for k, leaf in ((0, plain), (2, shards)):
+        want = sharding.to_host(leaf)
+        for got in (on_stream[k], queued[k]):
+            assert got.dtype == want.dtype and got.shape == want.shape
+            assert got.tobytes() == want.tobytes()
+            assert torch.from_numpy(got).is_pinned()
+
+
 # ---------------------------------------------------------------------------
 # Rollouts and updates as CUDA graphs.
 # ---------------------------------------------------------------------------

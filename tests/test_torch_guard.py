@@ -336,6 +336,8 @@ _REIMPORT = ("an incidental re-import of the kernel module's constant, which "
              "the port keeps in kernels.kinetic_clearing")
 _ENQUEUE = ("a rate of steps over dispatch times, which do not wait for the "
             "card: the port's spans and the benchmark measure the rate")
+_ONE_HOOK = ("a runner places a snapshot's stats with to_device, which "
+             "takes any namedtuple of columns")
 
 #: What the port lacks by design, each with its reason (README.md's "Not
 #: ported" list gives the same reasons). Keys: ``module:name``,
@@ -393,6 +395,7 @@ NOT_PORTED = {
     "launch.mesh:make_mesh_compat": _COMPAT,
     "kernels.naive_clearing:NUM_PARAM_OPERANDS": _REIMPORT,
     "ops.metrics:MetricsRegistry.steps_per_s": _ENQUEUE,
+    "core.session:ChunkRunner.stats_to_device": _ONE_HOOK,
 }
 
 

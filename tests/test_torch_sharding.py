@@ -361,6 +361,48 @@ def params_host(packed):
     return host_ints(packed)
 
 
+@pytest.mark.parametrize("opts", [{}, {"devices": 2}], ids=["one", "two"])
+def test_to_device_round_trips_state_and_stats(opts):
+    """``runner.to_device`` places a host ``MarketState`` and a
+    ``MarketStats`` as the runner holds them (each shard's rows on its
+    device on a mesh), and they read back equal to the originals."""
+    from repro_torch.core.stats import MarketStats
+    from repro_torch.core.step import MarketState
+
+    spec = CASES["ring"]
+    eng = Engine("cuda-kinetic", device="cpu", chunk_size=CHUNK,
+                 stats_only=True, **opts)
+    with eng.open(spec) as s:
+        s.run(CHUNK)
+        runner = s._runner
+        for cls, leaves in ((MarketState, s._state),
+                            (MarketStats, s._stats)):
+            host = cls(*map(sharding.to_host, leaves))
+            placed = runner.to_device(host)
+            assert type(placed) is cls
+            for leaf in placed:
+                if opts:
+                    _resident(leaf, runner.mesh, spec.num_markets)
+                else:
+                    assert isinstance(leaf, torch.Tensor)
+            _same([sharding.to_host(x) for x in placed], host, cls.__name__)
+
+
+def test_a_host_copy_of_host_leaves_is_pageable():
+    """``HostCopy`` of host leaves: ``None`` passes through, a tensor and a
+    host value as ``to_host`` gives them, a :class:`RowShards` held on the
+    host joined into one pageable array, none of it page-locked."""
+    mesh = MarketsMesh.of(["cpu", "cpu"])
+    t = torch.arange(30, dtype=torch.int32).reshape(10, 3)
+    shards = RowShards.place(t.float(), mesh)
+    got = sharding.HostCopy([t, None, shards, [1.5, 2.5]]).result()
+    assert got[1] is None
+    want = [t.numpy(), t.float().numpy(), np.asarray([1.5, 2.5])]
+    for g, w in zip([got[0], got[2], got[3]], want, strict=True):
+        assert g.dtype == w.dtype and g.tobytes() == w.tobytes()
+        assert not torch.from_numpy(g).is_pinned()
+
+
 @pytest.mark.parametrize("shards", [2, 3])
 def test_swap_across_a_shard_boundary_equals_repro(shards):
     """Slots on both sides of every shard boundary are spliced into the
