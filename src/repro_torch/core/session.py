@@ -663,6 +663,10 @@ class Session:
                 aux=self._aux)
             if sp.on:
                 trace.tag(batch.price, self.session_id)
+                tile = getattr(runner, "tile", None)
+                sp.set(agents=None if tile is None else tile.agents,
+                       agent_steps=self.spec.num_markets
+                       * self.spec.num_agents * n)
         if m is not None:
             m.inc("steps_total", n)
             if kind == "chunk":

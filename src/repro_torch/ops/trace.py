@@ -33,7 +33,10 @@ trainer's ``update_idx``):
                               packed params (``scenarios``: the spec's
                               distinct labels, in order) and accumulators
   ``dispatch``              one runner call (``kind``, ``steps``,
-                            ``chunk``)
+                            ``chunk``; ``agents``: the kernel runner's
+                            agent mode, None for a runner without a
+                            tile; ``agent_steps``: markets × agents ×
+                            steps dispatched)
     ``dispatch.peer``       a kernel runner's chunk-entry peer gather
                             (``rows``; ``coupled``: the rows with a real
                             peer, from the params' host copy)
