@@ -94,6 +94,17 @@ line:
            gaps of the mean clearing price and the volume per market of
            ``numpy-splitmix64`` and ``numpy-pcg64`` (other streams) to it
            (a measurement: no gate).
+  open_fill the open fill (``kernels/open_fill.py``, one launch of
+           ``open_fill_kernel`` from each library) at the sweeps' shapes:
+           Table IV, ``table3_a1024`` and ``wide_book`` (M=8192, one
+           block, L=128 and 1024), ``stress_mix`` (9 x 1024 presets,
+           ring-coupled: a block a market) and nine ragged blocks of 111:
+           params, books, mids and stats bit for bit equal to its plain
+           version and to the host open (``pack_params`` +
+           ``initial_state`` + ``init_stats``), the host int block equal to
+           ``pack_params``' copy, one launch a call; then the kernel's
+           device time against the bound (bytes written), and the open's
+           host wall through the fill against the host open's.
   scenario the scenario tier on kernel 1: ``validate_pinned`` on the four
            pinned mixtures (M=64, A=256, L=128, S=500, stats cross-check)
            on ``cuda-kinetic`` and ``torch-scan``, every report passing
@@ -243,14 +254,19 @@ just after; the ``kernels`` line's launches are the ``session`` phase's
 (and the ``legacy_path`` phase's), plus the ``train`` phase's 2 warm
 updates (replays of the update's CUDA graph),
 the ``autotune`` phase's candidate checks and the ``sharded``,
-``roofline``, ``population`` and ``exact_2_24`` phases' paths. Every
+``roofline``, ``population``, ``exact_2_24`` and ``open_fill`` phases'
+paths. Every
 launch is counted where it is made, the runners' own tile sweeps
 included (a ``cuda-kinetic``/``cuda-naive`` runner opened on the card
 times each candidate once per key, ``autotune.TRIALS`` + 1 calls, each
 one launch of kernel 1 or one a step of kernel 2, on a market cluster
 too): each window
 expects its path's launches plus those its sweeps record, and a sweep
-that lost a candidate fails the run.
+that lost a candidate fails the run. Each session such a runner opens on
+one card (no mesh) launches the open fill once; every window counts
+those sessions and expects as many fills. The ``open_fill`` entry of the
+``kernels`` line gives the kernel's device ms at Table IV and, as its
+``plain_ms``, the host open it replaces (host wall, card synchronised).
 The ``timing``, ``agent_sweep``, ``legacy_path`` and
 ``fixed_workload`` lines give each timed shape's launch shape
 (``autotune.auto_tile``) and resident CTAs per SM
@@ -367,6 +383,15 @@ POPULATION = (("P1", 1, 100000, 128, 16, (8, 1, "fresh", 16)),
               ("Q1", 1, 40000, 128, 32, (1, 1, "shared", 1)),
               ("Q2", 64, 30000, 128, 32, (1, 1, "shared", 1)),
               ("Q3", 264, 30000, 128, 32, (1, 1, "shared", 1)))
+#: The open fill's cases: (markets, agents, levels, stats_only, blocks),
+#: blocks "one" (``homogeneous``), "nine" (the presets, ``from_scenarios``)
+#: or "ring" (the presets ring-coupled: a block a market). The first four
+#: are the sweep cells' specs; the last leaves the last CTA ragged.
+FILL_CASES = {"table_iv": (8192, 256, 128, False, "one"),
+              "table3_a1024": (8192, 1024, 128, False, "one"),
+              "wide_book": (8192, 32, 1024, True, "one"),
+              "stress_mix": (9216, 256, 128, True, "ring"),
+              "nine_ragged": (999, 256, 128, True, "nine")}
 #: Team shapes (W, L) at which the naive and legacy phases hold kernels 2
 #: and 4 on a market cluster of every C > 1, at a population past the
 #: registers mode (8·32·W agents).
@@ -512,23 +537,50 @@ def counters():
     """Every kernel wrapper of the port, by the name the kernels line uses."""
     from repro_torch.kernels import kinetic_clearing as kc
     from repro_torch.kernels import naive_clearing as nc
+    from repro_torch.kernels import open_fill
 
     return {"kinetic_clearing_chunk": kc.kinetic_clearing_chunk,
             "naive_clearing_chunk": nc.naive_clearing_chunk,
             "kinetic_clearing": kc.kinetic_clearing,
-            "naive_clearing": nc.naive_clearing}
+            "naive_clearing": nc.naive_clearing,
+            "open_fill": open_fill.open_fill}
 
 
 #: The tile sweeps already on record when the counts were last reset.
 _SWEEPS_SEEN: list = []
+#: Sessions a kernel runner opened on one card since the counts were last
+#: reset (each opens through one launch of the open fill).
+_CARD_OPENS = [0]
+
+
+def count_card_opens() -> None:
+    """Count, from now on, every ``Session`` whose runner is a kernel
+    runner on one card (``cuda-kinetic`` or ``cuda-naive``, no mesh)."""
+    from repro_torch.core import session
+    from repro_torch.kernels.ops import ClearingChunkRunner
+
+    init = session.Session.__init__
+    if getattr(init, "counts_card_opens", False):
+        return
+
+    def counted(self, engine, spec, runner, *args, **kwargs):
+        init(self, engine, spec, runner, *args, **kwargs)
+        if (isinstance(runner, ClearingChunkRunner)
+                and runner.device.type == "cuda" and runner.mesh.size == 1):
+            _CARD_OPENS[0] += 1
+
+    counted.counts_card_opens = True
+    session.Session.__init__ = counted
 
 
 def reset_counts() -> None:
     from repro_torch.kernels import autotune
 
+    count_card_opens()
     for fn in counters().values():
         fn.launches = 0
     _SWEEPS_SEEN[:] = autotune.sweep_reports()
+    _CARD_OPENS[0] = 0
 
 
 def read_counts():
@@ -570,16 +622,20 @@ def check_sweeps(label: str) -> None:
 def expect_counts(label: str, want) -> dict:
     """Read the counts after a path and check them: ``want`` names the
     kernels the path must launch (and how often), to which the tile sweeps
-    of the runners it opened add theirs; every other kernel must not have
-    launched. Returns every launch counted, sweeps included."""
+    of the runners it opened add theirs, and the open fill one launch for
+    each session a kernel runner opened on one card; every other kernel
+    must not have launched. Returns every launch counted, sweeps and fills
+    included."""
     check_sweeps(label)
     got, swept = read_counts(), sweep_launches()
+    swept["open_fill"] = _CARD_OPENS[0]
     for name, n in got.items():
         need = want.get(name, 0) + swept.get(name, 0)
         if n != need:
             raise Mismatch(f"{label}: {name} launched {n} times, expected "
                            f"{want.get(name, 0)} on the path and "
-                           f"{swept.get(name, 0)} in tile sweeps")
+                           f"{swept.get(name, 0)} in tile sweeps or "
+                           f"opens on one card")
     return got
 
 
@@ -1248,6 +1304,10 @@ def phase_session(device, B):
             reset_counts()
             runs[backend, stats_only] = drive_session(
                 backend, spec, device, chunk, stats_only=stats_only)
+            opens = int(backend.startswith("cuda"))
+            if _CARD_OPENS[0] != opens:
+                raise Mismatch(f"session {backend}: {_CARD_OPENS[0]} "
+                               f"sessions opened on one card, not {opens}")
             counts = expect_counts(f"session {backend}", want)
             if not stats_only:
                 launches[backend] = counts
@@ -1302,9 +1362,126 @@ def phase_session(device, B):
     return ({"kinetic_clearing_chunk":
              launches["cuda-kinetic"]["kinetic_clearing_chunk"],
              "naive_clearing_chunk":
-             launches["cuda-naive"]["naive_clearing_chunk"]},
+             launches["cuda-naive"]["naive_clearing_chunk"],
+             "open_fill": launches["cuda-kinetic"]["open_fill"]
+             + launches["cuda-naive"]["open_fill"]},
             {"kinetic_clearing_chunk": errs["cuda-kinetic"],
              "naive_clearing_chunk": errs["cuda-naive"]})
+
+
+def fill_spec(M, A, L, blocks):
+    """A ``FILL_CASES`` spec."""
+    from repro_torch.core.config import MarketConfig
+    from repro_torch.core.params import EnsembleSpec
+    from repro_torch.scenario import CouplingSpec
+
+    common = dict(num_agents=A, num_levels=L, num_steps=500, seed=SEED)
+    if blocks == "one":
+        return EnsembleSpec.homogeneous(MarketConfig(num_markets=M,
+                                                     **common))
+    spec = EnsembleSpec.from_scenarios(
+        list(PRESETS), num_markets=M // len(PRESETS), **common)
+    return CouplingSpec.ring(M).apply(spec) if blocks == "ring" else spec
+
+
+def phase_open_fill(device):
+    """The open fill on the card: see the module docstring. Returns the
+    launches, the worst error, and Table IV's kernel ms, host-open ms and
+    bound."""
+    import time
+
+    import numpy as np
+    import torch
+    from repro_torch.core import params as params_mod
+    from repro_torch.core.stats import init_stats
+    from repro_torch.core.step import initial_state
+    from repro_torch.kernels import kinetic_clearing as kc
+    from repro_torch.kernels import naive_clearing as nc
+    from repro_torch.kernels import open_fill
+    from repro_torch.launch import bound
+
+    libs = {"kinetic": kc._load_library, "naive": nc._load_library}
+
+    def flat(opened):
+        state, packed, stats = opened
+        return list(state) + list(packed) + (
+            [] if stats is None else list(stats))
+
+    def bits(leaves):
+        return [x.cpu().view(torch.int32) if x.dtype == torch.float32
+                else x.cpu() for x in leaves]
+
+    def wall_ms(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    rows, launches, worst = {}, 0, 0.0
+    for label, (M, A, L, stats_only, kind) in FILL_CASES.items():
+        spec = fill_spec(M, A, L, kind)
+        B = spec.num_blocks
+        if (B, spec.num_markets) != ({"one": 1, "nine": 9}.get(kind, M), M):
+            raise Mismatch(f"open_fill {label}: {B} blocks of "
+                           f"{spec.num_markets} markets")
+
+        def host_open():
+            packed = params_mod.pack_params(spec.params, device)
+            stats = init_stats(M, device) if stats_only else None
+            return initial_state(spec, device), packed, stats
+
+        host = host_open()
+        table = params_mod.block_table(spec.blocks)
+        plain = bits(flat(open_fill.open_fill_plain(
+            torch.from_numpy(table), M, L, stats_only)))
+        want = bits(flat(host))
+        for name, (g, w) in enumerate(zip(plain, want)):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise Mismatch(f"open_fill {label}: the plain fill's leaf "
+                               f"{name} differs from the host open's")
+        times = {}
+        for lib, load in libs.items():
+            reset_counts()
+            got = open_fill.open_fill(spec.blocks, L, stats_only, device,
+                                      load)
+            torch.cuda.synchronize()
+            launches += expect_counts(f"open_fill {label} {lib}",
+                                      {"open_fill": 1})["open_fill"]
+            worst = max(worst, compare(f"open_fill {label} {lib}",
+                                       bits(flat(got)), plain))
+            if not np.array_equal(params_mod.host_ints(got[1]),
+                                  params_mod.host_ints(host[1])):
+                raise Mismatch(f"open_fill {label} {lib}: the host int "
+                               "block differs from pack_params'")
+            table_d = torch.from_numpy(table).to(device)
+            times[f"{lib}_kernel_ms"] = _queued_ms(
+                lambda: open_fill._launch(load(), table_d, M, L,
+                                          stats_only), 50)
+        times["fill_open_ms"] = wall_ms(lambda: open_fill.open_fill(
+            spec.blocks, L, stats_only, device, libs["kinetic"]))
+        times["host_open_ms"] = wall_ms(host_open)
+        # Written: books, params, mids and stats; read: the table.
+        nbytes = 4 * (M * (2 * L + len(params_mod.FLOAT_FIELDS)
+                           + len(params_mod.INT_FIELDS) + 2
+                           + (6 if stats_only else 0))
+                      + B * params_mod.FILL_COLS)
+        b = bound(0, nbytes)
+        rows[label] = dict(markets=M, levels=L, blocks=B,
+                           stats_only=stats_only, bytes=nbytes,
+                           bound_ms=b["bound_ms"],
+                           bound_share=b["bound_ms"]
+                           / times["kinetic_kernel_ms"], **times)
+    # Its timed launches went through the wrapper's launch alone: counted
+    # are the checked calls, one a library and case.
+    emit("open_fill", ok=True, cases=rows, launches=launches,
+         max_abs_err=worst, card=card_line())
+    t4 = rows["table_iv"]
+    return launches, worst, dict(ms=t4["kinetic_kernel_ms"],
+                                 plain_ms=t4["host_open_ms"],
+                                 bound_ms=t4["bound_ms"], bound_by="bytes")
 
 
 def parity_config(case):
@@ -1459,14 +1636,14 @@ def same_facts(label, got, want) -> None:
 
 def timed_session(backend, spec, device, **opts):
     """``drive_session`` with the kernel counts at 0 just before it; returns
-    the outputs, the counts and the seconds of the open and run(S) (the
-    card synchronised)."""
+    the outputs and the seconds of the open and run(S) (the card
+    synchronised)."""
     import time
 
     reset_counts()
     t0 = time.perf_counter()
     out = drive_session(backend, spec, device, 64, **opts)
-    return out, read_counts(), time.perf_counter() - t0
+    return out, time.perf_counter() - t0
 
 
 def phase_scenario(device):
@@ -1520,13 +1697,9 @@ def phase_scenario(device):
                            {"kinetic_clearing_chunk": n_chunks}),
                           ("torch-scan", {})):
         for stats_only in (False, True):
-            runs[backend, stats_only], counts, secs[backend, stats_only] = \
+            runs[backend, stats_only], secs[backend, stats_only] = \
                 timed_session(backend, spec, device, stats_only=stats_only)
-            for name, n in counts.items():
-                if n != want.get(name, 0):
-                    raise Mismatch(f"scenario product {backend}: {name} "
-                                   f"launched {n} times, expected "
-                                   f"{want.get(name, 0)}")
+            counts = expect_counts(f"scenario product {backend}", want)
             if backend == "cuda-kinetic":
                 launches[stats_only] = counts["kinetic_clearing_chunk"]
     err = max(compare(f"scenario product {'stats' if so else 'paths'}",
@@ -2711,7 +2884,10 @@ def _record(label, fn, want_launches, sync_error=False):
     counts = expect_counts(label, want_launches)
     summary = rf.summarize()
     recorded = {k: e["launches"] for k, e in summary["kernels"].items()}
-    if recorded != {k: n for k, n in counts.items() if n}:
+    # The recorder records the clearing kernels; the fill's launches are
+    # held to the sessions opened (expect_counts).
+    if recorded != {k: n for k, n in counts.items()
+                    if n and k != "open_fill"}:
         raise Mismatch(f"{label}: recorded launches {recorded}, counted "
                        f"{counts}")
     return out, summary, rf
@@ -3804,7 +3980,8 @@ def serve_child(phase: str, ckpt_dir: str, out_dir: str) -> int:
     torch.cuda.synchronize()
     check_sweeps(f"serve {phase} child")
     report = dict(gateway_report(gw), launches=read_counts(),
-                  swept=sweep_launches(), **extra)
+                  swept=dict(sweep_launches(), open_fill=_CARD_OPENS[0]),
+                  **extra)
     save_table(Path(out_dir) / f"{phase}.npz", frame_table(streams))
     (Path(out_dir) / f"{phase}.json").write_text(json.dumps(report))
     if phase == "crash":
@@ -3827,8 +4004,9 @@ def run_child(phase, ckpt_dir, out_dir):
 
 def check_child(label, report) -> int:
     """traces_delta 0; kernel 1 once per chunk dispatched (a warm-up per
-    engine opened, replays included) plus the child's tile sweeps, kernel
-    2 and the legacy kernels never. Returns the chunks dispatched."""
+    engine opened, replays included) plus the child's tile sweeps, the
+    open fill once per session opened, kernel 2 and the legacy kernels
+    never. Returns the chunks dispatched."""
     if report["traces_delta"] != 0:
         raise Mismatch(f"{label}: traces_delta {report['traces_delta']}")
     dispatched = report["chunks_dispatched"] + 1 + report["recoveries"]
@@ -3838,7 +4016,8 @@ def check_child(label, report) -> int:
         if n != need:
             raise Mismatch(f"{label}: {name} launched {n} times, expected "
                            f"{want.get(name, 0)} on the path and "
-                           f"{report['swept'].get(name, 0)} in tile sweeps")
+                           f"{report['swept'].get(name, 0)} in tile sweeps "
+                           f"or opens")
     return dispatched
 
 
@@ -4035,6 +4214,7 @@ def main() -> int:
         return 1
     from repro_torch.kernels import kinetic_clearing as kc
     from repro_torch.kernels import naive_clearing as nc
+    from repro_torch.kernels import open_fill
 
     t0 = time.perf_counter()
     device = torch.device(*CARD)
@@ -4049,6 +4229,7 @@ def main() -> int:
                 err_edges_n)
     err_l = phase_legacy(device)
     launches, session_errs = phase_session(device, MARKETS_PER_BLOCK)
+    fill_launches, err_fill, fill_time = phase_open_fill(device)
     _, err_p = phase_parity(device)
     err_x = phase_cross_stream(device)
     err_sc = phase_scenario(device)
@@ -4065,7 +4246,8 @@ def main() -> int:
     check_sweeps("the last phase")
     launches.update(legacy["launches"])
     for extra in (train_launches, tune_launches, shard_launches,
-                  roof_launches, pop_launches, exact_launches):
+                  roof_launches, pop_launches, exact_launches,
+                  {"open_fill": fill_launches}):
         for name, n in extra.items():
             launches[name] += n
     errs = {"kinetic_clearing_chunk":
@@ -4078,7 +4260,8 @@ def main() -> int:
             "kinetic_clearing":
             max(err_l, legacy["max_abs_err"]["kinetic_clearing"], err_pop),
             "naive_clearing":
-            max(err_l, legacy["max_abs_err"]["naive_clearing"], err_pop_n)}
+            max(err_l, legacy["max_abs_err"]["naive_clearing"], err_pop_n),
+            "open_fill": err_fill}
     for extra in (err_tune, err_shard,
                   {"kinetic_clearing_chunk": err_roof}):
         for name, e in extra.items():
@@ -4090,11 +4273,14 @@ def main() -> int:
              "kinetic_clearing": (legacy["kinetic_ms"], legacy["plain_ms"],
                                   legacy),
              "naive_clearing": (legacy["naive_ms"], legacy["plain_ms"],
-                                legacy)}
+                                legacy),
+             "open_fill": (fill_time["ms"], fill_time["plain_ms"],
+                           fill_time)}
     sources = {"kinetic_clearing_chunk": (kc.SOURCE, kc.REPLACES),
                "naive_clearing_chunk": (nc.SOURCE, nc.REPLACES),
                "kinetic_clearing": (kc.SOURCE, kc.LEGACY_REPLACES),
-               "naive_clearing": (nc.SOURCE, nc.LEGACY_REPLACES)}
+               "naive_clearing": (nc.SOURCE, nc.LEGACY_REPLACES),
+               "open_fill": (open_fill.SOURCE, None)}
     kernels = []
     for name, (source, replaces) in sources.items():
         if launches[name] <= 0:

@@ -11,7 +11,10 @@
   * :class:`EnsembleSpec` — the builder API: ``homogeneous(cfg)``,
     ``from_scenarios([...])``, ``product``, ``concatenate``,
     ``with_values``, and the serving gateway's row splices
-    ``replace_markets`` and ``parked``.
+    ``replace_markets`` and ``parked``. A spec holds its markets as
+    :class:`SpecBlocks`, blocks of equal rows (one a config), and builds
+    its per-market ``[M, 1]`` views on first read;
+    :func:`block_table` packs the B rows for the open fill.
 
 Markets are row-independent and the RNG is a pure function of (seed, global
 market id, step, channel), so market ``m`` of a heterogeneous ensemble
@@ -21,8 +24,8 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import (Any, Dict, Iterable, NamedTuple, Sequence, Tuple,
-                    Union)
+from typing import (Any, Callable, Dict, Iterable, NamedTuple, Optional,
+                    Sequence, Tuple, Union)
 
 import numpy as np
 import torch
@@ -156,8 +159,11 @@ def pack_params(params: MarketParams, device) -> PackedParams:
 _HOST_INTS = WeakIdKeyDictionary()
 
 
-def with_host_ints(packed: PackedParams, host: np.ndarray) -> PackedParams:
-    """Record ``host`` (int32 ``[M, 11]``) as the host copy of
+def with_host_ints(packed: PackedParams,
+                   host: Union[np.ndarray, Callable[[], np.ndarray]],
+                   ) -> PackedParams:
+    """Record ``host`` (int32 ``[M, 11]``, or a function that builds it
+    when :func:`host_ints` first reads it) as the host copy of
     ``packed.ints``; returns ``packed``."""
     _HOST_INTS[packed.ints] = host
     return packed
@@ -179,11 +185,14 @@ def host_ints(packed: PackedParams) -> np.ndarray:
     for a block that :func:`pack_params` (or :func:`with_host_ints`) did
     not make."""
     try:
-        return _HOST_INTS[packed.ints]
+        host = _HOST_INTS[packed.ints]
     except KeyError:
         raise LookupError(
             "these packed params have no host copy: make them with "
             "pack_params (or record one with with_host_ints)") from None
+    if callable(host):
+        host = _HOST_INTS[packed.ints] = host()
+    return host
 
 
 def coupled_count(peer, first: int = 0) -> int:
@@ -273,31 +282,194 @@ def agent_types(params: MarketParams, num_agents: int,
 #: Fields every block of a heterogeneous ensemble must agree on.
 _STATIC_FIELDS = ("num_agents", "num_levels", "num_steps", "seed")
 
+#: Columns of a spec's block table (:func:`block_table`, int32
+#: ``[B, FILL_COLS]``): the float params' bits in :data:`FLOAT_FIELDS`
+#: order, the int params in :data:`INT_FIELDS` order, then the opening
+#: book's depth (its float32 bits) and spread, and the block's first
+#: market. ``kernels/csrc/open_fill.cuh`` reads this layout.
+FILL_QUOTE = len(FLOAT_FIELDS) + len(INT_FIELDS)
+FILL_SPREAD = FILL_QUOTE + 1
+FILL_START = FILL_QUOTE + 2
+FILL_COLS = FILL_QUOTE + 3
 
-@dataclasses.dataclass(frozen=True, eq=False)
+
+def _runs(labels) -> Tuple[Tuple[str, int], ...]:
+    """``labels`` as ``(label, count)`` runs."""
+    return tuple((k, len(list(g))) for k, g in itertools.groupby(labels))
+
+
+class SpecBlocks(NamedTuple):
+    """An ensemble's markets as blocks of equal rows: block ``b`` holds
+    markets ``starts[b]`` up to the next block's first market (the last one
+    up to ``num_markets``), each market with row ``b`` of every leaf. A
+    spec built from configs holds a block a config; a per-market value
+    makes every market a block of its own, its leaves as given."""
+
+    starts: np.ndarray                       # int64[B] first market
+    params: MarketParams                     # host [B, 1] leaves
+    initial_quote_qty: Any                   # f32[B] opening book depth
+    initial_spread: Any                      # int32[B] opening spread
+    scenarios: Tuple[Tuple[str, int], ...]   # (label, markets) runs
+    num_markets: int                         # the markets covered
+
+    @property
+    def counts(self) -> np.ndarray:
+        """Markets a block (int64[B])."""
+        return np.diff(np.append(self.starts, self.num_markets))
+
+    def expand(self, leaf):
+        """A ``[B, ...]`` leaf as its ``[M, ...]`` market rows: the leaf
+        itself where every block is one market."""
+        if len(self.starts) == self.num_markets:
+            return leaf
+        return np.repeat(np.asarray(leaf), self.counts, axis=0)
+
+    def markets(self, bad) -> list:
+        """The first eight markets of the blocks ``bad`` (bool[B]) marks."""
+        ends = np.append(self.starts[1:], self.num_markets)
+        out: list = []
+        for b in np.flatnonzero(bad):
+            lo = int(self.starts[b])
+            out.extend(range(lo, min(int(ends[b]), lo + 8 - len(out))))
+            if len(out) == 8:
+                break
+        return out
+
+    def market_view(self, name: str):
+        """The per-market form of ``params``, ``initial_quote_qty``,
+        ``initial_spread`` or ``scenarios`` (a tuple of labels)."""
+        if name == "params":
+            return MarketParams(*map(self.expand, self.params))
+        if name == "scenarios":
+            return tuple(itertools.chain.from_iterable(
+                itertools.repeat(k, n) for k, n in self.scenarios))
+        return self.expand(getattr(self, name))
+
+
+def block_table(blocks: SpecBlocks) -> np.ndarray:
+    """The B distinct rows of ``blocks`` as one int32 ``[B, FILL_COLS]``
+    table (:data:`FILL_COLS`), each
+    column coerced as :func:`pack_params` and
+    :func:`~repro_torch.core.config.seed_books` coerce it: what a session
+    opened on one device uploads for the open fill
+    (:mod:`repro_torch.kernels.open_fill`) to write the M rows there."""
+    B = len(blocks.starts)
+    table = np.empty((B, FILL_COLS), np.int32)
+    bits = table.view(np.float32)
+    for k, f in enumerate(FLOAT_FIELDS):
+        bits[:, k] = np.asarray(to_host(getattr(blocks.params, f)),
+                                np.float32).reshape(B)
+    for k, f in enumerate(INT_FIELDS, start=len(FLOAT_FIELDS)):
+        table[:, k] = np.asarray(to_host(getattr(blocks.params, f)),
+                                 np.int32).reshape(B)
+    bits[:, FILL_QUOTE] = np.asarray(blocks.initial_quote_qty, np.float32)
+    table[:, FILL_SPREAD] = np.asarray(blocks.initial_spread, np.int32)
+    table[:, FILL_START] = blocks.starts
+    return table
+
+
+@dataclasses.dataclass(frozen=True, eq=False, init=False)
 class EnsembleSpec:
-    """A heterogeneous market ensemble: static shape + per-market params."""
+    """A heterogeneous market ensemble: static shape + per-market params.
+
+    The per-market values are held as :class:`SpecBlocks`, blocks of equal
+    rows; ``params`` (host numpy ``[M, 1]`` leaves), ``initial_quote_qty``
+    (f32[M]), ``initial_spread`` (int32[M]) and ``scenarios`` (per-market
+    labels, metadata) are their per-market views, built on first read and
+    kept. Per-market values given to the constructor make one block a
+    market; ``dataclasses.replace`` with static fields alone keeps the
+    blocks, and with a per-market value makes the rows per row, reading
+    the values it is not given from the blocks.
+    """
 
     num_markets: int
     num_agents: int
     num_levels: int
     num_steps: int
     seed: int
-    params: MarketParams               # host numpy [M, 1] leaves
-    initial_quote_qty: np.ndarray      # f32[M] opening book depth
-    initial_spread: np.ndarray         # int32[M] opening spread (ticks)
-    scenarios: Tuple[str, ...] = ()    # per-market preset labels (metadata)
+    blocks: SpecBlocks
+
+    def __init__(self, num_markets: int, num_agents: int, num_levels: int,
+                 num_steps: int, seed: int, params: MarketParams = None,
+                 initial_quote_qty: np.ndarray = None,
+                 initial_spread: np.ndarray = None,
+                 scenarios: Tuple[str, ...] = None,
+                 blocks: Optional[SpecBlocks] = None):
+        rows = dict(params=params, initial_quote_qty=initial_quote_qty,
+                    initial_spread=initial_spread)
+        if blocks is None or scenarios is not None or any(
+                v is not None for v in rows.values()):
+            # Per-market values make one block a market; in a replace()
+            # the values not given are read from the old blocks.
+            if blocks is None:
+                missing = [k for k, v in rows.items() if v is None]
+                if missing:
+                    raise TypeError(f"EnsembleSpec() missing required "
+                                    f"arguments {missing} (or blocks=)")
+                labels = _runs(scenarios or ())
+            else:
+                rows = {k: blocks.market_view(k) if v is None else v
+                        for k, v in rows.items()}
+                labels = blocks.scenarios if scenarios is None \
+                    else _runs(scenarios)
+            blocks = SpecBlocks(np.arange(num_markets, dtype=np.int64),
+                                rows["params"], rows["initial_quote_qty"],
+                                rows["initial_spread"], labels,
+                                int(num_markets))
+        for name, value in (("num_markets", num_markets),
+                            ("num_agents", num_agents),
+                            ("num_levels", num_levels),
+                            ("num_steps", num_steps), ("seed", seed),
+                            ("blocks", blocks), ("_views", {})):
+            object.__setattr__(self, name, value)
+        self.validate()
+
+    def _view(self, name: str):
+        views = self.__dict__["_views"]
+        if name not in views:
+            views[name] = self.blocks.market_view(name)
+        return views[name]
+
+    @property
+    def params(self) -> MarketParams:
+        """Host numpy ``[M, 1]`` leaves, a row a market."""
+        return self._view("params")
+
+    @property
+    def initial_quote_qty(self) -> np.ndarray:
+        """f32[M] opening book depth."""
+        return self._view("initial_quote_qty")
+
+    @property
+    def initial_spread(self) -> np.ndarray:
+        """int32[M] opening spread (ticks)."""
+        return self._view("initial_spread")
+
+    @property
+    def scenarios(self) -> Tuple[str, ...]:
+        """Per-market preset labels (metadata)."""
+        return self._view("scenarios")
+
+    @property
+    def num_blocks(self) -> int:
+        """B, the distinct rows the blocks hold."""
+        return len(self.blocks.starts)
 
     @classmethod
     def homogeneous(cls, cfg: MarketConfig) -> "EnsembleSpec":
         M = cfg.num_markets
+        B = min(M, 1)
         return cls(
             num_markets=M, num_agents=cfg.num_agents,
             num_levels=cfg.num_levels, num_steps=cfg.num_steps,
-            seed=cfg.seed, params=params_from_config(cfg),
-            initial_quote_qty=np.full(M, cfg.initial_quote_qty, np.float32),
-            initial_spread=np.full(M, cfg.initial_spread, np.int32),
-            scenarios=(cfg.scenario,) * M)
+            seed=cfg.seed, blocks=SpecBlocks(
+                starts=np.zeros(B, np.int64),
+                params=params_from_config(cfg, B),
+                initial_quote_qty=np.full(B, cfg.initial_quote_qty,
+                                          np.float32),
+                initial_spread=np.full(B, cfg.initial_spread, np.int32),
+                scenarios=((cfg.scenario, M),) if M else (),
+                num_markets=M))
 
     @classmethod
     def from_scenarios(cls, blocks: Sequence[Union[MarketConfig, str]],
@@ -333,7 +505,8 @@ class EnsembleSpec:
 
     @classmethod
     def concatenate(cls, specs: Sequence["EnsembleSpec"]) -> "EnsembleSpec":
-        """Stack already-built specs along the market axis."""
+        """Stack already-built specs along the market axis (their blocks,
+        one after another)."""
         if not specs:
             raise ValueError("concatenate needs at least one spec")
         first = specs[0]
@@ -344,19 +517,25 @@ class EnsembleSpec:
                         f"ensemble blocks must agree on static field {f!r}: "
                         f"block 0 has {getattr(first, f)}, block {i} has "
                         f"{getattr(s, f)}")
+        parts = [s.blocks for s in specs]
+        offsets = np.cumsum([0] + [s.num_markets for s in specs])
         return cls(
-            num_markets=sum(s.num_markets for s in specs),
+            num_markets=int(offsets[-1]),
             num_agents=first.num_agents, num_levels=first.num_levels,
-            num_steps=first.num_steps, seed=first.seed,
-            params=MarketParams(*(
-                np.concatenate([np.asarray(getattr(s.params, f))
-                                for s in specs], axis=0)
-                for f in MarketParams._fields)),
-            initial_quote_qty=np.concatenate(
-                [s.initial_quote_qty for s in specs]),
-            initial_spread=np.concatenate([s.initial_spread for s in specs]),
-            scenarios=tuple(itertools.chain.from_iterable(
-                s.scenarios for s in specs)))
+            num_steps=first.num_steps, seed=first.seed, blocks=SpecBlocks(
+                starts=np.concatenate([b.starts + off for b, off
+                                       in zip(parts, offsets)]),
+                params=MarketParams(*(
+                    np.concatenate([np.asarray(getattr(b.params, f))
+                                    for b in parts], axis=0)
+                    for f in MarketParams._fields)),
+                initial_quote_qty=np.concatenate(
+                    [b.initial_quote_qty for b in parts]),
+                initial_spread=np.concatenate(
+                    [b.initial_spread for b in parts]),
+                scenarios=tuple(itertools.chain.from_iterable(
+                    b.scenarios for b in parts)),
+                num_markets=int(offsets[-1])))
 
     @classmethod
     def coerce(cls, obj: Union["EnsembleSpec", MarketConfig]) -> "EnsembleSpec":
@@ -367,9 +546,6 @@ class EnsembleSpec:
         raise TypeError(
             f"expected MarketConfig or EnsembleSpec, got {type(obj).__name__}")
 
-    def __post_init__(self):
-        self.validate()
-
     @property
     def mid0(self) -> float:
         return float(self.num_levels // 2)
@@ -377,6 +553,15 @@ class EnsembleSpec:
     def events(self) -> int:
         """Total agent events M·A·S (the paper's throughput denominator)."""
         return self.num_markets * self.num_agents * self.num_steps
+
+    def coupled_markets(self) -> int:
+        """Markets with a real peer (:func:`coupled_count` of the
+        ``coupling_peer`` column), counted a block at a time."""
+        b = self.blocks
+        peer = np.asarray(to_host(b.params.coupling_peer)).reshape(-1)
+        ends = np.append(b.starts[1:], b.num_markets)
+        own = (peer >= b.starts) & (peer < ends)
+        return int(np.sum(np.where(peer >= 0, ends - b.starts - own, 0)))
 
     def initial_books(self, device=DEFAULT_DEVICE
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -422,64 +607,89 @@ class EnsembleSpec:
         (the shape is fixed), with no events, passive unit orders at the mid
         and empty opening books."""
         M = like.num_markets if num_markets is None else int(num_markets)
+        B = min(M, 1)
         values = dict(INERT_PARAM_VALUES,
                       fundamental=float(like.num_levels // 2))
         return cls(
             num_markets=M, num_agents=like.num_agents,
             num_levels=like.num_levels, num_steps=like.num_steps,
-            seed=like.seed,
-            params=MarketParams(**{
-                f: np.full((M, 1), values[f], MarketParams.field_dtype(f))
-                for f in MarketParams._fields}),
-            initial_quote_qty=np.zeros(M, np.float32),
-            initial_spread=np.zeros(M, np.int32),
-            scenarios=("parked",) * M)
+            seed=like.seed, blocks=SpecBlocks(
+                starts=np.zeros(B, np.int64),
+                params=MarketParams(**{
+                    f: np.full((B, 1), values[f], MarketParams.field_dtype(f))
+                    for f in MarketParams._fields}),
+                initial_quote_qty=np.zeros(B, np.float32),
+                initial_spread=np.zeros(B, np.int32),
+                scenarios=(("parked", M),) if M else (), num_markets=M))
 
     def with_values(self, **fields: Any) -> "EnsembleSpec":
         """New spec with some :class:`MarketParams` leaves replaced (values
-        broadcast over markets); labels gain a trailing ``*``."""
+        broadcast over markets); labels gain a trailing ``*``. Single values
+        keep the blocks; an array of values makes the rows per row."""
         unknown = set(fields) - set(MarketParams._fields)
         if unknown:
             raise KeyError(f"unknown MarketParams fields: {sorted(unknown)}")
+        values = {f: np.asarray(v, MarketParams.field_dtype(f))
+                  for f, v in fields.items()}
+        b = self.blocks
+        labels = tuple((n if n.endswith("*") else n + "*", k)
+                       for n, k in b.scenarios)
+        if all(v.size == 1 for v in values.values()):
+            B = len(b.starts)
+            leaves = {f: np.full((B, 1), values[f].reshape(()))
+                      if f in values else np.asarray(getattr(b.params, f))
+                      for f in MarketParams._fields}
+            return dataclasses.replace(self, blocks=b._replace(
+                params=MarketParams(**leaves), scenarios=labels))
         leaves = {}
         for f in MarketParams._fields:
-            if f in fields:
-                v = np.asarray(fields[f], MarketParams.field_dtype(f))
+            if f in values:
+                v = values[f]
                 if v.ndim:
                     v = v.reshape(-1, 1)
                 leaves[f] = np.ascontiguousarray(
                     np.broadcast_to(v, (self.num_markets, 1)))
             else:
                 leaves[f] = np.asarray(getattr(self.params, f))
-        labels = tuple(n if n.endswith("*") else n + "*"
-                       for n in self.scenarios)
-        return dataclasses.replace(self, params=MarketParams(**leaves),
-                                   scenarios=labels)
+        return dataclasses.replace(self, blocks=SpecBlocks(
+            np.arange(self.num_markets, dtype=np.int64),
+            MarketParams(**leaves), self.initial_quote_qty,
+            self.initial_spread, labels, self.num_markets))
 
     def validate(self) -> None:
+        """Check the shapes and values, a block row at a time; an error
+        names the first eight markets that violate it."""
         M, A, L = self.num_markets, self.num_agents, self.num_levels
         if L < 4 or (L & (L - 1)) != 0:
             raise ValueError(f"num_levels must be a power of two >= 4, got {L}")
         if L > 1024:
             raise ValueError("num_levels > 1024 requires tiling (paper §V)")
-        p = self.params.to_numpy()
+        b = self.blocks
+        B = len(b.starts)
+        if b.num_markets != M:
+            raise ValueError(f"params.{MarketParams._fields[0]} must have "
+                             f"shape ({M}, 1), got ({b.num_markets}, 1)")
+        if B and (b.starts[0] != 0 or (np.diff(b.starts) <= 0).any()
+                  or b.starts[-1] >= M):
+            raise ValueError(f"block starts must rise from 0 below {M}")
+        p = b.params.to_numpy()
         for f in MarketParams._fields:
             arr = np.asarray(getattr(p, f))
-            if arr.shape != (M, 1):
+            if arr.shape != (B, 1):
                 raise ValueError(
-                    f"params.{f} must have shape ({M}, 1), got {arr.shape}")
+                    f"params.{f} must have shape ({B}, 1), got {arr.shape}")
             bad = ~np.isfinite(arr.astype(np.float64))
             if bad.any():
                 raise ValueError(
                     f"params.{f} contains non-finite values (nan/inf) in "
-                    f"markets {np.where(bad[:, 0])[0][:8].tolist()}; "
+                    f"markets {b.markets(bad[:, 0])}; "
                     "parameter operands must be finite")
         for name in ("initial_quote_qty", "initial_spread"):
-            arr = np.asarray(getattr(self, name))
-            if arr.shape != (M,):
+            arr = np.asarray(getattr(b, name))
+            if arr.shape != (B,):
                 raise ValueError(
-                    f"{name} must have shape ({M},), got {arr.shape}")
-        spread = np.asarray(self.initial_spread)
+                    f"{name} must have shape ({B},), got {arr.shape}")
+        spread = np.asarray(b.initial_spread)
         half = spread // 2 + spread % 2
         off_grid = (spread < 0) | (half > L // 2 - 1)
         if off_grid.any():
@@ -487,15 +697,14 @@ class EnsembleSpec:
                 f"initial_spread must place both opening quotes on the grid "
                 f"(0 <= spread, ceil(spread/2) <= {L // 2 - 1} for "
                 f"num_levels={L}); markets "
-                f"{np.where(off_grid)[0][:8].tolist()} violate it")
-        if (np.asarray(self.initial_quote_qty) < 0).any():
+                f"{b.markets(off_grid)} violate it")
+        if (np.asarray(b.initial_quote_qty) < 0).any():
             raise ValueError("initial_quote_qty must be >= 0")
 
         def check(bad, msg):
             if np.asarray(bad).any():
-                rows = np.where(np.asarray(bad).reshape(M, -1)[:, 0])[0]
-                raise ValueError(f"{msg}; markets {rows[:8].tolist()} "
-                                 "violate it")
+                rows = b.markets(np.asarray(bad).reshape(B, -1)[:, 0])
+                raise ValueError(f"{msg}; markets {rows} violate it")
 
         for name in ("shock_intensity", "shock_cancel", "p_marketable"):
             arr = getattr(p, name)
@@ -527,8 +736,9 @@ class EnsembleSpec:
               "horizon)")
 
     def __repr__(self) -> str:
-        kinds = [f"{name}×{len(list(group))}"
-                 for name, group in itertools.groupby(self.scenarios)]
+        kinds = [f"{name}×{sum(n for _, n in group)}" for name, group
+                 in itertools.groupby(self.blocks.scenarios,
+                                      key=lambda run: run[0])]
         return (f"EnsembleSpec(M={self.num_markets}, A={self.num_agents}, "
                 f"L={self.num_levels}, S={self.num_steps}, seed={self.seed}, "
                 f"scenarios=[{', '.join(kinds) or '?'}])")

@@ -15,7 +15,9 @@
     The RNG and the scenario overlays key on the absolute step, so any
     chunking of S steps equals one S-step run, bit for bit.
   * The per-market params are packed once per session into two device
-    tensors (:class:`~repro_torch.core.params.PackedParams`).
+    tensors (:class:`~repro_torch.core.params.PackedParams`): a kernel
+    runner on one device writes them, with the opening books and stats,
+    from the spec's distinct rows (:mod:`repro_torch.kernels.open_fill`).
   * :meth:`Session.step` injects one external order per market at the
     chunk's first step; ``actions=None`` equals a one-step :meth:`run`.
   * :meth:`Session.snapshot` / :meth:`Session.restore` round-trip books,
@@ -184,6 +186,24 @@ class ChunkRunner:
         return init_stats(spec.num_markets, self.device) \
             if self.stats_only else None
 
+    def open_leaves(self, spec: EnsembleSpec) -> Tuple[
+            MarketState, PackedParams, Optional[MarketStats], int]:
+        """A session's opening state, packed params and ``stats_only``
+        accumulators, and the params rows packed on the host: here M,
+        through :meth:`init_state`, :meth:`params_to_device` and
+        :meth:`init_stats`, under the spans ``open.state``,
+        ``open.params`` and ``open.stats``."""
+        M = spec.num_markets
+        with trace.span("open.state"):
+            state = self.init_state(spec)
+        with trace.span("open.params") as sp:
+            if sp.on:
+                sp.set(**open_params_attrs(spec, M))
+            params = self.params_to_device(spec.params)
+        with trace.span("open.stats"):
+            stats = self.init_stats(spec)
+        return state, params, stats, M
+
     # ---- stateful-RNG hooks (identity for counter-based backends) ----
     def init_aux(self, spec: EnsembleSpec) -> Any:
         """A session's stateful RNG (``numpy-pcg64``), or None."""
@@ -223,6 +243,15 @@ class ChunkRunner:
         stats (``None`` otherwise).
         """
         raise NotImplementedError
+
+
+def open_params_attrs(spec: EnsembleSpec, rows: int) -> Dict[str, Any]:
+    """The ``open.params`` span's attributes: ``scenarios``, the spec's
+    distinct labels in order; ``rows``, the params rows packed on the host
+    (B, or M where the rows go per market); ``markets``, M."""
+    return dict(scenarios=tuple(dict.fromkeys(
+        name for name, _ in spec.blocks.scenarios)), rows=rows,
+        markets=spec.num_markets)
 
 
 def register_backend(name: str, host_only: bool = False):
@@ -356,7 +385,9 @@ class Engine:
     coupling: counter ``peer_resolves_total`` (the runners' chunk-entry
     peer gathers, :attr:`ChunkRunner.peer_resolves`) and gauge
     ``coupled_markets`` (the markets with a real peer in the spec last
-    opened).
+    opened); and the params rows its sessions packed on the host, counter
+    ``param_rows_uploaded_total`` (a spec's B blocks through the open
+    fill, M rows otherwise).
     """
 
     def __init__(self, backend: str = "cuda-kinetic", *,
@@ -470,8 +501,7 @@ class Engine:
         registry = MetricsRegistry() if on else None
         sid = next(_SESSION_IDS)
         if self.metrics is not None:
-            self.metrics.gauge("coupled_markets", params_mod.coupled_count(
-                spec.params.coupling_peer))
+            self.metrics.gauge("coupled_markets", spec.coupled_markets())
         with trace.span("open", rid=sid):
             return Session(self, spec, self._runner(spec, max(1, chunk)),
                            metrics=registry, session_id=sid)
@@ -528,15 +558,11 @@ class Session:
             else session_id
         self._runner = runner
         self._step_runner: Optional[ChunkRunner] = None
-        with trace.span("open.state"):
-            self._state = runner.init_state(spec)
-        with trace.span("open.params") as sp:
-            if sp.on:
-                sp.set(scenarios=tuple(dict.fromkeys(spec.scenarios)))
-            self._params = runner.params_to_device(spec.params)
+        self._state, self._params, self._stats, rows = \
+            runner.open_leaves(spec)
         self._aux = runner.init_aux(spec)
-        with trace.span("open.stats"):
-            self._stats = runner.init_stats(spec)
+        if engine.metrics is not None:
+            engine.metrics.inc("param_rows_uploaded_total", rows)
         self._t = 0
         self._closed = False
         self._active_streams = 0

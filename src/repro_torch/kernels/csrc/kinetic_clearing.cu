@@ -48,6 +48,7 @@
 #include <type_traits>
 
 #include "kinetic_step.cuh"
+#include "open_fill.cuh"
 
 // The two kernels share one body on purpose: everything that makes the
 // legacy contract (no market ids, one params row at params_stride 0, a null

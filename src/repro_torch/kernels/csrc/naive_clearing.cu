@@ -39,6 +39,7 @@
 #include <type_traits>
 
 #include "kinetic_step.cuh"
+#include "open_fill.cuh"
 
 // One body for both, as in kinetic_clearing.cu: the legacy contract lives in
 // the ChunkArgs kc_naive_clearing fills, never in the kernel. CLUSTER

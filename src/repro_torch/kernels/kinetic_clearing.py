@@ -38,7 +38,7 @@ from repro_torch.core.params import (FLOAT_FIELDS, INT_FIELDS, EnsembleSpec,
                                      MarketParams, PackedParams)
 from repro_torch.core.step import (MarketState, resolve_peer_mids,
                                    simulate_step)
-from repro_torch.kernels import _build, autotune, ref
+from repro_torch.kernels import _build, autotune, open_fill, ref
 from repro_torch.launch import roofline
 
 #: Per-market parameter operands (11 float32 + 11 int32 columns).
@@ -56,6 +56,7 @@ _ENTRIES = {
                                                                   _c_ptr],
     "kc_kinetic_clearing": [_c_ptr] * 12 + [_c_int] * 8 + [_c_u32, _c_ptr],
     "kc_occupancy": [_c_int] * 7 + [_c_ptr],
+    **open_fill.ENTRIES,
 }
 
 

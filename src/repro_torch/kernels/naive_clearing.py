@@ -27,7 +27,7 @@ import torch
 from repro_torch.core import stats as stats_mod
 from repro_torch.core.config import MarketConfig
 from repro_torch.core.params import MarketParams, PackedParams
-from repro_torch.kernels import _build, autotune
+from repro_torch.kernels import _build, autotune, open_fill
 from repro_torch.kernels import kinetic_clearing as kc
 from repro_torch.launch import roofline
 
@@ -44,6 +44,7 @@ _ENTRIES = {
                                                                _c_ptr],
     "kc_naive_clearing": [_c_ptr] * 16 + [_c_int] * 7 + [_c_u32, _c_ptr],
     "kc_occupancy": [_c_int] * 6 + [_c_ptr],
+    **open_fill.ENTRIES,
 }
 
 #: The plain versions: the same function as the persistent entries'.

@@ -82,6 +82,7 @@ from repro_torch.core.step import (MarketState, StepOutput, initial_state,
 from repro_torch.kernels import _build, autotune
 from repro_torch.kernels import kinetic_clearing as kc
 from repro_torch.kernels import naive_clearing as nc
+from repro_torch.kernels import open_fill
 from repro_torch.launch import roofline
 from repro_torch.launch.mesh import MarketsMesh, make_markets_mesh
 from repro_torch.launch.sharding import (RowShards, market_sharding,
@@ -142,6 +143,7 @@ class ClearingChunkRunner(session.ChunkRunner):
         self.scan = scan
         self.stats_only = bool(stats_only)
         self._chunk_fn = chunk_fn
+        self._load_library = load_library
         self._rows = market_sharding(self.mesh, spec.num_markets)
         if device.type == "cuda":
             # Build (or load) the kernel now, and record why it failed.
@@ -268,6 +270,22 @@ class ClearingChunkRunner(session.ChunkRunner):
             return super().init_stats(spec)
         return stats_mod.MarketStats(*map(self.place, stats_mod.init_stats(
             spec.num_markets, "cpu")))
+
+    def open_leaves(self, spec: EnsembleSpec) -> Tuple:
+        """On one device, the open fill: the spec's B distinct rows cross
+        in one upload and one launch writes the state, the packed params
+        and the stats (:func:`repro_torch.kernels.open_fill.open_fill`),
+        all under ``open.params``. On a mesh, the placement hooks."""
+        if self._sharded:
+            return super().open_leaves(spec)
+        rows = spec.num_blocks
+        with trace.span("open.params") as sp:
+            if sp.on:
+                sp.set(**session.open_params_attrs(spec, rows))
+            opened = open_fill.open_fill(
+                spec.blocks, spec.num_levels, self.stats_only, self.device,
+                self._load_library)
+        return opened + (rows,)
 
     # ---- execution ----
     def _call(self, state: MarketState, params: PackedParams, step0: int,

@@ -31,7 +31,11 @@ trainer's ``update_idx``):
                                   ``pick``, ``seconds``)
     ``open.state``, ``open.params``, ``open.stats``  the session's books,
                               packed params (``scenarios``: the spec's
-                              distinct labels, in order) and accumulators
+                              distinct labels, in order; ``rows``: the
+                              params rows packed on the host, B or M;
+                              ``markets``: M) and accumulators; a kernel
+                              runner on one device opens all three with
+                              one fill under ``open.params`` alone
   ``dispatch``              one runner call (``kind``, ``steps``,
                             ``chunk``; ``agents``: the kernel runner's
                             agent mode, None for a runner without a

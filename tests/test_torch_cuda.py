@@ -8,6 +8,7 @@ tests/test_torch_cuda.py``.
 import contextlib
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -21,6 +22,7 @@ from repro_torch.core.step import initial_state
 from repro_torch.kernels import autotune
 from repro_torch.kernels import kinetic_clearing as kc
 from repro_torch.kernels import naive_clearing as nc
+from repro_torch.kernels import open_fill
 
 pytestmark = pytest.mark.cuda
 
@@ -1050,3 +1052,106 @@ def test_rollout_graph_at_shapes_that_set_kernel_attributes(cuda, backend,
     assert len(eng.graph_keys()) == 1
     for g, w in zip(_leaves(again), _leaves(first)):
         assert torch.equal(g, w)
+
+
+def _fill_spec(blocks: str, L: int, M: int = 1003):
+    """M markets (no multiple of the fill's 8 a CTA) at ``L`` levels: one
+    block, nine ragged blocks with spreads 0, odd and the widest, or a
+    block a market (ring-coupled)."""
+    shape = dict(num_agents=16, num_levels=L, num_steps=8, seed=2**31 + 7)
+    if blocks == "one":
+        return EnsembleSpec.homogeneous(MarketConfig(
+            num_markets=M, initial_spread=1, **shape))
+    top = 2 * (L // 2 - 1)
+    spreads = (0, 1, 2, 1, 0, 1, 2, 1, 0) if L == 4 else \
+        (0, 1, 2, 3, 5, 7, 0, top - 1, top)
+    sizes = (1, 400, 3, 97, 1, 250, 2, 248, 1)
+    spec = EnsembleSpec.concatenate([EnsembleSpec.homogeneous(MarketConfig(
+        num_markets=n, initial_spread=sp, initial_quote_qty=float(k),
+        alpha_whale=0.05 * (k % 3), **shape))
+        for k, (n, sp) in enumerate(zip(sizes, spreads))])
+    if blocks == "rows":
+        spec = spec.with_values(coupling_peer=(np.arange(M) + 1) % M)
+    return spec
+
+
+@pytest.mark.parametrize("library", ["kinetic", "naive"])
+@pytest.mark.parametrize("blocks", ["one", "nine", "rows"])
+@pytest.mark.parametrize("L", [4, 128, 1024])
+@pytest.mark.parametrize("stats_only", [False, True])
+def test_the_open_fill_equals_its_plain_version_and_the_host_open(
+        cuda, library, blocks, L, stats_only):
+    """The fill kernel writes the bits of its plain version and of
+    ``pack_params`` + ``initial_state`` + ``init_stats`` on the card; the
+    host copy of its int block is ``pack_params``'."""
+    spec = _fill_spec(blocks, L)
+    M = spec.num_markets
+    load = {"kinetic": kc._load_library, "naive": nc._load_library}[library]
+    launches = open_fill.open_fill.launches
+    got = open_fill.open_fill(spec.blocks, L, stats_only, cuda, load)
+    assert open_fill.open_fill.launches == launches + 1
+    plain = open_fill.open_fill(spec.blocks, L, stats_only,
+                                torch.device("cpu"))
+    host = (initial_state(spec, cuda), params_mod.pack_params(spec.params,
+                                                              cuda),
+            init_stats(M, cuda) if stats_only else None)
+    torch.cuda.synchronize()
+    for g, p, h in zip(got, plain, host):
+        if h is None:
+            assert g is None and p is None
+            continue
+        for x, y, z in zip(g, p, h):
+            x, z = x.cpu(), z.cpu()
+            assert x.dtype == y.dtype == z.dtype
+            assert x.shape == y.shape == z.shape
+            bits = (lambda t: t.view(torch.int32)
+                    if t.dtype == torch.float32 else t)
+            assert torch.equal(bits(x), bits(y))
+            assert torch.equal(bits(x), bits(z))
+    assert np.array_equal(params_mod.host_ints(got[1]),
+                          params_mod.host_ints(host[1]))
+
+
+@pytest.mark.parametrize("backend", ["cuda-kinetic", "cuda-naive"])
+def test_a_session_opens_through_one_fill(cuda, backend):
+    spec = _fill_spec("nine", 128, M=96)
+    eng = Engine(backend, device=cuda, autotune=False)
+    launches = open_fill.open_fill.launches
+    with eng.open(spec) as sess:
+        assert open_fill.open_fill.launches == launches + 1
+        assert eng.metrics.counter("param_rows_uploaded_total") == 9
+        sess.run(8)
+
+
+def test_an_upload_reuses_its_buffer_and_never_overwrites_a_queued_copy(
+        cuda):
+    """An upload writes the kept page-locked buffer only once the last copy
+    out of it has finished; behind a busy stream it takes a fresh block,
+    so every upload lands with its own values."""
+    from repro_torch.core import device as device_mod
+
+    def up(v, n=1000):
+        return device_mod.upload(torch.full((n,), v, dtype=torch.int32),
+                                 cuda)
+
+    first = up(1)
+    torch.cuda.synchronize()
+    buf = device_mod._KEPT[cuda][0]
+    second = up(2)
+    assert device_mod._KEPT[cuda][0] is buf      # the finished copy's
+    torch.cuda._sleep(50_000_000)                # the next copy queues
+    third, fourth = up(3), up(4)
+    assert device_mod._KEPT[cuda][0] is not buf
+    torch.cuda.synchronize()
+    for t, v in ((first, 1), (second, 2), (third, 3), (fourth, 4)):
+        assert torch.equal(t.cpu(), torch.full((1000,), v, dtype=torch.int32))
+    wide = up(7, n=1 << 20)                      # past the buffer: a larger
+    torch.cuda.synchronize()
+    assert torch.equal(wide.cpu(), torch.full((1 << 20,), 7,
+                                               dtype=torch.int32))
+    flags = device_mod.upload(torch.tensor([True, False, True]), cuda)
+    assert flags.tolist() == [True, False, True]
+    wide = up(7, n=100_000)                 # past the buffer: a larger one
+    torch.cuda.synchronize()
+    assert torch.equal(wide.cpu(), torch.full((100_000,), 7,
+                                               dtype=torch.int32))

@@ -204,8 +204,11 @@ _C_TYPES = {"ptr": ctypes.c_void_p, "int": ctypes.c_int,
 @pytest.mark.parametrize("module", [kc, nc], ids=["kinetic", "naive"])
 def test_c_entries_match_their_ctypes_signatures(module):
     """Each C entry's parameter list agrees with the argtypes the wrapper
-    gives ctypes (a wrong count or type would cut pointers on the card)."""
+    gives ctypes (a wrong count or type would cut pointers on the card);
+    an entry is defined in the library's source or a header it includes."""
     src = (_build.CSRC / f"{module._LIB_NAME}.cu").read_text()
+    src += "".join((_build.CSRC / h).read_text()
+                   for h in re.findall(r'#include "(\w+\.cuh)"', src))
     for fn, argtypes in module._ENTRIES.items():
         sig = re.search(rf"\bint {fn}\(([^)]*)\)", src)
         kinds = ["ptr" if "*" in p else p.split()[-2]

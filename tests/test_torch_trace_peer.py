@@ -85,7 +85,8 @@ def test_one_peer_span_a_chunk(coupling):
     assert [r.attrs for r in peers] == [
         {"rows": M, "coupled": len(cs.coupled_markets)}] * len(peers)
     (params,) = [r for r in trace.spans() if r.name == "open.params"]
-    assert params.attrs == {"scenarios": tuple(n + "*" for n in PRESETS)}
+    assert params.attrs == {"scenarios": tuple(n + "*" for n in PRESETS),
+                            "rows": M, "markets": M}
     assert eng.metrics.counter("peer_resolves_total") == len(peers)
     assert eng.metrics.gauge_value("coupled_markets") == \
         len(cs.coupled_markets)
