@@ -691,6 +691,8 @@ class Session:
                 trace.tag(batch.price, self.session_id)
                 tile = getattr(runner, "tile", None)
                 sp.set(agents=None if tile is None else tile.agents,
+                       ctas_per_market=None if tile is None
+                       else tile.ctas_per_market,
                        agent_steps=self.spec.num_markets
                        * self.spec.num_agents * n)
         if m is not None:

@@ -39,8 +39,9 @@ trainer's ``update_idx``):
   ``dispatch``              one runner call (``kind``, ``steps``,
                             ``chunk``; ``agents``: the kernel runner's
                             agent mode, None for a runner without a
-                            tile; ``agent_steps``: markets × agents ×
-                            steps dispatched)
+                            tile; ``ctas_per_market``: its tile's C,
+                            None without a tile; ``agent_steps``:
+                            markets × agents × steps dispatched)
     ``dispatch.peer``       a kernel runner's chunk-entry peer gather
                             (``rows``; ``coupled``: the rows with a real
                             peer, from the params' host copy)

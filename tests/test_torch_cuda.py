@@ -1155,3 +1155,34 @@ def test_an_upload_reuses_its_buffer_and_never_overwrites_a_queued_copy(
     torch.cuda.synchronize()
     assert torch.equal(wide.cpu(), torch.full((100_000,), 7,
                                                dtype=torch.int32))
+
+
+def test_the_abides_crowd_on_its_cluster_equals_the_reference(cuda):
+    """The benchmark's ``few_assets`` configuration at its full size (16
+    markets of 5,126 agents at L = 1024 over 400 steps, chunks of 64) runs
+    on the rule's market cluster, and every value of all 16 markets equals
+    the benchmark's plain float32 reference."""
+    import json
+    import pathlib
+
+    from kbench.reference import market as rm
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    c = json.loads((root / "kbench/configs/few_assets.json").read_text())
+    M, A, L, S = (c[k] for k in ("num_markets", "num_agents", "num_levels",
+                                 "num_steps"))
+    seed = 2**31 + 39
+    cfg = MarketConfig(num_markets=M, num_agents=A, num_levels=L,
+                       num_steps=S, seed=seed, **c["market"])
+    eng = Engine("cuda-kinetic", chunk_size=64, autotune=False)
+    with eng.open(EnsembleSpec.homogeneous(cfg)) as sess:
+        tile = sess._runner.tile
+        assert tile == autotune.auto_tile(L, A, M)
+        assert tile.ctas_per_market > 1
+        got = sess.run(S).to_numpy()
+    rows = rm.Rows(torch.full((M, 1), seed, device=cuda),
+                   torch.arange(M, device=cuda)[:, None],
+                   rm.columns(c["market"], A, L, M, cuda))
+    want = rm.simulate(rows, A, L, S, fdt=torch.float32)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w.float().cpu().numpy())

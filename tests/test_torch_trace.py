@@ -81,11 +81,15 @@ def test_a_profiled_session_emits_its_ranges_nested(backend):
         assert r.parent == PARENTS[r.name], r
         assert r.rid == sess.session_id, r
         assert r.start_ns <= r.end_ns
-    # three chunks of four steps, each of M·A·4 agent-steps
+    # three chunks of four steps, each of M·A·4 agent-steps, and the
+    # kernel runner's tile's C
     dispatches = [r for r in records if r.name == "dispatch"]
-    agents = "registers" if backend == "cuda-kinetic" else None
+    kernel = backend == "cuda-kinetic"
+    tile = sess._runner.tile if kernel else None
     assert [r.attrs for r in dispatches] == [
-        dict(kind="chunk", steps=4, chunk=4, agents=agents,
+        dict(kind="chunk", steps=4, chunk=4,
+             agents="registers" if kernel else None,
+             ctas_per_market=tile.ctas_per_market if kernel else None,
              agent_steps=CFG.num_markets * CFG.num_agents * 4)] * 3
     (lookup,) = [r for r in records if r.name == "open.runner"]
     assert lookup.attrs == {"hit": False}

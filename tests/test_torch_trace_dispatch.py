@@ -1,16 +1,19 @@
-"""The ``dispatch`` span's agent work, on the CPU.
+"""The ``dispatch`` span's agent work and launch shape, on the CPU.
 
 Under a ``torch.profiler`` profile every runner call's ``dispatch`` span
 carries ``agents`` (the kernel runner's agent mode, None for a runner
-without a tile) and ``agent_steps`` (markets × agents × steps of the call,
-the markets of every shard on a mesh). With no profile nothing is
-recorded.
+without a tile), ``ctas_per_market`` (its tile's C, None without a tile)
+and ``agent_steps`` (markets × agents × steps of the call, the markets of
+every shard on a mesh). With no profile nothing is recorded.
 """
+import dataclasses
+
 import pytest
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core.config import MarketConfig
 from repro_torch.core.session import Engine
+from repro_torch.kernels import autotune
 from repro_torch.launch import set_host_device_count
 from repro_torch.ops import trace
 
@@ -26,9 +29,9 @@ def empty_buffer():
     trace.clear()
 
 
-def dispatches(eng, steps=(10,), step=False):
+def dispatches(eng, steps=(10,), step=False, cfg=CFG):
     with profile(activities=[ProfilerActivity.CPU]):
-        with eng.open(CFG) as sess:
+        with eng.open(cfg) as sess:
             for n in steps:
                 sess.run(n)
             if step:
@@ -78,3 +81,59 @@ def test_no_profile_records_nothing():
         sess.run(10)
         sess.step()
     assert trace.spans() == []
+
+
+def engine(backend, **opts):
+    if backend.startswith("cuda"):
+        return Engine(backend, device="cpu", chunk_size=4, autotune=False,
+                      **opts)
+    return Engine(backend, device="cpu", chunk_size=4, **opts)
+
+
+@pytest.mark.parametrize("backend,opts,C", [
+    # six markets: the rule spreads each over a cluster of 16 CTAs
+    ("cuda-kinetic", {}, 16),
+    ("cuda-naive", {}, 16),
+    # a pinned mode takes auto_tile(L, A)'s one-CTA shape
+    ("cuda-kinetic", {"agents": "shared"}, 1),
+    # a pinned one-CTA tile
+    ("cuda-kinetic", {"tile": autotune.auto_tile(16, 300)}, 1),
+    ("torch-scan", {}, None),
+    ("numpy", {}, None),
+])
+def test_a_dispatch_carries_its_tiles_c(backend, opts, C):
+    eng = engine(backend, **opts)
+    got = dispatches(eng, step=True)
+    assert [r["ctas_per_market"] for r in got] == [C] * 4
+    # the chunk runner and the single step's runner, each its own tile
+    for runner in eng._runners.values():
+        tile = getattr(runner, "tile", None)
+        assert (None if tile is None else tile.ctas_per_market) == C
+
+
+def test_a_pinned_cluster_is_carried_past_one_wave():
+    """A pinned cluster over more markets than the card holds clusters."""
+    tile = autotune.auto_tile(16, 300, 6)
+    assert tile.ctas_per_market == 16
+    cfg = dataclasses.replace(CFG, num_markets=100)
+    got = dispatches(engine("cuda-kinetic", tile=tile), cfg=cfg)
+    assert autotune.h100_holds(tile) < 100
+    assert [r["ctas_per_market"] for r in got] == [16] * 3
+    assert [r["agent_steps"] for r in got] == [
+        100 * CFG.num_agents * n for n in (4, 4, 2)]
+
+
+def test_a_mesh_carries_the_tile_of_its_shards():
+    prev = set_host_device_count(2)
+    try:
+        eng = Engine("cuda-kinetic", device="cpu", chunk_size=5,
+                     autotune=False, devices=2)
+        cfg = dataclasses.replace(CFG, num_markets=7)
+        got = dispatches(eng, steps=(5,), cfg=cfg)
+        (runner,) = eng._runners.values()
+    finally:
+        set_host_device_count(prev)
+    # seven markets on two shards: the tile of four
+    assert runner.tile == autotune.auto_tile(16, 300, 4)
+    assert [r["ctas_per_market"] for r in got] == [
+        runner.tile.ctas_per_market]
